@@ -1,0 +1,442 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+
+Run from the root of a checkout, on a machine with a CUDA card:
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero:
+
+1. The card: name and power limit; TF32 off for matmuls and cuDNN.
+2. Build: the CUDA kernels K1-K3 from ``src/repro_torch/kernels/csrc``
+   with ``nvcc`` for sm_90a (``-Xptxas -v`` summary printed).
+3. Kernel checks: each kernel against its plain PyTorch version at ragged
+   shapes (W=7, D=300, J=3) and at workload B's shapes (W=70, D=39,760,
+   table (50, 1,200, 39,760)).  K1 within 1 ulp with only the drawn table
+   rows changed; K2 and K3 within rtol 1e-5 (atol 1e-5 x max|plain|: the
+   sum runs in another order).
+4. Workload A: logistic regression at IJCNN1 scale (n=49,990, D=22,
+   50 honest + 20 Byzantine workers), sign_flip, 300 steps with geomed and
+   with mean; then the C1 claim of tests/test_convergence.py (W_h=12, B=5,
+   n=960, 700 steps, three attacks); then 20 steps on the card against the
+   plain CPU path from the same state and draws.
+5. Workload B: the Table I network at MNIST size (60,000 x 784, D=39,760,
+   50 honest workers x 1,200 samples + 20 Byzantine), sign_flip, geomed,
+   20 steps, with the launch counters of K1-K3 reset just before and read
+   just after; a torch.profiler trace of 3 more steps gives device time by
+   kernel and the device's idle share.
+6. Timing: each kernel's device time at workload B's shapes (torch.profiler
+   kernel durations), beside its bound, its plain version and (K3) one
+   library call; the Weiszfeld loop's time per iteration on the host clock;
+   then workload B again with mean, the step without the Weiszfeld loop.
+7. One JSON line with the kernels, then the result line.
+
+It imports nothing of JAX or of the JAX package ``repro``.
+"""
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+FP32_FLOPS_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
+SEED = 0
+
+
+def log(msg=""):
+    print(msg, flush=True)
+
+
+def ulps(a, b) -> int:
+    """Largest distance in float32 ulps between two tensors."""
+    import torch
+
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def close(got, want, rtol=1e-5):
+    """K2/K3 tolerance: |got - want| <= rtol * (|want| + max|want|)."""
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    ok = bool(((got - want).abs() <= rtol * (want.abs() + scale)).all())
+    return ok, err
+
+
+def phase_card(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"card: {card}")
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"device {torch.cuda.get_device_name(0)}, "
+        f"capability {torch.cuda.get_device_capability(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
+        "torch.backends.cudnn.allow_tf32 = False")
+    return card
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    logs = _build.build()
+    log(f"built {', '.join(_build.SOURCES)} for sm_90a in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if line.strip():
+                log(f"  [{name}] {line.strip()}")
+
+
+def check_saga(torch, w, j, d, gen):
+    """K1 vs its plain version on a fresh (w, j, d) table; returns the
+    largest absolute difference."""
+    from repro_torch.kernels import saga_correct as sc
+    dev = torch.device("cuda")
+    t_plain = torch.randn((w, j, d), generator=gen, device=dev)
+    avg_plain = torch.randn((w, d), generator=gen, device=dev)
+    g = torch.randn((w, d), generator=gen, device=dev)
+    idx = torch.randint(0, j, (w,), generator=gen, device=dev)
+    rows = torch.arange(w, device=dev)
+    old_rows = t_plain[rows, idx].clone()
+    t_kern, avg_kern = t_plain.clone(), avg_plain.clone()
+    msg_k = sc.saga_correct_call(g, t_kern, avg_kern, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(t_kern[rows, idx], g), "K1: drawn rows != gradient"
+    t_kern[rows, idx] = old_rows
+    assert torch.equal(t_kern, t_plain), "K1 changed rows other than idx[w]"
+    t_kern[rows, idx] = g
+    msg_p = sc.saga_correct_plain(g, t_plain, avg_plain, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(t_kern, t_plain), "K1 table != plain table"
+    assert ulps(msg_k, msg_p) <= 1, f"K1 msg off by {ulps(msg_k, msg_p)} ulp"
+    assert ulps(avg_kern, avg_plain) <= 1, \
+        f"K1 avg off by {ulps(avg_kern, avg_plain)} ulp"
+    err = max(float((msg_k - msg_p).abs().max()),
+              float((avg_kern - avg_plain).abs().max()))
+    del t_plain, t_kern
+    torch.cuda.empty_cache()
+    return err
+
+
+def check_weiszfeld(torch, w, d, gen):
+    from repro_torch.kernels import weiszfeld as wz
+    dev = torch.device("cuda")
+    z = torch.randn((w, d), generator=gen, device=dev)
+    y = z.mean(0) + 0.1 * torch.randn((d,), generator=gen, device=dev)
+    a = torch.rand((w,), generator=gen, device=dev) + 0.5
+    ok2, err2 = close(wz.partial_sqdist_call(z, y), wz.partial_sqdist_plain(z, y))
+    ok3, err3 = close(wz.weighted_sum_call(z, a), wz.weighted_sum_plain(z, a))
+    torch.cuda.synchronize()
+    assert ok2, f"K2 partial_sqdist disagrees at {(w, d)}: max err {err2}"
+    assert ok3, f"K3 weighted_sum disagrees at {(w, d)}: max err {err3}"
+    return err2, err3
+
+
+def phase_kernel_checks(torch):
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    errs = {"saga_correct": 0.0, "partial_sqdist": 0.0, "weighted_sum": 0.0}
+    for (w, j, d), (wm, dm) in [((7, 3, 300), (7, 300)),
+                                ((50, 1200, 39760), (70, 39760))]:
+        e1 = check_saga(torch, w, j, d, gen)
+        e2, e3 = check_weiszfeld(torch, wm, dm, gen)
+        errs["saga_correct"] = max(errs["saga_correct"], e1)
+        errs["partial_sqdist"] = max(errs["partial_sqdist"], e2)
+        errs["weighted_sum"] = max(errs["weighted_sum"], e3)
+        log(f"kernel check table ({w}, {j}, {d}) / messages ({wm}, {dm}): "
+            f"K1 max|err| {e1:.3g} (<= 1 ulp, other rows untouched), "
+            f"K2 {e2:.3g}, K3 {e3:.3g} (rtol 1e-5): ok")
+    return errs
+
+
+def run_steps(torch, step_fn, state, steps):
+    """Run ``steps`` steps; returns the state and per-step seconds."""
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return state, times, metrics
+
+
+def device_events(prof):
+    """The kernel-level (device) events of a torch.profiler trace; the
+    CPU-side ops that launched them are left out, so nothing counts twice."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def profile_steps(torch, label, step_fn, state, steps, median_s):
+    """Trace ``steps`` steps with torch.profiler: device time by kernel, and
+    the device's idle share against the untraced median step time
+    ``median_s`` (the tracer slows the host, so its own wall time is
+    printed but not used)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, _ = step_fn(state)
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6 / steps
+    events = sorted(device_events(prof), key=lambda e: e.self_device_time_total,
+                    reverse=True)
+    busy_us = sum(e.self_device_time_total for e in events) / steps
+    log(f"profile {label}: device busy {busy_us:.1f} us/step, untraced median "
+        f"step {median_s * 1e6:.1f} us, idle share {1 - busy_us / (median_s * 1e6):.3f} "
+        f"(traced wall {wall_us:.1f} us/step)")
+    for e in events[:10]:
+        log(f"  {e.self_device_time_total / steps:9.1f} us/step "
+            f"{e.count / steps:7.1f} calls/step  {e.key[:80]}")
+    return state
+
+
+def phase_workload_a(torch):
+    from repro_torch.core import RobustConfig, make_federated_step
+    from repro_torch.data import (ijcnn1_like, logreg_full_loss_and_opt,
+                                  logreg_loss, partition)
+    from repro_torch.kernels import ops
+    from repro_torch.optim import get_optimizer
+    loss = logreg_loss(0.01)
+    data = ijcnn1_like(SEED, n=49_990, device="cuda")
+    batch = {"a": data.x, "b": data.y}
+    wd = partition(batch, 50, seed=1, samples_per_worker=999, device="cuda")
+    counts = {}
+    for agg in ("geomed", "mean"):
+        cfg = RobustConfig(aggregator=agg, vr="saga", attack="sign_flip",
+                           num_byzantine=20)
+        init_fn, step_fn = make_federated_step(
+            loss, wd, cfg, get_optimizer("sgd", 0.02), device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        st = init_fn({"w": torch.zeros(22, device="cuda")}, SEED)
+        f0 = float(loss(st.params, batch))
+        ops.reset_launch_counts()
+        st, times, _ = run_steps(torch, step_fn, st, 300)
+        counts[agg] = ops.launch_counts()
+        f1 = float(loss(st.params, batch))
+        iters = counts[agg]["partial_sqdist"] / 300
+        log(f"workload A {agg}: loss {f0:.6f} -> {f1:.6f} after 300 steps, "
+            f"median step {statistics.median(times) * 1e3:.3f} ms, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB, "
+            f"Weiszfeld iters/step {iters:.2f}, launches {counts[agg]}")
+        st = profile_steps(torch, f"workload A {agg}", step_fn, st, 20,
+                           statistics.median(times))
+        if agg == "geomed":
+            assert f1 < f0, "workload A: geomed did not lower the loss"
+            assert min(counts[agg].values()) > 0, "workload A: a kernel never ran"
+        else:
+            assert f1 > f0, "workload A: mean was not driven uphill by sign_flip"
+
+    # C1 of tests/test_convergence.py: mean fails, geomed survives.
+    data = ijcnn1_like(SEED, n=960, device="cuda")
+    batch = {"a": data.x, "b": data.y}
+    _, f_star = logreg_full_loss_and_opt(data, iters=4000, lr=0.5)
+    wd = partition(batch, 12, seed=1, device="cuda")
+    for attack in ("gaussian", "sign_flip", "zero_gradient"):
+        gaps = {}
+        for agg in ("mean", "geomed"):
+            cfg = RobustConfig(aggregator=agg, vr="saga", attack=attack,
+                               num_byzantine=5)
+            init_fn, step_fn = make_federated_step(
+                loss, wd, cfg, get_optimizer("sgd", 0.02), device="cuda")
+            st, _, _ = run_steps(torch, step_fn,
+                                 init_fn({"w": torch.zeros(22, device="cuda")}, 7),
+                                 700)
+            gaps[agg] = float(loss(st.params, batch)) - f_star
+        log(f"C1 {attack}: gap geomed {gaps['geomed']:.5f} (< 0.1), "
+            f"mean {gaps['mean']:.5f} (> 3x geomed)")
+        assert gaps["geomed"] < 0.1, f"C1 {attack}: geomed gap {gaps['geomed']}"
+        assert gaps["mean"] > 3 * gaps["geomed"], f"C1 {attack}: {gaps}"
+
+    # The card's step against the plain CPU path, same state and draws.
+    cfg = RobustConfig(aggregator="geomed", vr="saga", attack="zero_gradient",
+                       num_byzantine=5)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        init_fn, step_fn = make_federated_step(
+            loss, {k: v.cpu() for k, v in wd.items()}, cfg,
+            get_optimizer("sgd", 0.02), device=dev)
+        st = init_fn({"w": torch.zeros(22)}, 0)
+        draws = torch.Generator().manual_seed(3)
+        for _ in range(20):
+            st, _ = step_fn(st, sample_idx=torch.randint(0, 80, (12,),
+                                                         generator=draws))
+        runs[dev] = st.params["w"].cpu()
+    torch.testing.assert_close(runs["cuda"], runs["cpu"], rtol=1e-4, atol=1e-5)
+    log("20 steps on the card agree with the plain CPU path "
+        f"(max|diff| {float((runs['cuda'] - runs['cpu']).abs().max()):.3g}, "
+        "rtol 1e-4, atol 1e-5)")
+    return counts
+
+
+def phase_workload_b(torch, agg):
+    from repro_torch.core import RobustConfig, make_federated_step
+    from repro_torch.data import mnist_like, partition
+    from repro_torch.kernels import ops
+    from repro_torch.models import paper_nn
+    from repro_torch.optim import get_optimizer
+    torch.cuda.reset_peak_memory_stats()
+    data = mnist_like(SEED, n=60_000, device="cuda")
+    batch = {"x": data.x, "y": data.y}
+    wd = partition(batch, 50, seed=2, device="cuda")
+    cfg = RobustConfig(aggregator=agg, vr="saga", attack="sign_flip",
+                       num_byzantine=20)
+    init_fn, step_fn = make_federated_step(
+        paper_nn.nn_loss, wd, cfg, get_optimizer("sgd", 0.1), device="cuda")
+    t0 = time.perf_counter()
+    st = init_fn(paper_nn.init_params(SEED + 7, device="cuda"), 5)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    w, j, d = st.vr.table.shape
+    log(f"workload B: SAGA table ({w}, {j}, {d}) = "
+        f"{st.vr.table.numel() * 4 / 1e9:.2f} GB filled worker by worker in "
+        f"{t_init:.2f} s")
+    with torch.no_grad():
+        f0 = float(paper_nn.nn_loss(st.params, batch))
+    ops.reset_launch_counts()
+    st, times, metrics = run_steps(torch, step_fn, st, 20)
+    counts = ops.launch_counts()
+    with torch.no_grad():
+        f1 = float(paper_nn.nn_loss(st.params, batch))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"workload B {agg}/sign_flip: loss {f0:.6f} -> {f1:.6f} after 20 "
+        f"steps, accuracy {paper_nn.accuracy(st.params, batch):.4f}, "
+        f"median step {statistics.median(times) * 1e3:.3f} ms, peak memory "
+        f"{peak / 1e9:.2f} GB, honest variance "
+        f"{float(metrics['honest_variance']):.6g}, launches {counts}")
+    st = profile_steps(torch, f"workload B {agg}", step_fn, st, 3,
+                       statistics.median(times))
+    assert math.isfinite(f1), "workload B: loss is not finite"
+    assert all(bool(torch.isfinite(p).all()) for p in st.params.values())
+    if agg == "geomed":
+        assert min(counts.values()) > 0, f"workload B: a kernel never ran: {counts}"
+    return counts, st
+
+
+def device_ms(torch, fn, reps):
+    """Device time per call of ``fn``: the durations of the kernels (and
+    copies) it launched, from a torch.profiler trace of ``reps`` calls after
+    a warm-up.  Host launch overhead is not in it."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in device_events(prof))
+    if total_us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return total_us / reps / 1e3
+
+
+def bound(nbytes, flops):
+    b, f = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+    return (b, "bytes") if b >= f else (f, "operations")
+
+
+def phase_timing(torch, state):
+    from repro_torch.core.geomed import weiszfeld_flat
+    from repro_torch.kernels import saga_correct as sc
+    from repro_torch.kernels import weiszfeld as wz
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    table, avg = state.vr.table, state.vr.avg
+    w, j, d = table.shape
+    g = 0.01 * torch.randn((w, d), generator=gen, device="cuda")
+    # A fresh draw of rows for every call, as in a step: the 50 rows read
+    # and written are cold in L2 (the table is 9.5 GB).
+    reps = 50
+    draws = iter([torch.randint(0, j, (w,), generator=gen, device="cuda")
+                  for _ in range(2 * (reps + 3))])
+    out = {}
+    b, by = bound(6 * w * d * 4 + w * 8, 4 * w * d)
+    out["saga_correct"] = dict(
+        ms=device_ms(torch, lambda: sc.saga_correct_call(g, table, avg, next(draws)),
+                     reps),
+        plain_ms=device_ms(
+            torch, lambda: sc.saga_correct_plain(g, table, avg, next(draws)), reps),
+        bound_ms=b, bound_by=by, library_ms=None)
+    wm = w + 20
+    z = 0.01 * torch.randn((wm, d), generator=gen, device="cuda")
+    y = z.mean(0)
+    a = torch.rand((wm,), generator=gen, device="cuda") + 0.5
+    b, by = bound(wm * d * 4 + d * 4 + wm * 4, 3 * wm * d)
+    out["partial_sqdist"] = dict(
+        ms=device_ms(torch, lambda: wz.partial_sqdist_call(z, y), 200),
+        plain_ms=device_ms(torch, lambda: wz.partial_sqdist_plain(z, y), 200),
+        bound_ms=b, bound_by=by, library_ms=None)
+    b, by = bound(wm * d * 4 + wm * 4 + d * 4, 2 * wm * d)
+    out["weighted_sum"] = dict(
+        ms=device_ms(torch, lambda: wz.weighted_sum_call(z, a), 200),
+        plain_ms=device_ms(torch, lambda: wz.weighted_sum_plain(z, a), 200),
+        bound_ms=b, bound_by=by,
+        library_ms=device_ms(torch, lambda: torch.matmul(a, z), 200))
+    for name, r in out.items():
+        log(f"timing {name} (device time): {r['ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us "
+            f"({r['bound_by']}), plain {r['plain_ms'] * 1e3:.2f} us"
+            + (f", library {r['library_ms'] * 1e3:.2f} us" if r["library_ms"] else ""))
+    # The Weiszfeld loop as the step runs it: K2, (W,)-sized ops, K3 and the
+    # host read of the stop test, per iteration.
+    iters = 16
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reps = 10
+    for _ in range(reps):
+        weiszfeld_flat(z, max_iters=iters, tol=0.0)
+    torch.cuda.synchronize()
+    per_iter = (time.perf_counter() - t0) / (reps * iters)
+    log(f"timing weiszfeld_flat ({wm}, {d}): {per_iter * 1e6:.1f} us per "
+        "iteration on the host clock (K2 + K3 + torch ops + one host sync)")
+    return out
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    t_start = time.perf_counter()
+    phase_card(torch)
+    phase_build()
+    errs = phase_kernel_checks(torch)
+    phase_workload_a(torch)
+    counts, state = phase_workload_b(torch, "geomed")
+    timing = phase_timing(torch, state)
+    del state
+    torch.cuda.empty_cache()
+    phase_workload_b(torch, "mean")   # the step without the Weiszfeld loop
+    sources = {"saga_correct": ("src/repro_torch/kernels/csrc/saga_correct.cu",
+                                "src/repro/kernels/saga_correct.py:52"),
+               "partial_sqdist": ("src/repro_torch/kernels/csrc/weiszfeld.cu",
+                                  "src/repro/kernels/weiszfeld.py:58"),
+               "weighted_sum": ("src/repro_torch/kernels/csrc/weiszfeld.cu",
+                                "src/repro/kernels/weiszfeld.py:126")}
+    kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
+                    launches=counts[name], max_abs_err=errs[name],
+                    **timing[name])
+               for name, (src, rep) in sources.items()]
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

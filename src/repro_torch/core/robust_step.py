@@ -1,0 +1,218 @@
+"""The Byzantine-robust federated training step, paper Alg. 1 (port of
+``repro/core/robust_step.py``'s simulated master federation).
+
+:func:`make_federated_step` builds ``(init_fn, step_fn)`` for the packed,
+star/static, full-participation, float32-wire master path: W_h honest
+workers each send a (variance-reduced) stochastic gradient, B Byzantine
+rows are injected by an attack model, the master aggregates the packed
+(W, D) buffer with a robust rule and applies the optimizer.
+
+Per-sample gradients come from ``torch.func`` (``grad`` vmapped over the
+sample axis).  On a CUDA device the SAGA correction runs kernel K1 and the
+geometric median kernels K2 and K3; on the CPU their plain versions run.
+The SAGA table, the step's generator and the state passed to ``step_fn``
+are updated in place (see :mod:`repro_torch.core.saga`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch.core import aggregators as agg_lib
+from repro_torch.core import attacks as attack_lib
+from repro_torch.core import packing
+from repro_torch.core import variance as vr_lib
+from repro_torch.device import DEFAULT_DEVICE, generator_for, resolve_device
+from repro_torch.optim import optimizers as optim_lib
+from repro_torch.telemetry import metrics as telemetry
+
+Params = dict[str, torch.Tensor]
+
+# RobustConfig fields the ported slice reads; every other field must keep
+# its default (the features behind them are still to port, ROADMAP.md
+# Queue A items 7-10).
+_SLICE_FIELDS = ("aggregator", "vr", "attack", "num_byzantine",
+                 "weiszfeld_iters", "weiszfeld_tol", "gaussian_variance",
+                 "sign_flip_magnitude")
+
+
+@dataclasses.dataclass(frozen=True)
+class RobustConfig:
+    """Everything that defines the robust training loop of the paper: the
+    reference's field names and defaults."""
+
+    aggregator: str = "geomed"
+    vr: str = "saga"
+    attack: str = "none"
+    num_byzantine: int = 0
+    topology: str = "star"
+    topology_seed: int = 0
+    topology_p: float = 0.5
+    gossip: str = "gradient"
+    schedule: str = "static"
+    schedule_period: int = 4
+    minibatch_size: int = 50
+    lsvrg_p: float = 0.1
+    weiszfeld_iters: int = 64
+    weiszfeld_tol: float = 1e-6
+    num_groups: int = 4
+    trim: int = 1
+    clip_radius: float = 1.0
+    comm: str = "gather"
+    packed: bool = True
+    message_dtype: str = "float32"
+    gaussian_variance: float = 30.0
+    sign_flip_magnitude: float = -3.0
+    alie_z: float = 1.0
+    ipm_eps: float = 0.5
+    num_clients: int = 0
+    cohort_size: int = 0
+    participation_seed: int = 0
+    max_staleness: int = 64
+    staleness_decay: float = 1.0
+    straggler_k: int = 4
+    diagnostics: bool = False
+    guards: bool = False
+    guard_multiplier: float = 10.0
+    reject_ema: float = 0.9
+    reject_zmax: float = 6.0
+    reject_warmup: int = 8
+    bitflip_prob: float = 0.02
+    bitflip_seed: int = 0
+
+    def __post_init__(self):
+        for f in dataclasses.fields(self):
+            if f.name not in _SLICE_FIELDS and getattr(self, f.name) != f.default:
+                raise ValueError(
+                    f"RobustConfig.{f.name}={getattr(self, f.name)!r} is "
+                    "outside the ported slice (packed star/static master "
+                    "step, full participation, float32 wire); see ROADMAP.md "
+                    "Queue A")
+
+    def reducer(self) -> vr_lib.VarianceReducer:
+        """The variance reducer named by ``self.vr``."""
+        return vr_lib.get_reducer(self)
+
+    def attack_config(self) -> attack_lib.AttackConfig:
+        attack_lib.check_attack_name(self.attack)
+        return attack_lib.AttackConfig(
+            name=self.attack, num_byzantine=self.num_byzantine,
+            gaussian_variance=self.gaussian_variance,
+            sign_flip_magnitude=self.sign_flip_magnitude)
+
+    def message_spec(self, tree: Params, *, batch_ndim: int = 1
+                     ) -> packing.PackSpec:
+        """PackSpec of this config's wire messages for ``tree``."""
+        return packing.pack_spec(tree, batch_ndim=batch_ndim,
+                                 wire=self.message_dtype)
+
+    def flat_aggregator_fn(self) -> agg_lib.FlatAggregator:
+        """Flat aggregator ``(W, D) -> (D,) f32`` for this config."""
+        return agg_lib.get_flat_aggregator(
+            self.aggregator, max_iters=self.weiszfeld_iters,
+            tol=self.weiszfeld_tol)
+
+
+class FederatedState(NamedTuple):
+    params: Params
+    opt_state: Any
+    # Variance-reduction state (SagaState for "saga", None for "sgd").
+    vr: Optional[Any]
+    step: int
+    # The run's random stream: sample draws, then attack noise, each step.
+    generator: torch.Generator
+
+
+def make_federated_step(
+    loss_fn: Callable[[Params, dict], torch.Tensor],
+    worker_data: dict[str, Any],
+    cfg: RobustConfig,
+    optimizer: optim_lib.Optimizer,
+    *,
+    device: str | torch.device = DEFAULT_DEVICE,
+):
+    """Build ``(init_fn, step_fn)`` for the simulated federation.
+
+    ``loss_fn(params, batch)``: mean loss over a batch whose values have a
+    leading sample axis, written with ``torch`` ops (``torch.func`` takes
+    its gradient).  ``worker_data``: values shaped (W_h, J, ...), moved to
+    ``device``.
+
+    ``init_fn(params, seed)`` -> :class:`FederatedState`; for ``saga`` it
+    fills the packed (W_h, J, D) table of Alg. 1 one worker at a time.
+    ``step_fn(state, *, sample_idx=None, attack_noise=None)`` ->
+    ``(new_state, metrics)``.  ``sample_idx`` ((W_h,) rows) and
+    ``attack_noise`` ((B, D) standard-normal draws for ``gaussian``)
+    replace the step's own draws, so a test can hand in the reference's.
+    """
+    dev = resolve_device(device)
+    data = {k: torch.as_tensor(v, device=dev) for k, v in worker_data.items()}
+    wh, j = next(iter(data.values())).shape[:2]
+    attack_cfg = cfg.attack_config()
+    reducer = cfg.reducer()
+    flat_fn = cfg.flat_aggregator_fn()
+    # One gradient per sample: each sample is a batch of one, as in the
+    # reference's per-worker grad of sample_batch(data_w, idx[None]).
+    per_sample_grads = torch.func.vmap(torch.func.grad(loss_fn),
+                                       in_dims=(None, 0))
+    w_ids = torch.arange(wh, device=dev)
+
+    def as_batches(rows: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        return {k: v[:, None] for k, v in rows.items()}
+
+    def per_sample_table(params: Params, spec: packing.PackSpec) -> torch.Tensor:
+        """Alg. 1 init: table[w, j] = f'_{w,j}(x^0), packed (W_h, J, D),
+        written worker by worker so no second full-size table exists."""
+        table = torch.empty((wh, j, spec.padded_dim), dtype=torch.float32,
+                            device=dev)
+        for w in range(wh):
+            grads = per_sample_grads(params, as_batches(
+                {k: v[w] for k, v in data.items()}))
+            table[w] = spec.pack(grads, batch_ndim=1)
+        return table
+
+    def init_fn(params: Params, seed: int | torch.Generator = 0
+                ) -> FederatedState:
+        params = {k: torch.as_tensor(v, device=dev) for k, v in params.items()}
+        spec = cfg.message_spec(params, batch_ndim=0)
+        with torch.no_grad():
+            vr_state = reducer.init_sim(
+                params, per_sample_grads_fn=lambda: per_sample_table(params, spec),
+                num_workers=wh)
+        return FederatedState(params, optimizer.init(params), vr_state, 0,
+                              generator_for(seed, dev))
+
+    def sample_rows(state: FederatedState, sample_idx) -> torch.Tensor:
+        if sample_idx is None:
+            return reducer.draw_indices(state.generator, wh, j)
+        idx = torch.as_tensor(sample_idx, dtype=torch.int64)
+        if tuple(idx.shape) != (wh,):
+            raise ValueError(f"sample_idx must be ({wh},), got {tuple(idx.shape)}")
+        if idx.device.type == "cpu" and bool(((idx < 0) | (idx >= j)).any()):
+            raise ValueError(f"sample_idx out of range [0, {j})")
+        return idx.to(dev)
+
+    @torch.no_grad()
+    def step_fn(state: FederatedState, *, sample_idx=None,
+                attack_noise: Optional[torch.Tensor] = None):
+        params = state.params
+        idx = sample_rows(state, sample_idx)
+        honest_tree = per_sample_grads(params, as_batches(
+            {k: v[w_ids, idx] for k, v in data.items()}))
+        spec = cfg.message_spec(honest_tree, batch_ndim=1)
+        honest = spec.pack(honest_tree)                       # (W_h, D)
+        honest, vr_state, vr_metrics = reducer.correct(state.vr, honest, idx)
+        var = telemetry.honest_variance(honest, wh)
+        msgs = attack_lib.apply_attack(attack_cfg, honest, state.generator,
+                                       noise=attack_noise)    # (W, D)
+        agg = spec.unpack(flat_fn(msgs), batch_ndim=0)
+        updates, opt_state = optimizer.update(agg, state.opt_state, params,
+                                              state.step)
+        new_params = optim_lib.apply_updates(params, updates)
+        new_state = FederatedState(new_params, opt_state, vr_state,
+                                   state.step + 1, state.generator)
+        return new_state, {"honest_variance": var, **vr_metrics}
+
+    return init_fn, step_fn

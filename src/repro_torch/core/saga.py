@@ -1,0 +1,72 @@
+"""SAGA variance reduction on the packed per-worker gradient table, paper
+Alg. 1 (port of ``repro/core/saga.py``).
+
+Each honest worker ``w`` keeps ``table[w]`` -- the latest per-sample
+gradient of each of its J samples, packed to (J, D) -- and ``avg[w]``, their
+running mean.  Per step it draws ``i`` and sends
+
+    m_w = f'_{w,i}(x) - table[w, i] + avg[w]
+
+then sets ``avg[w] += (f'_{w,i}(x) - table[w, i]) / J`` and
+``table[w, i] = f'_{w,i}(x)``.
+
+The port keeps the state packed for the whole run -- table (W, J, D), avg
+(W, D) -- and updates both IN PLACE: the table is the O(W*J*D) memory wall
+(9.5 GB for the Table I network at MNIST size), so no step may hold a copy
+of it.  On a CUDA device the update is kernel K1.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import packing
+from repro_torch.kernels import ops
+
+
+class SagaState(NamedTuple):
+    """Per-worker SAGA memory: ``table`` (W, J, D), ``avg`` (W, D)."""
+
+    table: torch.Tensor
+    avg: torch.Tensor
+
+    @property
+    def num_samples(self) -> int:
+        return self.table.shape[1]
+
+
+def saga_init(per_sample_grads: torch.Tensor) -> SagaState:
+    """Initialize from the packed gradients of *all* J samples at x^0
+    (Alg. 1 init), shape (W, J, D).  The table IS ``per_sample_grads``: it
+    is not copied."""
+    return SagaState(table=per_sample_grads,
+                     avg=torch.mean(per_sample_grads, dim=1))
+
+
+def saga_init_zeros(params: dict[str, torch.Tensor], num_workers: int,
+                    num_samples: int) -> SagaState:
+    """Cold-start init with a zero packed table (the table warms up over
+    the first epoch); on the device of ``params``."""
+    spec = packing.pack_spec(params, batch_ndim=0)
+    dev = next(iter(params.values())).device
+    return SagaState(
+        table=torch.zeros((num_workers, num_samples, spec.padded_dim),
+                          dtype=torch.float32, device=dev),
+        avg=torch.zeros((num_workers, spec.padded_dim), dtype=torch.float32,
+                        device=dev))
+
+
+def saga_correct_scatter(state: SagaState, grads: torch.Tensor,
+                         sample_idx: torch.Tensor
+                         ) -> tuple[torch.Tensor, SagaState]:
+    """SAGA correction and table update for every worker at once.
+
+    ``grads``: (W, D) fresh stochastic gradients; ``sample_idx``: (W,)
+    int64 drawn rows.  Returns ``(messages (W, D), state)``, where
+    ``state`` is the SAME object with ``table`` and ``avg`` updated in
+    place (the TPU kernel's ``input_output_aliases`` contract).  Callers
+    that need the old state must copy it first.
+    """
+    msgs = ops.saga_correct(grads, state.table, state.avg, sample_idx)
+    return msgs, state

@@ -1,0 +1,6 @@
+"""Hand-written Hopper kernels of the port and their plain versions.
+
+Ported (CUDA C++ for sm_90a, ``csrc/``): K1 ``saga_correct``, K2
+``partial_sqdist``, K3 ``weighted_sum``.  The rest of the reference's
+Pallas kernels are still to port (ROADMAP.md Queue B).
+"""

@@ -1,0 +1,58 @@
+"""Device dispatch over the kernels (port of ``repro/kernels/ops.py``).
+
+A tensor on the CPU goes to the kernel's plain PyTorch version; a tensor on
+a CUDA device goes to the hand-written kernel, whose wrapper raises if it
+cannot launch.  There is no fallback from the card to the plain version.
+Each kernel wrapper counts its launches (:func:`launch_counts`).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import saga_correct as sc
+from repro_torch.kernels import weiszfeld as wz
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel route for device {t.device}")
+
+
+def saga_correct(grad: torch.Tensor, table: torch.Tensor, avg: torch.Tensor,
+                 idx: torch.Tensor) -> torch.Tensor:
+    """K1: msg (W, D); ``avg`` (W, D) and ``table`` (W, J, D) are updated in
+    place."""
+    sc.check_inputs(grad, table, avg, idx)
+    if _on_card(grad):
+        return sc.saga_correct_call(grad, table, avg, idx)
+    return sc.saga_correct_plain(grad, table, avg, idx)
+
+
+def partial_sqdist(z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """K2: z (W, D), y (D,) -> (W,) squared distances."""
+    wz.check_inputs("partial_sqdist", z, y, z.shape[-1])
+    if _on_card(z):
+        return wz.partial_sqdist_call(z, y)
+    return wz.partial_sqdist_plain(z, y)
+
+
+def weighted_sum(z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """K3: z (W, D), a (W,) -> (D,) = sum_w a[w] z[w], unnormalized."""
+    wz.check_inputs("weighted_sum", z, a, z.shape[0])
+    if _on_card(z):
+        return wz.weighted_sum_call(z, a)
+    return wz.weighted_sum_plain(z, a)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per wrapper since the last reset."""
+    return dict(_build.LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _build.LAUNCHES:
+        _build.LAUNCHES[name] = 0

@@ -1,0 +1,49 @@
+"""Plain PyTorch oracles of the kernels (port of ``repro/kernels/ref.py``).
+
+They compute what the reference's oracles compute, with the one change of
+layout the port makes: :func:`saga_correct` takes the worker axis natively
+(table (W, J, D), idx (W,)) and, as an oracle, leaves its inputs intact.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def partial_sqdist(z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """z: (W, p), y: (p,) -> per-worker squared distances (W,)."""
+    d = z.float() - y.float()[None]
+    return torch.sum(d * d, dim=-1)
+
+
+def weighted_sum(z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sum_i w[i] z[i] / sum(w); z: (W, p), w: (W,) -> (p,)."""
+    return (w.float() @ z.float()) / torch.sum(w.float())
+
+
+def weiszfeld_step(z: torch.Tensor, y: torch.Tensor,
+                   floor: float = 1e-8) -> torch.Tensor:
+    d = torch.sqrt(partial_sqdist(z, y))
+    inv = 1.0 / torch.clamp(d, min=floor)
+    return weighted_sum(z, inv)
+
+
+def geomed(z: torch.Tensor, iters: int = 32) -> torch.Tensor:
+    y = torch.mean(z.float(), dim=0)
+    for _ in range(iters):
+        y = weiszfeld_step(z, y)
+    return y.to(z.dtype)
+
+
+def saga_correct(grad: torch.Tensor, table: torch.Tensor, avg: torch.Tensor,
+                 idx: torch.Tensor):
+    """grad: (W, p), table: (W, J, p), avg: (W, p), idx: (W,).
+    Returns (msg, new_avg, new_table); the inputs are not modified."""
+    j = table.shape[1]
+    w_ids = torch.arange(grad.shape[0], device=grad.device)
+    old = table[w_ids, idx].float()
+    g = grad.float()
+    msg = g - old + avg.float()
+    new_avg = avg.float() + (g - old) / j
+    new_table = table.clone()
+    new_table[w_ids, idx] = grad.to(table.dtype)
+    return msg.to(grad.dtype), new_avg.to(avg.dtype), new_table

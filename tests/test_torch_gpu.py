@@ -1,0 +1,124 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here carries the ``gpu`` marker and decides in its body whether
+a CUDA device is present, skipping without one.  This file imports torch
+and the port only (no JAX), so it runs on a machine with a card:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Tolerances: K1 is elementwise in the plain version's order, so it agrees
+to within 1 ulp and its table bitwise; K2 and K3 sum in another order than
+PyTorch, so they agree to rtol 1e-5 (atol 1e-5 x max|plain|).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import RobustConfig, make_federated_step
+from repro_torch.data import ijcnn1_like, logreg_loss, partition
+from repro_torch.kernels import ops
+from repro_torch.kernels import saga_correct as sc
+from repro_torch.kernels import weiszfeld as wz
+from repro_torch.optim import get_optimizer
+
+SHAPES = [(7, 300), (3, 1), (16, 512), (70, 39_760)]
+J = 4
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in float32 ulps between two tensors."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def _close(got, want, rtol=1e-5):
+    torch.testing.assert_close(got, want, rtol=rtol,
+                               atol=rtol * float(want.abs().max()))
+
+
+def _inputs(w, p, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    z = torch.randn((w, p), generator=g, device="cuda")
+    y = z.mean(0) + 0.1 * torch.randn((p,), generator=g, device="cuda")
+    a = torch.rand((w,), generator=g, device="cuda") + 0.5
+    grad = torch.randn((w, p), generator=g, device="cuda")
+    table = torch.randn((w, J, p), generator=g, device="cuda")
+    idx = torch.randint(0, J, (w,), generator=g, device="cuda")
+    return z, y, a, grad, table, table.mean(1), idx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,p", SHAPES)
+def test_weiszfeld_kernels_vs_plain(w, p):
+    _need_card()
+    z, y, a, *_ = _inputs(w, p)
+    _close(wz.partial_sqdist_call(z, y), wz.partial_sqdist_plain(z, y))
+    _close(wz.weighted_sum_call(z, a), wz.weighted_sum_plain(z, a))
+    # Two passes, fixed reduction order, no atomics: the same bits each run.
+    assert torch.equal(wz.partial_sqdist_call(z, y), wz.partial_sqdist_call(z, y))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,p", SHAPES)
+def test_saga_kernel_vs_plain(w, p):
+    _need_card()
+    *_, grad, table, avg, idx = _inputs(w, p)
+    tab_k, avg_k = table.clone(), avg.clone()
+    msg_k = sc.saga_correct_call(grad, tab_k, avg_k, idx)
+    msg_p = sc.saga_correct_plain(grad, table, avg, idx)
+    torch.cuda.synchronize()
+    assert _ulps(msg_k, msg_p) <= 1 and _ulps(avg_k, avg) <= 1
+    assert torch.equal(tab_k, table)
+
+
+@pytest.mark.gpu
+def test_saga_kernel_out_of_range_index_poisons_only_the_message():
+    _need_card()
+    *_, grad, table, avg, idx = _inputs(4, 64)
+    idx[1] = J
+    tab0, avg0 = table.clone(), avg.clone()
+    msg = sc.saga_correct_call(grad, table, avg, idx)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(msg[1]).all()) and bool(torch.isfinite(msg[0]).all())
+    assert torch.equal(table[1], tab0[1]) and torch.equal(avg[1], avg0[1])
+
+
+@pytest.mark.gpu
+def test_cuda_dispatch_counts_launches():
+    _need_card()
+    z, y, a, grad, table, avg, idx = _inputs(7, 300)
+    ops.reset_launch_counts()
+    ops.partial_sqdist(z, y)
+    ops.weighted_sum(z, a)
+    ops.saga_correct(grad, table, avg, idx)
+    assert ops.launch_counts() == {"saga_correct": 1, "partial_sqdist": 1,
+                                   "weighted_sum": 1}
+
+
+@pytest.mark.gpu
+def test_cuda_step_matches_cpu_plain_path():
+    """Ten steps on the card track the plain CPU path from the same data,
+    state and sample draws (the Weiszfeld stop may end one iteration
+    apart, hence rtol 1e-4)."""
+    _need_card()
+    data = ijcnn1_like(0, n=240, device="cpu")
+    wd = partition({"a": data.x, "b": data.y}, 12, seed=1, device="cpu")
+    cfg = RobustConfig(aggregator="geomed", vr="saga", attack="sign_flip",
+                       num_byzantine=5)
+    draws = np.random.default_rng(0).integers(0, 20, (10, 12))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        init_fn, step_fn = make_federated_step(
+            logreg_loss(0.01), wd, cfg, get_optimizer("sgd", 0.02), device=dev)
+        st = init_fn({"w": torch.zeros(22)}, 0)
+        for idx in draws:
+            st, _ = step_fn(st, sample_idx=idx)
+        out[dev] = st.params["w"].cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-5)
