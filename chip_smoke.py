@@ -7,14 +7,18 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
 Phases, in order; any failure exits non-zero:
 
-1. The card: name and power limit; TF32 off for matmuls and cuDNN.
-2. Build: the CUDA kernels K1-K3 from ``src/repro_torch/kernels/csrc``
-   with ``nvcc`` for sm_90a (``-Xptxas -v`` summary printed).
+1. The card: name and power limit; TF32 off for matmuls and cuDNN (Krum's
+   Gram product must run in full float32).
+2. Build: the CUDA kernels K1-K6 from ``src/repro_torch/kernels/csrc``
+   with ``nvcc`` for sm_90a, one process per source, all started together
+   (``-Xptxas -v`` summary printed).
 3. Kernel checks: each kernel against its plain PyTorch version at ragged
-   shapes (W=7, D=300, J=3) and at workload B's shapes (W=70, D=39,760,
-   table (50, 1,200, 39,760)).  K1 within 1 ulp with only the drawn table
-   rows changed; K2 and K3 within rtol 1e-5 (atol 1e-5 x max|plain|: the
-   sum runs in another order).
+   shapes (W=7 and 8, D=300, J=3, L=3 segments with some coordinates in
+   none) and at workload B's shapes (W=70, D=39,760, table (50, 1,200,
+   39,760), L=4 for the Table I network's four leaves).  K1 within 1 ulp
+   with only the drawn table rows changed; K4 bitwise for odd W and within
+   1 ulp for even W; K2, K3 (also on a column slice), K5 and K6 within
+   rtol 1e-5 (atol 1e-5 x max|plain|: the sum runs in another order).
 4. Workload A: logistic regression at IJCNN1 scale (n=49,990, D=22,
    50 honest + 20 Byzantine workers), sign_flip, 300 steps with geomed and
    with mean; then the C1 claim of tests/test_convergence.py (W_h=12, B=5,
@@ -26,10 +30,24 @@ Phases, in order; any failure exits non-zero:
    just after; a torch.profiler trace of 3 more steps gives device time by
    kernel and the device's idle share.
 6. Timing: each kernel's device time at workload B's shapes (torch.profiler
-   kernel durations), beside its bound, its plain version and (K3) one
-   library call; the Weiszfeld loop's time per iteration on the host clock;
-   then workload B again with mean, the step without the Weiszfeld loop.
-7. One JSON line with the kernels, then the result line.
+   kernel durations), beside its bound, its plain version and one library
+   call where one computes the same function (K3: ``a @ z``; K4:
+   ``torch.quantile``); the Weiszfeld loop's time per iteration on the host
+   clock; then workload B again with mean, the step without the Weiszfeld
+   loop.
+7. Workload B with every other rule of the reference's registry (median,
+   trimmed_mean with trim 20, krum, geomed_groups with 5 groups,
+   centered_clip, geomed_blockwise), 20 steps each, launch counts asserted
+   (K4 once per step for median and centered_clip, K5 once per step for
+   trimmed_mean, K6 at least once per step and K2 never for
+   geomed_blockwise); the SAGA table is freed between runs.
+8. Fig. 6 at workload A's scale: 300 steps for each of the four attacks of
+   benchmarks/common.py and alie, times every rule; the optimality gaps as
+   a table.
+9. The claims C2-C4 and the krum/median/trimmed-mean claim of
+   tests/test_convergence.py at their sizes and thresholds, then
+   ``repro_torch.quickstart`` on the card.
+10. One JSON line with the kernels, then the result line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -45,6 +63,42 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
 SEED = 0
+
+# Kernel -> (its source in the port, the TPU kernel's pallas_call it replaces).
+KERNEL_SOURCES = {
+    "saga_correct": ("src/repro_torch/kernels/csrc/saga_correct.cu",
+                     "src/repro/kernels/saga_correct.py:52"),
+    "partial_sqdist": ("src/repro_torch/kernels/csrc/weiszfeld.cu",
+                       "src/repro/kernels/weiszfeld.py:58"),
+    "weighted_sum": ("src/repro_torch/kernels/csrc/weiszfeld.cu",
+                     "src/repro/kernels/weiszfeld.py:126"),
+    "coordinate_median": ("src/repro_torch/kernels/csrc/robust_stats.cu",
+                          "src/repro/kernels/robust_stats.py:34"),
+    "trimmed_mean": ("src/repro_torch/kernels/csrc/robust_stats.cu",
+                     "src/repro/kernels/robust_stats.py:56"),
+    "partial_sqdist_segments": ("src/repro_torch/kernels/csrc/weiszfeld.cu",
+                                "src/repro/kernels/weiszfeld.py:98"),
+}
+# Rule -> the kernels its step must launch on the card.
+RULE_KERNELS = {
+    "geomed": ("saga_correct", "partial_sqdist", "weighted_sum"),
+    "mean": ("saga_correct",),
+    "median": ("saga_correct", "coordinate_median"),
+    "trimmed_mean": ("saga_correct", "trimmed_mean"),
+    "krum": ("saga_correct",),
+    "geomed_groups": ("saga_correct", "partial_sqdist", "weighted_sum"),
+    "centered_clip": ("saga_correct", "coordinate_median"),
+    "geomed_blockwise": ("saga_correct", "partial_sqdist_segments",
+                         "weighted_sum"),
+}
+# The path whose run gives each kernel's launch count in the kernels line.
+KERNEL_PATH = {"saga_correct": "geomed", "partial_sqdist": "geomed",
+               "weighted_sum": "geomed", "coordinate_median": "median",
+               "trimmed_mean": "trimmed_mean",
+               "partial_sqdist_segments": "geomed_blockwise"}
+FIG6_RULES = ("mean", "geomed", "median", "krum", "trimmed_mean",
+              "geomed_groups", "centered_clip", "geomed_blockwise")
+FIG6_ATTACKS = ("none", "gaussian", "sign_flip", "zero_gradient", "alie")
 
 
 def log(msg=""):
@@ -142,9 +196,64 @@ def check_weiszfeld(torch, w, d, gen):
     return err2, err3
 
 
+def check_order_stats(torch, w, d, trim, gen):
+    """K4 and K5 vs their plain versions; returns the largest absolute
+    differences."""
+    from repro_torch.kernels import robust_stats as rs
+    z = torch.randn((w, d), generator=gen, device="cuda")
+    med_k, med_p = rs.coordinate_median_call(z), rs.coordinate_median_plain(z)
+    tm_k, tm_p = rs.trimmed_mean_call(z, trim), rs.trimmed_mean_plain(z, trim)
+    torch.cuda.synchronize()
+    if w % 2:
+        assert torch.equal(med_k, med_p), f"K4 not bitwise at {(w, d)}"
+    else:
+        assert ulps(med_k, med_p) <= 1, \
+            f"K4 off by {ulps(med_k, med_p)} ulp at {(w, d)}"
+    ok5, err5 = close(tm_k, tm_p)
+    assert ok5, f"K5 trimmed_mean disagrees at {(w, d)}, trim {trim}: {err5}"
+    return float((med_k - med_p).abs().max()), err5
+
+
+def check_segments(torch, w, d, boundaries, gen):
+    """K6 vs its plain version (coordinates past the last block in none,
+    the same bits on a second run), and K3 on each block's column slice;
+    returns the largest relative-tolerance errors of K6 and K3."""
+    from repro_torch.core.geomed import segment_ids
+    from repro_torch.kernels import weiszfeld as wz
+    z = torch.randn((w, d), generator=gen, device="cuda")
+    y = z.mean(0) + 0.1 * torch.randn((d,), generator=gen, device="cuda")
+    a = torch.rand((w,), generator=gen, device="cuda") + 0.5
+    seg = segment_ids(tuple(boundaries), d, torch.device("cuda"))
+    nseg = len(boundaries)
+    got = wz.partial_sqdist_segments_call(z, y, seg, nseg)
+    ok6, err6 = close(got, wz.partial_sqdist_segments_plain(z, y, seg, nseg))
+    assert ok6, f"K6 partial_sqdist_segments disagrees at {(w, d)}: {err6}"
+    assert torch.equal(got, wz.partial_sqdist_segments_call(z, y, seg, nseg)), \
+        "K6 gave other bits on a second run"
+    err3 = 0.0
+    for lo, hi in boundaries:
+        ok3, e = close(wz.weighted_sum_call(z[:, lo:hi], a),
+                       wz.weighted_sum_plain(z[:, lo:hi].contiguous(), a))
+        assert ok3, f"K3 on the slice [{lo}, {hi}) disagrees: {e}"
+        err3 = max(err3, e)
+    torch.cuda.synchronize()
+    return err6, err3
+
+
+def table1_boundaries(torch):
+    """The Table I network's four leaves in the packed buffer (b1, b2, w1,
+    w2 in sorted-name order) -> ((start, stop), ...), D."""
+    from repro_torch.core import packing
+    from repro_torch.models import paper_nn
+    spec = packing.pack_spec(paper_nn.init_params(SEED, device="cuda"),
+                             batch_ndim=0)
+    return spec.boundaries, spec.padded_dim
+
+
 def phase_kernel_checks(torch):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    errs = {"saga_correct": 0.0, "partial_sqdist": 0.0, "weighted_sum": 0.0}
+    errs = dict.fromkeys(KERNEL_SOURCES, 0.0)
+    bounds_b, d_b = table1_boundaries(torch)
     for (w, j, d), (wm, dm) in [((7, 3, 300), (7, 300)),
                                 ((50, 1200, 39760), (70, 39760))]:
         e1 = check_saga(torch, w, j, d, gen)
@@ -155,6 +264,23 @@ def phase_kernel_checks(torch):
         log(f"kernel check table ({w}, {j}, {d}) / messages ({wm}, {dm}): "
             f"K1 max|err| {e1:.3g} (<= 1 ulp, other rows untouched), "
             f"K2 {e2:.3g}, K3 {e3:.3g} (rtol 1e-5): ok")
+    # Ragged: W = 7 and 8, D = 300, three blocks and 20 coordinates in none.
+    # Workload B: (70, 39,760), the Table I network's four leaves; Fig. 6's
+    # trim of 20 at W = 70.
+    assert d_b == 39760, d_b
+    for w, d, trim, bounds in [(7, 300, 2, ((0, 100), (100, 220), (220, 280))),
+                               (8, 300, 3, ((0, 100), (100, 220), (220, 280))),
+                               (70, d_b, 20, bounds_b)]:
+        e4, e5 = check_order_stats(torch, w, d, trim, gen)
+        e6, e3 = check_segments(torch, w, d, bounds, gen)
+        errs["coordinate_median"] = max(errs["coordinate_median"], e4)
+        errs["trimmed_mean"] = max(errs["trimmed_mean"], e5)
+        errs["partial_sqdist_segments"] = max(errs["partial_sqdist_segments"], e6)
+        errs["weighted_sum"] = max(errs["weighted_sum"], e3)
+        log(f"kernel check messages ({w}, {d}), blocks {list(bounds)}: "
+            f"K4 max|err| {e4:.3g} ({'bitwise' if w % 2 else '<= 1 ulp'}), "
+            f"K5 (trim {trim}) {e5:.3g}, K6 {e6:.3g} (same bits twice), "
+            f"K3 on column slices {e3:.3g} (rtol 1e-5): ok")
     return errs
 
 
@@ -233,7 +359,8 @@ def phase_workload_a(torch):
                            statistics.median(times))
         if agg == "geomed":
             assert f1 < f0, "workload A: geomed did not lower the loss"
-            assert min(counts[agg].values()) > 0, "workload A: a kernel never ran"
+            assert min(counts[agg][k] for k in RULE_KERNELS[agg]) > 0, \
+                f"workload A: a kernel never ran: {counts[agg]}"
         else:
             assert f1 > f0, "workload A: mean was not driven uphill by sign_flip"
 
@@ -279,7 +406,10 @@ def phase_workload_a(torch):
     return counts
 
 
-def phase_workload_b(torch, agg):
+def phase_workload_b(torch, agg, steps=20):
+    """Workload B with rule ``agg``: 20 steps with the launch counts reset
+    just before and read just after, asserted against the rule's kernels;
+    then a 3-step profile.  Returns (counts, state, summary)."""
     from repro_torch.core import RobustConfig, make_federated_step
     from repro_torch.data import mnist_like, partition
     from repro_torch.kernels import ops
@@ -290,7 +420,7 @@ def phase_workload_b(torch, agg):
     batch = {"x": data.x, "y": data.y}
     wd = partition(batch, 50, seed=2, device="cuda")
     cfg = RobustConfig(aggregator=agg, vr="saga", attack="sign_flip",
-                       num_byzantine=20)
+                       num_byzantine=20, trim=20, num_groups=5)
     init_fn, step_fn = make_federated_step(
         paper_nn.nn_loss, wd, cfg, get_optimizer("sgd", 0.1), device="cuda")
     t0 = time.perf_counter()
@@ -304,13 +434,14 @@ def phase_workload_b(torch, agg):
     with torch.no_grad():
         f0 = float(paper_nn.nn_loss(st.params, batch))
     ops.reset_launch_counts()
-    st, times, metrics = run_steps(torch, step_fn, st, 20)
+    st, times, metrics = run_steps(torch, step_fn, st, steps)
     counts = ops.launch_counts()
     with torch.no_grad():
         f1 = float(paper_nn.nn_loss(st.params, batch))
     peak = torch.cuda.max_memory_allocated()
-    log(f"workload B {agg}/sign_flip: loss {f0:.6f} -> {f1:.6f} after 20 "
-        f"steps, accuracy {paper_nn.accuracy(st.params, batch):.4f}, "
+    acc = paper_nn.accuracy(st.params, batch)
+    log(f"workload B {agg}/sign_flip: loss {f0:.6f} -> {f1:.6f} after {steps} "
+        f"steps, accuracy {acc:.4f}, "
         f"median step {statistics.median(times) * 1e3:.3f} ms, peak memory "
         f"{peak / 1e9:.2f} GB, honest variance "
         f"{float(metrics['honest_variance']):.6g}, launches {counts}")
@@ -318,9 +449,18 @@ def phase_workload_b(torch, agg):
                        statistics.median(times))
     assert math.isfinite(f1), "workload B: loss is not finite"
     assert all(bool(torch.isfinite(p).all()) for p in st.params.values())
-    if agg == "geomed":
-        assert min(counts.values()) > 0, f"workload B: a kernel never ran: {counts}"
-    return counts, st
+    ran = {k: counts[k] for k in RULE_KERNELS[agg]}
+    assert min(ran.values()) > 0, f"workload B {agg}: a kernel never ran: {counts}"
+    if agg in ("median", "centered_clip"):
+        assert counts["coordinate_median"] == steps, counts
+    if agg == "trimmed_mean":
+        assert counts["trimmed_mean"] == steps, counts
+    if agg == "geomed_blockwise":
+        assert counts["partial_sqdist_segments"] >= steps, counts
+        assert counts["partial_sqdist"] == 0, counts
+    summary = dict(step_ms=statistics.median(times) * 1e3, peak_gb=peak / 1e9,
+                   loss=f1, accuracy=acc)
+    return counts, st, summary
 
 
 def device_ms(torch, fn, reps):
@@ -347,7 +487,8 @@ def bound(nbytes, flops):
 
 
 def phase_timing(torch, state):
-    from repro_torch.core.geomed import weiszfeld_flat
+    from repro_torch.core.geomed import segment_ids, weiszfeld_flat
+    from repro_torch.kernels import robust_stats as rs
     from repro_torch.kernels import saga_correct as sc
     from repro_torch.kernels import weiszfeld as wz
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -382,6 +523,27 @@ def phase_timing(torch, state):
         plain_ms=device_ms(torch, lambda: wz.weighted_sum_plain(z, a), 200),
         bound_ms=b, bound_by=by,
         library_ms=device_ms(torch, lambda: torch.matmul(a, z), 200))
+    # K4, K5: read z once, write (D,); at least one comparison per element.
+    b, by = bound(wm * d * 4 + d * 4, wm * d)
+    out["coordinate_median"] = dict(
+        ms=device_ms(torch, lambda: rs.coordinate_median_call(z), 200),
+        plain_ms=device_ms(torch, lambda: rs.coordinate_median_plain(z), 200),
+        bound_ms=b, bound_by=by,
+        library_ms=device_ms(torch, lambda: torch.quantile(z, 0.5, dim=0), 200))
+    out["trimmed_mean"] = dict(
+        ms=device_ms(torch, lambda: rs.trimmed_mean_call(z, 20), 200),
+        plain_ms=device_ms(torch, lambda: rs.trimmed_mean_plain(z, 20), 200),
+        bound_ms=b, bound_by=by, library_ms=None)
+    # K6: z, y and the int32 ids read once, (W, L) written; 3 flops per element.
+    bounds_b, _ = table1_boundaries(torch)
+    seg = segment_ids(tuple(bounds_b), d, torch.device("cuda"))
+    nseg = len(bounds_b)
+    b, by = bound(wm * d * 4 + 2 * d * 4 + wm * nseg * 4, 3 * wm * d)
+    out["partial_sqdist_segments"] = dict(
+        ms=device_ms(torch, lambda: wz.partial_sqdist_segments_call(z, y, seg, nseg), 200),
+        plain_ms=device_ms(
+            torch, lambda: wz.partial_sqdist_segments_plain(z, y, seg, nseg), 200),
+        bound_ms=b, bound_by=by, library_ms=None)
     for name, r in out.items():
         log(f"timing {name} (device time): {r['ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us "
             f"({r['bound_by']}), plain {r['plain_ms'] * 1e3:.2f} us"
@@ -401,6 +563,122 @@ def phase_timing(torch, state):
     return out
 
 
+def federated_run(torch, loss, wd, steps, seed, **cfg):
+    """``steps`` steps of the master step on the card from w = 0; returns
+    the final params and the per-step host seconds."""
+    from repro_torch.core import RobustConfig, make_federated_step
+    from repro_torch.optim import get_optimizer
+    init_fn, step_fn = make_federated_step(
+        loss, wd, RobustConfig(**cfg), get_optimizer("sgd", 0.02), device="cuda")
+    st = init_fn({"w": torch.zeros(22, device="cuda")}, seed)
+    st, times, _ = run_steps(torch, step_fn, st, steps)
+    return st.params, times
+
+
+def phase_fig6(torch):
+    """Paper Fig. 6 at workload A's scale: every rule under each attack."""
+    from repro_torch.data import (ijcnn1_like, logreg_full_loss_and_opt,
+                                  logreg_loss, partition)
+    loss = logreg_loss(0.01)
+    data = ijcnn1_like(SEED, n=49_990, device="cuda")
+    batch = {"a": data.x, "b": data.y}
+    _, f_star = logreg_full_loss_and_opt(data, iters=4000, lr=0.5)
+    wd = partition(batch, 50, seed=1, samples_per_worker=999, device="cuda")
+    gaps, step_ms = {}, {}
+    t0 = time.perf_counter()
+    for attack in FIG6_ATTACKS:
+        b = 0 if attack == "none" else 20
+        for agg in FIG6_RULES:
+            params, times = federated_run(
+                torch, loss, wd, 300, 11, aggregator=agg, vr="saga",
+                attack=attack, num_byzantine=b, num_groups=5,
+                trim=min(b, (50 + b) // 2 - 1) or 1)
+            gaps[attack, agg] = float(loss(params, batch)) - f_star
+            step_ms[attack, agg] = statistics.median(times) * 1e3
+    log(f"Fig. 6 at workload A's scale (ijcnn1_like n=49,990, 50 + 20 "
+        f"workers, D=22, SAGA, 300 steps, f* {f_star:.6f}) in "
+        f"{time.perf_counter() - t0:.1f} s; optimality gap:")
+    log("  " + f"{'attack':<14}" + "".join(f"{a:>17}" for a in FIG6_RULES))
+    for attack in FIG6_ATTACKS:
+        log("  " + f"{attack:<14}"
+            + "".join(f"{gaps[attack, a]:>17.6f}" for a in FIG6_RULES))
+    log("  median step (ms):")
+    for attack in FIG6_ATTACKS:
+        log("  " + f"{attack:<14}"
+            + "".join(f"{step_ms[attack, a]:>17.3f}" for a in FIG6_RULES))
+    assert all(math.isfinite(g) for g in gaps.values()), gaps
+    assert gaps["sign_flip", "mean"] > gaps["sign_flip", "geomed"], \
+        "Fig. 6: sign_flip did not hurt mean more than geomed"
+    return gaps
+
+
+def phase_claims(torch):
+    """C2-C4 and test_krum_and_median_also_robust of
+    tests/test_convergence.py on the card, at their sizes and thresholds
+    (C1 runs in workload A's phase)."""
+    from repro_torch.data import (ijcnn1_like, logreg_full_loss_and_opt,
+                                  logreg_loss, partition)
+    loss = logreg_loss(0.01)
+    data = ijcnn1_like(SEED, n=960, device="cuda")
+    batch = {"a": data.x, "b": data.y}
+    _, f_star = logreg_full_loss_and_opt(data, iters=4000, lr=0.5)
+    wd = partition(batch, 12, seed=1, device="cuda")
+
+    def gap(params, b=batch, fs=f_star):
+        return float(loss(params, b)) - fs
+
+    attacked = dict(aggregator="geomed", attack="sign_flip", num_byzantine=5)
+    g_saga = gap(federated_run(torch, loss, wd, 700, 7, vr="saga", **attacked)[0])
+    g_sgd = gap(federated_run(torch, loss, wd, 700, 7, vr="sgd", **attacked)[0])
+    log(f"C2 sign_flip: gap Byrd-SAGA {g_saga:.5f} < 0.5 x robust SGD {g_sgd:.5f}")
+    assert g_saga < g_sgd and g_saga < 0.5 * g_sgd, (g_saga, g_sgd)
+
+    from repro_torch.core import RobustConfig, make_federated_step
+    from repro_torch.optim import get_optimizer
+    init_fn, step_fn = make_federated_step(
+        loss, wd, RobustConfig(aggregator="geomed", vr="saga", attack="none",
+                               num_byzantine=0),
+        get_optimizer("sgd", 0.02), device="cuda")
+    st = init_fn({"w": torch.zeros(22, device="cuda")}, 7)
+    gaps = []
+    for i in range(600):
+        st, _ = step_fn(st)
+        if (i + 1) % 150 == 0:
+            gaps.append(gap(st.params))
+    log(f"C3 attack-free gaps every 150 steps: {[round(g, 6) for g in gaps]} "
+        "(second < 0.7 x first or first < 1e-3; last < 0.05)")
+    assert gaps[1] < 0.7 * gaps[0] or gaps[0] < 1e-3, gaps
+    assert gaps[-1] < 0.05, gaps
+
+    data_rep = ijcnn1_like(SEED + 9, n=240, device="cuda")
+    batch_rep = {"a": data_rep.x, "b": data_rep.y}
+    _, f_rep = logreg_full_loss_and_opt(data_rep, iters=4000, lr=0.5)
+    wd_rep = partition(batch_rep, 12, mode="replicated", seed=1, device="cuda")
+    g_saga = gap(federated_run(torch, loss, wd_rep, 900, 7, vr="saga", **attacked)[0],
+                 batch_rep, f_rep)
+    g_sgd = gap(federated_run(torch, loss, wd_rep, 900, 7, vr="sgd", **attacked)[0],
+                batch_rep, f_rep)
+    log(f"C4 replicated data: gap Byrd-SAGA {g_saga:.6f} (< 0.02), robust SGD "
+        f"{g_sgd:.6f} (> 2x)")
+    assert g_saga < 0.02 and g_sgd > 2 * g_saga, (g_saga, g_sgd)
+
+    for agg in ("krum", "median", "trimmed_mean"):
+        g = gap(federated_run(torch, loss, wd, 700, 7, aggregator=agg, vr="saga",
+                              attack="sign_flip", num_byzantine=5,
+                              num_groups=4, trim=5)[0])
+        log(f"{agg} sign_flip: gap {g:.5f} (< 0.2)")
+        assert g < 0.2, f"{agg} failed: {g}"
+
+
+def phase_quickstart():
+    from repro_torch import quickstart
+    t0 = time.perf_counter()
+    gaps = quickstart.main(["--device", "cuda"])
+    log(f"quickstart on the card in {time.perf_counter() - t0:.1f} s: {gaps}")
+    assert gaps["Byrd-SAGA"] < gaps["robust SGD"], gaps
+    assert gaps["Byrd-SAGA"] < gaps["plain SAGA"], gaps
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -411,25 +689,32 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     t_start = time.perf_counter()
-    phase_card(torch)
+    card = phase_card(torch)
     phase_build()
     errs = phase_kernel_checks(torch)
     phase_workload_a(torch)
-    counts, state = phase_workload_b(torch, "geomed")
+    counts, summaries = {}, {}
+    counts["geomed"], state, summaries["geomed"] = phase_workload_b(torch, "geomed")
     timing = phase_timing(torch, state)
     del state
     torch.cuda.empty_cache()
-    phase_workload_b(torch, "mean")   # the step without the Weiszfeld loop
-    sources = {"saga_correct": ("src/repro_torch/kernels/csrc/saga_correct.cu",
-                                "src/repro/kernels/saga_correct.py:52"),
-               "partial_sqdist": ("src/repro_torch/kernels/csrc/weiszfeld.cu",
-                                  "src/repro/kernels/weiszfeld.py:58"),
-               "weighted_sum": ("src/repro_torch/kernels/csrc/weiszfeld.cu",
-                                "src/repro/kernels/weiszfeld.py:126")}
+    # The step without the Weiszfeld loop, then every other rule.
+    for agg in ("mean", "median", "trimmed_mean", "krum", "geomed_groups",
+                "centered_clip", "geomed_blockwise"):
+        counts[agg], state, summaries[agg] = phase_workload_b(torch, agg)
+        del state   # frees the 9.5 GB SAGA table before the next run
+        torch.cuda.empty_cache()
+    log(f"workload B per rule ({card}): step ms / peak GB / loss / accuracy")
+    for agg, r in summaries.items():
+        log(f"  {agg:<17} {r['step_ms']:9.3f} {r['peak_gb']:7.2f} "
+            f"{r['loss']:10.6f} {r['accuracy']:8.4f}")
+    phase_fig6(torch)
+    phase_claims(torch)
+    phase_quickstart()
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=counts[name], max_abs_err=errs[name],
-                    **timing[name])
-               for name, (src, rep) in sources.items()]
+                    launches=counts[KERNEL_PATH[name]][name],
+                    max_abs_err=errs[name], **timing[name])
+               for name, (src, rep) in KERNEL_SOURCES.items()]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,22 @@
 
 Every rule maps a (W, D) buffer to the (D,) float32 aggregate and takes an
 optional ``row_weights`` (W,) vector; ``None`` keeps the unweighted path and
-weight 0 removes a row exactly.  Ported rules: ``mean`` (the non-robust
-baseline) and ``geomed`` (the paper's geometric median).
+weight 0 removes a row exactly.  Rules, as in the reference's registry:
+
+* ``mean``             -- the non-robust baseline.
+* ``median``           -- coordinate-wise median [11] (kernel K4 on the card).
+* ``trimmed_mean``     -- coordinate-wise ``trim``-trimmed mean [12] (K5).
+* ``geomed``           -- the paper's geometric median (K2, K3).
+* ``geomed_groups``    -- geometric median of contiguous group means.
+* ``krum``             -- Krum selection [14]; needs B in advance.
+* ``centered_clip``    -- centered clipping from the coordinate median (K4).
+* ``geomed_blockwise`` -- one geometric median per leaf of the packed
+  buffer (K6, K3).
+
+The weighted forms of ``median`` and ``trimmed_mean`` sort with the weights
+along each coordinate in plain PyTorch on both devices, as the reference
+computes them outside any kernel; so do Krum's Gram product and its (W, W)
+sort.
 """
 from __future__ import annotations
 
@@ -13,12 +27,22 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.geomed import weiszfeld_flat
+from repro_torch.core import packing
+from repro_torch.core.geomed import weiszfeld_blockwise_flat, weiszfeld_flat
+from repro_torch.kernels import ops
 
 FlatAggregator = Callable[..., torch.Tensor]  # (W, D)[, row_weights] -> (D,)
 
 # Guards weight-sum divisions when every row is dropped (all weights 0).
 _WEIGHT_FLOOR = 1e-8
+
+
+def _sorted_with_weights(buf: torch.Tensor, row_weights: torch.Tensor):
+    """Per-coordinate ascending sort of ``buf`` with the weight vector
+    permuted along each coordinate's sort order -> (vals, wsort).  Stable,
+    as ``jnp.argsort`` is."""
+    vals, order = torch.sort(buf.float(), dim=0, stable=True)
+    return vals, row_weights.float()[order]
 
 
 def mean_flat(buf: torch.Tensor, *, row_weights=None) -> torch.Tensor:
@@ -29,28 +53,197 @@ def mean_flat(buf: torch.Tensor, *, row_weights=None) -> torch.Tensor:
     return num / torch.clamp(torch.sum(w), min=_WEIGHT_FLOOR)
 
 
+def median_flat(buf: torch.Tensor, *, row_weights=None) -> torch.Tensor:
+    if row_weights is None:
+        return ops.coordinate_median(buf.float().contiguous())
+    # Weighted median per coordinate: the smallest value whose cumulative
+    # weight reaches half the total mass (dropped rows carry zero mass and
+    # can never be selected unless everything is dropped).
+    vals, wsort = _sorted_with_weights(buf, row_weights)
+    cum = torch.cumsum(wsort, dim=0)
+    half = 0.5 * torch.sum(row_weights.float())
+    sel = torch.argmax((cum >= half).to(torch.uint8), dim=0)       # (D,)
+    return torch.gather(vals, 0, sel[None])[0]
+
+
+def trimmed_mean_flat(buf: torch.Tensor, *, trim: int,
+                      row_weights=None) -> torch.Tensor:
+    w = buf.shape[0]
+    if 2 * trim >= w:
+        raise ValueError(f"trim={trim} too large for W={w}")
+    if row_weights is None:
+        return ops.trimmed_mean(buf.float().contiguous(), trim=trim)
+    # Weight-MASS trimming: per coordinate, drop the trim/W fraction of the
+    # total weight mass from each tail and average what remains (unit
+    # weights give the unweighted rule; zero-weight rows occupy no mass).
+    vals, wsort = _sorted_with_weights(buf, row_weights)
+    total = torch.sum(row_weights.float())
+    lo = (trim / w) * total
+    hi = ((w - trim) / w) * total
+    cum = torch.cumsum(wsort, dim=0)
+    kept = torch.clamp(torch.minimum(cum, hi) - torch.maximum(cum - wsort, lo),
+                       min=0.0)
+    return torch.sum(kept * vals, dim=0) / torch.clamp(hi - lo,
+                                                       min=_WEIGHT_FLOOR)
+
+
 def geomed_flat(buf: torch.Tensor, *, max_iters: int = 64, tol: float = 1e-6,
                 row_weights=None) -> torch.Tensor:
     return weiszfeld_flat(buf, max_iters=max_iters, tol=tol,
                           row_weights=row_weights)
 
 
-_FLAT_REGISTRY: dict[str, Callable[[dict], FlatAggregator]] = {
-    "mean": lambda o: mean_flat,
-    "geomed": lambda o: functools.partial(
+def _group_onehot(w: int, num_groups: int, device) -> torch.Tensor:
+    """(G, W) membership of the contiguous worker groups of [10]/[18]
+    (block sizes differ by at most one)."""
+    ids = (torch.arange(w, device=device) * num_groups) // w
+    return (ids[None, :] == torch.arange(num_groups, device=device)[:, None]
+            ).float()
+
+
+def group_means(z: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """Contiguous-block group means over the worker axis of a (W, ...)
+    tensor -> (num_groups, ...)."""
+    w = z.shape[0]
+    flat = z.reshape(w, -1).float()
+    onehot = _group_onehot(w, num_groups, z.device)
+    sums = onehot @ flat
+    counts = torch.sum(onehot, dim=1)
+    return (sums / counts[:, None]).reshape((num_groups,) + tuple(z.shape[1:])
+                                            ).to(z.dtype)
+
+
+def geomed_groups_flat(buf: torch.Tensor, *, num_groups: int,
+                       max_iters: int = 64, tol: float = 1e-6,
+                       row_weights=None) -> torch.Tensor:
+    if row_weights is None:
+        grouped = group_means(buf.float(), num_groups)              # (G, D)
+        return weiszfeld_flat(grouped, max_iters=max_iters, tol=tol)
+    # Weighted group means; each group enters the outer Weiszfeld with its
+    # total member mass (a group of all-dropped rows has mass 0).
+    wts = row_weights.float()
+    onehot = _group_onehot(buf.shape[0], num_groups, buf.device)
+    sums = onehot @ (buf.float() * wts[:, None])
+    mass = onehot @ wts
+    grouped = sums / torch.clamp(mass, min=_WEIGHT_FLOOR)[:, None]
+    return weiszfeld_flat(grouped, max_iters=max_iters, tol=tol,
+                          row_weights=mass)
+
+
+def flat_sq_dists(flat: torch.Tensor) -> torch.Tensor:
+    """(W, W) pairwise squared distances of packed (W, D) messages, by the
+    Gram product (a float32 matmul: TF32 must stay off for it)."""
+    flat = flat.float()
+    sq = torch.sum(flat ** 2, dim=-1)
+    d2 = sq[:, None] + sq[None, :] - 2.0 * (flat @ flat.T)
+    return torch.clamp(d2, min=0.0)
+
+
+def krum_scores(d2: torch.Tensor, num_byzantine: int) -> torch.Tensor:
+    """Krum scores from a (W, W) squared-distance matrix: per row, the sum
+    of the W-B-2 smallest off-diagonal entries (self-distance masked to
+    +inf)."""
+    w = d2.shape[0]
+    d2 = torch.clamp(d2, min=0.0) + torch.diag(
+        torch.full((w,), float("inf"), dtype=d2.dtype, device=d2.device))
+    n_near = max(w - num_byzantine - 2, 1)
+    return torch.sum(torch.sort(d2, dim=1).values[:, :n_near], dim=1)
+
+
+def krum_flat(buf: torch.Tensor, *, num_byzantine: int,
+              row_weights=None) -> torch.Tensor:
+    """Krum [14] on the packed buffer: score = sum of squared distances to
+    the W-B-2 nearest other messages; output the winning row."""
+    if row_weights is None:
+        scores = krum_scores(flat_sq_dists(buf), num_byzantine)
+        return buf.float()[torch.argmin(scores)]
+    # Weighted Krum: dropped rows (weight 0) are neither neighbours nor
+    # candidates, the neighbour count shrinks to the live rows, and live
+    # scores are divided by their weight.
+    w = buf.shape[0]
+    big = torch.tensor(1e30, dtype=torch.float32, device=buf.device)
+    wts = row_weights.float()
+    alive = wts > 0.0
+    d2 = flat_sq_dists(buf) + torch.diag(big.expand(w))
+    d2 = torch.where(alive[None, :], d2, big)
+    ds = torch.sort(d2, dim=1).values
+    m = torch.sum(alive.to(torch.int32))
+    n_near = torch.clamp(m - num_byzantine - 2, 1, max(w - 1, 1))
+    keep = (torch.arange(w, device=buf.device)[None, :] < n_near) & (ds < big)
+    scores = torch.sum(torch.where(keep, ds, 0.0), dim=1)
+    scores = torch.where(alive, scores / torch.clamp(wts, min=_WEIGHT_FLOOR),
+                         big)
+    return buf.float()[torch.argmin(scores)]
+
+
+def centered_clip_flat(buf: torch.Tensor, *, radius: float = 1.0,
+                       iters: int = 3, row_weights=None) -> torch.Tensor:
+    """Centered clipping (Karimireddy et al. 2021): v <- v + mean_w
+    clip(m_w - v, radius), iterated from the coordinate median (the
+    weighted median and weight-normalized means with ``row_weights``)."""
+    b32 = buf.float()
+    if row_weights is None:
+        v = median_flat(b32)
+    else:
+        v = median_flat(b32, row_weights=row_weights)
+        wnorm = row_weights.float()
+        wnorm = wnorm / torch.clamp(torch.sum(wnorm), min=_WEIGHT_FLOOR)
+    for _ in range(iters):
+        diffs = b32 - v[None]
+        sq = torch.sum(diffs * diffs, dim=-1)
+        scale = torch.clamp(radius / torch.clamp(torch.sqrt(sq), min=1e-12),
+                            max=1.0)
+        if row_weights is None:
+            v = v + torch.mean(diffs * scale[:, None], dim=0)
+        else:
+            v = v + torch.sum(diffs * (scale * wnorm)[:, None], dim=0)
+    return v
+
+
+def geomed_blockwise_flat(buf: torch.Tensor, *, spec: packing.PackSpec,
+                          max_iters: int = 64, tol: float = 1e-6,
+                          row_weights=None) -> torch.Tensor:
+    """Per-leaf geometric median on the packed buffer: each leaf's
+    coordinate slice stops on its own (the reference's independent per-leaf
+    loops); padding coordinates aggregate to zero."""
+    return weiszfeld_blockwise_flat(buf, spec.boundaries, max_iters=max_iters,
+                                    tol=tol, row_weights=row_weights)
+
+
+# name -> builder(spec, opts) -> FlatAggregator; the reference's names.
+_FLAT_REGISTRY: dict[str, Callable[[packing.PackSpec, dict], FlatAggregator]] = {
+    "mean": lambda spec, o: mean_flat,
+    "median": lambda spec, o: median_flat,
+    "trimmed_mean": lambda spec, o: functools.partial(
+        trimmed_mean_flat, trim=o.get("trim", 1)),
+    "geomed": lambda spec, o: functools.partial(
         geomed_flat, max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6)),
+    "geomed_groups": lambda spec, o: functools.partial(
+        geomed_groups_flat, num_groups=o["num_groups"],
+        max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6)),
+    "krum": lambda spec, o: functools.partial(
+        krum_flat, num_byzantine=o.get("num_byzantine", 0)),
+    "centered_clip": lambda spec, o: functools.partial(
+        centered_clip_flat, radius=o.get("clip_radius", 1.0)),
+    "geomed_blockwise": lambda spec, o: functools.partial(
+        geomed_blockwise_flat, spec=spec,
+        max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6)),
 }
 
 AGGREGATOR_NAMES = tuple(_FLAT_REGISTRY)
 
 # The reference's rules that the port does not carry yet.
-UNPORTED = ("median", "trimmed_mean", "krum", "geomed_groups",
-            "centered_clip", "geomed_blockwise")
+UNPORTED: tuple[str, ...] = ()
 
 
-def get_flat_aggregator(name: str, **opts) -> FlatAggregator:
+def get_flat_aggregator(name: str, spec: packing.PackSpec | None,
+                        **opts) -> FlatAggregator:
     """Build a flat aggregator ``fn(buf (W, D)) -> (D,) f32`` by name.
-    Options: ``max_iters``, ``tol`` (geomed)."""
+
+    ``spec`` is the buffer's :class:`~repro_torch.core.packing.PackSpec`
+    (``geomed_blockwise`` reads its leaf boundaries; the other rules take
+    ``None`` as well).  Options: ``max_iters``, ``tol`` (Weiszfeld rules),
+    ``num_groups``, ``trim``, ``num_byzantine``, ``clip_radius``."""
     if opts.get("diagnostics"):
         raise ValueError("aggregation diagnostics are not ported yet "
                          "(ROADMAP.md Queue A item 7)")
@@ -58,8 +251,8 @@ def get_flat_aggregator(name: str, **opts) -> FlatAggregator:
         build = _FLAT_REGISTRY[name]
     except KeyError:
         raise ValueError(
-            f"unknown aggregator {name!r}; ported: "
-            f"{', '.join(sorted(_FLAT_REGISTRY))}; still to port from the "
-            f"reference: {', '.join(UNPORTED)} (ROADMAP.md Queue A item 4)"
-        ) from None
-    return build(opts)
+            f"unknown aggregator {name!r}; known: "
+            f"{', '.join(sorted(_FLAT_REGISTRY))}") from None
+    if name == "geomed_blockwise" and spec is None:
+        raise ValueError("geomed_blockwise needs the buffer's PackSpec")
+    return build(spec, opts)

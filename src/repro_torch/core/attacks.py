@@ -8,6 +8,10 @@ the honest messages (omniscient, colluding).
 * ``gaussian``      -- N(mean(honest), 30 I) per coordinate.
 * ``sign_flip``     -- u * mean(honest) with u = -3.
 * ``zero_gradient`` -- -(1/B) sum(honest): the mean of all W messages is 0.
+* ``alie``          -- "a little is enough": mean + z * std per coordinate
+  (the population std, as ``jnp.std``), written against coordinate-wise
+  rules.
+* ``ipm``           -- inner-product manipulation: -eps * mean(honest).
 * ``none``          -- no Byzantine rows.
 
 ``gaussian`` draws its noise from the caller's :class:`torch.Generator`, or
@@ -30,6 +34,8 @@ class AttackConfig:
     # Attack-specific knobs (paper values as defaults).
     gaussian_variance: float = 30.0
     sign_flip_magnitude: float = -3.0
+    alie_z: float = 1.0
+    ipm_eps: float = 0.5
 
 
 def _append(honest: torch.Tensor, byz: torch.Tensor) -> torch.Tensor:
@@ -68,18 +74,30 @@ def zero_gradient_attack(cfg, honest, generator, noise):
                                  cfg.num_byzantine))
 
 
+def alie_attack(cfg, honest, generator, noise):
+    stats = (torch.mean(honest, dim=0)
+             + cfg.alie_z * torch.std(honest, dim=0, correction=0))
+    return _append(honest, _rows(stats, cfg.num_byzantine))
+
+
+def ipm_attack(cfg, honest, generator, noise):
+    return _append(honest, _rows(-cfg.ipm_eps * torch.mean(honest, dim=0),
+                                 cfg.num_byzantine))
+
+
 _ATTACKS: dict[str, Callable] = {
     "none": none_attack,
     "gaussian": gaussian_attack,
     "sign_flip": sign_flip_attack,
     "zero_gradient": zero_gradient_attack,
+    "alie": alie_attack,
+    "ipm": ipm_attack,
 }
 
 ATTACK_NAMES = tuple(_ATTACKS)
 
 # The reference's attacks that the port does not carry yet.
-UNPORTED = ("alie", "ipm", "straggler", "dropout", "nan", "inf_overflow",
-            "bitflip")
+UNPORTED = ("straggler", "dropout", "nan", "inf_overflow", "bitflip")
 
 
 def check_attack_name(name: str) -> None:

@@ -14,11 +14,23 @@ PyTorch ops, then kernel K3 (``weighted_sum``) on a CUDA device, or their
 plain versions on the CPU.  The early stop reads the iterate's move on the
 host after every iteration -- one device-to-host sync per iteration -- so
 the loop runs exactly the iterations the reference's ``while_loop`` runs.
+
+:func:`weiszfeld_blockwise_flat` solves one geometric median per block of
+coordinates (a pytree leaf of the packed buffer, ``geomed_blockwise``).
+The reference runs an independent loop per block; here every block runs in
+lockstep and keeps its own stop: one kernel K6 sweep per iteration gives
+all (W, L) per-block distances, each still-active block takes one K3 sum
+over its column slice, and one host read of the (L,) moves per iteration
+freezes every block whose move reached ``tol`` or that has run
+``max_iters``.  A frozen block keeps its iterate and launches nothing
+more, so each block runs exactly the iterations of its own loop in the
+reference.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -37,6 +49,11 @@ class WeiszfeldInfo(NamedTuple):
     converged: bool  # residual <= tol
 
 
+def _f32_tol(tol: float) -> float:
+    """The reference compares its float32 move with tol rounded to float32."""
+    return float(torch.tensor(tol, dtype=torch.float32))
+
+
 def weiszfeld_flat(buf: torch.Tensor, *, max_iters: int = 64,
                    tol: float = 1e-6,
                    row_weights: torch.Tensor | None = None,
@@ -48,8 +65,7 @@ def weiszfeld_flat(buf: torch.Tensor, *, max_iters: int = 64,
     z = buf.float().contiguous()
     rw = None if row_weights is None else row_weights.float()
     y = torch.mean(z, dim=0)
-    # The reference compares its float32 move with tol rounded to float32.
-    tol = float(torch.tensor(tol, dtype=torch.float32))
+    tol = _f32_tol(tol)
     delta, it = math.inf, 0
     while it < max_iters and delta > tol:
         inv = 1.0 / torch.clamp(torch.sqrt(ops.partial_sqdist(z, y)),
@@ -63,4 +79,65 @@ def weiszfeld_flat(buf: torch.Tensor, *, max_iters: int = 64,
     if return_info:
         return y, WeiszfeldInfo(residual=delta, iters=it,
                                 converged=delta <= tol)
+    return y
+
+
+@functools.lru_cache(maxsize=64)
+def segment_ids(boundaries: tuple[tuple[int, int], ...], dim: int,
+                device: torch.device) -> torch.Tensor:
+    """(dim,) int32 block id of each coordinate, from the blocks' static
+    (start, stop) ranges; a coordinate in no block gets id ``len(boundaries)``
+    (outside ``[0, L)``, so kernel K6 counts it nowhere)."""
+    ids = torch.full((dim,), len(boundaries), dtype=torch.int32)
+    for block, (a, b) in enumerate(boundaries):
+        ids[a:b] = block
+    return ids.to(device)
+
+
+def weiszfeld_blockwise_flat(buf: torch.Tensor,
+                             boundaries: Sequence[tuple[int, int]], *,
+                             max_iters: int = 64, tol: float = 1e-6,
+                             row_weights: torch.Tensor | None = None,
+                             return_info: bool = False):
+    """Geometric median of each block ``buf[:, a:b]`` of one packed (W, D)
+    message matrix, every block with its own stop -> (D,) float32 (and one
+    :class:`WeiszfeldInfo` per block with ``return_info``).  Coordinates
+    in no block (padding) aggregate to 0."""
+    if buf.dim() != 2:
+        raise ValueError(f"weiszfeld_blockwise_flat expects (W, D), got "
+                         f"{tuple(buf.shape)}")
+    z = buf.float().contiguous()
+    blocks = tuple((int(a), int(b)) for a, b in boundaries)
+    seg = segment_ids(blocks, z.shape[1], z.device)
+    rw = None if row_weights is None else row_weights.float()
+    y = torch.zeros((z.shape[1],), dtype=torch.float32, device=z.device)
+    for a, b in blocks:
+        y[a:b] = torch.mean(z[:, a:b], dim=0)
+    tol = _f32_tol(tol)
+    delta = [math.inf] * len(blocks)
+    iters = [0] * len(blocks)
+
+    def still_active(ids):
+        return [i for i in ids if iters[i] < max_iters and delta[i] > tol]
+
+    active = still_active(range(len(blocks)))
+    while active:
+        sq = ops.partial_sqdist_segments(z, y, seg, num_segments=len(blocks))
+        inv = 1.0 / torch.clamp(torch.sqrt(sq), min=_DIST_FLOOR)   # (W, L)
+        if rw is not None:
+            inv = inv * rw[:, None]
+        wsum = torch.clamp(torch.sum(inv, dim=0), min=_DIST_FLOOR)  # (L,)
+        inv = inv.t().contiguous()                                  # (L, W)
+        moves = []
+        for i in active:
+            a, b = blocks[i]
+            y_new = ops.weighted_sum(z[:, a:b], inv[i]) / wsum[i]
+            moves.append(torch.sum((y_new - y[a:b]) ** 2))
+            y[a:b] = y_new
+        for i, move in zip(active, torch.sqrt(torch.stack(moves)).tolist()):
+            delta[i], iters[i] = move, iters[i] + 1
+        active = still_active(active)
+    if return_info:
+        return y, [WeiszfeldInfo(residual=d, iters=n, converged=d <= tol)
+                   for d, n in zip(delta, iters)]
     return y

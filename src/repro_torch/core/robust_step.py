@@ -9,7 +9,8 @@ rows are injected by an attack model, the master aggregates the packed
 
 Per-sample gradients come from ``torch.func`` (``grad`` vmapped over the
 sample axis).  On a CUDA device the SAGA correction runs kernel K1 and the
-geometric median kernels K2 and K3; on the CPU their plain versions run.
+aggregation rules their kernels (K2-K6, see :mod:`repro_torch.core.aggregators`);
+on the CPU their plain versions run.
 The SAGA table, the step's generator and the state passed to ``step_fn``
 are updated in place (see :mod:`repro_torch.core.saga`).
 """
@@ -34,8 +35,9 @@ Params = dict[str, torch.Tensor]
 # its default (the features behind them are still to port, ROADMAP.md
 # Queue A items 7-10).
 _SLICE_FIELDS = ("aggregator", "vr", "attack", "num_byzantine",
-                 "weiszfeld_iters", "weiszfeld_tol", "gaussian_variance",
-                 "sign_flip_magnitude")
+                 "weiszfeld_iters", "weiszfeld_tol", "num_groups", "trim",
+                 "clip_radius", "gaussian_variance", "sign_flip_magnitude",
+                 "alie_z", "ipm_eps")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,7 +102,8 @@ class RobustConfig:
         return attack_lib.AttackConfig(
             name=self.attack, num_byzantine=self.num_byzantine,
             gaussian_variance=self.gaussian_variance,
-            sign_flip_magnitude=self.sign_flip_magnitude)
+            sign_flip_magnitude=self.sign_flip_magnitude,
+            alie_z=self.alie_z, ipm_eps=self.ipm_eps)
 
     def message_spec(self, tree: Params, *, batch_ndim: int = 1
                      ) -> packing.PackSpec:
@@ -108,11 +111,15 @@ class RobustConfig:
         return packing.pack_spec(tree, batch_ndim=batch_ndim,
                                  wire=self.message_dtype)
 
-    def flat_aggregator_fn(self) -> agg_lib.FlatAggregator:
-        """Flat aggregator ``(W, D) -> (D,) f32`` for this config."""
+    def flat_aggregator_fn(self, spec: packing.PackSpec
+                           ) -> agg_lib.FlatAggregator:
+        """Flat aggregator ``(W, D) -> (D,) f32`` for this config's messages
+        laid out by ``spec``."""
         return agg_lib.get_flat_aggregator(
-            self.aggregator, max_iters=self.weiszfeld_iters,
-            tol=self.weiszfeld_tol)
+            self.aggregator, spec,
+            max_iters=self.weiszfeld_iters, tol=self.weiszfeld_tol,
+            num_groups=self.num_groups, trim=self.trim,
+            num_byzantine=self.num_byzantine, clip_radius=self.clip_radius)
 
 
 class FederatedState(NamedTuple):
@@ -152,7 +159,9 @@ def make_federated_step(
     wh, j = next(iter(data.values())).shape[:2]
     attack_cfg = cfg.attack_config()
     reducer = cfg.reducer()
-    flat_fn = cfg.flat_aggregator_fn()
+    # The rule is built from the messages' PackSpec, which the first step
+    # reads from its gradients (a state may come from elsewhere than init_fn).
+    flat_fns: dict[packing.PackSpec, agg_lib.FlatAggregator] = {}
     # One gradient per sample: each sample is a batch of one, as in the
     # reference's per-worker grad of sample_batch(data_w, idx[None]).
     per_sample_grads = torch.func.vmap(torch.func.grad(loss_fn),
@@ -207,7 +216,9 @@ def make_federated_step(
         var = telemetry.honest_variance(honest, wh)
         msgs = attack_lib.apply_attack(attack_cfg, honest, state.generator,
                                        noise=attack_noise)    # (W, D)
-        agg = spec.unpack(flat_fn(msgs), batch_ndim=0)
+        if spec not in flat_fns:
+            flat_fns[spec] = cfg.flat_aggregator_fn(spec)
+        agg = spec.unpack(flat_fns[spec](msgs), batch_ndim=0)
         updates, opt_state = optimizer.update(agg, state.opt_state, params,
                                               state.step)
         new_params = optim_lib.apply_updates(params, updates)

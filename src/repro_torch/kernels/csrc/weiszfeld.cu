@@ -13,10 +13,26 @@
 // K3 weighted_sum: out[d] = sum_w a[w] * z[w, d]  (unnormalized).
 // Replaces: repro/kernels/weiszfeld.py, weighted_sum_call (_wsum_kernel).
 // One thread per coordinate loops over the W rows in order; the W weights sit
-// in shared memory and a warp's loads of one row are coalesced along D.
+// in shared memory and a warp's loads of one row are coalesced along D.  Rows
+// lie `ld` floats apart (ld >= D), so a column slice z[:, a:b] of a wider
+// buffer is read in place.
+//
+// K6 partial_sqdist_segments: out[w, s] = sum over the coordinates d of
+// segment s of (z[w, d] - y[d])^2, for s in [0, L); a coordinate whose
+// seg_ids[d] lies outside [0, L) (padding) counts nowhere.
+// Replaces: repro/kernels/weiszfeld.py, partial_sqdist_segments_call
+// (_sqdist_seg_kernel), which takes an (L, p) one-hot membership matrix and
+// accumulates a (W, L) block across its sequential grid.  The port takes the
+// (D,) int32 ids instead (the same function without L x the bytes) and
+// reduces in two passes like K2: a (D-chunk, worker) grid writes one partial
+// sum per (worker, segment, chunk) -- each block sums only the segments its
+// chunk holds, one fixed-order block reduction each, and writes 0 for the
+// rest -- then one block per (worker, segment) sums its row of chunks.  No
+// atomics: the same inputs give the same bits on every run.
 //
 // Bound on the H100: device-memory bytes.  Each sweep reads the W * D * 4
-// bytes of z once (11.1 MB at W = 70, D = 39,760) for 2-3 flops per element.
+// bytes of z once (11.1 MB at W = 70, D = 39,760) for 2-3 flops per element
+// (K6 also reads the D * 4 bytes of the ids).
 // Inside the Weiszfeld loop z is re-read every iteration and fits in the
 // 50 MB L2, so the sweeps may run above the HBM rate.
 #include "common.cuh"
@@ -28,7 +44,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kItems = 8;
 constexpr int kChunk = kThreads * kItems;  // coordinates per first-pass block
 
-// Deterministic block sum; the result is valid in thread 0 only.
+// Deterministic block sum; the result is valid in thread 0 only.  Every
+// thread of the block must call it; it may be called again right away.
 __device__ float block_sum(float v) {
   __shared__ float warp_sums[kWarps];
 #pragma unroll
@@ -40,7 +57,29 @@ __device__ float block_sum(float v) {
 #pragma unroll
     for (int i = 0; i < kWarps; ++i) total += warp_sums[i];
   }
+  __syncthreads();
   return total;
+}
+
+// Block-wide min of `lo` and max of `hi`, returned to every thread.
+__device__ void block_range(int& lo, int& hi) {
+  __shared__ int warp_lo[kWarps], warp_hi[kWarps];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+  }
+  if ((threadIdx.x & 31) == 0) {
+    warp_lo[threadIdx.x >> 5] = lo;
+    warp_hi[threadIdx.x >> 5] = hi;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kWarps; ++i) {
+    lo = min(lo, warp_lo[i]);
+    hi = max(hi, warp_hi[i]);
+  }
+  __syncthreads();
 }
 
 __global__ void sqdist_partial_kernel(const float* __restrict__ z,
@@ -72,9 +111,52 @@ __global__ void sqdist_finish_kernel(const float* __restrict__ partial,
   if (threadIdx.x == 0) out[blockIdx.x] = s;
 }
 
+// Pass one of K6: partial[(w * L + s) * nchunks + chunk].
+__global__ void sqdist_segments_partial_kernel(const float* __restrict__ z,
+                                               const float* __restrict__ y,
+                                               const int* __restrict__ seg,
+                                               float* __restrict__ partial,
+                                               int64_t D, int L, int nchunks) {
+  const int w = blockIdx.y;
+  const float* zw = z + static_cast<int64_t>(w) * D;
+  const int64_t start = static_cast<int64_t>(blockIdx.x) * kChunk + threadIdx.x;
+  float d2[kItems];
+  int sid[kItems];
+  int lo = L, hi = -1;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int64_t i = start + static_cast<int64_t>(k) * kThreads;
+    d2[k] = 0.f;
+    sid[k] = -1;
+    if (i < D) {
+      const int s = seg[i];
+      if (s >= 0 && s < L) {
+        const float d = zw[i] - y[i];
+        d2[k] = d * d;
+        sid[k] = s;
+        lo = min(lo, s);
+        hi = max(hi, s);
+      }
+    }
+  }
+  block_range(lo, hi);   // the segments this chunk holds: [lo, hi]
+  float* out = partial + static_cast<int64_t>(w) * L * nchunks + blockIdx.x;
+  for (int s = 0; s < L; ++s) {
+    float total = 0.f;
+    if (s >= lo && s <= hi) {   // the same branch for the whole block
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) acc += (sid[k] == s) ? d2[k] : 0.f;
+      total = block_sum(acc);
+    }
+    if (threadIdx.x == 0) out[static_cast<int64_t>(s) * nchunks] = total;
+  }
+}
+
 __global__ void weighted_sum_kernel(const float* __restrict__ z,
                                     const float* __restrict__ a,
-                                    float* __restrict__ out, int W, int64_t D) {
+                                    float* __restrict__ out, int W, int64_t D,
+                                    int64_t ld) {
   extern __shared__ float s_a[];
   for (int w = threadIdx.x; w < W; w += blockDim.x) s_a[w] = a[w];
   __syncthreads();
@@ -82,7 +164,7 @@ __global__ void weighted_sum_kernel(const float* __restrict__ z,
   if (i >= D) return;
   float acc = 0.f;
 #pragma unroll 8
-  for (int w = 0; w < W; ++w) acc = fmaf(s_a[w], z[static_cast<int64_t>(w) * D + i], acc);
+  for (int w = 0; w < W; ++w) acc = fmaf(s_a[w], z[static_cast<int64_t>(w) * ld + i], acc);
   out[i] = acc;
 }
 
@@ -112,14 +194,38 @@ REPRO_EXPORT int partial_sqdist_f32(const float* z, const float* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-// z: (W, D), a: (W,), out: (D,); float32, contiguous; W * 4 bytes of shared
-// memory, so W <= 12,288.
+// z: (W, D) with rows ld >= D floats apart, a: (W,), out: (D,); float32,
+// a and out contiguous; W * 4 bytes of shared memory, so W <= 12,288.
 REPRO_EXPORT int weighted_sum_f32(const float* z, const float* a, float* out,
-                                  int W, long long D, void* stream) {
+                                  int W, long long D, long long ld,
+                                  void* stream) {
   if (D == 0) return static_cast<int>(cudaGetLastError());
   const unsigned blocks = static_cast<unsigned>((D + kThreads - 1) / kThreads);
   weighted_sum_kernel<<<blocks, kThreads, W * sizeof(float),
-                        static_cast<cudaStream_t>(stream)>>>(z, a, out, W,
-                                                             static_cast<int64_t>(D));
+                        static_cast<cudaStream_t>(stream)>>>(
+      z, a, out, W, static_cast<int64_t>(D), static_cast<int64_t>(ld));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// z: (W, D), y: (D,), seg: (D,) int32, partial: (W, L,
+// partial_sqdist_scratch_cols(D)), out: (W, L); float32, contiguous.
+// Launches both passes on `stream`.
+REPRO_EXPORT int partial_sqdist_segments_f32(const float* z, const float* y,
+                                             const int* seg, float* partial,
+                                             float* out, int W, long long D,
+                                             int L, void* stream) {
+  if (W == 0 || L == 0) return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int nchunks = partial_sqdist_scratch_cols(D);
+  if (nchunks > 0) {
+    const dim3 grid(static_cast<unsigned>(nchunks), static_cast<unsigned>(W));
+    sqdist_segments_partial_kernel<<<grid, kThreads, 0, s>>>(
+        z, y, seg, partial, static_cast<int64_t>(D), L, nchunks);
+    const int rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
+  }
+  // (W * L) rows of nchunks partials, summed one block per row.
+  sqdist_finish_kernel<<<static_cast<unsigned>(W) * L, kThreads, 0, s>>>(
+      partial, out, nchunks);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import robust_stats as rs
 from repro_torch.kernels import saga_correct as sc
 from repro_torch.kernels import weiszfeld as wz
 
@@ -46,6 +47,38 @@ def weighted_sum(z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     if _on_card(z):
         return wz.weighted_sum_call(z, a)
     return wz.weighted_sum_plain(z, a)
+
+
+def partial_sqdist_segments(z: torch.Tensor, y: torch.Tensor,
+                            seg_ids: torch.Tensor, *,
+                            num_segments: int) -> torch.Tensor:
+    """K6: z (W, D), y (D,), seg_ids (D,) int32 -> (W, num_segments)
+    per-(worker, segment) squared distances; an id outside
+    ``[0, num_segments)`` (padding) counts nowhere."""
+    wz.check_inputs("partial_sqdist_segments", z, y, z.shape[-1])
+    wz.check_segments(z, seg_ids, num_segments)
+    if _on_card(z):
+        return wz.partial_sqdist_segments_call(z, y, seg_ids, num_segments)
+    return wz.partial_sqdist_segments_plain(z, y, seg_ids, num_segments)
+
+
+def coordinate_median(z: torch.Tensor) -> torch.Tensor:
+    """K4: z (W, D) -> (D,) per-coordinate median (even W: the mean of the
+    two middle values)."""
+    rs.check_inputs("coordinate_median", z)
+    if _on_card(z):
+        return rs.coordinate_median_call(z)
+    return rs.coordinate_median_plain(z)
+
+
+def trimmed_mean(z: torch.Tensor, *, trim: int = 1) -> torch.Tensor:
+    """K5: z (W, D) -> (D,) per-coordinate mean without the ``trim``
+    smallest and ``trim`` largest values; ``2 * trim < W``."""
+    rs.check_inputs("trimmed_mean", z)
+    rs.check_trim(z, trim)
+    if _on_card(z):
+        return rs.trimmed_mean_call(z, trim)
+    return rs.trimmed_mean_plain(z, trim)
 
 
 def launch_counts() -> dict[str, int]:

@@ -15,6 +15,17 @@ def partial_sqdist(z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.sum(d * d, dim=-1)
 
 
+def partial_sqdist_segments(z: torch.Tensor, y: torch.Tensor,
+                            seg_ids: torch.Tensor,
+                            num_segments: int) -> torch.Tensor:
+    """z: (W, p), y: (p,), seg_ids: (p,) block ids -> (W, num_segments)
+    per-(worker, block) squared distances."""
+    d2 = (z.float() - y.float()[None]) ** 2
+    onehot = (seg_ids.long()[None, :] == torch.arange(
+        num_segments, device=z.device)[:, None]).float()
+    return d2 @ onehot.T
+
+
 def weighted_sum(z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """sum_i w[i] z[i] / sum(w); z: (W, p), w: (W,) -> (p,)."""
     return (w.float() @ z.float()) / torch.sum(w.float())
@@ -47,3 +58,16 @@ def saga_correct(grad: torch.Tensor, table: torch.Tensor, avg: torch.Tensor,
     new_table = table.clone()
     new_table[w_ids, idx] = grad.to(table.dtype)
     return msg.to(grad.dtype), new_avg.to(avg.dtype), new_table
+
+
+def coordinate_median(z: torch.Tensor) -> torch.Tensor:
+    """z: (W, p) -> (p,) elementwise median (even W: the midpoint of the two
+    middle values, as ``jnp.median``)."""
+    return torch.quantile(z.float(), 0.5, dim=0,
+                          interpolation="midpoint").to(z.dtype)
+
+
+def trimmed_mean(z: torch.Tensor, trim: int) -> torch.Tensor:
+    s = torch.sort(z, dim=0).values
+    w = z.shape[0]
+    return torch.mean(s[trim:w - trim].float(), dim=0).to(z.dtype)

@@ -1,4 +1,4 @@
-"""K2 and K3: the two sweeps of a Weiszfeld iteration (port of
+"""K2, K3 and K6: the sweeps of a Weiszfeld iteration (port of
 ``repro/kernels/weiszfeld.py``).
 
 * :func:`partial_sqdist_call` -- per-worker squared distance
@@ -6,8 +6,13 @@
   Two passes on the card (per-block partial sums, then one fixed-order
   reduction per worker), so the result is the same bits on every run.
 * :func:`weighted_sum_call`   -- unnormalized ``sum_w a_w z_w`` -> (D,).
+  ``z`` may be a column slice of a wider buffer (rows ``z.stride(0)``
+  apart), which is read in place.
+* :func:`partial_sqdist_segments_call` -- per-(worker, segment) squared
+  distances -> (W, L), given each coordinate's segment id (an id outside
+  ``[0, L)`` counts nowhere).  Two passes like K2, the same bits each run.
 
-Both launch the CUDA kernels of ``csrc/weiszfeld.cu`` on float32 inputs;
+All launch the CUDA kernels of ``csrc/weiszfeld.cu`` on float32 inputs;
 ``*_plain`` are the same functions in plain PyTorch, which the CPU path
 runs and the card's checks compare against.
 """
@@ -24,7 +29,9 @@ _SIGNATURES = {
     "partial_sqdist_f32": [ctypes.c_void_p] * 4 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
     "weighted_sum_f32": [ctypes.c_void_p] * 3 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p],
+    "partial_sqdist_segments_f32": [ctypes.c_void_p] * 5 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
 }
 
 # Shared memory holds the weights: W * 4 bytes within the 48 KB default.
@@ -45,14 +52,46 @@ def check_inputs(what: str, z: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{what}: inputs lie on different devices")
 
 
-def _check_launchable(what: str, *tensors: torch.Tensor) -> None:
-    if tensors[0].device.type != "cuda":
+def check_segments(z: torch.Tensor, seg_ids: torch.Tensor,
+                   num_segments: int) -> None:
+    """seg_ids (D,) int32 on z's device, num_segments >= 0."""
+    if seg_ids.dtype != torch.int32:
+        raise TypeError(f"partial_sqdist_segments: seg_ids must be int32, got "
+                        f"{seg_ids.dtype}")
+    if tuple(seg_ids.shape) != (z.shape[-1],) or seg_ids.device != z.device:
+        raise ValueError(f"partial_sqdist_segments: seg_ids {tuple(seg_ids.shape)}"
+                         f" on {seg_ids.device} does not match z "
+                         f"{tuple(z.shape)} on {z.device}")
+    if num_segments < 0:
+        raise ValueError(f"num_segments must be >= 0, got {num_segments}")
+
+
+def _check_launchable(what: str, z: torch.Tensor, *rest: torch.Tensor,
+                      strided: bool = False) -> None:
+    """On a CUDA device, contiguous, W within the grid's y limit; with
+    ``strided`` the matrix ``z`` may have rows ``ld >= D`` floats apart."""
+    if z.device.type != "cuda":
         raise ValueError(f"{what}: tensors must lie on a CUDA device")
-    if not all(t.is_contiguous() for t in tensors):
+    if strided:
+        row_stride(z)
+    else:
+        rest = (z, *rest)
+    if not all(t.is_contiguous() for t in rest):
         raise ValueError(f"{what}: inputs must be contiguous")
-    if tensors[0].shape[0] > min(65535, MAX_WORKERS):
-        raise ValueError(f"{what}: W={tensors[0].shape[0]} exceeds "
+    if z.shape[0] > min(65535, MAX_WORKERS):
+        raise ValueError(f"{what}: W={z.shape[0]} exceeds "
                          f"{min(65535, MAX_WORKERS)}")
+
+
+def row_stride(z: torch.Tensor) -> int:
+    """The distance in floats between z's rows, when its coordinates are
+    contiguous within each row (a contiguous matrix or a column slice of
+    one); raises otherwise."""
+    w, d = z.shape
+    if (d > 1 and z.stride(1) != 1) or (w > 1 and z.stride(0) < d):
+        raise ValueError(f"weighted_sum: z of shape {tuple(z.shape)} and "
+                         f"strides {z.stride()} has no row-major layout")
+    return max(z.stride(0), d)
 
 
 def partial_sqdist_plain(z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -62,6 +101,15 @@ def partial_sqdist_plain(z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def weighted_sum_plain(z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return a @ z
+
+
+def partial_sqdist_segments_plain(z: torch.Tensor, y: torch.Tensor,
+                                  seg_ids: torch.Tensor,
+                                  num_segments: int) -> torch.Tensor:
+    d = z - y[None]
+    onehot = (seg_ids[None, :] == torch.arange(
+        num_segments, device=z.device, dtype=seg_ids.dtype)[:, None])
+    return (d * d) @ onehot.to(torch.float32).T
 
 
 def partial_sqdist_call(z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -83,16 +131,40 @@ def partial_sqdist_call(z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def weighted_sum_call(z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """z (W, D), a (W,) -> (D,) float32 = sum_w a[w] z[w], on the card."""
+    """z (W, D), a (W,) -> (D,) float32 = sum_w a[w] z[w], on the card.
+    ``z`` may be a column slice ``buf[:, lo:hi]`` (read in place)."""
     check_inputs("weighted_sum", z, a, z.shape[0])
-    _check_launchable("weighted_sum", z, a)
+    _check_launchable("weighted_sum", z, a, strided=True)
     w, d = z.shape
     lib = _build.load("weiszfeld", _SIGNATURES)
     out = torch.empty((d,), dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
         rc = lib.weighted_sum_f32(
-            _build.ptr(z), _build.ptr(a), _build.ptr(out), w, d,
+            _build.ptr(z), _build.ptr(a), _build.ptr(out), w, d, row_stride(z),
             ctypes.c_void_p(_build.stream_of(z)))
     _build.check(lib, rc, "weighted_sum")
     _build.LAUNCHES["weighted_sum"] += 1
+    return out
+
+
+def partial_sqdist_segments_call(z: torch.Tensor, y: torch.Tensor,
+                                 seg_ids: torch.Tensor,
+                                 num_segments: int) -> torch.Tensor:
+    """z (W, D), y (D,), seg_ids (D,) int32 -> (W, num_segments) float32,
+    on the card."""
+    check_inputs("partial_sqdist_segments", z, y, z.shape[-1])
+    check_segments(z, seg_ids, num_segments)
+    _check_launchable("partial_sqdist_segments", z, y, seg_ids)
+    w, d = z.shape
+    lib = _build.load("weiszfeld", _SIGNATURES)
+    scratch = torch.empty((w, num_segments, lib.partial_sqdist_scratch_cols(d)),
+                          dtype=torch.float32, device=z.device)
+    out = torch.empty((w, num_segments), dtype=torch.float32, device=z.device)
+    with torch.cuda.device(z.device):
+        rc = lib.partial_sqdist_segments_f32(
+            _build.ptr(z), _build.ptr(y), _build.ptr(seg_ids),
+            _build.ptr(scratch), _build.ptr(out), w, d, num_segments,
+            ctypes.c_void_p(_build.stream_of(z)))
+    _build.check(lib, rc, "partial_sqdist_segments")
+    _build.LAUNCHES["partial_sqdist_segments"] += 1
     return out

@@ -1,9 +1,9 @@
 """Import boundary of the PyTorch port.
 
-``src/repro_torch`` and ``chip_smoke.py`` must import neither ``jax`` nor
-anything of the JAX package ``repro`` (the port keeps its own copy of what
-it needs), and the port's entry points must not drop to the CPU on their
-own.
+``src/repro_torch``, ``chip_smoke.py`` and ``tools/torch_step_times.py``
+must import neither ``jax`` nor anything of the JAX package ``repro`` (the
+port keeps its own copy of what it needs; the GPU machine has no JAX), and
+the port's entry points must not drop to the CPU on their own.
 """
 import ast
 from pathlib import Path
@@ -12,7 +12,9 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+SCRIPTS = [ROOT / "tools" / "torch_step_times.py", ROOT / "chip_smoke.py"]
+FILES = PORT_FILES + SCRIPTS
 
 
 def _banned(module: str) -> bool:
@@ -35,10 +37,10 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 
 def test_scan_sees_the_whole_port():
-    names = {p.relative_to(ROOT / "src").as_posix() for p in FILES[:-1]}
+    names = {p.relative_to(ROOT / "src").as_posix() for p in PORT_FILES}
     assert "repro_torch/core/robust_step.py" in names
     assert "repro_torch/kernels/ops.py" in names
-    assert FILES[-1].exists()
+    assert all(p.exists() for p in SCRIPTS)
 
 
 def test_default_device_raises_without_a_card():
@@ -56,3 +58,11 @@ def test_default_device_raises_without_a_card():
         mnist_like(0, n=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         paper_nn.init_params(0)
+
+
+def test_quickstart_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device is usable")
+    from repro_torch import quickstart
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quickstart.main([])

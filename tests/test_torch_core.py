@@ -232,9 +232,9 @@ def test_registries_pin_the_reference_names():
     assert set(packing.WIRE_FORMAT_NAMES) | set(packing._UNPORTED_WIRES) == \
         set(jpacking.WIRE_FORMAT_NAMES)
     with pytest.raises(ValueError, match="krum"):
-        aggregators.get_flat_aggregator("nope")
+        aggregators.get_flat_aggregator("nope", None)
     with pytest.raises(ValueError, match="Queue A item 5"):
-        attacks.check_attack_name("alie")
+        attacks.check_attack_name("nan")
 
 
 # -- attacks and metrics -------------------------------------------------------

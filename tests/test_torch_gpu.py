@@ -7,8 +7,9 @@ and the port only (no JAX), so it runs on a machine with a card:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: K1 is elementwise in the plain version's order, so it agrees
-to within 1 ulp and its table bitwise; K2 and K3 sum in another order than
-PyTorch, so they agree to rtol 1e-5 (atol 1e-5 x max|plain|).
+to within 1 ulp and its table bitwise; K2, K3, K5 and K6 sum in another
+order than PyTorch, so they agree to rtol 1e-5 (atol 1e-5 x max|plain|);
+K4 selects, so it is bitwise for odd W and within 1 ulp for even W.
 """
 import numpy as np
 import pytest
@@ -17,11 +18,13 @@ import torch
 from repro_torch.core import RobustConfig, make_federated_step
 from repro_torch.data import ijcnn1_like, logreg_loss, partition
 from repro_torch.kernels import ops
+from repro_torch.kernels import robust_stats as rs
 from repro_torch.kernels import saga_correct as sc
 from repro_torch.kernels import weiszfeld as wz
 from repro_torch.optim import get_optimizer
 
 SHAPES = [(7, 300), (3, 1), (16, 512), (70, 39_760)]
+ORDER_SHAPES = [(w, p) for w in (7, 8, 70) for p in (300, 39_760)]
 J = 4
 
 
@@ -98,8 +101,13 @@ def test_cuda_dispatch_counts_launches():
     ops.partial_sqdist(z, y)
     ops.weighted_sum(z, a)
     ops.saga_correct(grad, table, avg, idx)
-    assert ops.launch_counts() == {"saga_correct": 1, "partial_sqdist": 1,
-                                   "weighted_sum": 1}
+    ops.coordinate_median(z)
+    ops.trimmed_mean(z, trim=2)
+    ops.partial_sqdist_segments(z, y, torch.zeros(300, dtype=torch.int32,
+                                                  device="cuda"), num_segments=2)
+    assert ops.launch_counts() == {
+        "saga_correct": 1, "partial_sqdist": 1, "weighted_sum": 1,
+        "coordinate_median": 1, "trimmed_mean": 1, "partial_sqdist_segments": 1}
 
 
 @pytest.mark.gpu
@@ -113,6 +121,96 @@ def test_cuda_step_matches_cpu_plain_path():
     cfg = RobustConfig(aggregator="geomed", vr="saga", attack="sign_flip",
                        num_byzantine=5)
     draws = np.random.default_rng(0).integers(0, 20, (10, 12))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        init_fn, step_fn = make_federated_step(
+            logreg_loss(0.01), wd, cfg, get_optimizer("sgd", 0.02), device=dev)
+        st = init_fn({"w": torch.zeros(22)}, 0)
+        for idx in draws:
+            st, _ = step_fn(st, sample_idx=idx)
+        out[dev] = st.params["w"].cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("w,p", ORDER_SHAPES)
+def test_order_stat_kernels_vs_plain(w, p, ties):
+    _need_card()
+    z, *_ = _inputs(w, p, seed=w + p)
+    if ties:   # many equal values in every column
+        z = torch.round(2 * z) / 2
+    med = rs.coordinate_median_call(z)
+    want = rs.coordinate_median_plain(z)
+    if w % 2:
+        assert torch.equal(med, want)
+    else:
+        assert _ulps(med, want) <= 1
+    for trim in (0, 1, (w - 1) // 2):
+        _close(rs.trimmed_mean_call(z, trim), rs.trimmed_mean_plain(z, trim))
+
+
+@pytest.mark.gpu
+def test_order_stat_kernels_take_their_largest_w():
+    _need_card()
+    z, *_ = _inputs(rs.MAX_WORKERS, 1000)
+    assert torch.equal(rs.coordinate_median_call(z), rs.coordinate_median_plain(z))
+    _close(rs.trimmed_mean_call(z, 100), rs.trimmed_mean_plain(z, 100))
+    with pytest.raises(ValueError, match="exceeds"):
+        rs.coordinate_median_call(torch.zeros((rs.MAX_WORKERS + 1, 4), device="cuda"))
+    with pytest.raises(ValueError, match="too large"):
+        rs.trimmed_mean_call(z[:4], 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,p", ORDER_SHAPES)
+def test_segment_sqdist_kernel_vs_plain(w, p):
+    """Four blocks in contiguous ranges, the last coordinates in none (ids
+    4 and -1 both mean "no block"), as a packed buffer with padding gives."""
+    _need_card()
+    z, y, *_ = _inputs(w, p, seed=3 * w + p)
+    cuts = [0, p // 7, p // 3, p // 2, p - p // 10, p]
+    seg = torch.empty(p, dtype=torch.int32, device="cuda")
+    for s_id, (a, b) in enumerate(zip(cuts[:-1], cuts[1:])):
+        seg[a:b] = s_id
+    seg[p - p // 20:] = -1
+    got = wz.partial_sqdist_segments_call(z, y, seg, 4)
+    _close(got, wz.partial_sqdist_segments_plain(z, y, seg, 4))
+    # Deterministic: two passes, fixed order, no atomics.
+    assert torch.equal(got, wz.partial_sqdist_segments_call(z, y, seg, 4))
+    # Scattered ids, and a segment that holds no coordinate.
+    g = torch.Generator(device="cuda").manual_seed(p)
+    seg = torch.randint(-1, 6, (p,), generator=g, device="cuda").to(torch.int32)
+    _close(wz.partial_sqdist_segments_call(z, y, seg, 7),
+           wz.partial_sqdist_segments_plain(z, y, seg, 7))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,p", [(7, 300), (70, 39_760)])
+def test_weighted_sum_kernel_reads_a_column_slice(w, p):
+    _need_card()
+    z, _, a, *_ = _inputs(w, p)
+    lo, hi = p // 5, p - p // 3
+    zs = z[:, lo:hi]
+    assert not zs.is_contiguous()
+    got = wz.weighted_sum_call(zs, a)
+    _close(got, wz.weighted_sum_plain(zs.contiguous(), a))
+    assert torch.equal(got, wz.weighted_sum_call(zs.contiguous(), a))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("agg", ["median", "trimmed_mean", "krum",
+                                 "geomed_groups", "centered_clip",
+                                 "geomed_blockwise"])
+def test_cuda_step_matches_cpu_for_every_rule(agg):
+    """Five steps of each Fig. 6 rule on the card track the plain CPU path
+    (alie, the attack written against coordinate-wise rules)."""
+    _need_card()
+    data = ijcnn1_like(0, n=240, device="cpu")
+    wd = partition({"a": data.x, "b": data.y}, 12, seed=1, device="cpu")
+    cfg = RobustConfig(aggregator=agg, vr="saga", attack="alie",
+                       num_byzantine=5, trim=5)
+    draws = np.random.default_rng(1).integers(0, 20, (5, 12))
     out = {}
     for dev in ("cuda", "cpu"):
         init_fn, step_fn = make_federated_step(

@@ -135,8 +135,13 @@ def test_cpu_dispatch_counts_no_launch():
     ops.partial_sqdist(_t(z), _t(y))
     ops.weighted_sum(_t(z), _t(a))
     ops.saga_correct(_t(grad), _t(table), _t(avg), _t(idx))
-    assert ops.launch_counts() == {"saga_correct": 0, "partial_sqdist": 0,
-                                   "weighted_sum": 0}
+    ops.coordinate_median(_t(z))
+    ops.trimmed_mean(_t(z), trim=2)
+    ops.partial_sqdist_segments(_t(z), _t(y), torch.zeros(300, dtype=torch.int32),
+                                num_segments=2)
+    assert ops.launch_counts() == {
+        "saga_correct": 0, "partial_sqdist": 0, "weighted_sum": 0,
+        "coordinate_median": 0, "trimmed_mean": 0, "partial_sqdist_segments": 0}
 
 
 @pytest.mark.parametrize("kernel", ["saga_correct", "partial_sqdist",

@@ -31,8 +31,16 @@ from repro_torch.models import paper_nn
 from repro_torch.optim import get_optimizer
 
 STEPS = 20
-CASES = [(attack, agg) for attack in ("none", "sign_flip", "zero_gradient")
-         for agg in ("geomed", "mean")]
+# (attack, aggregator, problem): the main path's rules under three attacks
+# on both problems, every Fig. 6 rule under sign_flip on the logistic
+# regression, and two of them on the narrow Table I network.
+CASES = ([(attack, agg, problem) for problem in ("logreg", "nn")
+          for attack in ("none", "sign_flip", "zero_gradient")
+          for agg in ("geomed", "mean")]
+         + [("sign_flip", agg, "logreg")
+            for agg in ("median", "trimmed_mean", "krum", "geomed_groups",
+                        "centered_clip", "geomed_blockwise")]
+         + [("sign_flip", agg, "nn") for agg in ("median", "geomed_blockwise")])
 
 
 def _j_nn_loss(params, batch):
@@ -67,17 +75,16 @@ def _numpy(tree):
     return jax.tree_util.tree_map(np.array, tree)
 
 
-@pytest.mark.parametrize("problem", ["logreg", "nn"])
-@pytest.mark.parametrize("attack,agg", CASES)
+@pytest.mark.parametrize("attack,agg,problem", CASES)
 def test_step_parity_with_reference(problem, attack, agg):
     j_loss, t_loss, wd, params, wh, b, lr = _problem(problem)
     nb = b if attack != "none" else 0
-    j_init, j_step = j_make_step(
-        j_loss, wd, JConfig(aggregator=agg, vr="saga", attack=attack,
-                            num_byzantine=nb), j_get_optimizer("sgd", lr))
+    cfg = dict(aggregator=agg, vr="saga", attack=attack, num_byzantine=nb,
+               trim=max(nb, 1))
+    j_init, j_step = j_make_step(j_loss, wd, JConfig(**cfg),
+                                 j_get_optimizer("sgd", lr))
     _, t_step = make_federated_step(
-        t_loss, _numpy(wd), RobustConfig(aggregator=agg, vr="saga",
-                                         attack=attack, num_byzantine=nb),
+        t_loss, _numpy(wd), RobustConfig(**cfg),
         get_optimizer("sgd", lr), device="cpu")
     j_state = j_init({k: jnp.asarray(v) for k, v in params.items()},
                      jax.random.PRNGKey(5))
