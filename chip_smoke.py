@@ -9,7 +9,7 @@ Phases, in order; any failure exits non-zero:
 
 1. The card: name and power limit; TF32 off for matmuls and cuDNN (Krum's
    Gram product must run in full float32).
-2. Build: the CUDA kernels K1-K6 from ``src/repro_torch/kernels/csrc``
+2. Build: the CUDA kernels K1-K7 from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` for sm_90a, one process per source, all started together
    (``-Xptxas -v`` summary printed).
 3. Kernel checks: each kernel against its plain PyTorch version at ragged
@@ -19,6 +19,10 @@ Phases, in order; any failure exits non-zero:
    with only the drawn table rows changed; K4 bitwise for odd W and within
    1 ulp for even W; K2, K3 (also on a column slice), K5 and K6 within
    rtol 1e-5 (atol 1e-5 x max|plain|: the sum runs in another order).
+   Then the decentralized kernels: K7 and the receiver-batched K2/K3 at a
+   ragged (R, S, D) = (7, 7, 300) with ties and trim 0-2, and at workload
+   D's (70, 70, 39,760) exchange under its erdos_renyi mask with trim 0
+   and 12, within rtol 1e-5.
 4. Workload A: logistic regression at IJCNN1 scale (n=49,990, D=22,
    50 honest + 20 Byzantine workers), sign_flip, 300 steps with geomed and
    with mean; then the C1 claim of tests/test_convergence.py (W_h=12, B=5,
@@ -47,7 +51,21 @@ Phases, in order; any failure exits non-zero:
 9. The claims C2-C4 and the krum/median/trimmed-mean claim of
    tests/test_convergence.py at their sizes and thresholds, then
    ``repro_torch.quickstart`` on the card.
-10. One JSON line with the kernels, then the result line.
+10. Workload D, the decentralized step at full width: workload B's data,
+   model and table on an erdos_renyi(p=0.5, seed=0) graph of the 70 nodes
+   (static schedule; trim = min(B, (min_neighborhood - 1) // 2) = 12),
+   sign_flip per edge; 20 steps each of gradient gossip with geomed,
+   trimmed_mean and mean, and parameter gossip with geomed, launch counts
+   reset just before and read just after and asserted (K7 once per step
+   for trimmed_mean; batched K2 and K3 once per Weiszfeld iteration), and
+   a 3-step profile; then K7 and the batched K2/K3 timed at its shapes.
+11. The decentralized claims of tests/test_topology.py on the card, at
+   their sizes and thresholds: ring geomed learns and beats mean under
+   sign_flip, the complete graph keeps exact consensus, the parameter
+   gossip error floor lies within 2x of gradient gossip's (sign_flip and
+   gaussian, 500 steps), and every rule in both gossip modes trains on a
+   ring with finite values.
+12. One JSON line with the kernels, then the result line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -78,6 +96,8 @@ KERNEL_SOURCES = {
                      "src/repro/kernels/robust_stats.py:56"),
     "partial_sqdist_segments": ("src/repro_torch/kernels/csrc/weiszfeld.cu",
                                 "src/repro/kernels/weiszfeld.py:98"),
+    "masked_neighbor_reduce": ("src/repro_torch/kernels/csrc/topology.cu",
+                               "src/repro/kernels/topology.py:78"),
 }
 # Rule -> the kernels its step must launch on the card.
 RULE_KERNELS = {
@@ -95,7 +115,11 @@ RULE_KERNELS = {
 KERNEL_PATH = {"saga_correct": "geomed", "partial_sqdist": "geomed",
                "weighted_sum": "geomed", "coordinate_median": "median",
                "trimmed_mean": "trimmed_mean",
-               "partial_sqdist_segments": "geomed_blockwise"}
+               "partial_sqdist_segments": "geomed_blockwise",
+               "masked_neighbor_reduce": "D gradient trimmed_mean"}
+# Workload D's runs: (gossip, rule).
+D_RUNS = (("gradient", "geomed"), ("gradient", "trimmed_mean"),
+          ("gradient", "mean"), ("params", "geomed"))
 FIG6_RULES = ("mean", "geomed", "median", "krum", "trimmed_mean",
               "geomed_groups", "centered_clip", "geomed_blockwise")
 FIG6_ATTACKS = ("none", "gaussian", "sign_flip", "zero_gradient", "alie")
@@ -281,7 +305,48 @@ def phase_kernel_checks(torch):
             f"K4 max|err| {e4:.3g} ({'bitwise' if w % 2 else '<= 1 ulp'}), "
             f"K5 (trim {trim}) {e5:.3g}, K6 {e6:.3g} (same bits twice), "
             f"K3 on column slices {e3:.3g} (rtol 1e-5): ok")
+    mask_d = workload_d_graph(torch)[1]
+    for (r, s_, d), ties, trims, mask in [
+            ((7, 7, 300), True, (0, 1, 2), None),
+            ((70, 70, d_b), False, (0, 12), mask_d)]:
+        e7, e2, e3 = check_masked(torch, r, s_, d, ties, trims, mask, gen)
+        errs["masked_neighbor_reduce"] = max(errs["masked_neighbor_reduce"], e7)
+        errs["partial_sqdist"] = max(errs["partial_sqdist"], e2)
+        errs["weighted_sum"] = max(errs["weighted_sum"], e3)
+        log(f"kernel check exchange ({r}, {s_}, {d}){' with ties' if ties else ''}"
+            f", trim {list(trims)}: K7 max|err| {e7:.3g}, batched K2 {e2:.3g}, "
+            f"batched K3 {e3:.3g} (rtol 1e-5): ok")
     return errs
+
+
+def check_masked(torch, r, s, d, ties, trims, mask, gen):
+    """K7 and the receiver-batched K2/K3 against their plain versions on an
+    (r, s, d) exchange under ``mask`` (a random 0/1 mask keeping 5 senders
+    when None); returns their largest absolute differences."""
+    from repro_torch.kernels import topology as tp
+    from repro_torch.kernels import weiszfeld as wz
+    ex = torch.randn((r, s, d), generator=gen, device="cuda")
+    if ties:
+        ex = torch.round(ex * 2.0) / 2.0
+    if mask is None:
+        mask = (torch.rand((r, s), generator=gen, device="cuda") < 0.6).float()
+        mask[:, :5] = 1.0
+    e7 = 0.0
+    for trim in trims:
+        ok, e = close(tp.masked_neighbor_reduce_call(ex, mask, trim),
+                      tp.masked_neighbor_reduce_plain(ex, mask, trim))
+        assert ok, f"K7 disagrees at {(r, s, d)}, trim {trim}: {e}"
+        e7 = max(e7, e)
+    y = tp.masked_neighbor_reduce_call(ex, mask, 0)
+    inv = mask / torch.clamp(torch.sqrt(wz.partial_sqdist_plain(ex, y)), min=1e-8)
+    ok2, e2 = close(wz.partial_sqdist_call(ex, y), wz.partial_sqdist_plain(ex, y))
+    ok3, e3 = close(wz.weighted_sum_call(ex, inv), wz.weighted_sum_plain(ex, inv))
+    torch.cuda.synchronize()
+    assert ok2, f"batched K2 disagrees at {(r, s, d)}: {e2}"
+    assert ok3, f"batched K3 disagrees at {(r, s, d)}: {e3}"
+    del ex
+    torch.cuda.empty_cache()
+    return e7, e2, e3
 
 
 def run_steps(torch, step_fn, state, steps):
@@ -479,6 +544,31 @@ def device_ms(torch, fn, reps):
     if total_us <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
     return total_us / reps / 1e3
+
+
+def event_ms(torch, fn, reps):
+    """Device time per call of ``fn`` from two CUDA events around ``reps``
+    calls after a warm-up, for calls long enough that the card, not the
+    host, sets the pace: raises if enqueueing the calls took more than half
+    the time they ran.  (torch.profiler's kernel records came back
+    incomplete late in this script's long process; events count them all.)"""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    total_ms = start.elapsed_time(end)
+    if host_ms > 0.5 * total_ms:
+        raise RuntimeError(f"event timing is host-bound: enqueue {host_ms:.3f} ms "
+                           f"against {total_ms:.3f} ms on the card")
+    return total_ms / reps
 
 
 def bound(nbytes, flops):
@@ -679,6 +769,214 @@ def phase_quickstart():
     assert gaps["Byrd-SAGA"] < gaps["plain SAGA"], gaps
 
 
+def workload_d_graph(torch):
+    """Workload D's graph: erdos_renyi(70, p=0.5, seed=0) -> (topology,
+    its (70, 70) neighbour mask on the card, trim)."""
+    from repro_torch.topology import get_topology
+    topo = get_topology("erdos_renyi", 70, seed=0, p=0.5)
+    trim = min(20, (topo.min_neighborhood - 1) // 2)
+    return topo, torch.as_tensor(topo.neighbor_mask, device="cuda"), trim
+
+
+def phase_workload_d(torch, gossip, agg, steps=20):
+    """Workload D (workload B's data, model and table on workload D's graph)
+    with rule ``agg`` in ``gossip`` mode: ``steps`` steps with the launch
+    counts reset just before and read just after, asserted; a 3-step
+    profile.  Returns (counts, summary)."""
+    from repro_torch.core import RobustConfig, make_federated_step
+    from repro_torch.data import mnist_like, partition
+    from repro_torch.kernels import ops
+    from repro_torch.models import paper_nn
+    from repro_torch.optim import get_optimizer
+    topo, _, trim = workload_d_graph(torch)
+    torch.cuda.reset_peak_memory_stats()
+    data = mnist_like(SEED, n=60_000, device="cuda")
+    batch = {"x": data.x, "y": data.y}
+    wd = partition(batch, 50, seed=2, device="cuda")
+    cfg = RobustConfig(aggregator=agg, vr="saga", attack="sign_flip",
+                       num_byzantine=20, trim=trim, topology="erdos_renyi",
+                       topology_p=0.5, topology_seed=0, gossip=gossip)
+    init_fn, step_fn = make_federated_step(
+        paper_nn.nn_loss, wd, cfg, get_optimizer("sgd", 0.1), device="cuda")
+    st = init_fn(paper_nn.init_params(SEED + 7, device="cuda"), 5)
+
+    def honest_loss_acc(params):
+        nodes = [{k: v[i] for k, v in params.items()} for i in range(50)]
+        with torch.no_grad():
+            loss = statistics.fmean(float(paper_nn.nn_loss(p, batch)) for p in nodes)
+        return loss, statistics.fmean(paper_nn.accuracy(p, batch) for p in nodes)
+
+    f0, _ = honest_loss_acc(st.params)
+    ops.reset_launch_counts()
+    st, times, metrics = run_steps(torch, step_fn, st, steps)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    f1, acc = honest_loss_acc(st.params)
+    label = f"D {gossip} {agg}"
+    iters = counts["partial_sqdist"] / steps
+    log(f"workload {label}/sign_flip (trim {trim}): mean honest loss {f0:.6f} -> "
+        f"{f1:.6f} after {steps} steps, mean honest accuracy {acc:.4f}, "
+        f"consensus_dist {float(metrics['consensus_dist']):.6g}, median step "
+        f"{statistics.median(times) * 1e3:.3f} ms, peak memory {peak / 1e9:.2f} GB, "
+        f"Weiszfeld iters/step {iters:.2f}, launches {counts}")
+    median_s = statistics.median(times)
+    st = profile_steps(torch, f"workload {label}", step_fn, st, 3, median_s)
+    assert math.isfinite(f1), f"workload {label}: loss is not finite"
+    assert all(bool(torch.isfinite(p).all()) for p in st.params.values())
+    assert counts["saga_correct"] == steps, counts
+    if agg == "trimmed_mean":
+        assert counts["masked_neighbor_reduce"] == steps, counts
+        assert counts["partial_sqdist"] == counts["weighted_sum"] == 0, counts
+    if agg == "geomed":
+        # K7 (trim 0) starts each solve at the masked mean.
+        assert counts["masked_neighbor_reduce"] == steps, counts
+        assert counts["partial_sqdist"] == counts["weighted_sum"] >= steps, counts
+    if agg == "mean":
+        assert counts["weighted_sum"] == steps, counts
+        assert counts["masked_neighbor_reduce"] == counts["partial_sqdist"] == 0
+    summary = dict(step_ms=median_s * 1e3, peak_gb=peak / 1e9, loss=f1,
+                   accuracy=acc, iters=iters,
+                   consensus=float(metrics["consensus_dist"]))
+    del st
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
+def phase_timing_d(torch):
+    """K7 (trim 12 and 0) and the receiver-batched K2/K3 at workload D's
+    (70, 70, 39,760) exchange under its mask: device time (CUDA events, the
+    calls take hundreds of microseconds) beside the bound, the plain version
+    and, for K3, one batched matmul."""
+    from repro_torch.kernels import topology as tp
+    from repro_torch.kernels import weiszfeld as wz
+    _, mask, trim = workload_d_graph(torch)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    r, s = mask.shape
+    d = 39_760
+    ex = 0.01 * torch.randn((r, s, d), generator=gen, device="cuda")
+    y = tp.masked_neighbor_reduce_call(ex, mask, 0)
+    a = torch.rand((r, s), generator=gen, device="cuda") * mask
+    out = {}
+    ex_b, rd_b = r * s * d * 4, r * d * 4
+    # K7 reads only the masked senders' values (and the mask), writes
+    # (R, D); per coordinate at least one comparison per present value and
+    # round.
+    nnz = float(mask.sum())
+    for t in (trim, 0):
+        b, by = bound(nnz * d * 4 + r * s * 4 + rd_b, nnz * d * (2 * t + 1))
+        out[f"masked_neighbor_reduce trim {t}"] = dict(
+            ms=event_ms(torch, lambda: tp.masked_neighbor_reduce_call(ex, mask, t), 20),
+            plain_ms=event_ms(torch, lambda: tp.masked_neighbor_reduce_plain(ex, mask, t), 5),
+            bound_ms=b, bound_by=by, library_ms=None)
+    b, by = bound(ex_b + rd_b + r * s * 4, 3 * r * s * d)
+    out["partial_sqdist batched"] = dict(
+        ms=event_ms(torch, lambda: wz.partial_sqdist_call(ex, y), 20),
+        plain_ms=event_ms(torch, lambda: wz.partial_sqdist_plain(ex, y), 5),
+        bound_ms=b, bound_by=by, library_ms=None)
+    # K3 needs only the rows whose weight is not 0 (it reads every row).
+    b, by = bound(float((a != 0).sum()) * d * 4 + r * s * 4 + rd_b, 2 * r * s * d)
+    out["weighted_sum batched"] = dict(
+        ms=event_ms(torch, lambda: wz.weighted_sum_call(ex, a), 20),
+        plain_ms=event_ms(torch, lambda: wz.weighted_sum_plain(ex, a), 20),
+        bound_ms=b, bound_by=by,
+        library_ms=event_ms(torch, lambda: torch.bmm(a[:, None], ex), 20))
+    for name, res in out.items():
+        log(f"timing {name} ({r}, {s}, {d}) (device time): {res['ms'] * 1e3:.2f} us, "
+            f"bound {res['bound_ms'] * 1e3:.2f} us ({res['bound_by']}), plain "
+            f"{res['plain_ms'] * 1e3:.2f} us"
+            + (f", library {res['library_ms'] * 1e3:.2f} us" if res["library_ms"] else ""))
+    del ex
+    torch.cuda.empty_cache()
+    return out
+
+
+def decentralized_run(torch, loss, wd, steps, topology, **cfg):
+    """``steps`` decentralized steps on the card from w = 0 (sgd 0.05 unless
+    ``lr`` is given); returns the final state and metrics."""
+    from repro_torch.core import RobustConfig, make_federated_step
+    from repro_torch.optim import get_optimizer
+    lr, seed = cfg.pop("lr", 0.05), cfg.pop("seed", 3)
+    init_fn, step_fn = make_federated_step(
+        loss, wd, RobustConfig(**cfg), get_optimizer("sgd", lr),
+        topology=topology, device="cuda")
+    st = init_fn({"w": torch.zeros(22, device="cuda")}, seed)
+    metrics = {}
+    for _ in range(steps):
+        st, metrics = step_fn(st)
+    return st, metrics
+
+
+def phase_decentralized_claims(torch):
+    """The decentralized training claims of tests/test_topology.py on the
+    card, at their sizes and thresholds, with their margins."""
+    from repro_torch.core import aggregators
+    from repro_torch.data import (ijcnn1_like, logreg_full_loss_and_opt,
+                                  logreg_loss, partition)
+    t0 = time.perf_counter()
+    loss = logreg_loss(0.01)
+    data = ijcnn1_like(SEED, n=600, device="cuda")
+    wd = partition({"a": data.x, "b": data.y}, 8, seed=1, device="cuda")
+
+    def own_loss(params, h):
+        return statistics.fmean(
+            float(loss({"w": params["w"][i]}, {"a": wd["a"][i], "b": wd["b"][i]}))
+            for i in range(h))
+
+    losses = {}
+    for agg in ("geomed", "mean"):
+        st, _ = decentralized_run(torch, loss, wd, 150, "ring", aggregator=agg,
+                                  vr="saga", attack="sign_flip", num_byzantine=2,
+                                  weiszfeld_iters=32)
+        losses[agg] = own_loss(st.params, 8)
+    log(f"ring sign_flip: mean honest loss geomed {losses['geomed']:.5f} "
+        f"(< 0.60 by {0.60 - losses['geomed']:.5f}), mean {losses['mean']:.5f} "
+        f"(geomed below mean - 0.02 by {losses['mean'] - 0.02 - losses['geomed']:.5f})")
+    assert losses["geomed"] < 0.60 and losses["geomed"] < losses["mean"] - 0.02, losses
+
+    st, metrics = decentralized_run(torch, loss, wd, 30, "complete",
+                                    aggregator="geomed", vr="sgd",
+                                    attack="sign_flip", num_byzantine=2,
+                                    weiszfeld_iters=32)
+    w = st.params["w"][:8]
+    spread = float((w - w[:1]).abs().max())
+    log(f"complete graph: consensus_dist {float(metrics['consensus_dist']):.3g} "
+        f"(< 1e-8), largest honest copy difference {spread:.3g} (<= 1e-5)")
+    assert float(metrics["consensus_dist"]) < 1e-8 and spread <= 1e-5
+
+    data8 = ijcnn1_like(SEED, n=800, device="cuda")
+    _, f_star = logreg_full_loss_and_opt(data8, iters=4000, lr=0.5)
+    wd8 = partition({"a": data8.x, "b": data8.y}, 10, seed=1, device="cuda")
+    for attack in ("sign_flip", "gaussian"):
+        gaps = {}
+        for gossip in ("gradient", "params"):
+            st, _ = decentralized_run(
+                torch, loss, wd8, 500, "ring", aggregator="geomed", vr="saga",
+                attack=attack, num_byzantine=2, weiszfeld_iters=32,
+                gossip=gossip, lr=0.02, seed=7)
+            gaps[gossip] = statistics.fmean(
+                float(loss({"w": st.params["w"][i]},
+                           {"a": wd8["a"][i], "b": wd8["b"][i]}))
+                for i in range(10)) - f_star
+        log(f"params vs gradient gossip, {attack}, 500 steps: gap gradient "
+            f"{gaps['gradient']:.5f}, params {gaps['params']:.5f} (each < 0.15; "
+            f"params <= 2 x gradient + 0.01 by "
+            f"{2 * gaps['gradient'] + 0.01 - gaps['params']:.5f})")
+        assert max(gaps.values()) < 0.15, gaps
+        assert gaps["params"] <= 2.0 * gaps["gradient"] + 0.01, gaps
+
+    for agg in aggregators.AGGREGATOR_NAMES:
+        for gossip in ("gradient", "params"):
+            st, metrics = decentralized_run(
+                torch, loss, wd, 5, "ring", aggregator=agg, vr="sgd",
+                attack="ipm", num_byzantine=2, weiszfeld_iters=16,
+                num_groups=3, gossip=gossip)
+            assert tuple(st.params["w"].shape) == (10, 22)
+            assert bool(torch.isfinite(st.params["w"]).all()), (agg, gossip)
+            assert math.isfinite(float(metrics["consensus_dist"])), (agg, gossip)
+    log(f"every rule x both gossip modes trains 5 steps on a ring with finite "
+        f"values; decentralized claims in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -711,6 +1009,23 @@ def main() -> int:
     phase_fig6(torch)
     phase_claims(torch)
     phase_quickstart()
+    topo_d, _, trim_d = workload_d_graph(torch)
+    log(f"workload D graph: {topo_d.describe()}, min_neighborhood "
+        f"{topo_d.min_neighborhood}, most Byzantine neighbours of an honest "
+        f"node {int(topo_d.adjacency[:50, 50:].sum(1).max())}, trim {trim_d}")
+    summaries_d = {}
+    for gossip, agg in D_RUNS:
+        label = f"D {gossip} {agg}"
+        counts[label], summaries_d[label] = phase_workload_d(torch, gossip, agg)
+    log(f"workload D per run ({card}): step ms / peak GB / mean honest loss / "
+        "accuracy / Weiszfeld iters per step / consensus_dist")
+    for label, r in summaries_d.items():
+        log(f"  {label:<24} {r['step_ms']:9.3f} {r['peak_gb']:7.2f} "
+            f"{r['loss']:10.6f} {r['accuracy']:8.4f} {r['iters']:7.2f} "
+            f"{r['consensus']:.6g}")
+    timing_d = phase_timing_d(torch)
+    timing["masked_neighbor_reduce"] = timing_d[f"masked_neighbor_reduce trim {trim_d}"]
+    phase_decentralized_claims(torch)
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[KERNEL_PATH[name]][name],
                     max_abs_err=errs[name], **timing[name])

@@ -34,9 +34,10 @@ def params_from_jax(tree: dict[str, Any], *,
 def state_from_jax(state: Any, *, seed: int | torch.Generator = 0,
                    device: str | torch.device = DEFAULT_DEVICE
                    ) -> FederatedState:
-    """A reference ``FederatedState`` of the packed master path -> the
-    port's.  Carries params, the packed ``SagaState`` table (W, J, D) and
-    avg (W, D), and step; the optimizer must be stateless (``sgd``).  The
+    """A reference ``FederatedState`` of the packed master or decentralized
+    path -> the port's.  Carries params (per-node (N, ...) leaves on the
+    decentralized path), the packed ``SagaState`` table (W_h, J, D) and avg
+    (W_h, D), and step; the optimizer must be stateless (``sgd``).  The
     reference's PRNG key has no torch counterpart: the port's generator is
     seeded with ``seed``."""
     dev = resolve_device(device)

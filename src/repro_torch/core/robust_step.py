@@ -1,11 +1,14 @@
 """The Byzantine-robust federated training step, paper Alg. 1 (port of
-``repro/core/robust_step.py``'s simulated master federation).
+``repro/core/robust_step.py``'s simulated federation).
 
 :func:`make_federated_step` builds ``(init_fn, step_fn)`` for the packed,
-star/static, full-participation, float32-wire master path: W_h honest
-workers each send a (variance-reduced) stochastic gradient, B Byzantine
-rows are injected by an attack model, the master aggregates the packed
-(W, D) buffer with a robust rule and applies the optimizer.
+full-participation, float32-wire simulation.  With the default star
+topology and static schedule it is the master path: W_h honest workers
+each send a (variance-reduced) stochastic gradient, B Byzantine rows are
+injected by an attack model, the master aggregates the packed (W, D)
+buffer with a robust rule and applies the optimizer.  Any other graph or
+schedule (:func:`resolve_schedule`) routes to the decentralized step of
+:mod:`repro_torch.topology.decentralized_step`.
 
 Per-sample gradients come from ``torch.func`` (``grad`` vmapped over the
 sample axis).  On a CUDA device the SAGA correction runs kernel K1 and the
@@ -33,8 +36,10 @@ Params = dict[str, torch.Tensor]
 
 # RobustConfig fields the ported slice reads; every other field must keep
 # its default (the features behind them are still to port, ROADMAP.md
-# Queue A items 7-10).
+# Queue A items 7, 9 and 10).
 _SLICE_FIELDS = ("aggregator", "vr", "attack", "num_byzantine",
+                 "topology", "topology_seed", "topology_p", "gossip",
+                 "schedule", "schedule_period",
                  "weiszfeld_iters", "weiszfeld_tol", "num_groups", "trim",
                  "clip_radius", "gaussian_variance", "sign_flip_magnitude",
                  "alie_z", "ipm_eps")
@@ -89,9 +94,9 @@ class RobustConfig:
             if f.name not in _SLICE_FIELDS and getattr(self, f.name) != f.default:
                 raise ValueError(
                     f"RobustConfig.{f.name}={getattr(self, f.name)!r} is "
-                    "outside the ported slice (packed star/static master "
-                    "step, full participation, float32 wire); see ROADMAP.md "
-                    "Queue A")
+                    "outside the ported slice (packed simulated master and "
+                    "decentralized steps, full participation, float32 wire); "
+                    "see ROADMAP.md Queue A")
 
     def reducer(self) -> vr_lib.VarianceReducer:
         """The variance reducer named by ``self.vr``."""
@@ -123,6 +128,8 @@ class RobustConfig:
 
 
 class FederatedState(NamedTuple):
+    # The model's leaf shapes on the master path; with a leading node axis
+    # (N, ...) on the decentralized path.
     params: Params
     opt_state: Any
     # Variance-reduction state (SagaState for "saga", None for "sgd").
@@ -132,15 +139,109 @@ class FederatedState(NamedTuple):
     generator: torch.Generator
 
 
+def as_batches(rows: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Rows (W, ...) -> batches of one sample (W, 1, ...)."""
+    return {k: v[:, None] for k, v in rows.items()}
+
+
+def per_sample_table(per_sample_grads, params: Params,
+                     data: dict[str, torch.Tensor],
+                     spec: packing.PackSpec) -> torch.Tensor:
+    """Alg. 1 init: table[w, j] = f'_{w,j}(x^0), packed (W_h, J, D),
+    written worker by worker so no second full-size table exists."""
+    wh, j = next(iter(data.values())).shape[:2]
+    dev = next(iter(data.values())).device
+    table = torch.empty((wh, j, spec.padded_dim), dtype=torch.float32,
+                        device=dev)
+    for w in range(wh):
+        grads = per_sample_grads(params, as_batches(
+            {k: v[w] for k, v in data.items()}))
+        table[w] = spec.pack(grads, batch_ndim=1)
+    return table
+
+
+def sample_rows(reducer: vr_lib.VarianceReducer, generator: torch.Generator,
+                sample_idx, wh: int, j: int,
+                dev: torch.device) -> torch.Tensor:
+    """The step's (W_h,) sample rows: drawn from ``generator``, or the
+    caller's ``sample_idx`` checked and moved to ``dev``."""
+    if sample_idx is None:
+        return reducer.draw_indices(generator, wh, j)
+    idx = torch.as_tensor(sample_idx, dtype=torch.int64)
+    if tuple(idx.shape) != (wh,):
+        raise ValueError(f"sample_idx must be ({wh},), got {tuple(idx.shape)}")
+    if idx.device.type == "cpu" and bool(((idx < 0) | (idx >= j)).any()):
+        raise ValueError(f"sample_idx out of range [0, {j})")
+    return idx.to(dev)
+
+
+def resolve_topology(cfg: RobustConfig, num_nodes: int, topology=None):
+    """The ``topology=`` argument of the step builder: an explicit
+    :class:`~repro_torch.topology.Topology` wins, else ``cfg.topology`` is
+    built by name for ``num_nodes`` nodes.  None for ``"star"`` (the master
+    path)."""
+    from repro_torch import topology as topo_lib  # topology imports core
+    if topology is None:
+        topology = cfg.topology
+    if isinstance(topology, str):
+        if topology == "star":
+            return None
+        return topo_lib.get_topology(topology, num_nodes,
+                                     seed=cfg.topology_seed, p=cfg.topology_p)
+    if topology.name == "star":
+        return None
+    return topology
+
+
+def resolve_schedule(cfg: RobustConfig, num_nodes: int, topology=None,
+                     schedule=None):
+    """The (topology, schedule) arguments as a
+    :class:`~repro_torch.topology.GraphSchedule`, or None for the master
+    path: exactly a static schedule whose one graph is the star (in either
+    gossip mode).  An explicit ``GraphSchedule`` wins; else
+    ``cfg.schedule`` is built by name around the resolved topology."""
+    from repro_torch import topology as topo_lib  # topology imports core
+    if isinstance(topology, topo_lib.GraphSchedule) and schedule is None:
+        schedule, topology = topology, None
+    if schedule is None:
+        schedule = cfg.schedule
+    if isinstance(schedule, topo_lib.GraphSchedule):
+        sched = schedule
+    elif schedule == "static":
+        topo = resolve_topology(cfg, num_nodes, topology)
+        if topo is None:
+            return None
+        sched = topo_lib.static_schedule(topo)
+    else:
+        if topology is None:
+            topology = cfg.topology
+        sched = topo_lib.get_schedule(
+            schedule, num_nodes, topology=topology,
+            period=cfg.schedule_period, seed=cfg.topology_seed,
+            p=cfg.topology_p)
+    if sched.is_static and sched.topologies[0].name == "star":
+        return None
+    return sched
+
+
 def make_federated_step(
     loss_fn: Callable[[Params, dict], torch.Tensor],
     worker_data: dict[str, Any],
     cfg: RobustConfig,
     optimizer: optim_lib.Optimizer,
     *,
+    topology=None,
+    schedule=None,
     device: str | torch.device = DEFAULT_DEVICE,
 ):
     """Build ``(init_fn, step_fn)`` for the simulated federation.
+
+    ``topology``: a name of ``repro_torch.topology.TOPOLOGY_NAMES`` or a
+    built ``Topology`` (default ``cfg.topology``); ``schedule``: a name of
+    ``SCHEDULE_NAMES`` or a built ``GraphSchedule`` (default
+    ``cfg.schedule``).  The default star + static is this function's master
+    path; anything else is :func:`repro_torch.topology.make_decentralized_step`
+    (gossip mode ``cfg.gossip``), whose state has a leading node axis.
 
     ``loss_fn(params, batch)``: mean loss over a batch whose values have a
     leading sample axis, written with ``torch`` ops (``torch.func`` takes
@@ -155,6 +256,14 @@ def make_federated_step(
     replace the step's own draws, so a test can hand in the reference's.
     """
     dev = resolve_device(device)
+    wh = next(iter(worker_data.values())).shape[0]
+    b = cfg.num_byzantine if cfg.attack != "none" else 0
+    sched = resolve_schedule(cfg, wh + b, topology, schedule)
+    if sched is not None:
+        from repro_torch.topology.decentralized_step import (
+            make_decentralized_step)
+        return make_decentralized_step(loss_fn, worker_data, cfg, optimizer,
+                                       sched, device=dev)
     data = {k: torch.as_tensor(v, device=dev) for k, v in worker_data.items()}
     wh, j = next(iter(data.values())).shape[:2]
     attack_cfg = cfg.attack_config()
@@ -168,46 +277,23 @@ def make_federated_step(
                                        in_dims=(None, 0))
     w_ids = torch.arange(wh, device=dev)
 
-    def as_batches(rows: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-        return {k: v[:, None] for k, v in rows.items()}
-
-    def per_sample_table(params: Params, spec: packing.PackSpec) -> torch.Tensor:
-        """Alg. 1 init: table[w, j] = f'_{w,j}(x^0), packed (W_h, J, D),
-        written worker by worker so no second full-size table exists."""
-        table = torch.empty((wh, j, spec.padded_dim), dtype=torch.float32,
-                            device=dev)
-        for w in range(wh):
-            grads = per_sample_grads(params, as_batches(
-                {k: v[w] for k, v in data.items()}))
-            table[w] = spec.pack(grads, batch_ndim=1)
-        return table
-
     def init_fn(params: Params, seed: int | torch.Generator = 0
                 ) -> FederatedState:
         params = {k: torch.as_tensor(v, device=dev) for k, v in params.items()}
         spec = cfg.message_spec(params, batch_ndim=0)
         with torch.no_grad():
             vr_state = reducer.init_sim(
-                params, per_sample_grads_fn=lambda: per_sample_table(params, spec),
+                params, per_sample_grads_fn=lambda: per_sample_table(
+                    per_sample_grads, params, data, spec),
                 num_workers=wh)
         return FederatedState(params, optimizer.init(params), vr_state, 0,
                               generator_for(seed, dev))
-
-    def sample_rows(state: FederatedState, sample_idx) -> torch.Tensor:
-        if sample_idx is None:
-            return reducer.draw_indices(state.generator, wh, j)
-        idx = torch.as_tensor(sample_idx, dtype=torch.int64)
-        if tuple(idx.shape) != (wh,):
-            raise ValueError(f"sample_idx must be ({wh},), got {tuple(idx.shape)}")
-        if idx.device.type == "cpu" and bool(((idx < 0) | (idx >= j)).any()):
-            raise ValueError(f"sample_idx out of range [0, {j})")
-        return idx.to(dev)
 
     @torch.no_grad()
     def step_fn(state: FederatedState, *, sample_idx=None,
                 attack_noise: Optional[torch.Tensor] = None):
         params = state.params
-        idx = sample_rows(state, sample_idx)
+        idx = sample_rows(reducer, state.generator, sample_idx, wh, j, dev)
         honest_tree = per_sample_grads(params, as_batches(
             {k: v[w_ids, idx] for k, v in data.items()}))
         spec = cfg.message_spec(honest_tree, batch_ndim=1)

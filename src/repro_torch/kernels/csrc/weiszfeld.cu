@@ -1,21 +1,27 @@
-// K2 and K3: the two sweeps of one Weiszfeld iteration over the (W, D)
-// message matrix.
+// K2 and K3: the two sweeps of one Weiszfeld iteration, for one (W, D)
+// message matrix (the master step) or for a batch of R receivers, each with
+// its own (S, D) view of the senders (the decentralized step's masked
+// Weiszfeld, all receivers in lockstep).  Row s of receiver r lies at
+// z + r * rs + s * ld (ld >= D floats between rows, rs between receivers;
+// rs = 0 shares one matrix among all receivers); a single matrix is the case
+// R = 1, and gives the same bits as before the receiver axis existed.
 //
-// K2 partial_sqdist: out[w] = sum_d (z[w, d] - y[d])^2.
+// K2 partial_sqdist: out[r, s] = sum_d (z[r, s, d] - y[r, d])^2.
 // Replaces: repro/kernels/weiszfeld.py, partial_sqdist_call (_sqdist_kernel),
 // which carries the (W,) sum across a sequential grid over p-tiles.  Hopper's
 // blocks run in no order, so the port reduces in two passes: a (D-chunk,
-// worker) grid writes one partial sum per block into a (W, nchunks) scratch
-// buffer, then one block per worker sums its row.  Both passes reduce in a
-// fixed tree (warp shuffles, then the warps in order) and use no atomics, so
-// the same inputs give the same bits on every run.
+// sender, receiver) grid writes one partial sum per block into an
+// (R * S, nchunks) scratch buffer, then one block per (receiver, sender) sums
+// its row.  Both passes reduce in a fixed tree (warp shuffles, then the warps
+// in order) and use no atomics, so the same inputs give the same bits on
+// every run.
 //
-// K3 weighted_sum: out[d] = sum_w a[w] * z[w, d]  (unnormalized).
+// K3 weighted_sum: out[r, d] = sum_s a[r, s] * z[r, s, d]  (unnormalized).
 // Replaces: repro/kernels/weiszfeld.py, weighted_sum_call (_wsum_kernel).
-// One thread per coordinate loops over the W rows in order; the W weights sit
-// in shared memory and a warp's loads of one row are coalesced along D.  Rows
-// lie `ld` floats apart (ld >= D), so a column slice z[:, a:b] of a wider
-// buffer is read in place.
+// One thread per (receiver, coordinate) loops over the S rows in order; the
+// receiver's S weights sit in shared memory and a warp's loads of one row
+// are coalesced along D.  A column slice z[..., a:b] of a wider buffer is
+// read in place.
 //
 // K6 partial_sqdist_segments: out[w, s] = sum over the coordinates d of
 // segment s of (z[w, d] - y[d])^2, for s in [0, L); a coordinate whose
@@ -30,11 +36,12 @@
 // rest -- then one block per (worker, segment) sums its row of chunks.  No
 // atomics: the same inputs give the same bits on every run.
 //
-// Bound on the H100: device-memory bytes.  Each sweep reads the W * D * 4
-// bytes of z once (11.1 MB at W = 70, D = 39,760) for 2-3 flops per element
-// (K6 also reads the D * 4 bytes of the ids).
-// Inside the Weiszfeld loop z is re-read every iteration and fits in the
-// 50 MB L2, so the sweeps may run above the HBM rate.
+// Bound on the H100: device-memory bytes.  Each sweep reads the z bytes once
+// (W * D * 4 = 11.1 MB at W = 70, D = 39,760; R * S * D * 4 = 779 MB for
+// the decentralized exchange at R = S = 70) for 2-3 flops per element (K6
+// also reads the D * 4 bytes of the ids).  Inside the master's Weiszfeld
+// loop z is re-read every iteration and fits in the 50 MB L2, so the sweeps
+// may run above the HBM rate; the decentralized exchange does not fit.
 #include "common.cuh"
 
 namespace {
@@ -82,12 +89,15 @@ __device__ void block_range(int& lo, int& hi) {
   __syncthreads();
 }
 
+// Grid (nchunks, S, R); partial[(r * S + s) * nchunks + chunk].
 __global__ void sqdist_partial_kernel(const float* __restrict__ z,
                                       const float* __restrict__ y,
                                       float* __restrict__ partial, int64_t D,
-                                      int nchunks) {
+                                      int64_t ld, int64_t rs, int nchunks) {
   const int w = blockIdx.y;
-  const float* zw = z + static_cast<int64_t>(w) * D;
+  const int r = blockIdx.z;
+  const float* zw = z + static_cast<int64_t>(r) * rs + static_cast<int64_t>(w) * ld;
+  y += static_cast<int64_t>(r) * D;
   const int64_t start = static_cast<int64_t>(blockIdx.x) * kChunk + threadIdx.x;
   float acc = 0.f;
 #pragma unroll
@@ -99,7 +109,8 @@ __global__ void sqdist_partial_kernel(const float* __restrict__ z,
     }
   }
   const float s = block_sum(acc);
-  if (threadIdx.x == 0) partial[static_cast<int64_t>(w) * nchunks + blockIdx.x] = s;
+  if (threadIdx.x == 0)
+    partial[(static_cast<int64_t>(r) * gridDim.y + w) * nchunks + blockIdx.x] = s;
 }
 
 __global__ void sqdist_finish_kernel(const float* __restrict__ partial,
@@ -153,19 +164,23 @@ __global__ void sqdist_segments_partial_kernel(const float* __restrict__ z,
   }
 }
 
+// Grid (D-blocks, R); a: (R, W) contiguous, out: (R, D) contiguous.
 __global__ void weighted_sum_kernel(const float* __restrict__ z,
                                     const float* __restrict__ a,
                                     float* __restrict__ out, int W, int64_t D,
-                                    int64_t ld) {
+                                    int64_t ld, int64_t rs) {
   extern __shared__ float s_a[];
+  const int r = blockIdx.y;
+  a += static_cast<int64_t>(r) * W;
   for (int w = threadIdx.x; w < W; w += blockDim.x) s_a[w] = a[w];
   __syncthreads();
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= D) return;
+  z += static_cast<int64_t>(r) * rs;
   float acc = 0.f;
 #pragma unroll 8
   for (int w = 0; w < W; ++w) acc = fmaf(s_a[w], z[static_cast<int64_t>(w) * ld + i], acc);
-  out[i] = acc;
+  out[static_cast<int64_t>(r) * D + i] = acc;
 }
 
 }  // namespace
@@ -175,35 +190,43 @@ REPRO_EXPORT int partial_sqdist_scratch_cols(long long D) {
   return static_cast<int>((D + kChunk - 1) / kChunk);
 }
 
-// z: (W, D), y: (D,), partial: (W, partial_sqdist_scratch_cols(D)),
-// out: (W,); float32, contiguous.  Launches both passes on `stream`.
+// z: (R, W, D) at z[r * rs + w * ld + d], y: (R, D), partial: (R * W,
+// partial_sqdist_scratch_cols(D)), out: (R, W); float32, y, partial and out
+// contiguous; W, R <= 65,535.  Launches both passes on `stream`.
 REPRO_EXPORT int partial_sqdist_f32(const float* z, const float* y,
-                                    float* partial, float* out, int W,
-                                    long long D, void* stream) {
-  if (W == 0) return static_cast<int>(cudaGetLastError());
+                                    float* partial, float* out, int R, int W,
+                                    long long D, long long ld, long long rs,
+                                    void* stream) {
+  if (W == 0 || R == 0) return static_cast<int>(cudaGetLastError());
   const auto s = static_cast<cudaStream_t>(stream);
   const int nchunks = partial_sqdist_scratch_cols(D);
   if (nchunks > 0) {
-    const dim3 grid(static_cast<unsigned>(nchunks), static_cast<unsigned>(W));
-    sqdist_partial_kernel<<<grid, kThreads, 0, s>>>(z, y, partial,
-                                                    static_cast<int64_t>(D), nchunks);
+    const dim3 grid(static_cast<unsigned>(nchunks), static_cast<unsigned>(W),
+                    static_cast<unsigned>(R));
+    sqdist_partial_kernel<<<grid, kThreads, 0, s>>>(
+        z, y, partial, static_cast<int64_t>(D), static_cast<int64_t>(ld),
+        static_cast<int64_t>(rs), nchunks);
     const int rc = static_cast<int>(cudaGetLastError());
     if (rc != 0) return rc;
   }
-  sqdist_finish_kernel<<<W, kThreads, 0, s>>>(partial, out, nchunks);
+  sqdist_finish_kernel<<<static_cast<unsigned>(R) * W, kThreads, 0, s>>>(
+      partial, out, nchunks);
   return static_cast<int>(cudaGetLastError());
 }
 
-// z: (W, D) with rows ld >= D floats apart, a: (W,), out: (D,); float32,
-// a and out contiguous; W * 4 bytes of shared memory, so W <= 12,288.
+// z: (R, W, D) at z[r * rs + w * ld + d], a: (R, W), out: (R, D); float32,
+// a and out contiguous; W * 4 bytes of shared memory, so W <= 12,288;
+// R <= 65,535.
 REPRO_EXPORT int weighted_sum_f32(const float* z, const float* a, float* out,
-                                  int W, long long D, long long ld,
-                                  void* stream) {
-  if (D == 0) return static_cast<int>(cudaGetLastError());
-  const unsigned blocks = static_cast<unsigned>((D + kThreads - 1) / kThreads);
-  weighted_sum_kernel<<<blocks, kThreads, W * sizeof(float),
+                                  int R, int W, long long D, long long ld,
+                                  long long rs, void* stream) {
+  if (D == 0 || R == 0) return static_cast<int>(cudaGetLastError());
+  const dim3 grid(static_cast<unsigned>((D + kThreads - 1) / kThreads),
+                  static_cast<unsigned>(R));
+  weighted_sum_kernel<<<grid, kThreads, W * sizeof(float),
                         static_cast<cudaStream_t>(stream)>>>(
-      z, a, out, W, static_cast<int64_t>(D), static_cast<int64_t>(ld));
+      z, a, out, W, static_cast<int64_t>(D), static_cast<int64_t>(ld),
+      static_cast<int64_t>(rs));
   return static_cast<int>(cudaGetLastError());
 }
 

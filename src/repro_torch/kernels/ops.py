@@ -12,6 +12,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import robust_stats as rs
 from repro_torch.kernels import saga_correct as sc
+from repro_torch.kernels import topology as tp
 from repro_torch.kernels import weiszfeld as wz
 
 
@@ -34,16 +35,19 @@ def saga_correct(grad: torch.Tensor, table: torch.Tensor, avg: torch.Tensor,
 
 
 def partial_sqdist(z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """K2: z (W, D), y (D,) -> (W,) squared distances."""
-    wz.check_inputs("partial_sqdist", z, y, z.shape[-1])
+    """K2: z (W, D), y (D,) -> (W,) squared distances; batched over
+    receivers, z (R, S, D), y (R, D) -> (R, S)."""
+    wz.check_inputs("partial_sqdist", z, y, z.shape[:-2] + z.shape[-1:],
+                    batched=True)
     if _on_card(z):
         return wz.partial_sqdist_call(z, y)
     return wz.partial_sqdist_plain(z, y)
 
 
 def weighted_sum(z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """K3: z (W, D), a (W,) -> (D,) = sum_w a[w] z[w], unnormalized."""
-    wz.check_inputs("weighted_sum", z, a, z.shape[0])
+    """K3: z (W, D), a (W,) -> (D,) = sum_w a[w] z[w], unnormalized;
+    batched over receivers, z (R, S, D), a (R, S) -> (R, D)."""
+    wz.check_inputs("weighted_sum", z, a, z.shape[:-1], batched=True)
     if _on_card(z):
         return wz.weighted_sum_call(z, a)
     return wz.weighted_sum_plain(z, a)
@@ -55,7 +59,7 @@ def partial_sqdist_segments(z: torch.Tensor, y: torch.Tensor,
     """K6: z (W, D), y (D,), seg_ids (D,) int32 -> (W, num_segments)
     per-(worker, segment) squared distances; an id outside
     ``[0, num_segments)`` (padding) counts nowhere."""
-    wz.check_inputs("partial_sqdist_segments", z, y, z.shape[-1])
+    wz.check_inputs("partial_sqdist_segments", z, y, z.shape[-1:])
     wz.check_segments(z, seg_ids, num_segments)
     if _on_card(z):
         return wz.partial_sqdist_segments_call(z, y, seg_ids, num_segments)
@@ -79,6 +83,17 @@ def trimmed_mean(z: torch.Tensor, *, trim: int = 1) -> torch.Tensor:
     if _on_card(z):
         return rs.trimmed_mean_call(z, trim)
     return rs.trimmed_mean_plain(z, trim)
+
+
+def masked_neighbor_reduce(exchange: torch.Tensor, mask: torch.Tensor, *,
+                           trim: int = 0) -> torch.Tensor:
+    """K7: exchange (R, S, D), mask (R, S) -> (R, D) per-receiver masked
+    mean without the ``trim`` largest and smallest masked values per
+    coordinate, over ``max(n_r - 2 * trim, 1)``."""
+    tp.check_inputs(exchange, mask, trim)
+    if _on_card(exchange):
+        return tp.masked_neighbor_reduce_call(exchange, mask, trim)
+    return tp.masked_neighbor_reduce_plain(exchange, mask, trim)
 
 
 def launch_counts() -> dict[str, int]:

@@ -71,3 +71,17 @@ def trimmed_mean(z: torch.Tensor, trim: int) -> torch.Tensor:
     s = torch.sort(z, dim=0).values
     w = z.shape[0]
     return torch.mean(s[trim:w - trim].float(), dim=0).to(z.dtype)
+
+
+def masked_neighbor_reduce(exchange: torch.Tensor, mask: torch.Tensor,
+                           trim: int = 0) -> torch.Tensor:
+    """exchange: (R, S, d), mask: (R, S) -> (R, d) per-receiver masked
+    trimmed mean over the sender axis (trim=0: plain masked mean).
+    Sort-based: non-neighbours fill to +inf, ranks [trim, n-trim) survive."""
+    z = exchange.float()
+    n = torch.sum(mask.float(), dim=1)
+    s = torch.sort(torch.where(mask[:, :, None] > 0, z, torch.inf), dim=1).values
+    ranks = torch.arange(z.shape[1], device=z.device)[None, :, None]
+    keep = (ranks >= trim) & (ranks < (n[:, None, None] - trim))
+    return (torch.sum(torch.where(keep, s, 0.0), dim=1)
+            / torch.clamp(n - 2 * trim, min=1.0)[:, None])

@@ -1,0 +1,104 @@
+"""K7: the masked neighbourhood (trimmed) mean of the decentralized step
+(port of ``repro/kernels/topology.py``).
+
+:func:`masked_neighbor_reduce_call` takes the dense (R, S, D) exchange --
+row r is what receiver r sees from each of the S senders -- and the (R, S)
+neighbour mask, and returns (R, D) float32: per receiver and coordinate,
+the mean of the masked senders' values after dropping the ``trim`` largest
+and the ``trim`` smallest, divided by ``max(n_r - 2 * trim, 1)`` with
+``n_r = sum_s mask[r, s]``.  ``trim = 0`` is the masked mean.
+
+It launches the CUDA kernel of ``csrc/topology.cu`` on float32 inputs;
+:func:`masked_neighbor_reduce_plain` is the same function in plain PyTorch
+(sort with non-neighbours filled with +inf, keep ranks
+``[trim, n - trim)``), which the CPU path runs and the card's checks
+compare against.
+
+The kernel reduces by 0/1 counts: a mask entry counts as a neighbour when
+it is > 0.  This slice's masks are always 0/1 (participation and its
+staleness weights are not ported), so the decentralized ``trimmed_mean``
+always takes K7 on the card.  When fractional sender weights land, the
+route follows the reference's rule (``decentralized_step.py:872``, K7 only
+when ``row_weights is None``) and weighted masks go to the torch rules.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.weiszfeld import batch_strides
+
+_SIGNATURES = {
+    "masked_neighbor_reduce_smem_bytes": [ctypes.c_int],
+    "masked_neighbor_reduce_f32": [ctypes.c_void_p] * 3 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+}
+
+# Dynamic shared memory one block may use on Hopper; a block holds its
+# receiver's mask row and an (S, 128) slab: S * 129 * 4 bytes, S <= 450.
+MAX_SHARED_BYTES = 232_448
+MAX_RECEIVERS = 65_535
+
+
+def check_inputs(exchange: torch.Tensor, mask: torch.Tensor, trim: int) -> None:
+    """exchange (R, S, D) and mask (R, S), float32 on one device; trim >= 0.
+    Raises on anything else."""
+    if exchange.dtype != torch.float32 or mask.dtype != torch.float32:
+        raise TypeError(f"masked_neighbor_reduce: inputs must be float32, got "
+                        f"{exchange.dtype} and {mask.dtype} (bf16 comes with "
+                        "the bf16 wire, ROADMAP.md Queue A 7)")
+    if exchange.dim() != 3 or tuple(mask.shape) != tuple(exchange.shape[:2]):
+        raise ValueError(f"masked_neighbor_reduce: exchange "
+                         f"{tuple(exchange.shape)} and mask "
+                         f"{tuple(mask.shape)} do not agree")
+    if exchange.device != mask.device:
+        raise ValueError("masked_neighbor_reduce: inputs lie on different "
+                         "devices")
+    if trim < 0:
+        raise ValueError(f"masked_neighbor_reduce: trim must be >= 0, got {trim}")
+
+
+def masked_neighbor_reduce_plain(exchange: torch.Tensor, mask: torch.Tensor,
+                                 trim: int) -> torch.Tensor:
+    z = exchange.float()
+    n = torch.sum(mask, dim=1)                                  # (R,)
+    s = torch.sort(torch.where(mask[:, :, None] > 0, z, torch.inf),
+                   dim=1).values
+    ranks = torch.arange(z.shape[1], device=z.device)[None, :, None]
+    keep = (ranks >= trim) & (ranks < (n[:, None, None] - trim))
+    return (torch.sum(torch.where(keep, s, 0.0), dim=1)
+            / torch.clamp(n - 2 * trim, min=1.0)[:, None])
+
+
+def masked_neighbor_reduce_call(exchange: torch.Tensor, mask: torch.Tensor,
+                                trim: int) -> torch.Tensor:
+    """exchange (R, S, D), mask (R, S) -> (R, D) float32, on the card.
+    ``exchange`` may be a column slice or a broadcast over receivers (read
+    in place)."""
+    check_inputs(exchange, mask, trim)
+    if exchange.device.type != "cuda":
+        raise ValueError("masked_neighbor_reduce: tensors must lie on a CUDA "
+                         "device")
+    if not mask.is_contiguous():
+        raise ValueError("masked_neighbor_reduce: mask must be contiguous")
+    r, ss, rs = batch_strides(exchange)
+    s, d = exchange.shape[1:]
+    if r > MAX_RECEIVERS:
+        raise ValueError(f"masked_neighbor_reduce: R={r} exceeds {MAX_RECEIVERS}")
+    lib = _build.load("topology", _SIGNATURES)
+    need = lib.masked_neighbor_reduce_smem_bytes(s)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(f"masked_neighbor_reduce: S={s} senders need {need} "
+                         f"bytes of shared memory, more than the "
+                         f"{MAX_SHARED_BYTES} a block may use")
+    out = torch.empty((r, d), dtype=torch.float32, device=exchange.device)
+    with torch.cuda.device(exchange.device):
+        rc = lib.masked_neighbor_reduce_f32(
+            _build.ptr(exchange), _build.ptr(mask), _build.ptr(out), r, s, d,
+            rs, ss, int(trim), ctypes.c_void_p(_build.stream_of(exchange)))
+    _build.check(lib, rc, "masked_neighbor_reduce")
+    _build.LAUNCHES["masked_neighbor_reduce"] += 1
+    return out

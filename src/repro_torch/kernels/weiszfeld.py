@@ -6,8 +6,13 @@
   Two passes on the card (per-block partial sums, then one fixed-order
   reduction per worker), so the result is the same bits on every run.
 * :func:`weighted_sum_call`   -- unnormalized ``sum_w a_w z_w`` -> (D,).
-  ``z`` may be a column slice of a wider buffer (rows ``z.stride(0)``
-  apart), which is read in place.
+
+Both also take a leading receiver axis, the decentralized step's masked
+Weiszfeld: ``partial_sqdist`` on (R, S, D) and (R, D) gives (R, S),
+``weighted_sum`` on (R, S, D) and (R, S) gives (R, D) -- one launch for all
+R receivers, a grid dimension over R.  The matrix ``z`` may be a column
+slice of a wider buffer, and its receiver stride may be 0 (one matrix
+shared by every receiver, ``expand``): it is read in place.
 * :func:`partial_sqdist_segments_call` -- per-(worker, segment) squared
   distances -> (W, L), given each coordinate's segment id (an id outside
   ``[0, L)`` counts nowhere).  Two passes like K2, the same bits each run.
@@ -27,25 +32,32 @@ from repro_torch.kernels import _build
 _SIGNATURES = {
     "partial_sqdist_scratch_cols": [ctypes.c_longlong],
     "partial_sqdist_f32": [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_void_p],
     "weighted_sum_f32": [ctypes.c_void_p] * 3 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p],
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_void_p],
     "partial_sqdist_segments_f32": [ctypes.c_void_p] * 5 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
 }
 
-# Shared memory holds the weights: W * 4 bytes within the 48 KB default.
+# Shared memory holds one receiver's weights: W * 4 bytes within the 48 KB
+# default.
 MAX_WORKERS = 12_288
+# The grid's y and z dimensions (workers, receivers).
+MAX_GRID_YZ = 65_535
 
 
 def check_inputs(what: str, z: torch.Tensor, v: torch.Tensor,
-                 v_len: int) -> None:
-    """z (W, D) float32 and a float32 vector of length ``v_len`` on the same
-    device.  Raises on anything else."""
+                 v_shape: tuple[int, ...], *, batched: bool = False) -> None:
+    """z (W, D) -- or, with ``batched``, also (R, S, D) -- float32 and a
+    float32 tensor of shape ``v_shape`` on the same device.  Raises on
+    anything else."""
     if z.dtype != torch.float32 or v.dtype != torch.float32:
         raise TypeError(f"{what}: inputs must be float32, got {z.dtype} and "
                         f"{v.dtype} (bf16 comes with ROADMAP.md Queue A 7)")
-    if z.dim() != 2 or tuple(v.shape) != (v_len,):
+    if z.dim() not in ((2, 3) if batched else (2,)) \
+            or tuple(v.shape) != tuple(v_shape):
         raise ValueError(f"{what}: shapes {tuple(z.shape)} and "
                          f"{tuple(v.shape)} do not agree")
     if z.device != v.device:
@@ -69,37 +81,56 @@ def check_segments(z: torch.Tensor, seg_ids: torch.Tensor,
 def _check_launchable(what: str, z: torch.Tensor, *rest: torch.Tensor,
                       strided: bool = False) -> None:
     """On a CUDA device, contiguous, W within the grid's y limit; with
-    ``strided`` the matrix ``z`` may have rows ``ld >= D`` floats apart."""
+    ``strided`` the matrix ``z`` may have rows ``ld >= D`` floats apart
+    (and receivers any stride >= 0)."""
     if z.device.type != "cuda":
         raise ValueError(f"{what}: tensors must lie on a CUDA device")
     if strided:
-        row_stride(z)
+        batch_strides(z)
     else:
         rest = (z, *rest)
     if not all(t.is_contiguous() for t in rest):
         raise ValueError(f"{what}: inputs must be contiguous")
-    if z.shape[0] > min(65535, MAX_WORKERS):
-        raise ValueError(f"{what}: W={z.shape[0]} exceeds "
-                         f"{min(65535, MAX_WORKERS)}")
+    w = z.shape[-2]
+    if w > min(MAX_GRID_YZ, MAX_WORKERS):
+        raise ValueError(f"{what}: W={w} exceeds "
+                         f"{min(MAX_GRID_YZ, MAX_WORKERS)}")
+    if z.dim() == 3 and z.shape[0] > MAX_GRID_YZ:
+        raise ValueError(f"{what}: R={z.shape[0]} exceeds {MAX_GRID_YZ}")
 
 
 def row_stride(z: torch.Tensor) -> int:
     """The distance in floats between z's rows, when its coordinates are
     contiguous within each row (a contiguous matrix or a column slice of
     one); raises otherwise."""
-    w, d = z.shape
-    if (d > 1 and z.stride(1) != 1) or (w > 1 and z.stride(0) < d):
-        raise ValueError(f"weighted_sum: z of shape {tuple(z.shape)} and "
-                         f"strides {z.stride()} has no row-major layout")
-    return max(z.stride(0), d)
+    w, d = z.shape[-2:]
+    if (d > 1 and z.stride(-1) != 1) or (w > 1 and z.stride(-2) < d):
+        raise ValueError(f"z of shape {tuple(z.shape)} and strides "
+                         f"{z.stride()} has no row-major layout")
+    return max(z.stride(-2), d)
+
+
+def batch_strides(z: torch.Tensor) -> tuple[int, int, int]:
+    """(R, ld, rs) of a (W, D) or (R, S, D) matrix whose rows are
+    row-major (:func:`row_stride`): receivers ``rs >= 0`` floats apart (0
+    for a single matrix, or one broadcast to every receiver)."""
+    ld = row_stride(z)
+    if z.dim() == 2:
+        return 1, ld, 0
+    if z.stride(0) < 0:
+        raise ValueError(f"z of strides {z.stride()} has a negative "
+                         "receiver stride")
+    return z.shape[0], ld, z.stride(0) if z.shape[0] > 1 else 0
 
 
 def partial_sqdist_plain(z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    d = z - y[None]
+    d = z - y.unsqueeze(-2)
     return torch.sum(d * d, dim=-1)
 
 
 def weighted_sum_plain(z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    if z.dim() == 3:
+        return torch.bmm(a.unsqueeze(1), z).squeeze(1)
     return a @ z
 
 
@@ -113,34 +144,40 @@ def partial_sqdist_segments_plain(z: torch.Tensor, y: torch.Tensor,
 
 
 def partial_sqdist_call(z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """z (W, D), y (D,) -> (W,) float32, on the card."""
-    check_inputs("partial_sqdist", z, y, z.shape[-1])
-    _check_launchable("partial_sqdist", z, y)
-    w, d = z.shape
+    """z (W, D), y (D,) -> (W,) float32; or z (R, S, D), y (R, D) ->
+    (R, S); on the card.  ``z`` may be a column slice or a broadcast (read
+    in place)."""
+    check_inputs("partial_sqdist", z, y, z.shape[:-2] + z.shape[-1:],
+                 batched=True)
+    _check_launchable("partial_sqdist", z, y, strided=True)
+    r, ld, rs = batch_strides(z)
+    w, d = z.shape[-2:]
     lib = _build.load("weiszfeld", _SIGNATURES)
-    scratch = torch.empty((w, lib.partial_sqdist_scratch_cols(d)),
+    scratch = torch.empty((r * w, lib.partial_sqdist_scratch_cols(d)),
                           dtype=torch.float32, device=z.device)
-    out = torch.empty((w,), dtype=torch.float32, device=z.device)
+    out = torch.empty(z.shape[:-1], dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
         rc = lib.partial_sqdist_f32(
             _build.ptr(z), _build.ptr(y), _build.ptr(scratch), _build.ptr(out),
-            w, d, ctypes.c_void_p(_build.stream_of(z)))
+            r, w, d, ld, rs, ctypes.c_void_p(_build.stream_of(z)))
     _build.check(lib, rc, "partial_sqdist")
     _build.LAUNCHES["partial_sqdist"] += 1
     return out
 
 
 def weighted_sum_call(z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """z (W, D), a (W,) -> (D,) float32 = sum_w a[w] z[w], on the card.
-    ``z`` may be a column slice ``buf[:, lo:hi]`` (read in place)."""
-    check_inputs("weighted_sum", z, a, z.shape[0])
+    """z (W, D), a (W,) -> (D,) float32 = sum_w a[w] z[w]; or z (R, S, D),
+    a (R, S) -> (R, D); on the card.  ``z`` may be a column slice
+    ``buf[..., lo:hi]`` or a broadcast (read in place)."""
+    check_inputs("weighted_sum", z, a, z.shape[:-1], batched=True)
     _check_launchable("weighted_sum", z, a, strided=True)
-    w, d = z.shape
+    r, ld, rs = batch_strides(z)
+    w, d = z.shape[-2:]
     lib = _build.load("weiszfeld", _SIGNATURES)
-    out = torch.empty((d,), dtype=torch.float32, device=z.device)
+    out = torch.empty(z.shape[:-2] + (d,), dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
         rc = lib.weighted_sum_f32(
-            _build.ptr(z), _build.ptr(a), _build.ptr(out), w, d, row_stride(z),
+            _build.ptr(z), _build.ptr(a), _build.ptr(out), r, w, d, ld, rs,
             ctypes.c_void_p(_build.stream_of(z)))
     _build.check(lib, rc, "weighted_sum")
     _build.LAUNCHES["weighted_sum"] += 1
@@ -152,7 +189,7 @@ def partial_sqdist_segments_call(z: torch.Tensor, y: torch.Tensor,
                                  num_segments: int) -> torch.Tensor:
     """z (W, D), y (D,), seg_ids (D,) int32 -> (W, num_segments) float32,
     on the card."""
-    check_inputs("partial_sqdist_segments", z, y, z.shape[-1])
+    check_inputs("partial_sqdist_segments", z, y, z.shape[-1:])
     check_segments(z, seg_ids, num_segments)
     _check_launchable("partial_sqdist_segments", z, y, seg_ids)
     w, d = z.shape

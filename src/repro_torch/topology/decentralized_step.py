@@ -1,0 +1,227 @@
+"""Decentralized Byzantine-robust training over a graph, simulated on one
+device (port of the simulation side of
+``repro/topology/decentralized_step.py``).
+
+There is no master: every node keeps its own parameters, computes its own
+SAGA-corrected stochastic gradient at them, exchanges messages only with
+its graph neighbours, and robustly aggregates its masked neighbourhood
+with any rule of :mod:`repro_torch.topology.masked`.  ``cfg.gossip``
+chooses the channel:
+
+* ``"gradient"`` -- nodes exchange gradient messages, aggregate, then
+  apply the optimizer to the aggregate;
+* ``"params"``   -- each node first takes a local optimizer step with its
+  own gradient, then the half-stepped parameters are exchanged and each
+  node's new iterate is the robust aggregate of its neighbourhood's.
+
+The graph may vary with the round (a :class:`GraphSchedule`): round ``t``
+uses the schedule's ``t % period`` mask and mixing matrix, indexed from
+stacks moved to the device once.  Nodes are ``N = W_h + B``: the first
+W_h are the honest workers (rows of ``worker_data``), the last B are
+Byzantine.  Byzantine nodes attack per edge (:func:`build_exchange`): the
+message a Byzantine sender sends receiver r is built from r's own honest
+neighbourhood, so two receivers see different poison.
+
+The sharded, ``torch.distributed`` form of the reference's
+``decentralized_aggregate`` is ROADMAP.md Queue A item 10.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.core import attacks as attack_lib
+from repro_torch.core.robust_step import (FederatedState, as_batches,
+                                          per_sample_table, sample_rows)
+from repro_torch.device import DEFAULT_DEVICE, generator_for, resolve_device
+from repro_torch.optim import optimizers as optim_lib
+from repro_torch.telemetry import metrics as telemetry
+from repro_torch.topology.masked import masked_aggregate_flat
+from repro_torch.topology.schedule import as_schedule, validate_schedule
+
+Params = dict[str, torch.Tensor]
+
+GOSSIP_MODES = ("gradient", "params")
+
+# Per-edge attacks of the reference that the port does not build yet.
+_UNPORTED_EDGE_ATTACKS = {
+    "straggler": "ROADMAP.md Queue A items 5 and 7 (participation)",
+    "dropout": "ROADMAP.md Queue A items 5 and 7 (participation)",
+    "nan": "ROADMAP.md Queue A items 5 and 7 (guards)",
+    "inf_overflow": "ROADMAP.md Queue A items 5 and 7 (guards)",
+    "bitflip": "ROADMAP.md Queue A items 5 and 7 (guards)",
+}
+
+
+def _check_gossip(cfg) -> str:
+    gossip = getattr(cfg, "gossip", "gradient")
+    if gossip not in GOSSIP_MODES:
+        raise ValueError(f"RobustConfig.gossip must be one of {GOSSIP_MODES}, "
+                         f"got {gossip!r}")
+    return gossip
+
+
+def build_exchange(msgs: torch.Tensor, cfg: attack_lib.AttackConfig,
+                   mask: torch.Tensor, is_byz: torch.Tensor,
+                   generator: Optional[torch.Generator] = None, *,
+                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The per-edge message exchange (R, S, D) float32.
+
+    ``msgs``: (S, D) honestly computed messages (Byzantine rows are
+    ignored); ``mask``: (R, S) neighbour-mask rows of the receivers;
+    ``is_byz``: (S,) bool marks Byzantine senders.  Row r is receiver r's
+    view: every Byzantine sender's entry is an attack vector built from
+    receiver r's masked honest statistics (mean, and for ``alie`` the
+    second moment).  Without an attack the (S, D) rows are broadcast to
+    every receiver (a view, no copy).  ``gaussian`` draws per-edge noise
+    from ``generator``, or takes the standard-normal draws ready-made as
+    ``noise`` (R, S, D) (only the Byzantine senders' entries are read).
+    """
+    if cfg.name in _UNPORTED_EDGE_ATTACKS:
+        raise ValueError(f"attack {cfg.name!r} has no per-edge form in the "
+                         f"port yet: {_UNPORTED_EDGE_ATTACKS[cfg.name]}")
+    attack_lib.check_attack_name(cfg.name)
+    r = mask.shape[0]
+    s, d = msgs.shape
+    m32 = msgs.float()
+    if cfg.name == "none" or cfg.num_byzantine == 0:
+        return m32[None].expand(r, s, d)
+    byz_f = is_byz.float()
+    hon_w = mask * (1.0 - byz_f)[None, :]                       # (R, S)
+    h_cnt = torch.clamp(torch.sum(hon_w, dim=1), min=1.0)       # (R,)
+    b_cnt = torch.clamp(torch.sum(mask * byz_f[None, :], dim=1), min=1.0)
+    mean = (hon_w @ m32) / h_cnt[:, None]                       # (R, D)
+    nb = int(is_byz.sum())
+    if cfg.name == "sign_flip":
+        byz = cfg.sign_flip_magnitude * mean
+    elif cfg.name == "zero_gradient":
+        # Each receiver's masked neighbourhood mean becomes exactly zero.
+        byz = -(h_cnt / b_cnt)[:, None] * mean
+    elif cfg.name == "ipm":
+        byz = -cfg.ipm_eps * mean
+    elif cfg.name == "alie":
+        sq = (hon_w @ (m32 * m32)) / h_cnt[:, None]
+        byz = mean + cfg.alie_z * torch.sqrt(torch.clamp(sq - mean * mean,
+                                                         min=0.0))
+    else:   # gaussian: per-edge draws around each receiver's mean
+        if noise is None:
+            draws = torch.randn((r, nb, d), generator=generator,
+                                device=msgs.device)
+        else:
+            if tuple(noise.shape) != (r, s, d):
+                raise ValueError(f"gaussian: noise must be {(r, s, d)}, got "
+                                 f"{tuple(noise.shape)}")
+            draws = noise.to(msgs.device, torch.float32)[:, is_byz]
+        byz = mean[:, None] + math.sqrt(cfg.gaussian_variance) * draws
+    exchange = m32[None].expand(r, s, d).clone()
+    exchange[:, is_byz] = byz[:, None] if byz.dim() == 2 else byz
+    return exchange
+
+
+def make_decentralized_step(
+    loss_fn: Callable[[Params, dict], torch.Tensor],
+    worker_data: dict[str, Any],
+    cfg,
+    optimizer: optim_lib.Optimizer,
+    topology,
+    *,
+    device: str | torch.device = DEFAULT_DEVICE,
+):
+    """Build ``(init_fn, step_fn)`` for the simulated decentralized
+    federation, shaped like :func:`repro_torch.core.make_federated_step`
+    but with per-node parameters.
+
+    ``topology``: a fixed :class:`Topology` or a :class:`GraphSchedule`.
+    ``init_fn(params, seed)`` copies ``params`` to every node and fills the
+    honest workers' packed (W_h, J, D) SAGA table at those shared initial
+    params.  ``step_fn(state, *, sample_idx=None, attack_noise=None)`` ->
+    ``(new_state, metrics)`` with ``honest_variance`` and
+    ``consensus_dist`` (the honest-variance formula on the honest nodes'
+    parameter copies).  ``sample_idx`` ((W_h,) rows) and ``attack_noise``
+    ((N, N, D) standard-normal per-edge draws for ``gaussian``) replace the
+    step's own draws, so a test can hand in the reference's.
+    """
+    sched = as_schedule(topology)
+    dev = resolve_device(device)
+    data = {k: torch.as_tensor(v, device=dev) for k, v in worker_data.items()}
+    wh, j = next(iter(data.values())).shape[:2]
+    b = cfg.num_byzantine if cfg.attack != "none" else 0
+    n = wh + b
+    validate_schedule(cfg, sched, n)
+    gossip = _check_gossip(cfg)
+    stacks = sched.on(dev)
+    attack_cfg = cfg.attack_config()
+    reducer = cfg.reducer()
+    grad_fn = torch.func.grad(loss_fn)
+    # Alg. 1 init: every sample's gradient at the shared initial params.
+    per_sample_grads = torch.func.vmap(grad_fn, in_dims=(None, 0))
+    # Each honest node's gradient at its own params, on its drawn sample.
+    per_node_grads = torch.func.vmap(grad_fn, in_dims=(0, 0))
+    is_byz = torch.arange(n, device=dev) >= wh
+    w_ids = torch.arange(wh, device=dev)
+    opts = dict(max_iters=cfg.weiszfeld_iters, tol=cfg.weiszfeld_tol,
+                num_groups=cfg.num_groups, trim=cfg.trim,
+                num_byzantine=cfg.num_byzantine, clip_radius=cfg.clip_radius)
+
+    def init_fn(params: Params, seed: int | torch.Generator = 0
+                ) -> FederatedState:
+        params = {k: torch.as_tensor(v, device=dev) for k, v in params.items()}
+        nodes = {k: p[None].expand((n,) + tuple(p.shape)).clone()
+                 for k, p in params.items()}
+        spec = cfg.message_spec(params, batch_ndim=0)
+        with torch.no_grad():
+            vr_state = reducer.init_sim(
+                params, per_sample_grads_fn=lambda: per_sample_table(
+                    per_sample_grads, params, data, spec),
+                num_workers=wh)
+        return FederatedState(nodes, optimizer.init(nodes), vr_state, 0,
+                              generator_for(seed, dev))
+
+    @torch.no_grad()
+    def step_fn(state: FederatedState, *, sample_idx=None,
+                attack_noise: Optional[torch.Tensor] = None):
+        mask = stacks.mask_at(state.step)
+        mixing = stacks.mixing_at(state.step)
+        idx = sample_rows(reducer, state.generator, sample_idx, wh, j, dev)
+        honest_params = {k: v[:wh] for k, v in state.params.items()}
+        honest_tree = per_node_grads(honest_params, as_batches(
+            {k: v[w_ids, idx] for k, v in data.items()}))
+        spec = cfg.message_spec(honest_tree, batch_ndim=1)
+        honest = spec.pack(honest_tree)                         # (W_h, D)
+        honest, vr_state, vr_metrics = reducer.correct(state.vr, honest, idx)
+        var = telemetry.honest_variance(honest, wh)
+        # Byzantine node rows carry zeros until the attack replaces them.
+        msgs = torch.zeros((n, honest.shape[1]), dtype=honest.dtype,
+                           device=dev)
+        msgs[:wh] = honest
+
+        def gossip_agg(wire: torch.Tensor) -> Params:
+            exchange = build_exchange(wire, attack_cfg, mask, is_byz,
+                                      state.generator, noise=attack_noise)
+            out = masked_aggregate_flat(cfg.aggregator, exchange, mask,
+                                        spec=spec, mixing=mixing * mask,
+                                        **opts)                 # (N, D)
+            return spec.unpack(out, batch_ndim=1)
+
+        if gossip == "params":
+            updates, opt_state = optimizer.update(
+                spec.unpack(msgs, batch_ndim=1), state.opt_state,
+                state.params, state.step)
+            half = optim_lib.apply_updates(state.params, updates)
+            params = gossip_agg(spec.pack(half))
+        else:
+            agg = gossip_agg(msgs)
+            updates, opt_state = optimizer.update(agg, state.opt_state,
+                                                  state.params, state.step)
+            params = optim_lib.apply_updates(state.params, updates)
+        consensus = telemetry.honest_variance(
+            spec.pack({k: v[:wh] for k, v in params.items()}), wh)
+        new_state = FederatedState(params, opt_state, vr_state,
+                                   state.step + 1, state.generator)
+        return new_state, {"honest_variance": var,
+                           "consensus_dist": consensus, **vr_metrics}
+
+    return init_fn, step_fn
+

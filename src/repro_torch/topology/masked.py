@@ -1,0 +1,235 @@
+"""Masked-neighbourhood counterparts of every aggregation rule (port of
+``repro/topology/masked.py``'s flat engine).
+
+Decentralized training has no master: node r robustly aggregates only the
+messages of its neighbourhood N(r) + {r}.  Every rule here takes
+
+* ``exchange`` -- the packed (R, S, D) buffer: row r is what receiver r
+  sees from each of the S senders (per-edge attacks make it
+  receiver-dependent, hence the dense layout);
+* ``mask``     -- (R, S) float32 neighbour mask: ``mask[r, s] = 0`` senders
+  must not influence receiver r's result;
+
+and returns the (R, D) float32 per-receiver aggregates.  Restriction is by
+mask, never by slicing the sender axis: non-neighbours are weighted to
+zero, filled with +inf out of sorts, or masked out of pairwise distances.
+
+Kernels on a CUDA device (their plain versions on the CPU):
+
+* ``trimmed_mean`` -- K7 ``masked_neighbor_reduce`` (one launch per step);
+* ``geomed``, ``geomed_groups``, ``geomed_blockwise`` -- the masked
+  Weiszfeld :func:`masked_weiszfeld`: K7 with trim 0 for the initial masked
+  mean, then per iteration one K2 and one K3 launch for all receivers at
+  once (their receiver-batched form);
+* ``mean`` (mixing-weighted) -- one K3 launch.
+
+``median``, ``krum`` and ``centered_clip`` are torch ops, as the
+reference's are jnp.  ``diagnostics=True`` is not ported yet (ROADMAP.md
+Queue A item 7).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.core import packing
+from repro_torch.core.geomed import WeiszfeldInfo, _f32_tol
+from repro_torch.kernels import ops
+
+# The reference's floor for distances and for weight sums.
+_DIST_FLOOR = 1e-8
+
+
+def _weighted_mean(ex: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Per-receiver weighted mean over the sender axis: ex (R, S, D),
+    weights (R, S) -> (R, D) (kernel K3, receiver-batched)."""
+    weights = weights.contiguous()
+    denom = torch.clamp(torch.sum(weights, dim=1), min=_DIST_FLOOR)
+    return ops.weighted_sum(ex, weights) / denom[:, None]
+
+
+def masked_mean(exchange: torch.Tensor, mask: torch.Tensor, *,
+                mixing: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked neighbourhood mean.  With ``mixing`` (rows of the doubly
+    stochastic matrix) this is one DGD gossip step; without, the uniform
+    mean over the masked senders."""
+    weights = mask if mixing is None else mixing * mask
+    return _weighted_mean(exchange.float(), weights)
+
+
+def _masked_sorted(z: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Stable sort of the sender axis with non-neighbours filled to +inf."""
+    return torch.sort(torch.where(mask[:, :, None] > 0, z, torch.inf),
+                      dim=1, stable=True).values
+
+
+def masked_median(exchange: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Coordinate-wise median over each masked neighbourhood; the median's
+    ranks come from the neighbour count (mean of the two middle values)."""
+    z = exchange.float()
+    n = torch.sum(mask, dim=1).to(torch.int64)                  # (R,)
+    s = _masked_sorted(z, mask)
+    d = z.shape[2]
+
+    def sel(i):
+        return torch.gather(s, 1, i[:, None, None].expand(-1, 1, d))[:, 0]
+
+    return 0.5 * (sel((n - 1) // 2) + sel(n // 2))
+
+
+def masked_trimmed_mean(exchange: torch.Tensor, mask: torch.Tensor, *,
+                        trim: int) -> torch.Tensor:
+    """Coordinate-wise trimmed mean per neighbourhood: drop the ``trim``
+    largest and smallest masked entries per coordinate, average the rest
+    (kernel K7).  Every neighbourhood must have > 2 * trim members
+    (``validate_schedule`` checks the graph)."""
+    return ops.masked_neighbor_reduce(exchange.float(), mask.contiguous(),
+                                      trim=trim)
+
+
+def masked_weiszfeld(exchange: torch.Tensor, mask: torch.Tensor, *,
+                     max_iters: int = 64, tol: float = 1e-6,
+                     return_info: bool = False):
+    """Per-receiver geometric median of the masked neighbourhood, all
+    receivers in lockstep: from the masked mean (K7, trim 0), each
+    iteration takes the (R, S) distances (K2), the weights ``inv = mask /
+    max(sqrt(sq), 1e-8)`` and the weighted means (K3), and one host read of
+    ``sqrt(max_r move_r)`` decides the one stop for all receivers (``tol``,
+    or ``max_iters``).  Non-neighbours get weight 0, so the restriction is
+    exact.  ``exchange`` may be a column slice of a wider buffer."""
+    z = exchange if exchange.dtype == torch.float32 else exchange.float()
+    mask = mask.contiguous()
+    y = ops.masked_neighbor_reduce(z, mask, trim=0)
+    tol = _f32_tol(tol)
+    delta, it = math.inf, 0
+    while it < max_iters and delta > tol:
+        sq = ops.partial_sqdist(z, y)                           # (R, S)
+        inv = mask / torch.clamp(torch.sqrt(sq), min=_DIST_FLOOR)
+        y_new = _weighted_mean(z, inv)
+        delta = float(torch.sqrt(torch.max(torch.sum((y_new - y) ** 2, dim=1))))
+        y, it = y_new, it + 1
+    if return_info:
+        return y, WeiszfeldInfo(residual=delta, iters=it,
+                                converged=delta <= tol)
+    return y
+
+
+def masked_geomed_groups(exchange: torch.Tensor, mask: torch.Tensor, *,
+                         num_groups: int, max_iters: int = 64,
+                         tol: float = 1e-6) -> torch.Tensor:
+    """Geomed of masked group means: senders keep their global contiguous
+    group ids ``(s * G) // S``, each receiver averages the members inside
+    its neighbourhood, and groups with no member there drop out."""
+    s_tot = mask.shape[1]
+    gids = (torch.arange(s_tot, device=mask.device) * num_groups) // s_tot
+    onehot = (gids[None, :] == torch.arange(
+        num_groups, device=mask.device)[:, None]).float()       # (G, S)
+    counts = mask @ onehot.T                                    # (R, G)
+    gmask = (counts > 0).float()
+    w = mask[:, None, :] * onehot[None]                         # (R, G, S)
+    grouped = torch.bmm(w, exchange.float()) / torch.clamp(
+        counts, min=1.0)[:, :, None]                            # (R, G, D)
+    return masked_weiszfeld(grouped, gmask, max_iters=max_iters, tol=tol)
+
+
+def masked_geomed_blockwise(exchange: torch.Tensor, mask: torch.Tensor, *,
+                            spec: packing.PackSpec, max_iters: int = 64,
+                            tol: float = 1e-6) -> torch.Tensor:
+    """Per-block masked geometric median: each leaf's coordinate slice of
+    the packed buffer runs its own lockstep masked Weiszfeld (read in
+    place), one block after another; padding aggregates to zero."""
+    z = exchange.float()
+    parts = [masked_weiszfeld(z[:, :, a:b], mask, max_iters=max_iters, tol=tol)
+             for a, b in spec.boundaries]
+    return packing.assemble(parts, pad=spec.pad, batch_shape=(z.shape[0],),
+                            device=z.device)
+
+
+def masked_krum(exchange: torch.Tensor, mask: torch.Tensor, *,
+                num_byzantine: int) -> torch.Tensor:
+    """Per-receiver Krum over the masked neighbourhood: a candidate's score
+    sums its ``m_r - B - 2`` smallest distances to other neighbourhood
+    members (clipped to >= 1; the guarantee is void below Krum's bound),
+    and the winning sender's message is selected."""
+    z = exchange.float()
+    sq = torch.sum(z ** 2, dim=-1)                              # (R, S)
+    d2 = sq[:, :, None] + sq[:, None, :] - 2.0 * torch.bmm(z, z.transpose(1, 2))
+    s_tot = mask.shape[1]
+    pair = (mask[:, :, None] * mask[:, None, :]
+            * (1.0 - torch.eye(s_tot, device=z.device))[None])
+    d2 = torch.where(pair > 0, torch.clamp(d2, min=0.0), torch.inf)
+    m_r = torch.sum(mask, dim=1).to(torch.int64)                # (R,)
+    n_near = torch.minimum(torch.clamp(m_r - num_byzantine - 2, min=1),
+                           torch.clamp(m_r - 1, min=1))
+    ranks = torch.arange(s_tot, device=z.device)[None, None, :]
+    contrib = torch.where(ranks < n_near[:, None, None],
+                          torch.sort(d2, dim=2).values, 0.0)
+    scores = torch.where(mask > 0, torch.sum(contrib, dim=2), torch.inf)
+    best = torch.argmin(scores, dim=1)                          # (R,)
+    return z[torch.arange(z.shape[0], device=z.device), best]
+
+
+def masked_centered_clip(exchange: torch.Tensor, mask: torch.Tensor, *,
+                         radius: float = 1.0, iters: int = 3) -> torch.Tensor:
+    """Centered clipping per neighbourhood: iterate from the masked median,
+    each sender's influence clipped to ``radius`` by its residual norm."""
+    z = exchange.float()
+    v = masked_median(z, mask)
+    denom = torch.clamp(torch.sum(mask, dim=1), min=_DIST_FLOOR)
+    for _ in range(iters):
+        diffs = z - v[:, None]
+        sq = torch.sum(diffs * diffs, dim=-1)
+        scale = torch.clamp(radius / torch.clamp(torch.sqrt(sq), min=1e-12),
+                            max=1.0)
+        w = mask * scale
+        v = v + torch.sum(w[:, :, None] * diffs, dim=1) / denom[:, None]
+    return v
+
+
+# name -> masked rule (exchange, mask, spec, opts); the reference's names,
+# the same set as core.aggregators._FLAT_REGISTRY.
+_MASKED: dict[str, Any] = {
+    "mean": lambda ex, m, spec, o: masked_mean(ex, m, mixing=o.get("mixing")),
+    "median": lambda ex, m, spec, o: masked_median(ex, m),
+    "trimmed_mean": lambda ex, m, spec, o: masked_trimmed_mean(
+        ex, m, trim=o.get("trim", 1)),
+    "geomed": lambda ex, m, spec, o: masked_weiszfeld(
+        ex, m, max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6)),
+    "geomed_groups": lambda ex, m, spec, o: masked_geomed_groups(
+        ex, m, num_groups=o["num_groups"],
+        max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6)),
+    "geomed_blockwise": lambda ex, m, spec, o: masked_geomed_blockwise(
+        ex, m, spec=spec, max_iters=o.get("max_iters", 64),
+        tol=o.get("tol", 1e-6)),
+    "krum": lambda ex, m, spec, o: masked_krum(
+        ex, m, num_byzantine=o.get("num_byzantine", 0)),
+    "centered_clip": lambda ex, m, spec, o: masked_centered_clip(
+        ex, m, radius=o.get("clip_radius", 1.0)),
+}
+
+MASKED_AGGREGATOR_NAMES = tuple(_MASKED)
+
+
+def masked_aggregate_flat(name: str, buf: torch.Tensor, mask: torch.Tensor,
+                          *, spec: Optional[packing.PackSpec] = None,
+                          diagnostics: bool = False,
+                          **opts) -> torch.Tensor:
+    """Flat masked engine: packed (R, S, D) exchange -> (R, D) float32
+    per-receiver aggregates.  ``spec`` is needed by ``geomed_blockwise``
+    only (its leaf boundaries).  Options: ``mixing`` (mean), ``max_iters``,
+    ``tol``, ``num_groups``, ``trim``, ``num_byzantine``, ``clip_radius``."""
+    if name not in _MASKED:
+        raise ValueError(
+            f"unknown masked aggregator {name!r}; known: "
+            f"{', '.join(sorted(_MASKED))}")
+    if diagnostics:
+        raise ValueError("masked aggregation diagnostics are not ported yet "
+                         "(ROADMAP.md Queue A item 7)")
+    if name == "geomed_blockwise" and spec is None:
+        raise ValueError(
+            "masked_aggregate_flat('geomed_blockwise') needs spec= for the "
+            "block boundaries")
+    return _MASKED[name](buf, mask.float(), spec, opts)
+

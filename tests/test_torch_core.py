@@ -330,7 +330,7 @@ def test_robust_config_mirrors_reference_fields():
                    for f in dataclasses.fields(robust_step.RobustConfig)}
     assert port_fields == ref_fields
     with pytest.raises(ValueError, match="outside the ported slice"):
-        robust_step.RobustConfig(topology="ring")
+        robust_step.RobustConfig(num_clients=4)
     with pytest.raises(ValueError, match="outside the ported slice"):
         robust_step.RobustConfig(message_dtype="int8")
 

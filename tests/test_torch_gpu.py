@@ -105,9 +105,11 @@ def test_cuda_dispatch_counts_launches():
     ops.trimmed_mean(z, trim=2)
     ops.partial_sqdist_segments(z, y, torch.zeros(300, dtype=torch.int32,
                                                   device="cuda"), num_segments=2)
+    ops.masked_neighbor_reduce(z[None], torch.ones(1, 7, device="cuda"), trim=1)
     assert ops.launch_counts() == {
         "saga_correct": 1, "partial_sqdist": 1, "weighted_sum": 1,
-        "coordinate_median": 1, "trimmed_mean": 1, "partial_sqdist_segments": 1}
+        "coordinate_median": 1, "trimmed_mean": 1, "partial_sqdist_segments": 1,
+        "masked_neighbor_reduce": 1}
 
 
 @pytest.mark.gpu
@@ -220,3 +222,124 @@ def test_cuda_step_matches_cpu_for_every_rule(agg):
             st, _ = step_fn(st, sample_idx=idx)
         out[dev] = st.params["w"].cpu()
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-5)
+
+
+# -- the decentralized slice: K7 and the receiver-batched K2/K3 ---------------------
+
+MASKED_SHAPES = [(7, 7, 300), (5, 9, 129), (3, 4, 1), (70, 70, 39_760)]
+
+
+def _masked_inputs(r, s, d, ties, seed=0):
+    """An (R, S, D) exchange and an (R, S) 0/1 mask with every receiver
+    keeping at least 2 * 3 + 1 senders where S allows."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ex = torch.randn((r, s, d), generator=g, device="cuda")
+    if ties:
+        ex = torch.round(ex * 2.0) / 2.0
+    mask = (torch.rand((r, s), generator=g, device="cuda") < 0.7).float()
+    mask[:, : min(s, 7)] = 1.0
+    return ex, mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trim", [0, 1, 2, 3])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("r,s,d", MASKED_SHAPES)
+def test_masked_neighbor_reduce_kernel_vs_plain(r, s, d, ties, trim):
+    """K7 against its plain version at ragged R, S, D, with and without
+    ties, at rtol 1e-5 (it sums the survivors in sender order)."""
+    _need_card()
+    from repro_torch.kernels import topology as tp
+    ex, mask = _masked_inputs(r, s, d, ties)
+    _close(tp.masked_neighbor_reduce_call(ex, mask, trim),
+           tp.masked_neighbor_reduce_plain(ex, mask, trim))
+
+
+@pytest.mark.gpu
+def test_masked_neighbor_reduce_kernel_reads_slices_and_broadcasts():
+    _need_card()
+    from repro_torch.kernels import topology as tp
+    ex, mask = _masked_inputs(6, 9, 300, True)
+    cols = ex[:, :, 40:250]
+    _close(tp.masked_neighbor_reduce_call(cols, mask, 2),
+           tp.masked_neighbor_reduce_plain(cols.contiguous(), mask, 2))
+    shared = ex[0][None].expand(6, 9, 300)
+    _close(tp.masked_neighbor_reduce_call(shared, mask, 1),
+           tp.masked_neighbor_reduce_plain(shared.contiguous(), mask, 1))
+    with pytest.raises(ValueError, match="shared memory"):
+        tp.masked_neighbor_reduce_call(torch.zeros((1, 460, 8), device="cuda"),
+                                       torch.ones((1, 460), device="cuda"), 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,s,d", MASKED_SHAPES)
+def test_batched_weiszfeld_kernels_vs_plain(r, s, d):
+    """K2/K3 with a receiver axis against their plain versions (rtol 1e-5);
+    each receiver's row is bitwise the unbatched master-path call on that
+    receiver's matrix, and a slice or a broadcast is read in place."""
+    _need_card()
+    ex, _ = _masked_inputs(r, s, d, False)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    y = ex.mean(1) + 0.1 * torch.randn((r, d), generator=g, device="cuda")
+    a = torch.rand((r, s), generator=g, device="cuda") + 0.5
+    sq, ws = wz.partial_sqdist_call(ex, y), wz.weighted_sum_call(ex, a)
+    _close(sq, wz.partial_sqdist_plain(ex, y))
+    _close(ws, wz.weighted_sum_plain(ex, a))
+    for i in {0, r - 1}:
+        assert torch.equal(sq[i], wz.partial_sqdist_call(ex[i], y[i]))
+        assert torch.equal(ws[i], wz.weighted_sum_call(ex[i], a[i]))
+    if d > 2:
+        cols = ex[:, :, 1:d - 1]
+        assert torch.equal(wz.partial_sqdist_call(cols, y[:, 1:d - 1].contiguous()),
+                           wz.partial_sqdist_call(cols.contiguous(),
+                                                  y[:, 1:d - 1].contiguous()))
+    shared = ex[0][None].expand(r, s, d)
+    assert torch.equal(wz.weighted_sum_call(shared, a),
+                       wz.weighted_sum_call(shared.contiguous(), a))
+
+
+DECENTRALIZED_RULES = ["mean", "median", "trimmed_mean", "geomed",
+                       "geomed_groups", "geomed_blockwise", "krum",
+                       "centered_clip"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gossip", ["gradient", "params"])
+@pytest.mark.parametrize("agg", DECENTRALIZED_RULES)
+def test_decentralized_cuda_steps_match_cpu(agg, gossip):
+    """Five decentralized steps of each rule on an erdos_renyi graph on the
+    card track the plain CPU path from the same data and draws (rtol 1e-4:
+    the Weiszfeld stop may end one iteration apart), and launch K7 for
+    trimmed_mean and the batched K2/K3 for geomed."""
+    _need_card()
+    data = ijcnn1_like(0, n=240, device="cpu")
+    wd = partition({"a": data.x, "b": data.y}, 12, seed=1, device="cpu")
+    cfg = RobustConfig(aggregator=agg, vr="saga", attack="alie",
+                       num_byzantine=3, trim=2, num_groups=4,
+                       topology="erdos_renyi", topology_p=0.6, gossip=gossip)
+    draws = np.random.default_rng(2).integers(0, 20, (5, 12))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        init_fn, step_fn = make_federated_step(
+            logreg_loss(0.01), wd, cfg, get_optimizer("sgd", 0.02), device=dev)
+        st = init_fn({"w": torch.zeros(22)}, 0)
+        ops.reset_launch_counts()
+        for idx in draws:
+            st, _ = step_fn(st, sample_idx=idx)
+        counts = ops.launch_counts()
+        out[dev] = st.params["w"].cpu()
+    assert out["cuda"].shape == (15, 22)
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-5)
+    if agg == "trimmed_mean":
+        assert counts["masked_neighbor_reduce"] == 0  # the CPU run counts none
+    init_fn, step_fn = make_federated_step(
+        logreg_loss(0.01), wd, cfg, get_optimizer("sgd", 0.02), device="cuda")
+    st = init_fn({"w": torch.zeros(22)}, 0)
+    ops.reset_launch_counts()
+    st, _ = step_fn(st, sample_idx=draws[0])
+    counts = ops.launch_counts()
+    if agg == "trimmed_mean":
+        assert counts["masked_neighbor_reduce"] == 1, counts
+    if agg == "geomed":
+        assert counts["partial_sqdist"] == counts["weighted_sum"] >= 1, counts
+        assert counts["masked_neighbor_reduce"] == 1, counts
