@@ -9,7 +9,7 @@ Phases, in order; any failure exits non-zero:
 
 1. The card: name and power limit; TF32 off for matmuls and cuDNN (Krum's
    Gram product must run in full float32).
-2. Build: the CUDA kernels K1-K7 from ``src/repro_torch/kernels/csrc``
+2. Build: the CUDA kernels K1-K8 from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` for sm_90a, one process per source, all started together
    (``-Xptxas -v`` summary printed).
 3. Kernel checks: each kernel against its plain PyTorch version at ragged
@@ -65,10 +65,33 @@ Phases, in order; any failure exits non-zero:
    gossip error floor lies within 2x of gradient gossip's (sign_flip and
    gaussian, 500 steps), and every rule in both gossip modes trains on a
    ring with finite values.
-12. One JSON line with the kernels, then the result line.
+12. K8 flash attention against its plain version, float32 within rtol/atol
+   2e-5 and bfloat16 within 2e-2 (the tolerances of tests/test_kernels.py),
+   at the shapes of tests/test_kernels.py:120-125, a ragged MQA head of 128
+   (2, 300, 7, 1, 128) and workload E's per-layer shape (4, 2,048, 28, 4,
+   128), causal.
+13. Workload E, serving qwen2-7b at full width and depth (28 layers, 7.6 B
+   parameters, bf16, drawn on the card from the seed) through
+   ``repro_torch.launch.serve``: batch 4 x 2,048 prompt tokens, 32 greedy
+   tokens, the KV cache allocated once at 2,080 positions.  One warm-up,
+   then three runs (prefill time and decode ms/step, medians), launch
+   counts reset just before the first and read just after (K8 exactly 28
+   times, once per layer of the prefill, and never in a decode step),
+   finite logits and the output shapes asserted; peak memory; a
+   torch.profiler split of one prefill and one decode step (K8, matmuls,
+   the rest) with the device's idle share.
+14. The cache against prefill at full width (2 layers, float32): prefill
+   over s tokens then one decode step at s agrees with a prefill over the
+   s + 1 tokens, rtol 1e-4; the card against the CPU: the reduced
+   qwen2-7b in float32, prefill + 4 decode steps, rtol 1e-4.
+15. K8 timed at workload E's per-layer shape (CUDA events) beside its
+   bound, its plain version and ``scaled_dot_product_attention`` (the
+   library yardstick, timed here only; the port never calls it).
+16. One JSON line with the kernels (K1-K8), then the result line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
+import copy
 import json
 import math
 import os
@@ -80,6 +103,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM, dense bf16 tensor cores
 SEED = 0
 
 # Kernel -> (its source in the port, the TPU kernel's pallas_call it replaces).
@@ -98,6 +122,8 @@ KERNEL_SOURCES = {
                                 "src/repro/kernels/weiszfeld.py:98"),
     "masked_neighbor_reduce": ("src/repro_torch/kernels/csrc/topology.cu",
                                "src/repro/kernels/topology.py:78"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:99"),
 }
 # Rule -> the kernels its step must launch on the card.
 RULE_KERNELS = {
@@ -116,13 +142,20 @@ KERNEL_PATH = {"saga_correct": "geomed", "partial_sqdist": "geomed",
                "weighted_sum": "geomed", "coordinate_median": "median",
                "trimmed_mean": "trimmed_mean",
                "partial_sqdist_segments": "geomed_blockwise",
-               "masked_neighbor_reduce": "D gradient trimmed_mean"}
+               "masked_neighbor_reduce": "D gradient trimmed_mean",
+               "flash_attention": "E serve"}
 # Workload D's runs: (gossip, rule).
 D_RUNS = (("gradient", "geomed"), ("gradient", "trimmed_mean"),
           ("gradient", "mean"), ("params", "geomed"))
 FIG6_RULES = ("mean", "geomed", "median", "krum", "trimmed_mean",
               "geomed_groups", "centered_clip", "geomed_blockwise")
 FIG6_ATTACKS = ("none", "gaussian", "sign_flip", "zero_gradient", "alie")
+# K8 checks: (B, S, H, KV, hd), causal.
+FLASH_CHECKS = (((2, 64, 4, 2, 16), True), ((1, 100, 2, 2, 32), True),
+                ((2, 37, 4, 4, 8), False), ((1, 192, 2, 1, 64), True),
+                ((2, 300, 7, 1, 128), True), ((4, 2048, 28, 4, 128), True))
+# Workload E: qwen2-7b served at full width and depth.
+E_ARCH, E_BATCH, E_PROMPT, E_DECODE = "qwen2-7b", 4, 2048, 32
 
 
 def log(msg=""):
@@ -548,31 +581,41 @@ def device_ms(torch, fn, reps):
 
 def event_ms(torch, fn, reps):
     """Device time per call of ``fn`` from two CUDA events around ``reps``
-    calls after a warm-up, for calls long enough that the card, not the
-    host, sets the pace: raises if enqueueing the calls took more than half
-    the time they ran.  (torch.profiler's kernel records came back
-    incomplete late in this script's long process; events count them all.)"""
-    for _ in range(3):
+    calls after a warm-up.  The calls are queued behind a sleep kernel that
+    outlasts their enqueueing, so the card runs them back to back whatever
+    the host's speed; raises if the card reached the first call before the
+    host had queued the last (the host, not the card, would then set the
+    pace).  (torch.profiler's kernel records came back incomplete late in
+    this script's long process; events count them all.)"""
+    for _ in range(2):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
+    # Sleep 4x the calls' enqueue time, 20 ms to 2 s (cycles at up to 2 GHz).
+    torch.cuda._sleep(int(2e9 * min(2.0, max(0.02, 4 * reps * host_s))))
     start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-    end.record()
     host_ms = (time.perf_counter() - t0) * 1e3
+    queued_ahead = not start.query()
+    end.record()
     end.synchronize()
     total_ms = start.elapsed_time(end)
-    if host_ms > 0.5 * total_ms:
-        raise RuntimeError(f"event timing is host-bound: enqueue {host_ms:.3f} ms "
-                           f"against {total_ms:.3f} ms on the card")
+    if not queued_ahead:
+        raise RuntimeError(f"event timing is host-bound: the card finished the sleep "
+                           f"before {reps} calls were queued ({host_ms:.3f} ms of "
+                           f"enqueueing, {total_ms:.3f} ms on the card)")
     return total_ms / reps
 
 
-def bound(nbytes, flops):
-    b, f = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+def bound(nbytes, flops, flops_per_s=FP32_FLOPS_PER_S):
+    b, f = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (b, "bytes") if b >= f else (f, "operations")
 
 
@@ -976,6 +1019,251 @@ def phase_decentralized_claims(torch):
     log(f"every rule x both gossip modes trains 5 steps on a ring with finite "
         f"values; decentralized claims in {time.perf_counter() - t0:.1f} s")
 
+def flash_inputs(torch, shape, dtype, gen):
+    b, s_, h, kv, hd = shape
+    return [torch.randn((b, s_, n, hd), generator=gen, device="cuda").to(dtype)
+            for n in (h, kv, kv)]
+
+
+def phase_flash_checks(torch):
+    """K8 against its plain version on the card at FLASH_CHECKS, float32 and
+    bfloat16; returns the largest absolute difference over all checks."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    worst = 0.0
+    for shape, causal in FLASH_CHECKS:
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(torch, shape, dtype, gen)
+            got = fa.flash_attention_call(q, k, v, causal)
+            want = fa.flash_attention_plain(q, k, v, causal)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and got.shape == q.shape
+            t = tol[dtype]
+            torch.testing.assert_close(got.float(), want.float(), rtol=t, atol=t)
+            errs[dtype] = float((got.float() - want.float()).abs().max())
+            del q, k, v, got, want
+        worst = max(worst, *errs.values())
+        log(f"kernel check flash_attention {shape} {'causal' if causal else 'bidirectional'}: "
+            f"K8 max|err| f32 {errs[torch.float32]:.3g} (rtol/atol 2e-5), "
+            f"bf16 {errs[torch.bfloat16]:.3g} (2e-2): ok")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def kernel_class(name):
+    """K8, matmul or rest, by the device kernel's name."""
+    low = name.lower()
+    if "flash_attn_fwd" in low:
+        return "K8"
+    if any(w in low for w in ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")):
+        return "matmul"
+    return "rest"
+
+
+def profile_split(torch, label, fn, median_s):
+    """Log one traced call of ``fn``: device time by class (K8, matmuls,
+    the rest), the kernel count and the top kernels; the idle share against
+    the untraced median ``median_s``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted(device_events(prof), key=lambda e: e.self_device_time_total,
+                    reverse=True)
+    split = {"K8": 0.0, "matmul": 0.0, "rest": 0.0}
+    for e in events:
+        split[kernel_class(e.key)] += e.self_device_time_total / 1e3
+    busy = sum(split.values())
+    if busy <= 0:
+        raise RuntimeError(f"profile {label}: torch.profiler recorded no device time")
+    idle = 1 - busy / (median_s * 1e3)
+    kernels = sum(e.count for e in events)
+    log(f"profile {label}: device busy {busy:.3f} ms in {kernels} kernels, untraced "
+        f"median {median_s * 1e3:.3f} ms, idle share {idle:.3f}; K8 {split['K8']:.3f} ms "
+        f"({split['K8'] / busy:.3f}), matmuls {split['matmul']:.3f} ms "
+        f"({split['matmul'] / busy:.3f}), rest {split['rest']:.3f} ms "
+        f"({split['rest'] / busy:.3f})")
+    for e in events[:8]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d} calls  "
+            f"[{kernel_class(e.key)}] {e.key[:80]}")
+
+
+def phase_workload_e(torch, card):
+    """Workload E: qwen2-7b served at full width and depth on one card
+    through repro_torch.launch.serve.  Returns the launch counts of the
+    counted run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
+    cfg = get_config(E_ARCH)
+    b, p, t = E_BATCH, E_PROMPT, E_DECODE
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in params.parameters())
+    w_bytes = sum(x.numel() * x.element_size() for x in params.parameters())
+    assert n_params == 7_615_616_512, n_params
+    cache = model.init_cache(b, p + t, dtype=cfg.dtype)
+    c_bytes = sum(x.numel() * x.element_size() for c in cache.values()
+                  for x in c.values())
+    log(f"workload E {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV heads x {cfg.resolved_head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; {n_params:,} parameters = "
+        f"{w_bytes / 1e9:.2f} GB in {cfg.param_dtype}, drawn on the card in "
+        f"{t_init:.2f} s; KV cache ({cfg.num_layers}, {b}, {p + t}, "
+        f"{cfg.num_kv_heads}, {cfg.resolved_head_dim}) x 2 = {c_bytes / 1e6:.1f} MB")
+
+    def run(decode_tokens):
+        return serve.serve(model, params, batch=b, prompt_len=p,
+                           decode_tokens=decode_tokens, seed=SEED, cache=cache)
+
+    run(2)   # warm-up: the first prefill and decode step
+    runs = []
+    for i in range(3):
+        if i == 0:
+            ops.reset_launch_counts()
+        runs.append(run(t))
+        if i == 0:
+            counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    res = runs[-1]
+    assert counts["flash_attention"] == cfg.num_layers, counts
+    assert tuple(res["tokens"].shape) == (b, t), res["tokens"].shape
+    assert tuple(res["logits"].shape) == (b, cfg.vocab_size)
+    assert res["logits"].dtype == torch.float32
+    assert bool(torch.isfinite(res["logits"]).all()), "workload E: logits not finite"
+    assert tuple(cache["pos0"]["k"].shape) == (cfg.num_layers, b, p + t,
+                                               cfg.num_kv_heads, cfg.resolved_head_dim)
+    assert all(torch.equal(r["tokens"], res["tokens"]) for r in runs), \
+        "workload E: the three runs sampled different tokens"
+    # A decode step alone launches no K8.
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        model.decode_step(params, cache, res["tokens"][:, -1:], p + t - 1)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 0, ops.launch_counts()
+    prefill_s = statistics.median(r["prefill_s"] for r in runs)
+    step_s = statistics.median(r["decode_s"] for r in runs) / (t - 1)
+    each = ", ".join(f"{r['prefill_s'] * 1e3:.3f}" for r in runs)
+    log(f"workload E serve ({card}): prefill {b} x {p} tokens {prefill_s * 1e3:.3f} ms "
+        f"(median of 3: {each}), "
+        f"{b * p / prefill_s:.0f} prompt tok/s; decode {step_s * 1e3:.3f} ms/step "
+        f"over {t - 1} steps, {b / step_s:.1f} tok/s; peak memory {peak / 1e9:.2f} GB; "
+        f"launches of the counted run {counts}")
+    log(f"workload E sampled token ids (first seq): {res['tokens'][0][:16].tolist()}")
+    tokens = res["prompt"]
+
+    def one_prefill():
+        with torch.no_grad():
+            model.prefill(params, {"tokens": tokens}, cache=cache)
+
+    def one_decode():
+        with torch.no_grad():
+            model.decode_step(params, cache, res["tokens"][:, -1:], p + t - 1)
+
+    profile_split(torch, "workload E prefill", one_prefill, prefill_s)
+    profile_split(torch, "workload E decode step", one_decode, step_s)
+    del params, cache, runs, res
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_serving_checks(torch):
+    """The cache path against K8's prefill at full width (2 layers, float32),
+    and the card against the CPU for the reduced qwen2-7b (float32).  Both
+    within rtol 1e-4 (|got - want| <= 1e-4 (|want| + max|want|): the sums
+    run in another order)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    cfg = dataclasses.replace(get_config(E_ARCH), num_layers=2, param_dtype="float32")
+    model = build_model(cfg, device="cuda")
+    params = model.init(SEED + 1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    b, s_ = 2, 100
+    tokens = torch.randint(0, cfg.vocab_size, (b, s_ + 1), generator=gen, device="cuda")
+    with torch.no_grad():
+        cache = model.init_cache(b, s_ + 1, dtype=torch.float32)
+        _, cache = model.prefill(params, {"tokens": tokens[:, :s_]}, cache=cache)
+        dec, cache = model.decode_step(params, cache, tokens[:, s_:], s_)
+        full, full_cache = model.prefill(params, {"tokens": tokens})
+    ok, err = close(dec, full, rtol=1e-4)
+    assert ok, f"cache vs prefill: decode logits disagree, max err {err}"
+    ok_k, err_k = close(cache["pos0"]["k"], full_cache["pos0"]["k"], rtol=1e-4)
+    assert ok_k, f"cache vs prefill: the written keys disagree, max err {err_k}"
+    log(f"cache vs prefill ({cfg.name} full width, 2 layers, float32, B={b}): prefill "
+        f"over {s_} + decode at {s_} against prefill over {s_ + 1}: logits max|err| "
+        f"{err:.3g}, cache k {err_k:.3g} (rtol 1e-4): ok")
+    del params, cache, full_cache
+    torch.cuda.empty_cache()
+
+    cfg = get_config(E_ARCH).reduced()
+    cpu = build_model(cfg, device="cpu")
+    params_cpu = cpu.init(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 37),
+                           generator=torch.Generator().manual_seed(SEED + 5))
+    steps = torch.randint(0, cfg.vocab_size, (4, 2, 1),
+                          generator=torch.Generator().manual_seed(SEED + 6))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, device=dev)
+        params = params_cpu if dev == "cpu" else copy.deepcopy(params_cpu).to(dev)
+        cache = model.init_cache(2, 41, dtype=torch.float32)
+        logits = []
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            lg, cache = model.prefill(params, {"tokens": tokens.to(dev)}, cache=cache)
+            logits.append(lg.cpu())
+            for i, tok in enumerate(steps):
+                lg, cache = model.decode_step(params, cache, tok.to(dev), 37 + i)
+                logits.append(lg.cpu())
+        out[dev] = (torch.stack(logits), ops.launch_counts()["flash_attention"])
+    ok, err = close(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    assert ok, f"card vs CPU: logits disagree, max err {err}"
+    assert out["cuda"][1] == cfg.num_layers and out["cpu"][1] == 0, out
+    log(f"card vs CPU (reduced {cfg.name}, float32, prefill 37 + 4 decode steps): "
+        f"logits max|err| {err:.3g} (rtol 1e-4), K8 launches {out['cuda'][1]} on "
+        "the card and 0 on the CPU: ok")
+
+
+def phase_timing_e(torch):
+    """K8 at workload E's per-layer shape (bf16, causal): device time (CUDA
+    events) beside its bound, its plain version and one
+    scaled_dot_product_attention call (is_causal, enable_gqa)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    cfg_shape = (E_BATCH, E_PROMPT, 28, 4, 128)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    q, k, v = flash_inputs(torch, cfg_shape, torch.bfloat16, gen)
+    b, s_, h, _, hd = cfg_shape
+    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v)) + q.numel() * 2
+    flops = 2 * b * h * s_ * (s_ + 1) * hd       # causal pairs: S (S + 1) / 2
+    bd, by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    out = dict(
+        ms=event_ms(torch, lambda: fa.flash_attention_call(q, k, v, True), 10),
+        plain_ms=event_ms(torch, lambda: fa.flash_attention_plain(q, k, v, True), 3),
+        bound_ms=bd, bound_by=by,
+        library_ms=event_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 20))
+    log(f"timing flash_attention {cfg_shape} bf16 causal (device time): "
+        f"{out['ms'] * 1e3:.2f} us, bound {out['bound_ms'] * 1e3:.2f} us ({by}: "
+        f"{flops:.4g} FLOP at 989 TFLOP/s; {nbytes / 1e6:.1f} MB at 3.35 TB/s "
+        f"{nbytes / HBM_BYTES_PER_S * 1e6:.2f} us), plain {out['plain_ms'] * 1e3:.2f} us, "
+        f"library (scaled_dot_product_attention) {out['library_ms'] * 1e3:.2f} us; "
+        f"{flops / (out['ms'] * 1e-3) / 1e12:.2f} TFLOP/s")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
+
 
 def main() -> int:
     import torch
@@ -1026,6 +1314,10 @@ def main() -> int:
     timing_d = phase_timing_d(torch)
     timing["masked_neighbor_reduce"] = timing_d[f"masked_neighbor_reduce trim {trim_d}"]
     phase_decentralized_claims(torch)
+    errs["flash_attention"] = phase_flash_checks(torch)
+    counts["E serve"] = phase_workload_e(torch, card)
+    phase_serving_checks(torch)
+    timing["flash_attention"] = phase_timing_e(torch)
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[KERNEL_PATH[name]][name],
                     max_abs_err=errs[name], **timing[name])

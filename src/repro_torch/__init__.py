@@ -1,9 +1,12 @@
 """PyTorch/CUDA port of the Byzantine-robust federated SAGA system.
 
 The JAX package :mod:`repro` is the reference; this package mirrors its
-layout module by module (``core/``, ``data/``, ``kernels/``, ``optim/``,
-``telemetry/``, ``models/``) and is held against it by the
-``tests/test_torch_*.py`` parity tests.  It imports ``torch`` and
+layout module by module (``configs/``, ``core/``, ``data/``, ``kernels/``,
+``launch/``, ``models/``, ``optim/``, ``telemetry/``, ``topology/``) and is
+held against it by the ``tests/test_torch_*.py`` parity tests.  Besides
+the robust federation, it serves the dense decoders of ``configs/``
+(``python -m repro_torch.launch.serve --arch qwen2-7b``): prefill through
+kernel K8, then greedy decode over the KV cache.  It imports ``torch`` and
 ``numpy`` only -- never ``jax`` and nothing of :mod:`repro`.
 
 Every entry point takes an explicit ``device`` (default ``"cuda"``).  On a

@@ -1,0 +1,21 @@
+"""command-r-plus-104b [dense] — GQA, no biases [hf:CohereForAI/c4ai-command-r-v01].
+
+64L d_model=12288, 96H (GQA kv=8), d_ff=33792, vocab=256000, tied embeddings.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="command-r-plus-104b",
+    family="dense",
+    num_layers=64,
+    d_model=12288,
+    num_heads=96,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=33792,
+    vocab_size=256000,
+    qkv_bias=False,
+    rope_theta=75e4,
+    tie_embeddings=True,
+    source="hf:CohereForAI/c4ai-command-r-v01",
+)

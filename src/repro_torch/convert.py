@@ -1,6 +1,6 @@
 """Carry weights and training state from the JAX reference to the port.
 
-Both take the reference's objects with numpy (or array-like) leaves -- for
+Each takes the reference's objects with numpy (or array-like) leaves -- for
 example ``jax.tree.map(np.asarray, state)`` -- so this module needs no
 JAX.  After conversion both packages compute the same step on the same
 numbers, which is what the parity tests check.
@@ -12,9 +12,11 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.robust_step import FederatedState
 from repro_torch.core.saga import SagaState
 from repro_torch.device import DEFAULT_DEVICE, generator_for, resolve_device
+from repro_torch.models import transformer as tfm
 
 
 def params_from_jax(tree: dict[str, Any], *,
@@ -55,3 +57,70 @@ def state_from_jax(state: Any, *, seed: int | torch.Generator = 0,
             avg=torch.as_tensor(np.array(vr.avg, np.float32), device=dev))
     return FederatedState(params_from_jax(state.params, device=dev), (), vr,
                           int(np.asarray(state.step)), generator_for(seed, dev))
+
+
+def _flatten(tree: dict[str, Any], prefix: str = "") -> dict[str, Any]:
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{name}."))
+        else:
+            out[name] = v
+    return out
+
+
+def _tensor(leaf: Any) -> torch.Tensor:
+    a = np.asarray(leaf)
+    if a.dtype.name == "bfloat16":   # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _empty_maker(dtype: torch.dtype, device: torch.device):
+    def make(path, shape, init=None) -> torch.nn.Parameter:
+        del path, init
+        return torch.nn.Parameter(torch.empty(tuple(shape), dtype=dtype,
+                                              device=device), requires_grad=False)
+    return make
+
+
+def model_params_from_jax(tree: dict[str, Any], cfg: ModelConfig, *,
+                          device: str | torch.device = DEFAULT_DEVICE
+                          ) -> tfm.Decoder:
+    """The reference's decoder parameter tree (``build_model(cfg).init``:
+    ``embed``, ``blocks.pos{i}.<sublayer>.<leaf>`` stacked over the periods,
+    ``final_norm``, ``unembed``) -> the port's :class:`Decoder` in
+    ``cfg.dtype``.  Period ``p`` of pattern position ``i`` becomes layer
+    ``p * len(pattern) + i``.  Raises on a missing or extra leaf and on a
+    shape that does not match."""
+    dev = resolve_device(device)
+    pat, periods = cfg.resolve_pattern()
+    model = tfm.decoder_params(_empty_maker(cfg.dtype, dev), cfg)
+    want = dict(model.named_parameters())
+    got = {}
+    for name, leaf in _flatten(tree).items():
+        t = _tensor(leaf)
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            i = int(parts[1].removeprefix("pos"))
+            if t.shape[:1] != (periods,):
+                raise ValueError(f"model_params_from_jax: {name} "
+                                 f"{tuple(t.shape)} is not stacked over "
+                                 f"{periods} periods")
+            for p in range(periods):
+                got[".".join(["blocks", str(p * len(pat) + i), *parts[2:]])] = t[p]
+        else:
+            got[name] = t
+    missing = sorted(set(want) - set(got))
+    extra = sorted(set(got) - set(want))
+    if missing or extra:
+        raise ValueError(f"model_params_from_jax: missing {missing}, extra {extra}")
+    with torch.no_grad():
+        for name, param in want.items():
+            if tuple(got[name].shape) != tuple(param.shape):
+                raise ValueError(f"model_params_from_jax: {name} is "
+                                 f"{tuple(got[name].shape)}, the port's "
+                                 f"{tuple(param.shape)}")
+            param.copy_(got[name].to(param.dtype))
+    return model

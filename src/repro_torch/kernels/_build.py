@@ -26,7 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("saga_correct", "weiszfeld", "robust_stats", "topology")
+SOURCES = ("saga_correct", "weiszfeld", "robust_stats", "topology",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # that returned no error, and nowhere else (read via kernels.ops).
 LAUNCHES = {"saga_correct": 0, "partial_sqdist": 0, "weighted_sum": 0,
             "coordinate_median": 0, "trimmed_mean": 0,
-            "partial_sqdist_segments": 0, "masked_neighbor_reduce": 0}
+            "partial_sqdist_segments": 0, "masked_neighbor_reduce": 0,
+            "flash_attention": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -1,0 +1,109 @@
+"""K8: flash attention (port of ``repro/kernels/flash_attention.py``).
+
+:func:`flash_attention_call` takes q (B, S, H, hd) and k, v (B, S, KV, hd)
+in the model's layout, float32 or bfloat16, with H a multiple of KV, and
+returns (B, S, H, hd): per query head h, ``softmax(mask(q k^T hd^-0.5)) v``
+over the key/value head ``h // (H // KV)``.  Scores, softmax and sums are
+float32; a masked score is -1e30 and the mask keeps keys ``kpos < S`` and,
+in causal mode, ``kpos <= qpos``; the output is divided by
+``max(l, 1e-30)``.  It is written in q's dtype, or in float32 where the
+caller asks.
+
+It launches the CUDA kernel of ``csrc/flash_attention.cu``, which reads
+the grouped key/value heads in place (no repeated copy, unlike the
+reference's ``ops.flash_attention``) and masks the ragged sequence edge
+itself (nothing padded).  :func:`flash_attention_plain` is the same
+function in plain PyTorch (float32 scores, the same mask, softmax, GQA by
+grouping the query heads), which the CPU path runs and the card's checks
+compare against.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+MAX_HEAD_DIM = 256
+MAX_GRID_YZ = 65_535
+_TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_SIGNATURES = {
+    "flash_attention_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+}
+
+
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """q (B, S, H, hd), k and v (B, S, KV, hd), H a multiple of KV,
+    1 <= hd <= 256, one dtype (float32 or bfloat16) and one device.  Raises
+    on anything else."""
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}: expected "
+                         "(B, S, H, hd) and two (B, S, KV, hd)")
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    if (k.shape[0], k.shape[1], k.shape[3]) != (b, s, hd) or kv == 0 or h % kv:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit q "
+                         f"{tuple(q.shape)} (same B, S and hd; H a multiple "
+                         "of KV)")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head_dim {hd} is outside "
+                         f"[1, {MAX_HEAD_DIM}]")
+    if q.dtype not in _TYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: q, k, v must share float32 or "
+                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: inputs lie on different devices")
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool, out_dtype: torch.dtype | None = None
+                          ) -> torch.Tensor:
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.float().reshape(b, s, kv, h // kv, hd)
+    sc = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * (hd ** -0.5)
+    if causal:
+        pos = torch.arange(s, device=q.device)
+        sc = sc.masked_fill(pos[None, :] > pos[:, None], NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
+    return out.reshape(b, s, h, hd).to(out_dtype or q.dtype)
+
+
+def flash_attention_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool, out_dtype: torch.dtype | None = None
+                         ) -> torch.Tensor:
+    """(B, S, H, hd) attention on the card; ``out_dtype`` is q's dtype
+    (default) or float32.  Each of q, k, v may have any strides over
+    (B, S, heads) with a contiguous last dimension."""
+    check_inputs(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention: tensors must lie on a CUDA device")
+    out_dtype = out_dtype or q.dtype
+    if out_dtype not in (q.dtype, torch.float32):
+        raise TypeError(f"flash_attention: out_dtype {out_dtype} is neither "
+                        f"{q.dtype} nor float32")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention: the last dimension of q, k and v "
+                         "must be contiguous")
+    b, s, h, hd = q.shape
+    if b > MAX_GRID_YZ or h > MAX_GRID_YZ:
+        raise ValueError(f"flash_attention: B={b} or H={h} exceeds {MAX_GRID_YZ}")
+    out = torch.empty((b, s, h, hd), dtype=out_dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load("flash_attention", _SIGNATURES)
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_fwd(
+            _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+            _TYPE_CODES[q.dtype], _TYPE_CODES[out_dtype], b, s, h, k.shape[2],
+            hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal),
+            ctypes.c_float(hd ** -0.5), ctypes.c_void_p(_build.stream_of(q)))
+    _build.check(lib, rc, "flash_attention")
+    _build.LAUNCHES["flash_attention"] += 1
+    return out

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import robust_stats as rs
 from repro_torch.kernels import saga_correct as sc
 from repro_torch.kernels import topology as tp
@@ -94,6 +95,18 @@ def masked_neighbor_reduce(exchange: torch.Tensor, mask: torch.Tensor, *,
     if _on_card(exchange):
         return tp.masked_neighbor_reduce_call(exchange, mask, trim)
     return tp.masked_neighbor_reduce_plain(exchange, mask, trim)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """K8: q (B, S, H, hd), k and v (B, S, KV, hd) -> (B, S, H, hd) in q's
+    dtype; GQA reads key/value head ``h // (H // KV)`` (no repeat).  The
+    reference's ``q_block``/``kv_block`` set its Pallas tiling; the port's
+    tile is the kernel's own, so it takes neither."""
+    fa.check_inputs(q, k, v)
+    if _on_card(q):
+        return fa.flash_attention_call(q, k, v, causal)
+    return fa.flash_attention_plain(q, k, v, causal)
 
 
 def launch_counts() -> dict[str, int]:

@@ -85,3 +85,16 @@ def masked_neighbor_reduce(exchange: torch.Tensor, mask: torch.Tensor,
     keep = (ranks >= trim) & (ranks < (n[:, None, None] - trim))
     return (torch.sum(torch.where(keep, s, 0.0), dim=1)
             / torch.clamp(n - 2 * trim, min=1.0)[:, None])
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Naive softmax attention oracle.  q/k/v: (BH, S, hd) -> (BH, S, hd)
+    float32."""
+    s, hd = q.shape[1], q.shape[2]
+    sc = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (hd ** -0.5)
+    if causal:
+        mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
+        sc = torch.where(mask[None], sc, -1e30)
+    p = torch.softmax(sc, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float())

@@ -1,0 +1,248 @@
+"""Decoder-only transformer for serving (port of ``repro/models/transformer.py``).
+
+The reference stacks each parameter leaf of a pattern position over the
+periods and scans over them; the port keeps one module per layer
+(:class:`Decoder`, an ``nn.ModuleList`` of blocks) and loops.  Layer
+``p * len(pattern) + i`` is pattern position ``i`` of period ``p``.  The
+decode cache keeps the reference's layout: per pattern position, k and v
+stacked over the periods, (periods, B, S_cap, KV, hd); prefill and decode
+write into it in place.
+
+Entry points: :func:`forward_hidden`, :func:`prefill` (last-token logits
+in float32, and the cache) and :func:`decode_step` (one token, float32
+logits).  Attention blocks with a dense FFN are ported; MoE, Mamba and
+cross-attention blocks, the VLM prefix and the sliding window raise
+``NotImplementedError`` (ROADMAP.md Queue A 11), as does the training
+loss.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import BlockSpec, ModelConfig
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import mlp as mlp_lib
+from repro_torch.models.common import layernorm, rmsnorm
+
+_UNPORTED_BLOCKS = {
+    "moe": "MoE blocks (qwen2-moe, mixtral; ROADMAP.md Queue A 11)",
+    "mamba": "Mamba2 blocks (mamba2, jamba; ROADMAP.md Queue A 11)",
+    "cross": "cross-attention blocks (whisper; ROADMAP.md Queue A 11)",
+}
+
+
+class Decoder(torch.nn.Module):
+    """The decoder's parameters: ``embed`` (V, D), ``blocks`` (one
+    ``ModuleDict`` per layer: ``pre_norm``, ``attn``, ``mlp_norm``,
+    ``mlp``), ``final_norm`` and, unless the embeddings are tied,
+    ``unembed`` (D, V)."""
+
+    def __init__(self, embed, blocks, final_norm, unembed=None):
+        super().__init__()
+        self.embed = embed
+        self.blocks = torch.nn.ModuleList(blocks)
+        self.final_norm = final_norm
+        if unembed is None:
+            self.register_parameter("unembed", None)
+        else:
+            self.unembed = unembed
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+def _norm_params(make, path: str, cfg: ModelConfig) -> torch.nn.ParameterDict:
+    p = {"scale": make(f"{path}.scale", (cfg.d_model,), "ones")}
+    if cfg.norm == "layernorm":
+        p["bias"] = make(f"{path}.bias", (cfg.d_model,), "zeros")
+    return torch.nn.ParameterDict(p)
+
+
+def apply_norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["scale"], p["bias"])
+    return rmsnorm(x, p["scale"])
+
+
+def check_block(spec: BlockSpec) -> None:
+    """Raise for a block kind the port does not run yet."""
+    if spec.kind != "attn":
+        raise NotImplementedError(f"{_UNPORTED_BLOCKS['mamba']} are not ported yet")
+    if spec.moe:
+        raise NotImplementedError(f"{_UNPORTED_BLOCKS['moe']} are not ported yet")
+    if spec.cross:
+        raise NotImplementedError(f"{_UNPORTED_BLOCKS['cross']} are not ported yet")
+
+
+def _block_params(make, path: str, cfg: ModelConfig,
+                  spec: BlockSpec) -> torch.nn.ModuleDict:
+    check_block(spec)
+    p = {"pre_norm": _norm_params(make, f"{path}.pre_norm", cfg),
+         "attn": attn_lib.attn_params(
+             make, f"{path}.attn", d_model=cfg.d_model, num_heads=cfg.num_heads,
+             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+             qkv_bias=cfg.qkv_bias),
+         "mlp_norm": _norm_params(make, f"{path}.mlp_norm", cfg)}
+    if cfg.d_ff:
+        p["mlp"] = mlp_lib.mlp_params(
+            make, f"{path}.mlp", d_model=cfg.d_model, d_ff=cfg.d_ff,
+            activation=cfg.activation)
+    return torch.nn.ModuleDict(p)
+
+
+def decoder_params(make, cfg: ModelConfig, *, prefix: str = "dec") -> Decoder:
+    """One block per layer, made in the reference's leaf order (embed,
+    blocks, final norm, unembed)."""
+    pat, _ = cfg.resolve_pattern()
+    for spec in pat:
+        check_block(spec)
+    embed = make(f"{prefix}.embed", (cfg.vocab_size, cfg.d_model), ("normal", 0.02))
+    blocks = [_block_params(make, f"{prefix}.blocks.{layer}", cfg,
+                            pat[layer % len(pat)])
+              for layer in range(cfg.num_layers)]
+    final_norm = _norm_params(make, f"{prefix}.final_norm", cfg)
+    unembed = None
+    if not cfg.tie_embeddings:
+        unembed = make(f"{prefix}.unembed", (cfg.d_model, cfg.vocab_size),
+                       ("normal", 0.02))
+    return Decoder(embed, blocks, final_norm, unembed)
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill)
+# ---------------------------------------------------------------------------
+
+def _embed(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    x = params.embed[tokens]
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    return x
+
+
+def _check_forward(cfg: ModelConfig, prefix_emb, enc_out, window) -> None:
+    if prefix_emb is not None:
+        raise attn_lib.unported("prefix_len")
+    if enc_out is not None:
+        raise attn_lib.unported("cross_kv")
+    if window is not None or cfg.sliding_window is not None:
+        raise attn_lib.unported("window")
+
+
+def _ffn(cfg: ModelConfig, bp, x: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(cfg, bp["mlp_norm"], x)
+    if cfg.d_ff:
+        h = mlp_lib.mlp(bp["mlp"], h, activation=cfg.activation)
+    else:
+        h = torch.zeros_like(x)
+    return x + h
+
+
+def _attn_kwargs(cfg: ModelConfig) -> dict:
+    return dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta)
+
+
+def forward_hidden(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
+                   prefix_emb: Optional[torch.Tensor] = None,
+                   enc_out: Optional[torch.Tensor] = None,
+                   window: Optional[int] = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Embed + blocks + final norm.  Returns (hidden (B, S, D), moe_aux),
+    the aux loss 0 (no MoE block is ported)."""
+    _check_forward(cfg, prefix_emb, enc_out, window)
+    x = _embed(params, cfg, tokens)
+    for bp in params.blocks:
+        h = apply_norm(cfg, bp["pre_norm"], x)
+        x = x + attn_lib.attention(bp["attn"], h, causal=True, **_attn_kwargs(cfg))
+        x = _ffn(cfg, bp, x)
+    x = apply_norm(cfg, params.final_norm, x)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _unembed(params: Decoder, cfg: ModelConfig) -> torch.Tensor:
+    """(V, D), as the reference's ``_unembed``."""
+    if cfg.tie_embeddings:
+        return params.embed
+    return params.unembed.T
+
+
+def prefill(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
+            prefix_emb: Optional[torch.Tensor] = None,
+            enc_out: Optional[torch.Tensor] = None,
+            window: Optional[int] = None,
+            cache: Optional[dict] = None) -> tuple[torch.Tensor, dict]:
+    """Forward over the prompt ``tokens`` (B, S), writing each layer's
+    roped k and v into positions [0, S) of the decode cache.  ``cache``: one
+    made by :func:`init_decode_cache` with capacity >= S, written in place
+    (serving allocates it once at prompt + decode capacity); by default one
+    of capacity S in the parameters' dtype, as the reference returns.
+    Returns (last-token logits (B, V) float32, cache)."""
+    _check_forward(cfg, prefix_emb, enc_out, window)
+    pat, _ = cfg.resolve_pattern()
+    b, s = tokens.shape
+    x = _embed(params, cfg, tokens)
+    if cache is None:
+        cache = init_decode_cache(cfg, b, s, dtype=x.dtype, device=x.device)
+    if cache["pos0"]["k"].shape[2] < s:
+        raise ValueError(f"prefill: cache capacity {cache['pos0']['k'].shape[2]} "
+                         f"< prompt length {s}")
+    for layer, bp in enumerate(params.blocks):
+        period, i = divmod(layer, len(pat))
+        c = cache[f"pos{i}"]
+        h = apply_norm(cfg, bp["pre_norm"], x)
+        h, (k, v) = attn_lib.attention(bp["attn"], h, causal=True,
+                                       return_kv=True, **_attn_kwargs(cfg))
+        c["k"][period, :, :s] = k
+        c["v"][period, :, :s] = v
+        x = _ffn(cfg, bp, x + h)
+    x = apply_norm(cfg, params.final_norm, x)
+    logits = x[:, -1].float() @ _unembed(params, cfg).float().T
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Decode (serve) path
+# ---------------------------------------------------------------------------
+
+def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
+                      dtype: torch.dtype = torch.bfloat16,
+                      device: torch.device | str = DEFAULT_DEVICE) -> dict:
+    """``{"pos{i}": {"k", "v"}}``, each (periods, B, max_len, KV, hd) of
+    zeros, as the reference lays it out."""
+    pat, periods = cfg.resolve_pattern()
+    device = resolve_device(device)
+    shape = (periods, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    cache = {}
+    for i, spec in enumerate(pat):
+        check_block(spec)
+        cache[f"pos{i}"] = {name: torch.zeros(shape, dtype=dtype, device=device)
+                            for name in ("k", "v")}
+    return cache
+
+
+def decode_step(params: Decoder, cfg: ModelConfig, cache: dict,
+                tokens: torch.Tensor, pos: int, *,
+                window: Optional[int] = None,
+                seq_shard_axis: Optional[str] = None
+                ) -> tuple[torch.Tensor, dict]:
+    """One-token serve step.  tokens: (B, 1); pos: tokens already in the
+    cache.  Writes each layer's k and v at ``pos`` in place.  Returns
+    (logits (B, V) float32, cache)."""
+    _check_forward(cfg, None, None, window)
+    pat, _ = cfg.resolve_pattern()
+    x = _embed(params, cfg, tokens)
+    for layer, bp in enumerate(params.blocks):
+        period, i = divmod(layer, len(pat))
+        c = cache[f"pos{i}"]
+        h = apply_norm(cfg, bp["pre_norm"], x)
+        h, _ = attn_lib.decode_attention(
+            bp["attn"], h, {"k": c["k"][period], "v": c["v"][period]}, pos,
+            seq_shard_axis=seq_shard_axis, **_attn_kwargs(cfg))
+        x = _ffn(cfg, bp, x + h)
+    x = apply_norm(cfg, params.final_norm, x)
+    logits = x[:, 0].float() @ _unembed(params, cfg).float().T
+    return logits, cache

@@ -40,6 +40,8 @@ def test_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT / "src").as_posix() for p in PORT_FILES}
     assert "repro_torch/core/robust_step.py" in names
     assert "repro_torch/kernels/ops.py" in names
+    assert "repro_torch/launch/serve.py" in names
+    assert "repro_torch/configs/base.py" in names
     assert all(p.exists() for p in SCRIPTS)
 
 
@@ -58,6 +60,16 @@ def test_default_device_raises_without_a_card():
         mnist_like(0, n=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         paper_nn.init_params(0)
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
+    model = build_model(get_config("qwen2-7b").reduced())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_cache(1, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "qwen2-7b", "--reduced"])
 
 
 def test_quickstart_defaults_to_the_card():

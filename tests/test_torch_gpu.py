@@ -10,6 +10,9 @@ Tolerances: K1 is elementwise in the plain version's order, so it agrees
 to within 1 ulp and its table bitwise; K2, K3, K5 and K6 sum in another
 order than PyTorch, so they agree to rtol 1e-5 (atol 1e-5 x max|plain|);
 K4 selects, so it is bitwise for odd W and within 1 ulp for even W.
+K8 (flash attention) computes in float32 in another order than its plain
+version: rtol/atol 2e-5 in float32 and 2e-2 in bfloat16, the tolerances of
+``tests/test_kernels.py``.
 """
 import numpy as np
 import pytest
@@ -106,10 +109,12 @@ def test_cuda_dispatch_counts_launches():
     ops.partial_sqdist_segments(z, y, torch.zeros(300, dtype=torch.int32,
                                                   device="cuda"), num_segments=2)
     ops.masked_neighbor_reduce(z[None], torch.ones(1, 7, device="cuda"), trim=1)
+    qkv = torch.zeros((1, 4, 2, 16), device="cuda")
+    ops.flash_attention(qkv, qkv, qkv)
     assert ops.launch_counts() == {
         "saga_correct": 1, "partial_sqdist": 1, "weighted_sum": 1,
         "coordinate_median": 1, "trimmed_mean": 1, "partial_sqdist_segments": 1,
-        "masked_neighbor_reduce": 1}
+        "masked_neighbor_reduce": 1, "flash_attention": 1}
 
 
 @pytest.mark.gpu
@@ -343,3 +348,111 @@ def test_decentralized_cuda_steps_match_cpu(agg, gossip):
     if agg == "geomed":
         assert counts["partial_sqdist"] == counts["weighted_sum"] >= 1, counts
         assert counts["masked_neighbor_reduce"] == 1, counts
+
+
+# -- the serving slice: K8 flash attention ------------------------------------
+
+# (B, S, H, KV, hd, causal): tests/test_kernels.py:120-125, a ragged MQA
+# head of 128, and the per-layer shape of the served qwen2-7b.
+FLASH_SHAPES = [(2, 64, 4, 2, 16, True), (1, 100, 2, 2, 32, True),
+                (2, 37, 4, 4, 8, False), (1, 192, 2, 1, 64, True),
+                (2, 300, 7, 1, 128, True), (4, 2048, 28, 4, 128, True)]
+FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def _flash_inputs(b, s, h, kv, hd, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((b, s, n, hd), generator=g, device="cuda").to(dtype)
+            for n in (h, kv, kv)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,h,kv,hd,causal", FLASH_SHAPES)
+def test_flash_attention_kernel_vs_plain(b, s, h, kv, hd, causal, dtype):
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _flash_inputs(b, s, h, kv, hd, dtype)
+    got = fa.flash_attention_call(q, k, v, causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(),
+                               fa.flash_attention_plain(q, k, v, causal).float(),
+                               **FLASH_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [1, 48, 200, 256])
+def test_flash_attention_kernel_takes_every_head_dim(hd):
+    """Head dims that fill no compile-time width exactly, and the widest."""
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _flash_inputs(2, 77, 4, 2, hd, torch.float32, seed=hd)
+    for causal in (True, False):
+        torch.testing.assert_close(fa.flash_attention_call(q, k, v, causal),
+                                   fa.flash_attention_plain(q, k, v, causal),
+                                   **FLASH_TOL[torch.float32])
+    big = torch.zeros((1, 4, 1, 264), device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_call(big, big, big, True)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_reads_projections_in_place():
+    """q, k and v as head views of (B, S, heads * hd) projections (and of one
+    fused qkv buffer), and a float32 output from bfloat16 inputs."""
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    b, s, h, kv, hd = 2, 130, 6, 2, 64
+    g = torch.Generator(device="cuda").manual_seed(3)
+    fused = torch.randn((b, s, (h + 2 * kv) * hd), generator=g,
+                        device="cuda").to(torch.bfloat16)
+    q = fused[..., : h * hd].view(b, s, h, hd)
+    k = fused[..., h * hd:(h + kv) * hd].view(b, s, kv, hd)
+    v = fused[..., (h + kv) * hd:].view(b, s, kv, hd)
+    want = fa.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), True, torch.float32)
+    got = fa.flash_attention_call(q, k, v, True, torch.float32)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, **FLASH_TOL[torch.float32])
+    torch.testing.assert_close(fa.flash_attention_call(q, k, v, True).float(),
+                               want, **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_cuda_serving_matches_cpu_plain_path():
+    """The reduced qwen2-7b in float32: prefill of a ragged prompt and four
+    decode steps on the card track the CPU path from the same weights and
+    tokens (rtol 1e-4: K8 and the matmuls sum in another order), and the
+    prefill launches K8 once per layer and the decode steps never."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    cfg = get_config("qwen2-7b").reduced()
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 37),
+                           generator=torch.Generator().manual_seed(1))
+    steps = torch.randint(0, cfg.vocab_size, (4, 2, 1),
+                          generator=torch.Generator().manual_seed(2))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, device=dev)
+        p = params.to(dev)
+        cache = model.init_cache(2, 41, dtype=torch.float32)
+        logits = []
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            lg, cache = model.prefill(p, {"tokens": tokens.to(dev)}, cache=cache)
+            prefill_launches = ops.launch_counts()["flash_attention"]
+            logits.append(lg.cpu())
+            ops.reset_launch_counts()
+            for i, tok in enumerate(steps):
+                lg, cache = model.decode_step(p, cache, tok.to(dev), 37 + i)
+                logits.append(lg.cpu())
+            decode_launches = ops.launch_counts()["flash_attention"]
+        out[dev] = (torch.stack(logits), prefill_launches, decode_launches)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-5)
+    assert out["cuda"][1:] == (cfg.num_layers, 0)
+    assert out["cpu"][1:] == (0, 0)

@@ -140,10 +140,12 @@ def test_cpu_dispatch_counts_no_launch():
     ops.partial_sqdist_segments(_t(z), _t(y), torch.zeros(300, dtype=torch.int32),
                                 num_segments=2)
     ops.masked_neighbor_reduce(_t(z)[None], torch.ones(1, 7), trim=1)
+    qkv = torch.zeros((1, 4, 2, 16))
+    ops.flash_attention(qkv, qkv, qkv)
     assert ops.launch_counts() == {
         "saga_correct": 0, "partial_sqdist": 0, "weighted_sum": 0,
         "coordinate_median": 0, "trimmed_mean": 0, "partial_sqdist_segments": 0,
-        "masked_neighbor_reduce": 0}
+        "masked_neighbor_reduce": 0, "flash_attention": 0}
 
 
 @pytest.mark.parametrize("kernel", ["saga_correct", "partial_sqdist",
