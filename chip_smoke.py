@@ -68,15 +68,18 @@ Phases, in order; any failure exits non-zero:
 12. K8 flash attention against its plain version, float32 within rtol/atol
    2e-5 and bfloat16 within 2e-2 (the tolerances of tests/test_kernels.py),
    at the shapes of tests/test_kernels.py:120-125, a ragged MQA head of 128
-   (2, 300, 7, 1, 128) and workload E's per-layer shape (4, 2,048, 28, 4,
-   128), causal.
+   (2, 300, 7, 1, 128), two bidirectional heads of 64 and 128 and workload
+   E's per-layer shape (4, 2,048, 28, 4, 128), causal; each call through the
+   route ``flash_attention.variant`` picks (wgmma for bfloat16 at hd 64 and
+   128, SIMT otherwise), the route that ran logged and asserted.
 13. Workload E, serving qwen2-7b at full width and depth (28 layers, 7.6 B
    parameters, bf16, drawn on the card from the seed) through
    ``repro_torch.launch.serve``: batch 4 x 2,048 prompt tokens, 32 greedy
    tokens, the KV cache allocated once at 2,080 positions.  One warm-up,
    then three runs (prefill time and decode ms/step, medians), launch
    counts reset just before the first and read just after (K8 exactly 28
-   times, once per layer of the prefill, and never in a decode step),
+   times, once per layer of the prefill, all through the wgmma kernel, and
+   never in a decode step),
    finite logits and the output shapes asserted; peak memory; a
    torch.profiler split of one prefill and one decode step (K8, matmuls,
    the rest) with the device's idle share.
@@ -84,9 +87,11 @@ Phases, in order; any failure exits non-zero:
    over s tokens then one decode step at s agrees with a prefill over the
    s + 1 tokens, rtol 1e-4; the card against the CPU: the reduced
    qwen2-7b in float32, prefill + 4 decode steps, rtol 1e-4.
-15. K8 timed at workload E's per-layer shape (CUDA events) beside its
-   bound, its plain version and ``scaled_dot_product_attention`` (the
-   library yardstick, timed here only; the port never calls it).
+15. K8 timed at workload E's per-layer shape (CUDA events): the wgmma
+   kernel the path runs and, for comparison, the SIMT kernel on the same
+   bfloat16 inputs, beside the bound, the plain version and
+   ``scaled_dot_product_attention`` (the library yardstick, timed here only;
+   the port never calls it).
 16. One JSON line with the kernels (K1-K8), then the result line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
@@ -153,7 +158,8 @@ FIG6_ATTACKS = ("none", "gaussian", "sign_flip", "zero_gradient", "alie")
 # K8 checks: (B, S, H, KV, hd), causal.
 FLASH_CHECKS = (((2, 64, 4, 2, 16), True), ((1, 100, 2, 2, 32), True),
                 ((2, 37, 4, 4, 8), False), ((1, 192, 2, 1, 64), True),
-                ((2, 300, 7, 1, 128), True), ((4, 2048, 28, 4, 128), True))
+                ((2, 300, 7, 1, 128), True), ((1, 129, 4, 2, 64), False),
+                ((2, 65, 2, 1, 128), False), ((4, 2048, 28, 4, 128), True))
 # Workload E: qwen2-7b served at full width and depth.
 E_ARCH, E_BATCH, E_PROMPT, E_DECODE = "qwen2-7b", 4, 2048, 32
 
@@ -916,7 +922,7 @@ def phase_timing_d(torch):
         ms=event_ms(torch, lambda: wz.partial_sqdist_call(ex, y), 20),
         plain_ms=event_ms(torch, lambda: wz.partial_sqdist_plain(ex, y), 5),
         bound_ms=b, bound_by=by, library_ms=None)
-    # K3 needs only the rows whose weight is not 0 (it reads every row).
+    # K3 needs, and reads, only the rows whose weight is not 0.
     b, by = bound(float((a != 0).sum()) * d * 4 + r * s * 4 + rd_b, 2 * r * s * d)
     out["weighted_sum batched"] = dict(
         ms=event_ms(torch, lambda: wz.weighted_sum_call(ex, a), 20),
@@ -1027,18 +1033,24 @@ def flash_inputs(torch, shape, dtype, gen):
 
 def phase_flash_checks(torch):
     """K8 against its plain version on the card at FLASH_CHECKS, float32 and
-    bfloat16; returns the largest absolute difference over all checks."""
+    bfloat16, each through the route ``fa.variant`` picks (asserted from
+    the per-route counts); returns the largest absolute difference over all
+    checks."""
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     worst = 0.0
     for shape, causal in FLASH_CHECKS:
-        errs = {}
+        errs, routes = {}, {}
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(torch, shape, dtype, gen)
+            before = dict(fa.VARIANT_LAUNCHES)
             got = fa.flash_attention_call(q, k, v, causal)
             want = fa.flash_attention_plain(q, k, v, causal)
             torch.cuda.synchronize()
+            ran = [r for r in fa.VARIANTS if fa.VARIANT_LAUNCHES[r] > before[r]]
+            assert ran == [fa.variant(dtype, shape[-1], True)], (shape, dtype, ran)
+            routes[dtype] = ran[0]
             assert got.dtype == dtype and got.shape == q.shape
             t = tol[dtype]
             torch.testing.assert_close(got.float(), want.float(), rtol=t, atol=t)
@@ -1046,8 +1058,9 @@ def phase_flash_checks(torch):
             del q, k, v, got, want
         worst = max(worst, *errs.values())
         log(f"kernel check flash_attention {shape} {'causal' if causal else 'bidirectional'}: "
-            f"K8 max|err| f32 {errs[torch.float32]:.3g} (rtol/atol 2e-5), "
-            f"bf16 {errs[torch.bfloat16]:.3g} (2e-2): ok")
+            f"K8 max|err| f32 {errs[torch.float32]:.3g} ({routes[torch.float32]}, "
+            f"rtol/atol 2e-5), bf16 {errs[torch.bfloat16]:.3g} "
+            f"({routes[torch.bfloat16]}, 2e-2): ok")
     torch.cuda.empty_cache()
     return worst
 
@@ -1096,6 +1109,7 @@ def phase_workload_e(torch, card):
     through repro_torch.launch.serve.  Returns the launch counts of the
     counted run."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models.api import build_model
@@ -1132,9 +1146,11 @@ def phase_workload_e(torch, card):
         runs.append(run(t))
         if i == 0:
             counts = ops.launch_counts()
+            routes = dict(fa.VARIANT_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     res = runs[-1]
     assert counts["flash_attention"] == cfg.num_layers, counts
+    assert routes == {"wgmma": cfg.num_layers, "simt": 0}, routes
     assert tuple(res["tokens"].shape) == (b, t), res["tokens"].shape
     assert tuple(res["logits"].shape) == (b, cfg.vocab_size)
     assert res["logits"].dtype == torch.float32
@@ -1149,6 +1165,7 @@ def phase_workload_e(torch, card):
         model.decode_step(params, cache, res["tokens"][:, -1:], p + t - 1)
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention"] == 0, ops.launch_counts()
+    assert fa.VARIANT_LAUNCHES == {"wgmma": 0, "simt": 0}, fa.VARIANT_LAUNCHES
     prefill_s = statistics.median(r["prefill_s"] for r in runs)
     step_s = statistics.median(r["decode_s"] for r in runs) / (t - 1)
     each = ", ".join(f"{r['prefill_s'] * 1e3:.3f}" for r in runs)
@@ -1156,7 +1173,7 @@ def phase_workload_e(torch, card):
         f"(median of 3: {each}), "
         f"{b * p / prefill_s:.0f} prompt tok/s; decode {step_s * 1e3:.3f} ms/step "
         f"over {t - 1} steps, {b / step_s:.1f} tok/s; peak memory {peak / 1e9:.2f} GB; "
-        f"launches of the counted run {counts}")
+        f"launches of the counted run {counts}, K8 by route {routes}")
     log(f"workload E sampled token ids (first seq): {res['tokens'][0][:16].tolist()}")
     tokens = res["prompt"]
 
@@ -1236,8 +1253,10 @@ def phase_serving_checks(torch):
 
 def phase_timing_e(torch):
     """K8 at workload E's per-layer shape (bf16, causal): device time (CUDA
-    events) beside its bound, its plain version and one
-    scaled_dot_product_attention call (is_causal, enable_gqa)."""
+    events) of the wgmma kernel the path runs and of the SIMT kernel on the
+    same inputs (``route="simt"``, for comparison only), beside the bound,
+    the plain version and one scaled_dot_product_attention call (is_causal,
+    enable_gqa)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     cfg_shape = (E_BATCH, E_PROMPT, 28, 4, 128)
@@ -1248,18 +1267,24 @@ def phase_timing_e(torch):
     flops = 2 * b * h * s_ * (s_ + 1) * hd       # causal pairs: S (S + 1) / 2
     bd, by = bound(nbytes, flops, BF16_FLOPS_PER_S)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    assert fa.variant(q.dtype, hd, fa.tma_aligned(q, k, v)) == "wgmma"
     out = dict(
-        ms=event_ms(torch, lambda: fa.flash_attention_call(q, k, v, True), 10),
+        ms=event_ms(torch, lambda: fa.flash_attention_call(q, k, v, True), 20),
+        simt_ms=event_ms(torch, lambda: fa.flash_attention_call(
+            q, k, v, True, route="simt"), 10),
         plain_ms=event_ms(torch, lambda: fa.flash_attention_plain(q, k, v, True), 3),
         bound_ms=bd, bound_by=by,
         library_ms=event_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), 20))
-    log(f"timing flash_attention {cfg_shape} bf16 causal (device time): "
-        f"{out['ms'] * 1e3:.2f} us, bound {out['bound_ms'] * 1e3:.2f} us ({by}: "
+    log(f"timing flash_attention {cfg_shape} bf16 causal (device time): wgmma "
+        f"{out['ms'] * 1e3:.2f} us, SIMT {out['simt_ms'] * 1e3:.2f} us "
+        f"({out['simt_ms'] / out['ms']:.1f}x the wgmma time), "
+        f"bound {out['bound_ms'] * 1e3:.2f} us ({by}: "
         f"{flops:.4g} FLOP at 989 TFLOP/s; {nbytes / 1e6:.1f} MB at 3.35 TB/s "
         f"{nbytes / HBM_BYTES_PER_S * 1e6:.2f} us), plain {out['plain_ms'] * 1e3:.2f} us, "
         f"library (scaled_dot_product_attention) {out['library_ms'] * 1e3:.2f} us; "
-        f"{flops / (out['ms'] * 1e-3) / 1e12:.2f} TFLOP/s")
+        f"wgmma {flops / (out['ms'] * 1e-3) / 1e12:.2f} TFLOP/s, SIMT "
+        f"{flops / (out['simt_ms'] * 1e-3) / 1e12:.2f} TFLOP/s")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return out

@@ -18,10 +18,22 @@
 //
 // K3 weighted_sum: out[r, d] = sum_s a[r, s] * z[r, s, d]  (unnormalized).
 // Replaces: repro/kernels/weiszfeld.py, weighted_sum_call (_wsum_kernel).
-// One thread per (receiver, coordinate) loops over the S rows in order; the
-// receiver's S weights sit in shared memory and a warp's loads of one row
-// are coalesced along D.  A column slice z[..., a:b] of a wider buffer is
-// read in place.
+// It reads only the rows of nonzero weight: each block of 8 warps first
+// compacts its receiver's nonzero weights into shared memory as (row,
+// weight) pairs in ascending row order (a ballot and a prefix count per
+// warp), then covers 128 coordinates, 4 consecutive ones a thread (float4
+// loads where the base and the row stride allow, else 4 scalar loads, so a
+// column slice z[..., a:b] of a wider buffer is read in place).  The
+// compacted rows are split across the warps (warp w takes rows w, w + 8,
+// ...), each warp keeps up to 8 rows' loads in flight, and the 8 partial
+// sums are added in warp order in shared memory.  The split depends on nothing but
+// the weights, so a single matrix gives the same bits as each receiver of a
+// batch, and every run the same bits.  For finite z a row of weight exactly
+// 0 adds +-0, so skipping it changes no sum.  A zero-weight row holding inf
+// or NaN is the one input on which the kernel and the plain version part
+// (0 * inf is NaN there, skipped here); the reference's masked engine
+// promises that mask-0 senders do not influence the result
+// (repro/topology/masked.py), and the skip keeps that promise.
 //
 // K6 partial_sqdist_segments: out[w, s] = sum over the coordinates d of
 // segment s of (z[w, d] - y[d])^2, for s in [0, L); a coordinate whose
@@ -38,8 +50,9 @@
 //
 // Bound on the H100: device-memory bytes.  Each sweep reads the z bytes once
 // (W * D * 4 = 11.1 MB at W = 70, D = 39,760; R * S * D * 4 = 779 MB for
-// the decentralized exchange at R = S = 70) for 2-3 flops per element (K6
-// also reads the D * 4 bytes of the ids).  Inside the master's Weiszfeld
+// the decentralized exchange at R = S = 70, of which K3 needs only the 409 MB
+// of rows of nonzero weight under workload D's mask) for 2-3 flops per
+// element (K6 also reads the D * 4 bytes of the ids).  Inside the master's Weiszfeld
 // loop z is re-read every iteration and fits in the 50 MB L2, so the sweeps
 // may run above the HBM rate; the decentralized exchange does not fit.
 #include "common.cuh"
@@ -164,23 +177,126 @@ __global__ void sqdist_segments_partial_kernel(const float* __restrict__ z,
   }
 }
 
-// Grid (D-blocks, R); a: (R, W) contiguous, out: (R, D) contiguous.
-__global__ void weighted_sum_kernel(const float* __restrict__ z,
-                                    const float* __restrict__ a,
-                                    float* __restrict__ out, int W, int64_t D,
-                                    int64_t ld, int64_t rs) {
-  extern __shared__ float s_a[];
+constexpr int kWsWarps = 8;                  // warps per block, each over a share of the rows
+constexpr int kWsThreads = 32 * kWsWarps;
+constexpr int kWsCols = 32 * 4;              // coordinates per block, 4 a thread
+constexpr int kWsUnroll = 8;                 // rows in flight per thread
+
+// The 4 coordinates of `lane` in the block's 128 starting at d0, from row
+// `p`: d0 + 4 lane + i with VEC (one float4 where all 4 lie below D), else
+// d0 + lane + 32 i.  Coordinates past D read 0.
+template <bool VEC>
+__device__ __forceinline__ float4 load_cols(const float* p, int64_t d0, int lane,
+                                            int64_t D) {
+  float x[4];
+  if (VEC && d0 + 4 * lane + 3 < D)
+    return __ldg(reinterpret_cast<const float4*>(p + d0 + 4 * lane));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t d = VEC ? d0 + 4 * lane + i : d0 + lane + 32 * i;
+    x[i] = d < D ? __ldg(p + d) : 0.f;
+  }
+  return make_float4(x[0], x[1], x[2], x[3]);
+}
+
+__device__ __forceinline__ void fma4(float w, const float4& v, float4& acc) {
+  acc.x = fmaf(w, v.x, acc.x);
+  acc.y = fmaf(w, v.y, acc.y);
+  acc.z = fmaf(w, v.z, acc.z);
+  acc.w = fmaf(w, v.w, acc.w);
+}
+
+// Grid (D-blocks of 128, R); a: (R, W) contiguous, out: (R, D) contiguous;
+// W * 8 bytes of dynamic shared memory.  VEC: z, ld and rs allow float4
+// loads (16-byte-aligned base, ld and rs multiples of 4).
+template <bool VEC>
+__global__ void __launch_bounds__(kWsThreads)
+weighted_sum_kernel(const float* __restrict__ z, const float* __restrict__ a,
+                    float* __restrict__ out, int W, int64_t D, int64_t ld,
+                    int64_t rs) {
+  extern __shared__ float s_wt[];   // nonzero weights, then their rows
+  int* s_row = reinterpret_cast<int*>(s_wt + W);
+  __shared__ int warp_n[kWsWarps];
+  __shared__ float4 part[kWsWarps - 1][32];
   const int r = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   a += static_cast<int64_t>(r) * W;
-  for (int w = threadIdx.x; w < W; w += blockDim.x) s_a[w] = a[w];
-  __syncthreads();
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= D) return;
+
+  int n = 0;   // nonzero weights compacted so far
+  for (int w0 = 0; w0 < W; w0 += kWsThreads) {
+    const int w = w0 + threadIdx.x;
+    const float x = w < W ? a[w] : 0.f;
+    const bool keep = x != 0.f;
+    const unsigned mask = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) warp_n[warp] = __popc(mask);
+    __syncthreads();
+    int at = n, total = 0;
+#pragma unroll
+    for (int i = 0; i < kWsWarps; ++i) {
+      at += i < warp ? warp_n[i] : 0;
+      total += warp_n[i];
+    }
+    if (keep) {
+      const int k = at + __popc(mask & ((1u << lane) - 1u));
+      s_wt[k] = x;
+      s_row[k] = w;
+    }
+    n += total;
+    __syncthreads();
+  }
+
+  const int64_t d0 = static_cast<int64_t>(blockIdx.x) * kWsCols;
   z += static_cast<int64_t>(r) * rs;
-  float acc = 0.f;
-#pragma unroll 8
-  for (int w = 0; w < W; ++w) acc = fmaf(s_a[w], z[static_cast<int64_t>(w) * ld + i], acc);
-  out[static_cast<int64_t>(r) * D + i] = acc;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int j = warp; j < n; j += kWsUnroll * kWsWarps) {
+    float4 v[kWsUnroll];   // up to kWsUnroll rows' loads in flight, then in order
+#pragma unroll
+    for (int u = 0; u < kWsUnroll; ++u)
+      if (j + u * kWsWarps < n)
+        v[u] = load_cols<VEC>(z + s_row[j + u * kWsWarps] * ld, d0, lane, D);
+#pragma unroll
+    for (int u = 0; u < kWsUnroll; ++u)
+      if (j + u * kWsWarps < n) fma4(s_wt[j + u * kWsWarps], v[u], acc);
+  }
+
+  if (warp > 0) part[warp - 1][lane] = acc;
+  __syncthreads();
+  if (warp != 0) return;
+#pragma unroll
+  for (int i = 0; i < kWsWarps - 1; ++i) {
+    const float4 p = part[i][lane];
+    acc.x += p.x;
+    acc.y += p.y;
+    acc.z += p.z;
+    acc.w += p.w;
+  }
+  out += static_cast<int64_t>(r) * D;
+  const float y[4] = {acc.x, acc.y, acc.z, acc.w};
+  if (VEC && (D & 3) == 0 && d0 + 4 * lane + 3 < D) {
+    *reinterpret_cast<float4*>(out + d0 + 4 * lane) = acc;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t d = VEC ? d0 + 4 * lane + i : d0 + lane + 32 * i;
+    if (d < D) out[d] = y[i];
+  }
+}
+
+template <bool VEC>
+int launch_weighted_sum(const float* z, const float* a, float* out, int R, int W,
+                        int64_t D, int64_t ld, int64_t rs, cudaStream_t s) {
+  const size_t smem = static_cast<size_t>(W) * 8;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        weighted_sum_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid(static_cast<unsigned>((D + kWsCols - 1) / kWsCols),
+                  static_cast<unsigned>(R));
+  weighted_sum_kernel<VEC><<<grid, kWsThreads, smem, s>>>(z, a, out, W, D, ld, rs);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -215,19 +331,17 @@ REPRO_EXPORT int partial_sqdist_f32(const float* z, const float* y,
 }
 
 // z: (R, W, D) at z[r * rs + w * ld + d], a: (R, W), out: (R, D); float32,
-// a and out contiguous; W * 4 bytes of shared memory, so W <= 12,288;
-// R <= 65,535.
+// a and out contiguous; W * 8 bytes of shared memory (above 48 KB by
+// opt-in), so W <= 12,288; R <= 65,535.
 REPRO_EXPORT int weighted_sum_f32(const float* z, const float* a, float* out,
                                   int R, int W, long long D, long long ld,
                                   long long rs, void* stream) {
   if (D == 0 || R == 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid(static_cast<unsigned>((D + kThreads - 1) / kThreads),
-                  static_cast<unsigned>(R));
-  weighted_sum_kernel<<<grid, kThreads, W * sizeof(float),
-                        static_cast<cudaStream_t>(stream)>>>(
-      z, a, out, W, static_cast<int64_t>(D), static_cast<int64_t>(ld),
-      static_cast<int64_t>(rs));
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bool vec = reinterpret_cast<uintptr_t>(z) % 16 == 0 && ld % 4 == 0 &&
+                   rs % 4 == 0;
+  return vec ? launch_weighted_sum<true>(z, a, out, R, W, D, ld, rs, s)
+             : launch_weighted_sum<false>(z, a, out, R, W, D, ld, rs, s);
 }
 
 // z: (W, D), y: (D,), seg: (D,) int32, partial: (W, L,

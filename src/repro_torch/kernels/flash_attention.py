@@ -9,17 +9,28 @@ in causal mode, ``kpos <= qpos``; the output is divided by
 ``max(l, 1e-30)``.  It is written in q's dtype, or in float32 where the
 caller asks.
 
-It launches the CUDA kernel of ``csrc/flash_attention.cu``, which reads
-the grouped key/value heads in place (no repeated copy, unlike the
-reference's ``ops.flash_attention``) and masks the ragged sequence edge
-itself (nothing padded).  :func:`flash_attention_plain` is the same
-function in plain PyTorch (float32 scores, the same mask, softmax, GQA by
-grouping the query heads), which the CPU path runs and the card's checks
-compare against.
+It launches one of two CUDA kernels of ``csrc/flash_attention.cu``, both of
+which read the grouped key/value heads in place (no repeated copy, unlike
+the reference's ``ops.flash_attention``) and mask the ragged sequence edge
+themselves (nothing padded).  :func:`variant` states which:
+
+* ``"wgmma"`` -- bfloat16 inputs with hd 64 or 128 whose base and strides
+  TMA can read (:func:`tma_aligned`): tensor cores, with p rounded to
+  bfloat16 for ``p v`` (each weight moves by at most 2^-8 of itself, the
+  output by at most 2^-8 max|v|).
+* ``"simt"`` -- everything else (float32, other head dims, unaligned
+  views): float32 arithmetic on the CUDA cores.
+
+:data:`VARIANT_LAUNCHES` counts the launches of each; their sum is
+``_build.LAUNCHES["flash_attention"]``.  :func:`flash_attention_plain` is
+the same function in plain PyTorch (float32 scores, the same mask,
+softmax, GQA by grouping the query heads), which the CPU path runs and the
+card's checks compare against.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -29,11 +40,50 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 MAX_GRID_YZ = 65_535
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+WGMMA_HEAD_DIMS = (64, 128)
+VARIANTS = ("wgmma", "simt")
+_ENTRY = {"wgmma": "flash_attention_fwd_wgmma", "simt": "flash_attention_fwd"}
 
 _SIGNATURES = {
-    "flash_attention_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-    + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+    name: [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9
+    + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    for name in _ENTRY.values()
 }
+
+# Launches per route (reset with the others by ops.reset_launch_counts).
+VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)
+
+
+def variant(dtype: torch.dtype, hd: int, aligned: bool) -> str:
+    """The kernel that serves q's ``dtype`` and head dim ``hd``: "wgmma"
+    for bfloat16 with hd 64 or 128 when TMA can read q, k and v
+    (``aligned``, :func:`tma_aligned`), else "simt"."""
+    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS and aligned:
+        return "wgmma"
+    return "simt"
+
+
+def tma_aligned(*tensors: torch.Tensor) -> bool:
+    """True when every tensor's base is 16-byte aligned and each of its
+    strides over (B, S, heads) whose size is above 1 is a positive multiple
+    of 16 bytes, as a TMA tensor map needs."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            return False
+        for size, stride in zip(t.shape[:3], t.stride()[:3]):
+            if size > 1 and (stride <= 0 or stride * t.element_size() % 16):
+                return False
+    return True
+
+
+def _map_strides(t: torch.Tensor) -> list[int]:
+    """t's element strides over (B, S, heads), a dimension of size 1 given
+    its contiguous stride (any stride addresses it; the tensor map needs a
+    valid one)."""
+    out = []
+    for i, (size, stride) in enumerate(zip(t.shape[:3], t.stride()[:3])):
+        out.append(stride if size > 1 else math.prod(t.shape[i + 1:]))
+    return out
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -76,12 +126,16 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool, out_dtype: torch.dtype | None = None
-                         ) -> torch.Tensor:
+                         causal: bool, out_dtype: torch.dtype | None = None,
+                         *, route: str | None = None) -> torch.Tensor:
     """(B, S, H, hd) attention on the card; ``out_dtype`` is q's dtype
     (default) or float32.  Each of q, k, v may have any strides over
-    (B, S, heads) with a contiguous last dimension."""
+    (B, S, heads) with a contiguous last dimension.  ``route`` None takes
+    :func:`variant`'s kernel; "simt" takes the SIMT kernel whatever the
+    inputs (to time it against the wgmma kernel)."""
     check_inputs(q, k, v)
+    if route not in (None, "simt"):
+        raise ValueError(f"flash_attention: route {route!r} is neither None nor 'simt'")
     if q.device.type != "cuda":
         raise ValueError("flash_attention: tensors must lie on a CUDA device")
     out_dtype = out_dtype or q.dtype
@@ -94,16 +148,21 @@ def flash_attention_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, h, hd = q.shape
     if b > MAX_GRID_YZ or h > MAX_GRID_YZ:
         raise ValueError(f"flash_attention: B={b} or H={h} exceeds {MAX_GRID_YZ}")
+    chosen = route or variant(q.dtype, hd, tma_aligned(q, k, v))
     out = torch.empty((b, s, h, hd), dtype=out_dtype, device=q.device)
     if out.numel() == 0:
         return out
     lib = _build.load("flash_attention", _SIGNATURES)
+    strides = q.stride()[:3], k.stride()[:3], v.stride()[:3]
+    if chosen == "wgmma":
+        strides = _map_strides(q), _map_strides(k), _map_strides(v)
     with torch.cuda.device(q.device):
-        rc = lib.flash_attention_fwd(
+        rc = getattr(lib, _ENTRY[chosen])(
             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
             _TYPE_CODES[q.dtype], _TYPE_CODES[out_dtype], b, s, h, k.shape[2],
-            hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal),
+            hd, *strides[0], *strides[1], *strides[2], int(causal),
             ctypes.c_float(hd ** -0.5), ctypes.c_void_p(_build.stream_of(q)))
-    _build.check(lib, rc, "flash_attention")
+    _build.check(lib, rc, f"flash_attention ({chosen})")
     _build.LAUNCHES["flash_attention"] += 1
+    VARIANT_LAUNCHES[chosen] += 1
     return out

@@ -115,5 +115,8 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for name in _build.LAUNCHES:
-        _build.LAUNCHES[name] = 0
+    """Zero every kernel's count, and K8's per-route counts
+    (``flash_attention.VARIANT_LAUNCHES``)."""
+    for counts in (_build.LAUNCHES, fa.VARIANT_LAUNCHES):
+        for name in counts:
+            counts[name] = 0

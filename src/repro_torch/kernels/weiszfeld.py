@@ -6,6 +6,10 @@
   Two passes on the card (per-block partial sums, then one fixed-order
   reduction per worker), so the result is the same bits on every run.
 * :func:`weighted_sum_call`   -- unnormalized ``sum_w a_w z_w`` -> (D,).
+  It reads only the rows whose weight is not 0 (for finite z the sum is the
+  same; a zero-weight row holding inf or NaN is skipped, where the plain
+  version's ``0 * inf`` gives NaN), splits them in a fixed order, so the
+  result is the same bits on every run and for every receiver of a batch.
 
 Both also take a leading receiver axis, the decentralized step's masked
 Weiszfeld: ``partial_sqdist`` on (R, S, D) and (R, D) gives (R, S),
@@ -41,8 +45,8 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
 }
 
-# Shared memory holds one receiver's weights: W * 4 bytes within the 48 KB
-# default.
+# Shared memory holds one receiver's nonzero weights and their rows: up to
+# W * 8 bytes (96 KB, above the 48 KB default by opt-in).
 MAX_WORKERS = 12_288
 # The grid's y and z dimensions (workers, receivers).
 MAX_GRID_YZ = 65_535

@@ -12,7 +12,13 @@ order than PyTorch, so they agree to rtol 1e-5 (atol 1e-5 x max|plain|);
 K4 selects, so it is bitwise for odd W and within 1 ulp for even W.
 K8 (flash attention) computes in float32 in another order than its plain
 version: rtol/atol 2e-5 in float32 and 2e-2 in bfloat16, the tolerances of
-``tests/test_kernels.py``.
+``tests/test_kernels.py``.  Its wgmma route (bfloat16, hd 64 and 128) also
+rounds p to bfloat16 for p . v, which moves the output by at most 2^-8
+max|v|, far less in practice since the rounding errors take both signs
+(``tests/test_torch_models.py`` measures it on the CPU): it is held at the
+same 2e-2.
+K3 reads only the rows of nonzero weight; with finite z that changes no
+sum, so it is held at rtol 1e-5 like the others.
 """
 import numpy as np
 import pytest
@@ -303,6 +309,57 @@ def test_batched_weiszfeld_kernels_vs_plain(r, s, d):
                        wz.weighted_sum_call(shared.contiguous(), a))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 3, 4097])
+@pytest.mark.parametrize("r,s", [(4, 9), (3, 1)])
+def test_weighted_sum_kernel_skips_zero_weight_rows(r, s, d):
+    """K3 reads only the rows of nonzero weight: half the weights 0, one
+    receiver with all 0 (exactly 0 out), one with a single nonzero weight
+    (exactly w * z), W = 1, ragged D; a column slice and a shared (rs = 0)
+    matrix read in place, and each receiver bitwise its R = 1 call."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(d + s)
+    buf = torch.randn((r, s, d + 5), generator=g, device="cuda")
+    ex = buf[:, :, :d].contiguous()
+    a = (torch.rand((r, s), generator=g, device="cuda") + 0.5) \
+        * (torch.rand((r, s), generator=g, device="cuda") < 0.5)
+    a[0] = 0.0
+    a[1] = 0.0
+    a[1, s // 2] = 0.75
+    got = wz.weighted_sum_call(ex, a)
+    _close(got, wz.weighted_sum_plain(ex, a))
+    assert torch.equal(got[0], torch.zeros(d, device="cuda"))
+    assert torch.equal(got[1], 0.75 * ex[1, s // 2])
+    for i in range(r):
+        assert torch.equal(got[i], wz.weighted_sum_call(ex[i], a[i]))
+    cols = buf[:, :, 1:d + 1]
+    assert torch.equal(wz.weighted_sum_call(cols, a),
+                       wz.weighted_sum_call(cols.contiguous(), a))
+    shared = ex[2][None].expand(r, s, d)
+    assert torch.equal(wz.weighted_sum_call(shared, a),
+                       wz.weighted_sum_call(shared.contiguous(), a))
+    assert torch.equal(got, wz.weighted_sum_call(ex, a))   # the same bits each run
+
+
+@pytest.mark.gpu
+def test_weighted_sum_kernel_skips_non_finite_zero_weight_rows():
+    """The one input on which K3 and its plain version part: a row of weight
+    0 that holds inf or NaN is skipped (the reference's masked engine
+    promises that mask-0 senders do not influence the result), where the
+    plain version's 0 * inf gives NaN."""
+    _need_card()
+    ex, _ = _masked_inputs(3, 6, 300, False)
+    a = torch.ones((3, 6), device="cuda")
+    a[:, 2] = 0.0
+    ex[:, 2, :7] = float("inf")
+    ex[:, 2, 7:9] = float("nan")
+    got = wz.weighted_sum_call(ex, a)
+    assert bool(torch.isfinite(got).all())
+    assert bool(torch.isnan(wz.weighted_sum_plain(ex, a)[:, :9]).all())
+    keep = torch.tensor([0, 1, 3, 4, 5], device="cuda")
+    _close(got, wz.weighted_sum_plain(ex[:, keep], a[:, keep]))
+
+
 DECENTRALIZED_RULES = ["mean", "median", "trimmed_mean", "geomed",
                        "geomed_groups", "geomed_blockwise", "krum",
                        "centered_clip"]
@@ -401,7 +458,11 @@ def test_flash_attention_kernel_takes_every_head_dim(hd):
 @pytest.mark.gpu
 def test_flash_attention_kernel_reads_projections_in_place():
     """q, k and v as head views of (B, S, heads * hd) projections (and of one
-    fused qkv buffer), and a float32 output from bfloat16 inputs."""
+    fused qkv buffer), and a float32 output from bfloat16 inputs.  The SIMT
+    kernel computes in float32 throughout, so its float32 output is held at
+    2e-5 (asked for with ``route="simt"``: these bf16 inputs at hd 64 take
+    the wgmma route by default, whose bf16 p is held at 2e-2 below and in
+    test_flash_attention_wgmma_reads_projections_in_place)."""
     _need_card()
     from repro_torch.kernels import flash_attention as fa
     b, s, h, kv, hd = 2, 130, 6, 2, 64
@@ -413,7 +474,7 @@ def test_flash_attention_kernel_reads_projections_in_place():
     v = fused[..., (h + kv) * hd:].view(b, s, kv, hd)
     want = fa.flash_attention_plain(q.contiguous(), k.contiguous(),
                                     v.contiguous(), True, torch.float32)
-    got = fa.flash_attention_call(q, k, v, True, torch.float32)
+    got = fa.flash_attention_call(q, k, v, True, torch.float32, route="simt")
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, want, **FLASH_TOL[torch.float32])
     torch.testing.assert_close(fa.flash_attention_call(q, k, v, True).float(),
@@ -456,3 +517,137 @@ def test_cuda_serving_matches_cpu_plain_path():
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-5)
     assert out["cuda"][1:] == (cfg.num_layers, 0)
     assert out["cpu"][1:] == (0, 0)
+
+
+# -- K8's wgmma route (bfloat16, hd 64 and 128) ---------------------------------
+
+WGMMA_SEQ = [1, 63, 64, 65, 127, 128, 129, 300, 2048]
+
+
+def _run_route(fa, q, k, v, causal, out_dtype=None):
+    """One flash_attention_call -> (output, the route that launched)."""
+    before = dict(fa.VARIANT_LAUNCHES)
+    out = fa.flash_attention_call(q, k, v, causal, out_dtype)
+    torch.cuda.synchronize()
+    ran = [r for r in fa.VARIANTS if fa.VARIANT_LAUNCHES[r] > before[r]]
+    assert len(ran) == 1, ran
+    return out, ran[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+@pytest.mark.parametrize("s", WGMMA_SEQ)
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_wgmma_vs_plain(hd, s, causal):
+    """Ragged S around the 128-row/128-key tiles, both masks; GQA 2:1; the
+    wgmma route ran, and two launches give the same bits."""
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    b = 1 if s == 2048 else 2
+    q, k, v = _flash_inputs(b, s, 4, 2, hd, torch.bfloat16, seed=s + hd)
+    got, route = _run_route(fa, q, k, v, causal)
+    assert route == "wgmma" and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(),
+                               fa.flash_attention_plain(q, k, v, causal).float(),
+                               **FLASH_TOL[torch.bfloat16])
+    assert torch.equal(got, _run_route(fa, q, k, v, causal)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kv", [(4, 4), (4, 2), (7, 1), (14, 2)],
+                         ids=["mha", "gqa2", "mqa", "gqa7"])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_wgmma_head_groups(hd, h, kv):
+    """H / KV of 1, 2 and 7, and MQA, causal and bidirectional."""
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _flash_inputs(2, 129, h, kv, hd, torch.bfloat16, seed=h * kv)
+    for causal in (True, False):
+        got, route = _run_route(fa, q, k, v, causal)
+        assert route == "wgmma"
+        torch.testing.assert_close(
+            got.float(), fa.flash_attention_plain(q, k, v, causal).float(),
+            **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_wgmma_reads_projections_in_place(hd):
+    """q, k and v as head views of one fused (B, S, (H + 2 KV) hd) buffer
+    (TMA reads them through their strides), a batch of one (its stride is
+    never used), and a float32 output."""
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    for b in (2, 1):
+        s, h, kv = 130, 6, 2
+        g = torch.Generator(device="cuda").manual_seed(hd + b)
+        fused = torch.randn((b, s, (h + 2 * kv) * hd), generator=g,
+                            device="cuda").to(torch.bfloat16)
+        q = fused[..., : h * hd].view(b, s, h, hd)
+        k = fused[..., h * hd:(h + kv) * hd].view(b, s, kv, hd)
+        v = fused[..., (h + kv) * hd:].view(b, s, kv, hd)
+        assert not q.is_contiguous()
+        want = fa.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), True, torch.float32)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            got, route = _run_route(fa, q, k, v, True, out_dtype)
+            assert route == "wgmma" and got.dtype == out_dtype
+            torch.testing.assert_close(got.float(), want, **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,hd,offset", [
+    (torch.float32, 64, 0), (torch.float32, 128, 0), (torch.bfloat16, 32, 0),
+    (torch.bfloat16, 48, 0), (torch.bfloat16, 256, 0), (torch.bfloat16, 64, 1)],
+    ids=["f32-64", "f32-128", "bf16-32", "bf16-48", "bf16-256", "bf16-64-unaligned"])
+def test_flash_attention_other_inputs_take_the_simt_route(dtype, hd, offset):
+    """float32, head dims other than 64 and 128, and a view whose base is not
+    16-byte aligned run the SIMT kernel, at their tolerances; a forced
+    "simt" route serves bf16 at hd 128."""
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(hd)
+    buf = torch.randn((2, 77, 4, hd + offset), generator=g, device="cuda").to(dtype)
+    q = buf[..., offset:]
+    k, v = q[:, :, :2], q[:, :, 2:]
+    assert fa.variant(dtype, hd, fa.tma_aligned(q, k, v)) == "simt"
+    got, route = _run_route(fa, q, k, v, True)
+    assert route == "simt"
+    torch.testing.assert_close(
+        got.float(), fa.flash_attention_plain(q, k, v, True).float(), **FLASH_TOL[dtype])
+    q, k, v = _flash_inputs(1, 65, 2, 1, 128, torch.bfloat16)
+    before = fa.VARIANT_LAUNCHES["simt"]
+    forced = fa.flash_attention_call(q, k, v, True, route="simt")
+    assert fa.VARIANT_LAUNCHES["simt"] == before + 1
+    torch.testing.assert_close(forced.float(), fa.flash_attention_plain(q, k, v, True).float(),
+                               **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_serving_prefill_runs_the_wgmma_route():
+    """The reduced qwen2-7b in bfloat16 (head dim 64) launches K8 once per
+    layer of the prefill, all on the wgmma route, and never in a decode
+    step."""
+    _need_card()
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.api import build_model
+    cfg = get_config("qwen2-7b").reduced()
+    cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
+    model = build_model(cfg, device="cuda")
+    params = model.init(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 37),
+                           generator=torch.Generator().manual_seed(1)).cuda()
+    cache = model.init_cache(2, 38, dtype=torch.bfloat16)
+    want = fa.variant(torch.bfloat16, cfg.resolved_head_dim, True)
+    assert want == "wgmma"
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        lg, cache = model.prefill(params, {"tokens": tokens}, cache=cache)
+        assert fa.VARIANT_LAUNCHES[want] == cfg.num_layers
+        assert sum(fa.VARIANT_LAUNCHES.values()) == cfg.num_layers
+        ops.reset_launch_counts()
+        model.decode_step(params, cache, tokens[:, -1:], 37)
+        assert fa.VARIANT_LAUNCHES == {"wgmma": 0, "simt": 0}
+    assert bool(torch.isfinite(lg).all())

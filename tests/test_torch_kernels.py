@@ -78,6 +78,25 @@ def test_weighted_sum_plain_vs_reference(w, p):
 
 
 @pytest.mark.parametrize("w,p", SHAPES)
+def test_weighted_sum_plain_with_zero_weight_rows_vs_reference(w, p):
+    """K3's plain version where some weights are 0 (the rows the card's
+    kernel skips): equal to the reference and to the sum over the nonzero
+    rows alone; a receiver whose weights are all 0 gives exactly 0."""
+    z, _, a = _msgs(w, p, seed=w + p)
+    a[::2] = 0.0
+    if not a.any():
+        a[-1] = 1.5
+    got = ops.weighted_sum(_t(z), _t(a)).numpy()
+    np.testing.assert_allclose(got / a.sum(), np.asarray(jref.weighted_sum(z, a)), **TOL)
+    keep = a != 0
+    np.testing.assert_allclose(got, ops.weighted_sum(_t(z[keep]), _t(a[keep])).numpy(),
+                               **TOL)
+    batched = ops.weighted_sum(_t(np.stack([z, z])), _t(np.stack([a, 0 * a]))).numpy()
+    np.testing.assert_allclose(batched[0], got, **TOL)
+    assert not batched[1].any()
+
+
+@pytest.mark.parametrize("w,p", SHAPES)
 def test_weiszfeld_ref_vs_reference(w, p):
     z, y, _ = _msgs(w, p)
     np.testing.assert_allclose(ref.weiszfeld_step(_t(z), _t(y)).numpy(),

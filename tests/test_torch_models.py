@@ -245,6 +245,84 @@ def test_flash_attention_checks_its_inputs():
         ops.flash_attention(big, big, big)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_call(q, k, v, True)
+    with pytest.raises(ValueError, match="route"):
+        fa.flash_attention_call(q, k, v, True, route="wgmma")
+
+
+@pytest.mark.parametrize("dtype,hd,aligned,want", [
+    (torch.bfloat16, 64, True, "wgmma"), (torch.bfloat16, 128, True, "wgmma"),
+    (torch.bfloat16, 64, False, "simt"), (torch.bfloat16, 128, False, "simt"),
+    (torch.float32, 64, True, "simt"), (torch.float32, 128, True, "simt"),
+    (torch.bfloat16, 7, True, "simt"), (torch.bfloat16, 8, True, "simt"),
+    (torch.bfloat16, 16, True, "simt"), (torch.bfloat16, 32, True, "simt"),
+    (torch.bfloat16, 96, True, "simt"), (torch.bfloat16, 192, True, "simt"),
+    (torch.bfloat16, 256, True, "simt")])
+def test_flash_attention_variant_rule(dtype, hd, aligned, want):
+    """K8's route: the tensor-core kernel for bfloat16 at hd 64 and 128 when
+    TMA can read the inputs, the SIMT kernel for everything else."""
+    assert fa.variant(dtype, hd, aligned) == want
+
+
+def test_flash_attention_tma_alignment_rule():
+    """Base 16-byte aligned and every stride over (B, S, heads) of a
+    dimension above size 1 a positive multiple of 16 bytes."""
+    buf = torch.zeros((2, 9, 10 * 64), dtype=torch.bfloat16)
+    q = buf[..., : 6 * 64].view(2, 9, 6, 64)        # projections in place
+    k = buf[..., 6 * 64: 8 * 64].view(2, 9, 2, 64)
+    assert fa.tma_aligned(q, k, k)
+    assert fa.tma_aligned(q.contiguous(), q[:1], q[:, :1])
+    assert not fa.tma_aligned(buf[..., 1:1 + 64 * 6].view(2, 9, 6, 64))   # base + 2 B
+    wide = torch.zeros((2, 9, 3, 72), dtype=torch.bfloat16)[..., :64]
+    assert fa.tma_aligned(wide)                       # 144-byte head stride
+    assert not fa.tma_aligned(torch.zeros((2, 9, 3, 68), dtype=torch.bfloat16)[..., :64])
+    assert not fa.tma_aligned(q[:1].expand(2, 9, 6, 64))   # stride 0 over B
+    assert fa._map_strides(q[:1]) == [9 * 6 * 64, 640, 64]
+    assert fa._map_strides(k[:, :, :1]) == [5760, 640, 64]
+
+
+def _flash_bf16_p(q, k, v, causal, tile=128, out_dtype=None):
+    """The wgmma route's arithmetic in plain torch: float32 scores of the
+    inputs, the online softmax over 128-key tiles with p rounded to
+    bfloat16 before p . v and l summed from the float32 p."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    qf = q.float().reshape(b, s, kv, h // kv, hd)
+    m = torch.full((b, kv, h // kv, s), -1e30)
+    l = torch.zeros_like(m)
+    o = torch.zeros((b, kv, h // kv, s, hd))
+    pos = torch.arange(s)
+    for k0 in range(0, s, tile):
+        sc = torch.einsum("bqgrd,bkgd->bgrqk", qf, k[:, k0:k0 + tile].float()) * hd ** -0.5
+        if causal:
+            sc = sc.masked_fill(pos[k0:k0 + tile][None, :] > pos[:, None], -1e30)
+        mn = torch.maximum(m, sc.amax(-1))
+        corr = torch.exp(m - mn)
+        p = torch.exp(sc - mn[..., None])
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + torch.einsum(
+            "bgrqk,bkgd->bgrqd", p.to(torch.bfloat16).float(), v[:, k0:k0 + tile].float())
+        m = mn
+    out = o / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(out_dtype or q.dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+@pytest.mark.parametrize("hd", [128, 64])
+def test_flash_attention_bf16_p_stays_within_tolerance(hd, causal):
+    """The tolerance argument of the wgmma route: with p rounded to bfloat16
+    for p . v, bf16 inputs (S = 300, H = 7, KV = 1) agree with the
+    reference's Pallas kernel in interpret mode and with the float32 plain
+    version within 2e-2; before the output's own rounding the move is at
+    most 2^-8 max|v| (each p moves by at most 2^-8 of itself)."""
+    q, k, v = (_t(a, torch.bfloat16) for a in _qkv(1, 300, 7, 1, hd, seed=hd))
+    got = _flash_bf16_p(q, k, v, causal)
+    want = jops.flash_attention(_j(q.float(), jnp.bfloat16), _j(k.float(), jnp.bfloat16),
+                                _j(v.float(), jnp.bfloat16), causal=causal, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), **BF16)
+    exact = fa.flash_attention_plain(q, k, v, causal, torch.float32)
+    np.testing.assert_allclose(_np(got), _np(exact), **BF16)
+    moved = float((_flash_bf16_p(q, k, v, causal, out_dtype=torch.float32) - exact).abs().max())
+    assert moved <= 2 ** -8 * float(v.float().abs().max()) + 1e-5, moved
 
 
 # ---------------------------------------------------------------------------
