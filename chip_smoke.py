@@ -19,10 +19,14 @@ Phases, in order; any failure exits non-zero:
    with only the drawn table rows changed; K4 bitwise for odd W and within
    1 ulp for even W; K2, K3 (also on a column slice), K5 and K6 within
    rtol 1e-5 (atol 1e-5 x max|plain|: the sum runs in another order).
-   Then the decentralized kernels: K7 and the receiver-batched K2/K3 at a
-   ragged (R, S, D) = (7, 7, 300) with ties and trim 0-2, and at workload
-   D's (70, 70, 39,760) exchange under its erdos_renyi mask with trim 0
-   and 12, within rtol 1e-5.
+   Then the decentralized kernels: K7 and the receiver-batched K2 (both
+   routes: unmasked, and masked, which reads only the rows of mask > 0) and
+   K3 at a ragged (R, S, D) = (7, 7, 300) with ties and trim 0-2, at
+   workload D's (70, 70, 39,760) exchange under its erdos_renyi mask with
+   trim 0 and 12, and past what one block's shared memory holds: K7 and
+   K2 at S = 451, 1,000 and 2,048 senders (every K7 route: trim 0, 1, 12,
+   16, 17 and (n - 1) // 2, with ties), K4/K5 at W = 455, 1,000 and 5,000,
+   K2/K3 at W = 12,289; all within rtol 1e-5.
 4. Workload A: logistic regression at IJCNN1 scale (n=49,990, D=22,
    50 honest + 20 Byzantine workers), sign_flip, 300 steps with geomed and
    with mean; then the C1 claim of tests/test_convergence.py (W_h=12, B=5,
@@ -57,8 +61,12 @@ Phases, in order; any failure exits non-zero:
    sign_flip per edge; 20 steps each of gradient gossip with geomed,
    trimmed_mean and mean, and parameter gossip with geomed, launch counts
    reset just before and read just after and asserted (K7 once per step
-   for trimmed_mean; batched K2 and K3 once per Weiszfeld iteration), and
-   a 3-step profile; then K7 and the batched K2/K3 timed at its shapes.
+   for trimmed_mean, on its "select" kernel; batched K2 and K3 once per
+   Weiszfeld iteration, every K2 launch on the masked route, K7 once per
+   step on its "sum" kernel for geomed; workloads A and B launch no masked
+   K2), and a 3-step profile; then K7 (trim 12 and 0, the latter beside
+   ``torch.bmm`` of the masked mean) and the batched K2 (masked beside
+   unmasked) and K3 timed at its shapes.
 11. The decentralized claims of tests/test_topology.py on the card, at
    their sizes and thresholds: ring geomed learns and beats mean under
    sign_flip, the complete graph keeps exact consensus, the parameter
@@ -92,7 +100,8 @@ Phases, in order; any failure exits non-zero:
    bfloat16 inputs, beside the bound, the plain version and
    ``scaled_dot_product_attention`` (the library yardstick, timed here only;
    the port never calls it).
-16. One JSON line with the kernels (K1-K8), then the result line.
+16. One JSON line with the kernels (K1-K8, and the masked route of K2 and
+   the trim-0 kernel of K7 as entries of their own), then the result line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -127,6 +136,10 @@ KERNEL_SOURCES = {
                                 "src/repro/kernels/weiszfeld.py:98"),
     "masked_neighbor_reduce": ("src/repro_torch/kernels/csrc/topology.cu",
                                "src/repro/kernels/topology.py:78"),
+    "partial_sqdist masked": ("src/repro_torch/kernels/csrc/weiszfeld.cu",
+                              "src/repro/kernels/weiszfeld.py:58"),
+    "masked_neighbor_reduce sum": ("src/repro_torch/kernels/csrc/topology.cu",
+                                   "src/repro/kernels/topology.py:78"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:99"),
 }
@@ -148,6 +161,8 @@ KERNEL_PATH = {"saga_correct": "geomed", "partial_sqdist": "geomed",
                "trimmed_mean": "trimmed_mean",
                "partial_sqdist_segments": "geomed_blockwise",
                "masked_neighbor_reduce": "D gradient trimmed_mean",
+               "partial_sqdist masked": "D gradient geomed",
+               "masked_neighbor_reduce sum": "D gradient geomed",
                "flash_attention": "E serve"}
 # Workload D's runs: (gossip, rule).
 D_RUNS = (("gradient", "geomed"), ("gradient", "trimmed_mean"),
@@ -184,6 +199,21 @@ def close(got, want, rtol=1e-5):
     scale = float(want.abs().max())
     ok = bool(((got - want).abs() <= rtol * (want.abs() + scale)).all())
     return ok, err
+
+
+def launch_counts():
+    """Launches per kernel since the last reset, with K2's per-route counts
+    ("partial_sqdist unmasked" / "masked") and K7's ("masked_neighbor_reduce
+    sum" / "select" / "rank")."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import topology as tp
+    from repro_torch.kernels import weiszfeld as wz
+    counts = ops.launch_counts()
+    counts.update({f"partial_sqdist {k}": v
+                   for k, v in wz.SQDIST_ROUTE_LAUNCHES.items()})
+    counts.update({f"masked_neighbor_reduce {k}": v
+                   for k, v in tp.ROUTE_LAUNCHES.items()})
+    return counts
 
 
 def phase_card(torch):
@@ -259,11 +289,13 @@ def check_weiszfeld(torch, w, d, gen):
     return err2, err3
 
 
-def check_order_stats(torch, w, d, trim, gen):
+def check_order_stats(torch, w, d, trim, gen, ties=False):
     """K4 and K5 vs their plain versions; returns the largest absolute
     differences."""
     from repro_torch.kernels import robust_stats as rs
     z = torch.randn((w, d), generator=gen, device="cuda")
+    if ties:
+        z = torch.round(z * 2.0) / 2.0
     med_k, med_p = rs.coordinate_median_call(z), rs.coordinate_median_plain(z)
     tm_k, tm_p = rs.trimmed_mean_call(z, trim), rs.trimmed_mean_plain(z, trim)
     torch.cuda.synchronize()
@@ -344,24 +376,47 @@ def phase_kernel_checks(torch):
             f"K4 max|err| {e4:.3g} ({'bitwise' if w % 2 else '<= 1 ulp'}), "
             f"K5 (trim {trim}) {e5:.3g}, K6 {e6:.3g} (same bits twice), "
             f"K3 on column slices {e3:.3g} (rtol 1e-5): ok")
+    # K4/K5 past 454 workers (ranks counted from global memory), K2/K3 past
+    # 12,288 rows (K3 compacts its weights 2,048 at a time).
+    for w, d, trim in [(455, d_b, 100), (1000, d_b, 333), (5000, 1000, 2499)]:
+        for ties in (False, True):
+            e4, e5 = check_order_stats(torch, w, d, trim, gen, ties)
+            errs["coordinate_median"] = max(errs["coordinate_median"], e4)
+            errs["trimmed_mean"] = max(errs["trimmed_mean"], e5)
+        log(f"kernel check messages ({w}, {d}) with and without ties: K4 max|err| "
+            f"{e4:.3g} ({'bitwise' if w % 2 else '<= 1 ulp'}), K5 (trim {trim}) "
+            f"{e5:.3g} (rtol 1e-5): ok")
+    e2, e3 = check_weiszfeld(torch, 12_289, 4_000, gen)
+    errs["partial_sqdist"] = max(errs["partial_sqdist"], e2)
+    errs["weighted_sum"] = max(errs["weighted_sum"], e3)
+    log(f"kernel check messages (12289, 4000): K2 max|err| {e2:.3g}, K3 {e3:.3g} "
+        "(rtol 1e-5): ok")
     mask_d = workload_d_graph(torch)[1]
     for (r, s_, d), ties, trims, mask in [
             ((7, 7, 300), True, (0, 1, 2), None),
-            ((70, 70, d_b), False, (0, 12), mask_d)]:
-        e7, e2, e3 = check_masked(torch, r, s_, d, ties, trims, mask, gen)
+            ((70, 70, d_b), False, (0, 12), mask_d),
+            ((4, 451, 1000), True, (0, 1, 12, 16, 17, None), None),
+            ((4, 1000, 1000), False, (0, 1, 12, 16, 17, None), None),
+            ((4, 2048, 300), True, (0, 1, 12, 16, 17, None), None)]:
+        e7, e7s, e2, e2m, e3 = check_masked(torch, r, s_, d, ties, trims, mask, gen)
         errs["masked_neighbor_reduce"] = max(errs["masked_neighbor_reduce"], e7)
+        errs["masked_neighbor_reduce sum"] = max(errs["masked_neighbor_reduce sum"], e7s)
         errs["partial_sqdist"] = max(errs["partial_sqdist"], e2)
+        errs["partial_sqdist masked"] = max(errs["partial_sqdist masked"], e2m)
         errs["weighted_sum"] = max(errs["weighted_sum"], e3)
         log(f"kernel check exchange ({r}, {s_}, {d}){' with ties' if ties else ''}"
-            f", trim {list(trims)}: K7 max|err| {e7:.3g}, batched K2 {e2:.3g}, "
-            f"batched K3 {e3:.3g} (rtol 1e-5): ok")
+            f", trim {list(trims)} (None: (n - 1) // 2): K7 max|err| {e7:.3g} "
+            f"(trim 0: {e7s:.3g}), batched K2 {e2:.3g}, masked K2 {e2m:.3g} "
+            f"(0 off the mask, same bits twice), batched K3 {e3:.3g} (rtol 1e-5): ok")
     return errs
 
 
 def check_masked(torch, r, s, d, ties, trims, mask, gen):
-    """K7 and the receiver-batched K2/K3 against their plain versions on an
-    (r, s, d) exchange under ``mask`` (a random 0/1 mask keeping 5 senders
-    when None); returns their largest absolute differences."""
+    """K7 and the receiver-batched K2 (both routes) and K3 against their
+    plain versions on an (r, s, d) exchange under ``mask`` (a random 0/1
+    mask keeping 5 senders when None); a trim of None is (n - 1) // 2 for
+    the smallest neighbourhood n.  Returns the largest absolute differences
+    of K7 (every trim, and trim 0 alone), K2 unmasked and masked, and K3."""
     from repro_torch.kernels import topology as tp
     from repro_torch.kernels import weiszfeld as wz
     ex = torch.randn((r, s, d), generator=gen, device="cuda")
@@ -370,22 +425,32 @@ def check_masked(torch, r, s, d, ties, trims, mask, gen):
     if mask is None:
         mask = (torch.rand((r, s), generator=gen, device="cuda") < 0.6).float()
         mask[:, :5] = 1.0
-    e7 = 0.0
+    e7 = e7s = 0.0
     for trim in trims:
-        ok, e = close(tp.masked_neighbor_reduce_call(ex, mask, trim),
-                      tp.masked_neighbor_reduce_plain(ex, mask, trim))
+        trim = int(mask.sum(1).min() - 1) // 2 if trim is None else trim
+        got = tp.masked_neighbor_reduce_call(ex, mask, trim)
+        ok, e = close(got, tp.masked_neighbor_reduce_plain(ex, mask, trim))
         assert ok, f"K7 disagrees at {(r, s, d)}, trim {trim}: {e}"
+        assert torch.equal(got, tp.masked_neighbor_reduce_call(ex, mask, trim)), \
+            f"K7 gave other bits on a second run at {(r, s, d)}, trim {trim}"
         e7 = max(e7, e)
+        e7s = e if trim == 0 else e7s
     y = tp.masked_neighbor_reduce_call(ex, mask, 0)
     inv = mask / torch.clamp(torch.sqrt(wz.partial_sqdist_plain(ex, y)), min=1e-8)
     ok2, e2 = close(wz.partial_sqdist_call(ex, y), wz.partial_sqdist_plain(ex, y))
+    sq = wz.partial_sqdist_call(ex, y, mask)
+    ok2m, e2m = close(sq, wz.partial_sqdist_plain(ex, y, mask))
     ok3, e3 = close(wz.weighted_sum_call(ex, inv), wz.weighted_sum_plain(ex, inv))
     torch.cuda.synchronize()
     assert ok2, f"batched K2 disagrees at {(r, s, d)}: {e2}"
+    assert ok2m, f"masked K2 disagrees at {(r, s, d)}: {e2m}"
+    assert torch.equal(sq, torch.where(mask > 0, sq, 0.0)), "masked K2: not 0 off the mask"
+    assert torch.equal(sq, wz.partial_sqdist_call(ex, y, mask)), \
+        "masked K2 gave other bits on a second run"
     assert ok3, f"batched K3 disagrees at {(r, s, d)}: {e3}"
     del ex
     torch.cuda.empty_cache()
-    return e7, e2, e3
+    return e7, e7s, e2, e2m, e3
 
 
 def run_steps(torch, step_fn, state, steps):
@@ -452,7 +517,7 @@ def phase_workload_a(torch):
         f0 = float(loss(st.params, batch))
         ops.reset_launch_counts()
         st, times, _ = run_steps(torch, step_fn, st, 300)
-        counts[agg] = ops.launch_counts()
+        counts[agg] = launch_counts()
         f1 = float(loss(st.params, batch))
         iters = counts[agg]["partial_sqdist"] / 300
         log(f"workload A {agg}: loss {f0:.6f} -> {f1:.6f} after 300 steps, "
@@ -461,6 +526,7 @@ def phase_workload_a(torch):
             f"Weiszfeld iters/step {iters:.2f}, launches {counts[agg]}")
         st = profile_steps(torch, f"workload A {agg}", step_fn, st, 20,
                            statistics.median(times))
+        assert counts[agg]["partial_sqdist masked"] == 0, counts[agg]
         if agg == "geomed":
             assert f1 < f0, "workload A: geomed did not lower the loss"
             assert min(counts[agg][k] for k in RULE_KERNELS[agg]) > 0, \
@@ -539,7 +605,7 @@ def phase_workload_b(torch, agg, steps=20):
         f0 = float(paper_nn.nn_loss(st.params, batch))
     ops.reset_launch_counts()
     st, times, metrics = run_steps(torch, step_fn, st, steps)
-    counts = ops.launch_counts()
+    counts = launch_counts()
     with torch.no_grad():
         f1 = float(paper_nn.nn_loss(st.params, batch))
     peak = torch.cuda.max_memory_allocated()
@@ -555,6 +621,7 @@ def phase_workload_b(torch, agg, steps=20):
     assert all(bool(torch.isfinite(p).all()) for p in st.params.values())
     ran = {k: counts[k] for k in RULE_KERNELS[agg]}
     assert min(ran.values()) > 0, f"workload B {agg}: a kernel never ran: {counts}"
+    assert counts["partial_sqdist masked"] == 0, counts
     if agg in ("median", "centered_clip"):
         assert counts["coordinate_median"] == steps, counts
     if agg == "trimmed_mean":
@@ -858,7 +925,7 @@ def phase_workload_d(torch, gossip, agg, steps=20):
     f0, _ = honest_loss_acc(st.params)
     ops.reset_launch_counts()
     st, times, metrics = run_steps(torch, step_fn, st, steps)
-    counts = ops.launch_counts()
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     f1, acc = honest_loss_acc(st.params)
     label = f"D {gossip} {agg}"
@@ -875,11 +942,16 @@ def phase_workload_d(torch, gossip, agg, steps=20):
     assert counts["saga_correct"] == steps, counts
     if agg == "trimmed_mean":
         assert counts["masked_neighbor_reduce"] == steps, counts
+        assert counts["masked_neighbor_reduce select"] == steps, counts
         assert counts["partial_sqdist"] == counts["weighted_sum"] == 0, counts
     if agg == "geomed":
         # K7 (trim 0) starts each solve at the masked mean.
         assert counts["masked_neighbor_reduce"] == steps, counts
+        assert counts["masked_neighbor_reduce sum"] == steps, counts
         assert counts["partial_sqdist"] == counts["weighted_sum"] >= steps, counts
+        # Every distance sweep of the masked solve reads only the neighbours.
+        assert counts["partial_sqdist masked"] == counts["partial_sqdist"], counts
+        assert counts["partial_sqdist unmasked"] == 0, counts
     if agg == "mean":
         assert counts["weighted_sum"] == steps, counts
         assert counts["masked_neighbor_reduce"] == counts["partial_sqdist"] == 0
@@ -892,10 +964,12 @@ def phase_workload_d(torch, gossip, agg, steps=20):
 
 
 def phase_timing_d(torch):
-    """K7 (trim 12 and 0) and the receiver-batched K2/K3 at workload D's
-    (70, 70, 39,760) exchange under its mask: device time (CUDA events, the
-    calls take hundreds of microseconds) beside the bound, the plain version
-    and, for K3, one batched matmul."""
+    """K7 (trim 12 and 0) and the receiver-batched K2 (masked route, and
+    the unmasked route on the same inputs) and K3 at workload D's (70, 70,
+    39,760) exchange under its mask: device time (CUDA events, the calls
+    take hundreds of microseconds) beside the bound, the plain version and,
+    for K3 and K7 with trim 0, one batched matmul (``torch.bmm``; for K7 of
+    ``mask / max(n, 1)``, the masked mean)."""
     from repro_torch.kernels import topology as tp
     from repro_torch.kernels import weiszfeld as wz
     _, mask, trim = workload_d_graph(torch)
@@ -911,12 +985,21 @@ def phase_timing_d(torch):
     # (R, D); per coordinate at least one comparison per present value and
     # round.
     nnz = float(mask.sum())
+    mean_w = (mask / torch.clamp(mask.sum(1, keepdim=True), min=1.0))[:, None]
     for t in (trim, 0):
         b, by = bound(nnz * d * 4 + r * s * 4 + rd_b, nnz * d * (2 * t + 1))
         out[f"masked_neighbor_reduce trim {t}"] = dict(
             ms=event_ms(torch, lambda: tp.masked_neighbor_reduce_call(ex, mask, t), 20),
             plain_ms=event_ms(torch, lambda: tp.masked_neighbor_reduce_plain(ex, mask, t), 5),
-            bound_ms=b, bound_by=by, library_ms=None)
+            bound_ms=b, bound_by=by,
+            library_ms=event_ms(torch, lambda: torch.bmm(mean_w, ex), 20) if t == 0 else None)
+    # The masked route reads only the members' rows (and y and the mask),
+    # writes (R, S); the unmasked route reads every row.
+    b, by = bound(nnz * d * 4 + rd_b + 2 * r * s * 4, 3 * nnz * d)
+    out["partial_sqdist masked batched"] = dict(
+        ms=event_ms(torch, lambda: wz.partial_sqdist_call(ex, y, mask), 20),
+        plain_ms=event_ms(torch, lambda: wz.partial_sqdist_plain(ex, y, mask), 5),
+        bound_ms=b, bound_by=by, library_ms=None)
     b, by = bound(ex_b + rd_b + r * s * 4, 3 * r * s * d)
     out["partial_sqdist batched"] = dict(
         ms=event_ms(torch, lambda: wz.partial_sqdist_call(ex, y), 20),
@@ -1338,6 +1421,8 @@ def main() -> int:
             f"{r['consensus']:.6g}")
     timing_d = phase_timing_d(torch)
     timing["masked_neighbor_reduce"] = timing_d[f"masked_neighbor_reduce trim {trim_d}"]
+    timing["masked_neighbor_reduce sum"] = timing_d["masked_neighbor_reduce trim 0"]
+    timing["partial_sqdist masked"] = timing_d["partial_sqdist masked batched"]
     phase_decentralized_claims(torch)
     errs["flash_attention"] = phase_flash_checks(torch)
     counts["E serve"] = phase_workload_e(torch, card)

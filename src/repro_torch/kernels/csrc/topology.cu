@@ -1,135 +1,350 @@
 // K7 masked_neighbor_reduce: per receiver r and coordinate d, the mean of
-// the masked senders' values x[r, s, d] (mask[r, s] > 0) after dropping the
-// `trim` largest and the `trim` smallest of them, divided by
+// the masked senders' values x[r, s, d] (mask[r, s] > 0, the members) after
+// dropping the `trim` largest and the `trim` smallest of them, divided by
 // max(n_r - 2 * trim, 1) with n_r = sum_s mask[r, s].  trim = 0 is the
-// masked mean.  It is the decentralized trimmed mean of
-// repro_torch/topology/masked.py, and its initial masked mean of a masked
-// Weiszfeld solve.
+// masked mean; a receiver with at most 2 * trim members gives exactly 0.  It
+// is the decentralized trimmed mean of repro_torch/topology/masked.py, and
+// the initial masked mean of a masked Weiszfeld solve.
 // Replaces: repro/kernels/topology.py, masked_neighbor_reduce_call
 // (_masked_reduce_kernel), which keeps one receiver's (S, tile) slab in VMEM
 // and runs `trim` rounds of "drop one occurrence of the masked max, then of
 // the masked min" before a masked sum: no sort.
 //
-// Here a block of kTile threads owns kTile coordinates of one receiver
-// (grid: D-tiles x R).  It stages the receiver's mask row (S floats) and its
-// (S, kTile) slab in dynamic shared memory, one column per thread, with
-// coalesced loads along D; the ragged D edge is masked in the kernel.  Each
-// of the `trim` rounds is one pass over the thread's column that finds the
-// first (lowest sender index) masked maximum and minimum among the values
-// still present; both are struck out by writing NaN into the slab (NaN is
-// never a maximum, a minimum or a survivor).  When the two coincide (one
-// value left, or all left are equal) a second pass strikes the next present
-// value instead: the survivors then hold the same values as in the
-// reference's max-then-min order.  The survivors are summed in sender order
-// in float32, so the result agrees with the sort-based plain version to
-// rtol 1e-5, not bitwise.
+// Bound on the H100: device-memory bytes.  Only the members' values are
+// needed, once: nnz(mask) * D * 4 bytes (398.3 MB of the 779 MB exchange
+// under workload D's 70-node erdos_renyi(p = 0.5) mask at D = 39,760; with
+// the mask and the (R, D) output, 409.4 MB: 122.21 us at 3.35 TB/s).
+//
+// Every route starts the same way: a block owns one receiver (the grid's y
+// and z dimensions, rows.cuh's grid_yz, so any R) and a tile
+// of coordinates, sums the receiver's mask row in a fixed order (n_r), and
+// compacts its members into an ascending list of senders in shared memory, up
+// to 2,048 at a time (a ballot and a prefix count per warp, rows.cuh).  Only
+// the members' rows are read, along D and coalesced, so any S runs and no
+// slab is staged.  The wrapper picks the route from trim (topology.route):
+//
+// * "sum", trim = 0: the fixed-order sum of the members' rows, K3's layout
+//   (8 warps over 128 coordinates, 4 a lane, float4 loads where the base
+//   and strides allow; members split across the warps, warp w taking
+//   members w, w + 8, ...; up to 8 rows' loads in flight a warp; the 8
+//   partial sums added in warp order), divided by max(n_r, 1).
+// * "select", 1 <= trim <= 16 (a template over trim): one coordinate a
+//   thread, 128 a block, coalesced scalar loads, 4 rows in flight, one pass.
+//   The first 2 * trim members' values are sorted at once in registers (a
+//   bitonic network), giving two sorted register arrays: the trim smallest
+//   (bot) and the trim largest (top).  Every later value k is inserted into
+//   both (a'[i] = max(a[i], min(a[i-1], k)) for the descending top, 2 *
+//   trim integer min/max a value per array), and exactly one value leaves
+//   the pair of arrays for the kept set: the median of (largest of bot, k,
+//   smallest of top), which is added to the sum.  So the sum holds exactly
+//   the values of ranks [trim, m - trim) (m members), each added once, in
+//   member order: no value is read twice and no dropped value is ever
+//   added, so rows many orders of magnitude larger than the rest leave no
+//   trace once dropped (the form that sums everything and subtracts the
+//   tails would cancel).  Values are compared as integer keys ordered like
+//   the floats, with NaN above +inf.
+// * "rank", trim > 16: each member's value is ranked against the others,
+//   rank = #{j : key_j < key_i or (key_j == key_i and j < i)} (a permutation
+//   of 0..m-1, so the values of ranks [trim, m - trim) are the sort's), and
+//   those ranks are summed in member order: O(m^2) loads per coordinate,
+//   from L1/L2.  Correct for every trim; not fast.
+//
+// The kept values are the same multiset as the sort's of the plain version
+// (masked_neighbor_reduce_plain) whatever the ties; they are summed in
+// another order, so the result agrees to rtol 1e-5, not bitwise.  Every
+// route sums in an order fixed by the inputs: the same bits on every run.
+//
+// Registers and spills of each specialisation (`nvcc -Xptxas -v`, printed by
+// chip_smoke.py's build phase): "select" 32 registers at trim 1-4, 40 at
+// 5-6, 48 at 7-10, 56 at 11-14, 64 at 15-16; "sum" 64 with scalar loads, 66
+// with float4 loads; "rank" 30; none spills.
+//
+// NaN inputs: a member's NaN is not struck out; it is ordered above +inf, so
+// it is dropped when it falls among the trim largest, and a kept NaN (with
+// trim = 0 every member is kept) makes its coordinate's result NaN.  The
+// plain version, like the
+// reference's jnp engine, sorts the members together with the non-members
+// filled in as +inf, and NaN sorts after that fill: a NaN it would keep is
+// then replaced by a fill, so it gives +inf where the kernel gives NaN, when
+// the receiver has non-members.  That edge of non-finite messages waits for
+// the guards (ROADMAP Queue C, A7e), as K3's does; no ported attack sends
+// one.  Non-members are never read, so a NaN or inf there changes nothing.
 //
 // Strides: x[r, s, d] lies at r * rs + s * ss + d, so a column slice of a
 // wider exchange, or one shared message row per sender broadcast to every
 // receiver (rs = 0), is read in place.  The mask and the output are
 // contiguous (R, S) and (R, D).
-//
-// Bound on the H100: device-memory bytes.  It reads only the masked
-// senders' values, once: nnz(mask) * D * 4 bytes (398 MB of the 779 MB
-// exchange under the 70-node erdos_renyi(p = 0.5) mask at D = 39,760:
-// 119 us at 3.35 TB/s).  This simple form does not reach it: each thread has
-// one load in flight at a time, and then makes `trim` passes over its
-// column in shared memory (910 shared loads per coordinate at S = 70,
-// trim = 12).  Several loads in flight per thread, and part of the column
-// kept in registers, are later work.
-//
-// NaN inputs: a NaN in the exchange is indistinguishable from a struck value
-// and drops out of that column's result (the plain version sorts NaN last).
-// NaN messages come only from the fault attacks, which are not ported.
+#include <climits>
+
 #include "common.cuh"
+#include "rows.cuh"
 
 namespace {
 
-constexpr int kTile = 128;   // coordinates (threads) per block
+constexpr int kCap = 2048;              // members compacted at a time
+constexpr int kMaxSelectTrim = 16;
 
-__device__ __forceinline__ bool present(float v) { return v == v; }
+// Routes, as topology.py passes them.
+constexpr int kRouteSum = 0;
+constexpr int kRouteSelect = 1;
+constexpr int kRouteRank = 2;
 
-__global__ void masked_reduce_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ mask,
-                                     float* __restrict__ out, int S,
-                                     int64_t D, int64_t rs, int64_t ss,
-                                     int trim) {
-  extern __shared__ float smem[];
-  float* m = smem;            // (S,) mask row of this receiver
-  float* slab = smem + S;     // (S, kTile)
-  const int r = blockIdx.y;
-  const int t = threadIdx.x;
-  for (int s = t; s < S; s += kTile) m[s] = mask[static_cast<int64_t>(r) * S + s];
-  __syncthreads();
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * kTile + t;
-  if (col >= D) return;   // each thread touches only its own column
-  const float* xr = x + static_cast<int64_t>(r) * rs + col;
-  float* v = slab + t;
-  float n = 0.f;
-  for (int s = 0; s < S; ++s) {
-    const bool on = m[s] > 0.f;
-    // Senders outside the neighbourhood are struck from the start.
-    v[s * kTile] = on ? xr[static_cast<int64_t>(s) * ss] : __int_as_float(0x7fc00000);
-    n += m[s];
-  }
-  for (int round = 0; round < trim; ++round) {
-    int imax = -1, imin = -1;
-    float vmax = 0.f, vmin = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const float vs = v[s * kTile];
-      if (!present(vs)) continue;
-      if (imax < 0 || vs > vmax) { vmax = vs; imax = s; }
-      if (imin < 0 || vs < vmin) { vmin = vs; imin = s; }
-    }
-    if (imax < 0) break;   // nothing left to strike
-    v[imax * kTile] = __int_as_float(0x7fc00000);
-    if (imin == imax) {
-      // One value left, or all equal: strike the next present one.
-      imin = -1;
-      for (int s = 0; s < S && imin < 0; ++s)
-        if (present(v[s * kTile])) imin = s;
-    }
-    if (imin >= 0) v[imin * kTile] = __int_as_float(0x7fc00000);
-  }
-  float acc = 0.f;
-  for (int s = 0; s < S; ++s) {
-    const float vs = v[s * kTile];
-    if (present(vs)) acc += vs;
-  }
-  out[static_cast<int64_t>(r) * D + col] = acc / fmaxf(n - 2.f * trim, 1.f);
+// Integer keys ordered as the floats are, NaN above +inf (and -0 below +0,
+// which no sum can tell apart).
+__device__ __forceinline__ int order_key(float v) {
+  const int b = __float_as_int(v);
+  return v != v ? INT_MAX : (b >= 0 ? b : b ^ 0x7fffffff);
 }
 
-size_t smem_bytes(int S) {
-  return static_cast<size_t>(S) * (kTile + 1) * sizeof(float);
+__device__ __forceinline__ float key_value(int k) {
+  return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
+}
+
+// n_r: the receiver's mask row summed in a fixed order, to every thread.
+template <int kWarps>
+__device__ float mask_total(const float* __restrict__ m, int S, float* s_red) {
+  float part = 0.f;
+  for (int s = threadIdx.x; s < S; s += 32 * kWarps) part += m[s];
+  return rows::block_total<kWarps>(part, s_red);
+}
+
+// ---- "sum": trim = 0 -------------------------------------------------------
+
+constexpr int kSumWarps = 8;
+constexpr int kSumThreads = 32 * kSumWarps;
+constexpr int kSumCols = 128;
+constexpr int kSumUnroll = 8;
+
+template <bool VEC>
+__global__ void __launch_bounds__(kSumThreads)
+masked_sum_kernel(const float* __restrict__ x, const float* __restrict__ mask,
+                  float* __restrict__ out, int R, int S, int64_t D, int64_t rs,
+                  int64_t ss) {
+  __shared__ int s_row[kCap];
+  __shared__ int warp_n[kSumWarps];
+  __shared__ float s_red[kSumWarps];
+  __shared__ float4 part[kSumWarps - 1][32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int64_t r = rows::grid_row();
+  if (r >= R) return;   // the whole block
+  mask += r * S;
+  x += r * rs;
+  const int64_t d0 = static_cast<int64_t>(blockIdx.x) * kSumCols;
+  const float n = mask_total<kSumWarps>(mask, S, s_red);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c0 = 0; c0 < S; c0 += kCap) {
+    const int cnt = rows::compact<kSumWarps>(mask, c0, min(S, c0 + kCap),
+                                             rows::Positive(), s_row, nullptr, warp_n);
+    for (int j = warp; j < cnt; j += kSumUnroll * kSumWarps) {
+      float4 v[kSumUnroll];
+#pragma unroll
+      for (int u = 0; u < kSumUnroll; ++u)
+        if (j + u * kSumWarps < cnt)
+          v[u] = rows::load_cols<VEC>(x + s_row[j + u * kSumWarps] * ss, d0, lane, D);
+#pragma unroll
+      for (int u = 0; u < kSumUnroll; ++u)
+        if (j + u * kSumWarps < cnt) rows::add4(v[u], acc);
+    }
+  }
+  if (warp > 0) part[warp - 1][lane] = acc;
+  __syncthreads();
+  if (warp != 0) return;
+#pragma unroll
+  for (int i = 0; i < kSumWarps - 1; ++i) rows::add4(part[i][lane], acc);
+  const float den = fmaxf(n, 1.f);
+  acc = make_float4(acc.x / den, acc.y / den, acc.z / den, acc.w / den);
+  rows::store_cols<VEC>(out + r * D, d0, lane, D, acc);
+}
+
+// ---- "select": 1 <= trim <= 16 ------------------------------------------------
+
+constexpr int kSelWarps = 4;
+constexpr int kSelThreads = 32 * kSelWarps;   // one coordinate a thread
+constexpr int kSelUnroll = 4;
+
+__host__ __device__ constexpr int pow2_at_least(int n) { return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2); }
+
+// Ascending bitonic sort of a register array (N a power of two); every index
+// is known at compile time, so the array stays in registers, and a
+// comparison with a constant pad folds away.
+template <int N>
+__device__ __forceinline__ void bitonic_sort(int (&a)[N]) {
+#pragma unroll
+  for (int k = 2; k <= N; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const int l = i ^ j;
+        if (l > i) {
+          const int lo = min(a[i], a[l]), hi = max(a[i], a[l]);
+          const bool up = (i & k) == 0;
+          a[i] = up ? lo : hi;
+          a[l] = up ? hi : lo;
+        }
+      }
+    }
+  }
+}
+
+// Inserts k into top[] (descending: the T largest so far) and bot[]
+// (ascending: the T smallest), each slot from the old values only.
+template <int T>
+__device__ __forceinline__ void insert(int (&top)[T], int (&bot)[T], int k) {
+#pragma unroll
+  for (int i = T - 1; i > 0; --i) {
+    top[i] = max(top[i], min(top[i - 1], k));
+    bot[i] = min(bot[i], max(bot[i - 1], k));
+  }
+  top[0] = max(top[0], k);
+  bot[0] = min(bot[0], k);
+}
+
+template <int T>
+__global__ void __launch_bounds__(kSelThreads)
+masked_select_kernel(const float* __restrict__ x, const float* __restrict__ mask,
+                     float* __restrict__ out, int R, int S, int64_t D, int64_t rs,
+                     int64_t ss) {
+  constexpr int kN = pow2_at_least(2 * T);
+  __shared__ int s_row[kCap];
+  __shared__ int warp_n[kSelWarps];
+  __shared__ float s_red[kSelWarps];
+  const int64_t r = rows::grid_row();
+  if (r >= R) return;   // the whole block
+  const int64_t col = static_cast<int64_t>(blockIdx.x) * kSelThreads + threadIdx.x;
+  const bool live = col < D;   // threads past D still take part in the barriers
+  mask += r * S;
+  x += r * rs + (live ? col : 0);
+  const float n = mask_total<kSelWarps>(mask, S, s_red);
+  int top[T], bot[T];
+#pragma unroll
+  for (int i = 0; i < T; ++i) {
+    top[i] = INT_MIN;
+    bot[i] = INT_MAX;
+  }
+  float acc = 0.f;   // the kept values, each added once
+  int seen = 0;      // members streamed so far (the same in every thread)
+  for (int c0 = 0; c0 < S; c0 += kCap) {
+    const int cnt = rows::compact<kSelWarps>(mask, c0, min(S, c0 + kCap),
+                                             rows::Positive(), s_row, nullptr, warp_n);
+    int j = 0;
+    if (seen == 0 && cnt >= 2 * T) {
+      // The first 2T members, sorted at once: the T smallest and T largest.
+      int a[kN];
+#pragma unroll
+      for (int i = 0; i < kN; ++i)
+        a[i] = i < 2 * T ? order_key(live ? __ldg(x + s_row[i] * ss) : 0.f) : INT_MAX;
+      bitonic_sort<kN>(a);
+#pragma unroll
+      for (int i = 0; i < T; ++i) {
+        bot[i] = a[i];
+        top[i] = a[2 * T - 1 - i];
+      }
+      j = seen = 2 * T;
+    }
+    for (; j < cnt; j += kSelUnroll) {
+      float v[kSelUnroll];
+#pragma unroll
+      for (int u = 0; u < kSelUnroll; ++u)
+        v[u] = (live && j + u < cnt) ? __ldg(x + s_row[j + u] * ss) : 0.f;
+#pragma unroll
+      for (int u = 0; u < kSelUnroll; ++u)
+        if (j + u < cnt) {
+          const int k = order_key(v[u]);
+          // Past 2T members the arrays and the kept values partition the
+          // members; k pushes out exactly one value into the kept ones: the
+          // median of (largest of bot, k, smallest of top).
+          if (seen >= 2 * T) acc += key_value(max(bot[T - 1], min(k, top[T - 1])));
+          insert<T>(top, bot, k);
+          ++seen;
+        }
+    }
+  }
+  if (live) out[r * D + col] = acc / fmaxf(n - 2.f * T, 1.f);
+}
+
+// ---- "rank": any trim ---------------------------------------------------------
+
+constexpr int kRankThreads = 128;
+
+__global__ void __launch_bounds__(kRankThreads)
+masked_rank_kernel(const float* __restrict__ x, const float* __restrict__ mask,
+                   float* __restrict__ out, int R, int S, int64_t D, int64_t rs,
+                   int64_t ss, int trim) {
+  __shared__ float s_red[kRankThreads / 32];
+  const int64_t r = rows::grid_row();
+  if (r >= R) return;   // the whole block
+  const int64_t col = static_cast<int64_t>(blockIdx.x) * kRankThreads + threadIdx.x;
+  mask += r * S;
+  x += r * rs + col;
+  const float n = mask_total<kRankThreads / 32>(mask, S, s_red);
+  float part = 0.f;
+  for (int s = threadIdx.x; s < S; s += kRankThreads) part += mask[s] > 0.f ? 1.f : 0.f;
+  const int members = static_cast<int>(rows::block_total<kRankThreads / 32>(part, s_red));
+  if (col >= D) return;   // past the barriers
+  float acc = 0.f;
+  for (int i = 0; i < S; ++i) {
+    if (!(mask[i] > 0.f)) continue;
+    const float vi = __ldg(x + i * ss);
+    const int ki = order_key(vi);
+    int rank = 0;
+    for (int j = 0; j < S; ++j) {
+      if (!(mask[j] > 0.f)) continue;
+      const int kj = order_key(__ldg(x + j * ss));
+      rank += (kj < ki) || (kj == ki && j < i);
+    }
+    if (rank >= trim && rank < members - trim) acc += vi;
+  }
+  out[r * D + col] = acc / fmaxf(n - 2.f * trim, 1.f);
+}
+
+template <int T>
+int launch_select(const float* x, const float* mask, float* out, int R, int S,
+                  int64_t D, int64_t rs, int64_t ss, cudaStream_t s) {
+  const dim3 grid = rows::grid_yz(static_cast<unsigned>((D + kSelThreads - 1) / kSelThreads), R);
+  masked_select_kernel<T><<<grid, kSelThreads, 0, s>>>(x, mask, out, R, S, D, rs, ss);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Dynamic shared memory a launch with S senders needs (the wrapper refuses
-// an S whose need exceeds the 232,448 bytes a block may use on Hopper).
-REPRO_EXPORT long long masked_neighbor_reduce_smem_bytes(int S) {
-  return static_cast<long long>(smem_bytes(S));
-}
-
 // x: (R, S, D) float32 at x[r * rs + s * ss + d]; mask: (R, S), out: (R, D)
-// float32 contiguous; 0 <= trim; R <= 65,535.
+// float32 contiguous; 0 <= trim; route: 0 "sum" (trim 0), 1 "select"
+// (1 <= trim <= 16), 2 "rank" (any trim).  A route that does not serve trim
+// returns cudaErrorInvalidValue.
 REPRO_EXPORT int masked_neighbor_reduce_f32(const float* x, const float* mask,
                                             float* out, int R, int S,
                                             long long D, long long rs,
-                                            long long ss, int trim,
+                                            long long ss, int trim, int route,
                                             void* stream) {
   if (R == 0 || D == 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = smem_bytes(S);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        masked_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (route == kRouteSum && trim == 0) {
+    const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && ss % 4 == 0 &&
+                     rs % 4 == 0;
+    const dim3 grid = rows::grid_yz(static_cast<unsigned>((D + kSumCols - 1) / kSumCols), R);
+    if (vec)
+      masked_sum_kernel<true><<<grid, kSumThreads, 0, s>>>(x, mask, out, R, S, D, rs, ss);
+    else
+      masked_sum_kernel<false><<<grid, kSumThreads, 0, s>>>(x, mask, out, R, S, D, rs, ss);
+    return static_cast<int>(cudaGetLastError());
   }
-  const dim3 grid(static_cast<unsigned>((D + kTile - 1) / kTile),
-                  static_cast<unsigned>(R));
-  masked_reduce_kernel<<<grid, kTile, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, mask, out, S, static_cast<int64_t>(D), static_cast<int64_t>(rs),
-      static_cast<int64_t>(ss), trim);
-  return static_cast<int>(cudaGetLastError());
+  if (route == kRouteSelect && trim >= 1 && trim <= kMaxSelectTrim) {
+    switch (trim) {
+#define REPRO_SELECT(T) \
+  case T:               \
+    return launch_select<T>(x, mask, out, R, S, D, rs, ss, s);
+      REPRO_SELECT(1) REPRO_SELECT(2) REPRO_SELECT(3) REPRO_SELECT(4)
+      REPRO_SELECT(5) REPRO_SELECT(6) REPRO_SELECT(7) REPRO_SELECT(8)
+      REPRO_SELECT(9) REPRO_SELECT(10) REPRO_SELECT(11) REPRO_SELECT(12)
+      REPRO_SELECT(13) REPRO_SELECT(14) REPRO_SELECT(15) REPRO_SELECT(16)
+#undef REPRO_SELECT
+    }
+  }
+  if (route == kRouteRank && trim >= 0) {
+    const dim3 grid = rows::grid_yz(static_cast<unsigned>((D + kRankThreads - 1) / kRankThreads), R);
+    masked_rank_kernel<<<grid, kRankThreads, 0, s>>>(x, mask, out, R, S, D, rs, ss, trim);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,36 +4,62 @@
 // Weiszfeld, all receivers in lockstep).  Row s of receiver r lies at
 // z + r * rs + s * ld (ld >= D floats between rows, rs between receivers;
 // rs = 0 shares one matrix among all receivers); a single matrix is the case
-// R = 1, and gives the same bits as before the receiver axis existed.
+// R = 1, and gives the same bits as before the receiver axis existed.  Any
+// W, S and R that fit in memory: rows and receivers are spread over the
+// grid's y and z dimensions (rows.cuh's grid_yz), past the 65,535 blocks of
+// one.
 //
 // K2 partial_sqdist: out[r, s] = sum_d (z[r, s, d] - y[r, d])^2.
 // Replaces: repro/kernels/weiszfeld.py, partial_sqdist_call (_sqdist_kernel),
 // which carries the (W,) sum across a sequential grid over p-tiles.  Hopper's
-// blocks run in no order, so the port reduces in two passes: a (D-chunk,
-// sender, receiver) grid writes one partial sum per block into an
-// (R * S, nchunks) scratch buffer, then one block per (receiver, sender) sums
-// its row.  Both passes reduce in a fixed tree (warp shuffles, then the warps
-// in order) and use no atomics, so the same inputs give the same bits on
-// every run.
+// blocks run in no order, so the port reduces in two passes and two routes:
+//
+// * unmasked: a (D-chunk of 2,048, sender, receiver) grid writes one partial
+//   sum per block into an (R * S, nchunks) scratch buffer, then one block
+//   per (receiver, sender) sums its row.  Both passes reduce in a fixed tree
+//   (warp shuffles, then the warps in order).
+// * masked (an (R, S) mask given; the masked Weiszfeld multiplies the
+//   distance of every sender of mask <= 0 by 0): a block owns one receiver's
+//   chunk of 512 coordinates.  It compacts the receiver's members (mask > 0)
+//   as K3 compacts weights, loads y[r, chunk] once into registers, and
+//   streams only the members' rows: float4 loads where the base and strides
+//   allow, rows split across 8 warps (warp w takes members w, w + 8, ...),
+//   two rows (8 float4 loads a lane) in flight per warp.  Each (member,
+//   chunk) partial is one warp's fixed tree; the finish pass sums a member's
+//   partials in the unmasked route's fixed order and writes exactly 0 for a
+//   non-member, whose row is never read.  So the bits depend on nothing but
+//   the inputs (not on R, the grid or the other receivers).  For finite z a
+//   non-member's distance only ever meets a weight of 0, so leaving it at 0
+//   changes no iterate.  A mask-0 row holding inf or NaN is the one input on
+//   which the masked route and the unmasked one part (inf or NaN there, and
+//   the masked Weiszfeld's 0 / inf or 0 / NaN weight after it; 0 here, the
+//   row never read, as the plain version's where(mask > 0, sq, 0) gives);
+//   the reference's masked engine promises that mask-0 senders do not
+//   influence the result (repro/topology/masked.py), and the skip keeps that
+//   promise.  It is K3's non-finite zero-weight edge, below.  96 registers
+//   (97 with float4 loads), no spills.
+// No atomics: the same inputs give the same bits on every run.
 //
 // K3 weighted_sum: out[r, d] = sum_s a[r, s] * z[r, s, d]  (unnormalized).
 // Replaces: repro/kernels/weiszfeld.py, weighted_sum_call (_wsum_kernel).
-// It reads only the rows of nonzero weight: each block of 8 warps first
-// compacts its receiver's nonzero weights into shared memory as (row,
-// weight) pairs in ascending row order (a ballot and a prefix count per
-// warp), then covers 128 coordinates, 4 consecutive ones a thread (float4
-// loads where the base and the row stride allow, else 4 scalar loads, so a
-// column slice z[..., a:b] of a wider buffer is read in place).  The
-// compacted rows are split across the warps (warp w takes rows w, w + 8,
-// ...), each warp keeps up to 8 rows' loads in flight, and the 8 partial
-// sums are added in warp order in shared memory.  The split depends on nothing but
-// the weights, so a single matrix gives the same bits as each receiver of a
-// batch, and every run the same bits.  For finite z a row of weight exactly
-// 0 adds +-0, so skipping it changes no sum.  A zero-weight row holding inf
-// or NaN is the one input on which the kernel and the plain version part
-// (0 * inf is NaN there, skipped here); the reference's masked engine
-// promises that mask-0 senders do not influence the result
-// (repro/topology/masked.py), and the skip keeps that promise.
+// It reads only the rows of nonzero weight: each block of 8 warps compacts
+// its receiver's nonzero weights, 2,048 weights at a time, into shared
+// memory as (row, weight) pairs in ascending row order (a ballot and a
+// prefix count per warp, rows.cuh), then covers 128 coordinates, 4
+// consecutive ones a thread (float4 loads where the base and the row stride
+// allow, else 4 scalar loads, so a column slice z[..., a:b] of a wider buffer
+// is read in place).  The compacted rows of each chunk are split across the
+// warps (warp w takes rows w, w + 8, ...), each warp keeps up to 8 rows'
+// loads in flight and carries its sum from chunk to chunk, and the 8 partial
+// sums are added in warp order in shared memory.  The split depends on
+// nothing but the weights, so a single matrix gives the same bits as each
+// receiver of a batch, and every run the same bits.  For finite z a row of
+// weight exactly 0 adds +-0, so skipping it changes no sum.  A zero-weight row
+// holding inf or NaN is the one input on which the kernel and the plain
+// version part (0 * inf is NaN there, skipped here); the reference's masked
+// engine promises that mask-0 senders do not influence the result
+// (repro/topology/masked.py), and the skip keeps that promise.  64
+// registers, no spills.
 //
 // K6 partial_sqdist_segments: out[w, s] = sum over the coordinates d of
 // segment s of (z[w, d] - y[d])^2, for s in [0, L); a coordinate whose
@@ -50,12 +76,15 @@
 //
 // Bound on the H100: device-memory bytes.  Each sweep reads the z bytes once
 // (W * D * 4 = 11.1 MB at W = 70, D = 39,760; R * S * D * 4 = 779 MB for
-// the decentralized exchange at R = S = 70, of which K3 needs only the 409 MB
-// of rows of nonzero weight under workload D's mask) for 2-3 flops per
-// element (K6 also reads the D * 4 bytes of the ids).  Inside the master's Weiszfeld
-// loop z is re-read every iteration and fits in the 50 MB L2, so the sweeps
-// may run above the HBM rate; the decentralized exchange does not fit.
+// the decentralized exchange at R = S = 70, of which K3 and the masked K2
+// need only the 398.3 MB of the 2,504 member rows under workload D's mask;
+// with y (or the output) and the mask, 409.4 MB: 122.2 us at 3.35 TB/s) for
+// 2-3 flops per element (K6 also reads the D * 4 bytes of the ids).  Inside
+// the master's Weiszfeld loop z is re-read every iteration and fits in the
+// 50 MB L2, so the sweeps may run above the HBM rate; the decentralized
+// exchange does not fit.
 #include "common.cuh"
+#include "rows.cuh"
 
 namespace {
 
@@ -102,15 +131,23 @@ __device__ void block_range(int& lo, int& hi) {
   __syncthreads();
 }
 
-// Grid (nchunks, S, R); partial[(r * S + s) * nchunks + chunk].
+// Grid (nchunks, rows::grid_yz over the R * S rows); row q = r * S + s
+// writes partial[q * nchunks + chunk].
 __global__ void sqdist_partial_kernel(const float* __restrict__ z,
                                       const float* __restrict__ y,
-                                      float* __restrict__ partial, int64_t D,
-                                      int64_t ld, int64_t rs, int nchunks) {
-  const int w = blockIdx.y;
-  const int r = blockIdx.z;
-  const float* zw = z + static_cast<int64_t>(r) * rs + static_cast<int64_t>(w) * ld;
-  y += static_cast<int64_t>(r) * D;
+                                      float* __restrict__ partial, int R, int S,
+                                      int64_t D, int64_t ld, int64_t rs,
+                                      int nchunks) {
+  const int64_t q = rows::grid_row();
+  if (q >= static_cast<int64_t>(R) * S) return;   // the whole block
+  // (r, w) from q; no division for a single matrix, a 32-bit one where q fits.
+  int64_t r = 0, w = q;
+  if (R > 1) {
+    r = q <= 0xffffffffLL ? static_cast<uint32_t>(q) / static_cast<uint32_t>(S) : q / S;
+    w = q - r * S;
+  }
+  const float* zw = z + r * rs + w * ld;
+  y += r * D;
   const int64_t start = static_cast<int64_t>(blockIdx.x) * kChunk + threadIdx.x;
   float acc = 0.f;
 #pragma unroll
@@ -122,12 +159,19 @@ __global__ void sqdist_partial_kernel(const float* __restrict__ z,
     }
   }
   const float s = block_sum(acc);
-  if (threadIdx.x == 0)
-    partial[(static_cast<int64_t>(r) * gridDim.y + w) * nchunks + blockIdx.x] = s;
+  if (threadIdx.x == 0) partial[q * nchunks + blockIdx.x] = s;
 }
 
+// One block per row of nchunks partials; with kMasked, a row whose mask
+// entry is <= 0 was never written and its output is exactly 0.
+template <bool kMasked>
 __global__ void sqdist_finish_kernel(const float* __restrict__ partial,
+                                     const float* __restrict__ mask,
                                      float* __restrict__ out, int nchunks) {
+  if (kMasked && !(mask[blockIdx.x] > 0.f)) {
+    if (threadIdx.x == 0) out[blockIdx.x] = 0.f;
+    return;   // the whole block: no barrier below is reached
+  }
   const float* row = partial + static_cast<int64_t>(blockIdx.x) * nchunks;
   float acc = 0.f;
   for (int c = threadIdx.x; c < nchunks; c += kThreads) acc += row[c];
@@ -135,14 +179,17 @@ __global__ void sqdist_finish_kernel(const float* __restrict__ partial,
   if (threadIdx.x == 0) out[blockIdx.x] = s;
 }
 
-// Pass one of K6: partial[(w * L + s) * nchunks + chunk].
+// Pass one of K6, grid (nchunks, rows::grid_yz over W): partial[(w * L +
+// s) * nchunks + chunk].
 __global__ void sqdist_segments_partial_kernel(const float* __restrict__ z,
                                                const float* __restrict__ y,
                                                const int* __restrict__ seg,
                                                float* __restrict__ partial,
-                                               int64_t D, int L, int nchunks) {
-  const int w = blockIdx.y;
-  const float* zw = z + static_cast<int64_t>(w) * D;
+                                               int W, int64_t D, int L,
+                                               int nchunks) {
+  const int64_t w = rows::grid_row();
+  if (w >= W) return;   // the whole block
+  const float* zw = z + w * D;
   const int64_t start = static_cast<int64_t>(blockIdx.x) * kChunk + threadIdx.x;
   float d2[kItems];
   int sid[kItems];
@@ -164,7 +211,7 @@ __global__ void sqdist_segments_partial_kernel(const float* __restrict__ z,
     }
   }
   block_range(lo, hi);   // the segments this chunk holds: [lo, hi]
-  float* out = partial + static_cast<int64_t>(w) * L * nchunks + blockIdx.x;
+  float* out = partial + w * L * nchunks + blockIdx.x;
   for (int s = 0; s < L; ++s) {
     float total = 0.f;
     if (s >= lo && s <= hi) {   // the same branch for the whole block
@@ -177,27 +224,80 @@ __global__ void sqdist_segments_partial_kernel(const float* __restrict__ z,
   }
 }
 
+// The masked route of K2: 8 warps, 512 coordinates a block (kSqVec float4
+// groups of 128 per lane), two member rows in flight per warp.
+constexpr int kSqWarps = 8;
+constexpr int kSqThreads = 32 * kSqWarps;
+constexpr int kSqVec = 4;
+constexpr int kSqCols = 128 * kSqVec;
+constexpr int kSqRows = 2;
+constexpr int kSqCap = 2048;   // mask entries compacted at a time (8 KB)
+
+__device__ __forceinline__ float sq4(const float4& z, const float4& y, float acc) {
+  float d = z.x - y.x;
+  acc = fmaf(d, d, acc);
+  d = z.y - y.y;
+  acc = fmaf(d, d, acc);
+  d = z.z - y.z;
+  acc = fmaf(d, d, acc);
+  d = z.w - y.w;
+  return fmaf(d, d, acc);
+}
+
+// Grid (D-chunks of kSqCols, rows::grid_yz over R);
+// partial[(r * S + s) * nchunks + chunk] for the members s of receiver r
+// only.  VEC: z, ld, rs, y and D allow float4 loads.
+template <bool VEC>
+__global__ void __launch_bounds__(kSqThreads)
+sqdist_masked_partial_kernel(const float* __restrict__ z, const float* __restrict__ y,
+                             const float* __restrict__ mask,
+                             float* __restrict__ partial, int R, int S, int64_t D,
+                             int64_t ld, int64_t rs, int nchunks) {
+  __shared__ int s_row[kSqCap];
+  __shared__ int warp_n[kSqWarps];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int64_t r = rows::grid_row();
+  if (r >= R) return;   // the whole block
+  const int64_t d0 = static_cast<int64_t>(blockIdx.x) * kSqCols;
+  float4 yv[kSqVec];
+#pragma unroll
+  for (int v = 0; v < kSqVec; ++v)
+    yv[v] = rows::load_cols<VEC>(y + r * D, d0 + 128 * v, lane, D);
+  z += r * rs;
+  mask += r * S;
+  partial += r * S * nchunks + blockIdx.x;
+  for (int c0 = 0; c0 < S; c0 += kSqCap) {
+    const int n = rows::compact<kSqWarps>(mask, c0, min(S, c0 + kSqCap),
+                                          rows::Positive(), s_row, nullptr, warp_n);
+    for (int j = warp; j < n; j += kSqRows * kSqWarps) {
+      float4 zv[kSqRows][kSqVec];
+#pragma unroll
+      for (int u = 0; u < kSqRows; ++u)
+        if (j + u * kSqWarps < n) {
+          const float* row = z + s_row[j + u * kSqWarps] * ld;
+#pragma unroll
+          for (int v = 0; v < kSqVec; ++v)
+            zv[u][v] = rows::load_cols<VEC>(row, d0 + 128 * v, lane, D);
+        }
+#pragma unroll
+      for (int u = 0; u < kSqRows; ++u)
+        if (j + u * kSqWarps < n) {   // the same for the whole warp
+          float acc = 0.f;
+#pragma unroll
+          for (int v = 0; v < kSqVec; ++v) acc = sq4(zv[u][v], yv[v], acc);
+          acc = rows::warp_total(acc);
+          if (lane == 0)
+            partial[static_cast<int64_t>(s_row[j + u * kSqWarps]) * nchunks] = acc;
+        }
+    }
+  }
+}
+
 constexpr int kWsWarps = 8;                  // warps per block, each over a share of the rows
 constexpr int kWsThreads = 32 * kWsWarps;
 constexpr int kWsCols = 32 * 4;              // coordinates per block, 4 a thread
 constexpr int kWsUnroll = 8;                 // rows in flight per thread
-
-// The 4 coordinates of `lane` in the block's 128 starting at d0, from row
-// `p`: d0 + 4 lane + i with VEC (one float4 where all 4 lie below D), else
-// d0 + lane + 32 i.  Coordinates past D read 0.
-template <bool VEC>
-__device__ __forceinline__ float4 load_cols(const float* p, int64_t d0, int lane,
-                                            int64_t D) {
-  float x[4];
-  if (VEC && d0 + 4 * lane + 3 < D)
-    return __ldg(reinterpret_cast<const float4*>(p + d0 + 4 * lane));
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t d = VEC ? d0 + 4 * lane + i : d0 + lane + 32 * i;
-    x[i] = d < D ? __ldg(p + d) : 0.f;
-  }
-  return make_float4(x[0], x[1], x[2], x[3]);
-}
+constexpr int kWsCap = 2048;                 // weights compacted at a time (16 KB)
 
 __device__ __forceinline__ void fma4(float w, const float4& v, float4& acc) {
   acc.x = fmaf(w, v.x, acc.x);
@@ -206,98 +306,74 @@ __device__ __forceinline__ void fma4(float w, const float4& v, float4& acc) {
   acc.w = fmaf(w, v.w, acc.w);
 }
 
-// Grid (D-blocks of 128, R); a: (R, W) contiguous, out: (R, D) contiguous;
-// W * 8 bytes of dynamic shared memory.  VEC: z, ld and rs allow float4
-// loads (16-byte-aligned base, ld and rs multiples of 4).
+// Adds a[row] * z[row] for the n compacted rows of one chunk to the warp's
+// share (warp w takes rows w, w + kWsWarps, ...), kWsUnroll rows' loads in
+// flight.
 template <bool VEC>
-__global__ void __launch_bounds__(kWsThreads)
-weighted_sum_kernel(const float* __restrict__ z, const float* __restrict__ a,
-                    float* __restrict__ out, int W, int64_t D, int64_t ld,
-                    int64_t rs) {
-  extern __shared__ float s_wt[];   // nonzero weights, then their rows
-  int* s_row = reinterpret_cast<int*>(s_wt + W);
-  __shared__ int warp_n[kWsWarps];
-  __shared__ float4 part[kWsWarps - 1][32];
-  const int r = blockIdx.y;
+__device__ __forceinline__ void weighted_rows(const float* z, const int* s_row,
+                                              const float* s_wt, int n, int64_t ld,
+                                              int64_t d0, int64_t D, float4& acc) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  a += static_cast<int64_t>(r) * W;
-
-  int n = 0;   // nonzero weights compacted so far
-  for (int w0 = 0; w0 < W; w0 += kWsThreads) {
-    const int w = w0 + threadIdx.x;
-    const float x = w < W ? a[w] : 0.f;
-    const bool keep = x != 0.f;
-    const unsigned mask = __ballot_sync(0xffffffffu, keep);
-    if (lane == 0) warp_n[warp] = __popc(mask);
-    __syncthreads();
-    int at = n, total = 0;
-#pragma unroll
-    for (int i = 0; i < kWsWarps; ++i) {
-      at += i < warp ? warp_n[i] : 0;
-      total += warp_n[i];
-    }
-    if (keep) {
-      const int k = at + __popc(mask & ((1u << lane) - 1u));
-      s_wt[k] = x;
-      s_row[k] = w;
-    }
-    n += total;
-    __syncthreads();
-  }
-
-  const int64_t d0 = static_cast<int64_t>(blockIdx.x) * kWsCols;
-  z += static_cast<int64_t>(r) * rs;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int j = warp; j < n; j += kWsUnroll * kWsWarps) {
     float4 v[kWsUnroll];   // up to kWsUnroll rows' loads in flight, then in order
 #pragma unroll
     for (int u = 0; u < kWsUnroll; ++u)
       if (j + u * kWsWarps < n)
-        v[u] = load_cols<VEC>(z + s_row[j + u * kWsWarps] * ld, d0, lane, D);
+        v[u] = rows::load_cols<VEC>(z + s_row[j + u * kWsWarps] * ld, d0, lane, D);
 #pragma unroll
     for (int u = 0; u < kWsUnroll; ++u)
       if (j + u * kWsWarps < n) fma4(s_wt[j + u * kWsWarps], v[u], acc);
   }
+}
 
+// Grid (D-blocks of 128, rows::grid_yz over R); a: (R, W)
+// contiguous, out: (R, D) contiguous; min(W, kWsCap) * 8 bytes of dynamic
+// shared memory.  VEC: z, ld and rs allow float4 loads (16-byte-aligned
+// base, ld and rs multiples of 4).
+template <bool VEC>
+__global__ void __launch_bounds__(kWsThreads)
+weighted_sum_kernel(const float* __restrict__ z, const float* __restrict__ a,
+                    float* __restrict__ out, int R, int W, int64_t D, int64_t ld,
+                    int64_t rs) {
+  extern __shared__ float s_wt[];   // a chunk's nonzero weights, then their rows
+  int* s_row = reinterpret_cast<int*>(s_wt + min(W, kWsCap));
+  __shared__ int warp_n[kWsWarps];
+  __shared__ float4 part[kWsWarps - 1][32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int64_t r = rows::grid_row();
+  if (r >= R) return;   // the whole block
+  a += r * W;
+  z += r * rs;
+  const int64_t d0 = static_cast<int64_t>(blockIdx.x) * kWsCols;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (W <= kWsCap) {   // one chunk, in straight-line code
+    const int n = rows::compact<kWsWarps>(a, 0, W, rows::NonZero(), s_row, s_wt, warp_n);
+    weighted_rows<VEC>(z, s_row, s_wt, n, ld, d0, D, acc);
+  } else {
+    for (int c0 = 0; c0 < W; c0 += kWsCap) {
+      const int n = rows::compact<kWsWarps>(a, c0, min(W, c0 + kWsCap),
+                                            rows::NonZero(), s_row, s_wt, warp_n);
+      weighted_rows<VEC>(z, s_row, s_wt, n, ld, d0, D, acc);
+    }
+  }
   if (warp > 0) part[warp - 1][lane] = acc;
   __syncthreads();
   if (warp != 0) return;
 #pragma unroll
-  for (int i = 0; i < kWsWarps - 1; ++i) {
-    const float4 p = part[i][lane];
-    acc.x += p.x;
-    acc.y += p.y;
-    acc.z += p.z;
-    acc.w += p.w;
-  }
-  out += static_cast<int64_t>(r) * D;
-  const float y[4] = {acc.x, acc.y, acc.z, acc.w};
-  if (VEC && (D & 3) == 0 && d0 + 4 * lane + 3 < D) {
-    *reinterpret_cast<float4*>(out + d0 + 4 * lane) = acc;
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t d = VEC ? d0 + 4 * lane + i : d0 + lane + 32 * i;
-    if (d < D) out[d] = y[i];
-  }
+  for (int i = 0; i < kWsWarps - 1; ++i) rows::add4(part[i][lane], acc);
+  rows::store_cols<VEC>(out + r * D, d0, lane, D, acc);
 }
 
 template <bool VEC>
 int launch_weighted_sum(const float* z, const float* a, float* out, int R, int W,
                         int64_t D, int64_t ld, int64_t rs, cudaStream_t s) {
-  const size_t smem = static_cast<size_t>(W) * 8;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        weighted_sum_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid(static_cast<unsigned>((D + kWsCols - 1) / kWsCols),
-                  static_cast<unsigned>(R));
-  weighted_sum_kernel<VEC><<<grid, kWsThreads, smem, s>>>(z, a, out, W, D, ld, rs);
+  const size_t smem = static_cast<size_t>(W < kWsCap ? W : kWsCap) * 8;
+  const dim3 grid = rows::grid_yz(static_cast<unsigned>((D + kWsCols - 1) / kWsCols), R);
+  weighted_sum_kernel<VEC><<<grid, kWsThreads, smem, s>>>(z, a, out, R, W, D, ld, rs);
   return static_cast<int>(cudaGetLastError());
 }
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
@@ -306,9 +382,14 @@ REPRO_EXPORT int partial_sqdist_scratch_cols(long long D) {
   return static_cast<int>((D + kChunk - 1) / kChunk);
 }
 
+// Columns of the (R * S, ncols) scratch buffer partial_sqdist_masked_f32 needs.
+REPRO_EXPORT int partial_sqdist_masked_scratch_cols(long long D) {
+  return static_cast<int>((D + kSqCols - 1) / kSqCols);
+}
+
 // z: (R, W, D) at z[r * rs + w * ld + d], y: (R, D), partial: (R * W,
 // partial_sqdist_scratch_cols(D)), out: (R, W); float32, y, partial and out
-// contiguous; W, R <= 65,535.  Launches both passes on `stream`.
+// contiguous.  Launches both passes on `stream`.
 REPRO_EXPORT int partial_sqdist_f32(const float* z, const float* y,
                                     float* partial, float* out, int R, int W,
                                     long long D, long long ld, long long rs,
@@ -317,29 +398,58 @@ REPRO_EXPORT int partial_sqdist_f32(const float* z, const float* y,
   const auto s = static_cast<cudaStream_t>(stream);
   const int nchunks = partial_sqdist_scratch_cols(D);
   if (nchunks > 0) {
-    const dim3 grid(static_cast<unsigned>(nchunks), static_cast<unsigned>(W),
-                    static_cast<unsigned>(R));
+    const dim3 grid = rows::grid_yz(static_cast<unsigned>(nchunks),
+                                    static_cast<long long>(R) * W);
     sqdist_partial_kernel<<<grid, kThreads, 0, s>>>(
-        z, y, partial, static_cast<int64_t>(D), static_cast<int64_t>(ld),
+        z, y, partial, R, W, static_cast<int64_t>(D), static_cast<int64_t>(ld),
         static_cast<int64_t>(rs), nchunks);
     const int rc = static_cast<int>(cudaGetLastError());
     if (rc != 0) return rc;
   }
-  sqdist_finish_kernel<<<static_cast<unsigned>(R) * W, kThreads, 0, s>>>(
-      partial, out, nchunks);
+  sqdist_finish_kernel<false><<<static_cast<unsigned>(R) * W, kThreads, 0, s>>>(
+      partial, nullptr, out, nchunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The masked route: as partial_sqdist_f32 with mask (R, S) float32
+// contiguous; rows of mask <= 0 are not read and their out is 0.  partial:
+// (R * S, partial_sqdist_masked_scratch_cols(D)).
+REPRO_EXPORT int partial_sqdist_masked_f32(const float* z, const float* y,
+                                           const float* mask, float* partial,
+                                           float* out, int R, int S, long long D,
+                                           long long ld, long long rs,
+                                           void* stream) {
+  if (S == 0 || R == 0) return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int nchunks = partial_sqdist_masked_scratch_cols(D);
+  if (nchunks > 0) {
+    const bool vec = aligned16(z) && aligned16(y) && ld % 4 == 0 && rs % 4 == 0 &&
+                     D % 4 == 0;
+    const dim3 grid = rows::grid_yz(static_cast<unsigned>(nchunks), R);
+    if (vec)
+      sqdist_masked_partial_kernel<true><<<grid, kSqThreads, 0, s>>>(
+          z, y, mask, partial, R, S, static_cast<int64_t>(D),
+          static_cast<int64_t>(ld), static_cast<int64_t>(rs), nchunks);
+    else
+      sqdist_masked_partial_kernel<false><<<grid, kSqThreads, 0, s>>>(
+          z, y, mask, partial, R, S, static_cast<int64_t>(D),
+          static_cast<int64_t>(ld), static_cast<int64_t>(rs), nchunks);
+    const int rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
+  }
+  sqdist_finish_kernel<true><<<static_cast<unsigned>(R) * S, kThreads, 0, s>>>(
+      partial, mask, out, nchunks);
   return static_cast<int>(cudaGetLastError());
 }
 
 // z: (R, W, D) at z[r * rs + w * ld + d], a: (R, W), out: (R, D); float32,
-// a and out contiguous; W * 8 bytes of shared memory (above 48 KB by
-// opt-in), so W <= 12,288; R <= 65,535.
+// a and out contiguous; min(W, 2,048) * 8 bytes of shared memory.
 REPRO_EXPORT int weighted_sum_f32(const float* z, const float* a, float* out,
                                   int R, int W, long long D, long long ld,
                                   long long rs, void* stream) {
   if (D == 0 || R == 0) return static_cast<int>(cudaGetLastError());
   const auto s = static_cast<cudaStream_t>(stream);
-  const bool vec = reinterpret_cast<uintptr_t>(z) % 16 == 0 && ld % 4 == 0 &&
-                   rs % 4 == 0;
+  const bool vec = aligned16(z) && ld % 4 == 0 && rs % 4 == 0;
   return vec ? launch_weighted_sum<true>(z, a, out, R, W, D, ld, rs, s)
              : launch_weighted_sum<false>(z, a, out, R, W, D, ld, rs, s);
 }
@@ -355,14 +465,14 @@ REPRO_EXPORT int partial_sqdist_segments_f32(const float* z, const float* y,
   const auto s = static_cast<cudaStream_t>(stream);
   const int nchunks = partial_sqdist_scratch_cols(D);
   if (nchunks > 0) {
-    const dim3 grid(static_cast<unsigned>(nchunks), static_cast<unsigned>(W));
+    const dim3 grid = rows::grid_yz(static_cast<unsigned>(nchunks), W);
     sqdist_segments_partial_kernel<<<grid, kThreads, 0, s>>>(
-        z, y, seg, partial, static_cast<int64_t>(D), L, nchunks);
+        z, y, seg, partial, W, static_cast<int64_t>(D), L, nchunks);
     const int rc = static_cast<int>(cudaGetLastError());
     if (rc != 0) return rc;
   }
   // (W * L) rows of nchunks partials, summed one block per row.
-  sqdist_finish_kernel<<<static_cast<unsigned>(W) * L, kThreads, 0, s>>>(
-      partial, out, nchunks);
+  sqdist_finish_kernel<false><<<static_cast<unsigned>(W) * L, kThreads, 0, s>>>(
+      partial, nullptr, out, nchunks);
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,14 +35,18 @@ def saga_correct(grad: torch.Tensor, table: torch.Tensor, avg: torch.Tensor,
     return sc.saga_correct_plain(grad, table, avg, idx)
 
 
-def partial_sqdist(z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def partial_sqdist(z: torch.Tensor, y: torch.Tensor,
+                   mask: torch.Tensor | None = None) -> torch.Tensor:
     """K2: z (W, D), y (D,) -> (W,) squared distances; batched over
-    receivers, z (R, S, D), y (R, D) -> (R, S)."""
+    receivers, z (R, S, D), y (R, D) -> (R, S).  With ``mask`` (z's leading
+    shape) the rows of ``mask <= 0`` are not read and give exactly 0."""
     wz.check_inputs("partial_sqdist", z, y, z.shape[:-2] + z.shape[-1:],
                     batched=True)
+    if mask is not None:
+        wz.check_mask(z, mask)
     if _on_card(z):
-        return wz.partial_sqdist_call(z, y)
-    return wz.partial_sqdist_plain(z, y)
+        return wz.partial_sqdist_call(z, y, mask)
+    return wz.partial_sqdist_plain(z, y, mask)
 
 
 def weighted_sum(z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -115,8 +119,10 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Zero every kernel's count, and K8's per-route counts
-    (``flash_attention.VARIANT_LAUNCHES``)."""
-    for counts in (_build.LAUNCHES, fa.VARIANT_LAUNCHES):
+    """Zero every kernel's count, and the per-route counts of K2
+    (``weiszfeld.SQDIST_ROUTE_LAUNCHES``), K7 (``topology.ROUTE_LAUNCHES``)
+    and K8 (``flash_attention.VARIANT_LAUNCHES``)."""
+    for counts in (_build.LAUNCHES, wz.SQDIST_ROUTE_LAUNCHES,
+                   tp.ROUTE_LAUNCHES, fa.VARIANT_LAUNCHES):
         for name in counts:
             counts[name] = 0

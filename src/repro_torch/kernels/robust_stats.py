@@ -9,7 +9,8 @@
   the ``trim`` largest values and average the rest; ``2 * trim < W``.
 
 Both launch the CUDA kernels of ``csrc/robust_stats.cu`` on float32
-inputs; ``*_plain`` are the same functions in plain PyTorch (a sort along
+inputs, for any W >= 1 (up to 454 workers a block stages its columns in
+shared memory; past that it counts ranks from global memory); ``*_plain`` are the same functions in plain PyTorch (a sort along
 the worker axis), which the CPU path runs and the card's checks compare
 against.  A column holding a NaN gives an unspecified value on the card
 (see the source); the plain versions sort NaN last.
@@ -28,10 +29,6 @@ _SIGNATURES = {
     "trimmed_mean_f32": [ctypes.c_void_p] * 2 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
 }
-
-# Each block stages a (W, 128) float32 slab in shared memory: W <= 454 on
-# Hopper (232,448 bytes a block).
-MAX_WORKERS = 454
 
 
 def check_inputs(what: str, z: torch.Tensor) -> None:
@@ -55,9 +52,6 @@ def _check_launchable(what: str, z: torch.Tensor) -> None:
         raise ValueError(f"{what}: tensors must lie on a CUDA device")
     if not z.is_contiguous():
         raise ValueError(f"{what}: z must be contiguous")
-    if z.shape[0] > MAX_WORKERS:
-        raise ValueError(f"{what}: W={z.shape[0]} exceeds {MAX_WORKERS}, the "
-                         "most one block's shared memory holds")
 
 
 def coordinate_median_plain(z: torch.Tensor) -> torch.Tensor:

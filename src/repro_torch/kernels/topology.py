@@ -8,11 +8,17 @@ the mean of the masked senders' values after dropping the ``trim`` largest
 and the ``trim`` smallest, divided by ``max(n_r - 2 * trim, 1)`` with
 ``n_r = sum_s mask[r, s]``.  ``trim = 0`` is the masked mean.
 
-It launches the CUDA kernel of ``csrc/topology.cu`` on float32 inputs;
-:func:`masked_neighbor_reduce_plain` is the same function in plain PyTorch
-(sort with non-neighbours filled with +inf, keep ranks
+It launches the CUDA kernels of ``csrc/topology.cu`` on float32 inputs,
+for any R, S and D that fit in memory, reading only the members' rows
+(``mask > 0``).  :func:`route` picks the kernel from ``trim``: "sum" for
+trim 0 (the fixed-order masked sum), "select" for trims up to
+:data:`MAX_SELECT_TRIM` (the trim largest and smallest kept in registers,
+then the values between them summed), "rank" beyond (each value ranked
+against the others; correct, not fast).  :data:`ROUTE_LAUNCHES` counts each
+route.  :func:`masked_neighbor_reduce_plain` is the same function in plain
+PyTorch (sort with non-neighbours filled with +inf, keep ranks
 ``[trim, n - trim)``), which the CPU path runs and the card's checks
-compare against.
+compare against.  The kernels order NaN above +inf, as that sort does.
 
 The kernel reduces by 0/1 counts: a mask entry counts as a neighbour when
 it is > 0.  This slice's masks are always 0/1 (participation and its
@@ -31,16 +37,24 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.weiszfeld import batch_strides
 
 _SIGNATURES = {
-    "masked_neighbor_reduce_smem_bytes": [ctypes.c_int],
     "masked_neighbor_reduce_f32": [ctypes.c_void_p] * 3 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
 
-# Dynamic shared memory one block may use on Hopper; a block holds its
-# receiver's mask row and an (S, 128) slab: S * 129 * 4 bytes, S <= 450.
-MAX_SHARED_BYTES = 232_448
-MAX_RECEIVERS = 65_535
+ROUTES = ("sum", "select", "rank")   # the codes 0, 1, 2 of csrc/topology.cu
+# The largest trim the "select" kernel is built for (kMaxSelectTrim there).
+MAX_SELECT_TRIM = 16
+# Launches per route (reset with the others by ops.reset_launch_counts).
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+
+
+def route(trim: int) -> str:
+    """The kernel that serves ``trim``: "sum" for 0, "select" up to
+    :data:`MAX_SELECT_TRIM`, "rank" beyond."""
+    if trim == 0:
+        return "sum"
+    return "select" if trim <= MAX_SELECT_TRIM else "rank"
 
 
 def check_inputs(exchange: torch.Tensor, mask: torch.Tensor, trim: int) -> None:
@@ -84,21 +98,17 @@ def masked_neighbor_reduce_call(exchange: torch.Tensor, mask: torch.Tensor,
                          "device")
     if not mask.is_contiguous():
         raise ValueError("masked_neighbor_reduce: mask must be contiguous")
+    kernel = route(trim)
     r, ss, rs = batch_strides(exchange)
     s, d = exchange.shape[1:]
-    if r > MAX_RECEIVERS:
-        raise ValueError(f"masked_neighbor_reduce: R={r} exceeds {MAX_RECEIVERS}")
     lib = _build.load("topology", _SIGNATURES)
-    need = lib.masked_neighbor_reduce_smem_bytes(s)
-    if need > MAX_SHARED_BYTES:
-        raise ValueError(f"masked_neighbor_reduce: S={s} senders need {need} "
-                         f"bytes of shared memory, more than the "
-                         f"{MAX_SHARED_BYTES} a block may use")
     out = torch.empty((r, d), dtype=torch.float32, device=exchange.device)
     with torch.cuda.device(exchange.device):
         rc = lib.masked_neighbor_reduce_f32(
             _build.ptr(exchange), _build.ptr(mask), _build.ptr(out), r, s, d,
-            rs, ss, int(trim), ctypes.c_void_p(_build.stream_of(exchange)))
+            rs, ss, int(trim), ROUTES.index(kernel),
+            ctypes.c_void_p(_build.stream_of(exchange)))
     _build.check(lib, rc, "masked_neighbor_reduce")
     _build.LAUNCHES["masked_neighbor_reduce"] += 1
+    ROUTE_LAUNCHES[kernel] += 1
     return out

@@ -5,6 +5,9 @@
   ``||z_w - y||^2`` of a (W, D) message matrix to a (D,) iterate -> (W,).
   Two passes on the card (per-block partial sums, then one fixed-order
   reduction per worker), so the result is the same bits on every run.
+  With a ``mask`` of z's leading shape it takes its masked route: the rows
+  of ``mask <= 0`` are not read and their distance is exactly 0
+  (:data:`SQDIST_ROUTE_LAUNCHES` counts each route).
 * :func:`weighted_sum_call`   -- unnormalized ``sum_w a_w z_w`` -> (D,).
   It reads only the rows whose weight is not 0 (for finite z the sum is the
   same; a zero-weight row holding inf or NaN is skipped, where the plain
@@ -16,7 +19,8 @@ Weiszfeld: ``partial_sqdist`` on (R, S, D) and (R, D) gives (R, S),
 ``weighted_sum`` on (R, S, D) and (R, S) gives (R, D) -- one launch for all
 R receivers, a grid dimension over R.  The matrix ``z`` may be a column
 slice of a wider buffer, and its receiver stride may be 0 (one matrix
-shared by every receiver, ``expand``): it is read in place.
+shared by every receiver, ``expand``): it is read in place.  Any W, S and R
+that fit in memory.
 * :func:`partial_sqdist_segments_call` -- per-(worker, segment) squared
   distances -> (W, L), given each coordinate's segment id (an id outside
   ``[0, L)`` counts nowhere).  Two passes like K2, the same bits each run.
@@ -38,6 +42,10 @@ _SIGNATURES = {
     "partial_sqdist_f32": [ctypes.c_void_p] * 4 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_void_p],
+    "partial_sqdist_masked_scratch_cols": [ctypes.c_longlong],
+    "partial_sqdist_masked_f32": [ctypes.c_void_p] * 5 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_void_p],
     "weighted_sum_f32": [ctypes.c_void_p] * 3 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_void_p],
@@ -45,11 +53,9 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
 }
 
-# Shared memory holds one receiver's nonzero weights and their rows: up to
-# W * 8 bytes (96 KB, above the 48 KB default by opt-in).
-MAX_WORKERS = 12_288
-# The grid's y and z dimensions (workers, receivers).
-MAX_GRID_YZ = 65_535
+SQDIST_ROUTES = ("unmasked", "masked")
+# K2 launches per route (reset with the others by ops.reset_launch_counts).
+SQDIST_ROUTE_LAUNCHES = dict.fromkeys(SQDIST_ROUTES, 0)
 
 
 def check_inputs(what: str, z: torch.Tensor, v: torch.Tensor,
@@ -68,6 +74,16 @@ def check_inputs(what: str, z: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{what}: inputs lie on different devices")
 
 
+def check_mask(z: torch.Tensor, mask: torch.Tensor) -> None:
+    """mask float32 of z's leading shape ((W,) or (R, S)), on z's device."""
+    if mask.dtype != torch.float32:
+        raise TypeError(f"partial_sqdist: mask must be float32, got {mask.dtype}")
+    if tuple(mask.shape) != tuple(z.shape[:-1]) or mask.device != z.device:
+        raise ValueError(f"partial_sqdist: mask {tuple(mask.shape)} on "
+                         f"{mask.device} does not match z {tuple(z.shape)} on "
+                         f"{z.device}")
+
+
 def check_segments(z: torch.Tensor, seg_ids: torch.Tensor,
                    num_segments: int) -> None:
     """seg_ids (D,) int32 on z's device, num_segments >= 0."""
@@ -84,9 +100,9 @@ def check_segments(z: torch.Tensor, seg_ids: torch.Tensor,
 
 def _check_launchable(what: str, z: torch.Tensor, *rest: torch.Tensor,
                       strided: bool = False) -> None:
-    """On a CUDA device, contiguous, W within the grid's y limit; with
-    ``strided`` the matrix ``z`` may have rows ``ld >= D`` floats apart
-    (and receivers any stride >= 0)."""
+    """On a CUDA device and contiguous; with ``strided`` the matrix ``z``
+    may have rows ``ld >= D`` floats apart (and receivers any stride >=
+    0)."""
     if z.device.type != "cuda":
         raise ValueError(f"{what}: tensors must lie on a CUDA device")
     if strided:
@@ -95,12 +111,6 @@ def _check_launchable(what: str, z: torch.Tensor, *rest: torch.Tensor,
         rest = (z, *rest)
     if not all(t.is_contiguous() for t in rest):
         raise ValueError(f"{what}: inputs must be contiguous")
-    w = z.shape[-2]
-    if w > min(MAX_GRID_YZ, MAX_WORKERS):
-        raise ValueError(f"{what}: W={w} exceeds "
-                         f"{min(MAX_GRID_YZ, MAX_WORKERS)}")
-    if z.dim() == 3 and z.shape[0] > MAX_GRID_YZ:
-        raise ValueError(f"{what}: R={z.shape[0]} exceeds {MAX_GRID_YZ}")
 
 
 def row_stride(z: torch.Tensor) -> int:
@@ -127,9 +137,11 @@ def batch_strides(z: torch.Tensor) -> tuple[int, int, int]:
     return z.shape[0], ld, z.stride(0) if z.shape[0] > 1 else 0
 
 
-def partial_sqdist_plain(z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def partial_sqdist_plain(z: torch.Tensor, y: torch.Tensor,
+                         mask: torch.Tensor | None = None) -> torch.Tensor:
     d = z - y.unsqueeze(-2)
-    return torch.sum(d * d, dim=-1)
+    sq = torch.sum(d * d, dim=-1)
+    return sq if mask is None else torch.where(mask > 0, sq, 0.0)
 
 
 def weighted_sum_plain(z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -147,25 +159,41 @@ def partial_sqdist_segments_plain(z: torch.Tensor, y: torch.Tensor,
     return (d * d) @ onehot.to(torch.float32).T
 
 
-def partial_sqdist_call(z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def partial_sqdist_call(z: torch.Tensor, y: torch.Tensor,
+                        mask: torch.Tensor | None = None) -> torch.Tensor:
     """z (W, D), y (D,) -> (W,) float32; or z (R, S, D), y (R, D) ->
     (R, S); on the card.  ``z`` may be a column slice or a broadcast (read
-    in place)."""
+    in place).  With ``mask`` (z's leading shape, contiguous) only the rows
+    of ``mask > 0`` are read; the others give exactly 0."""
     check_inputs("partial_sqdist", z, y, z.shape[:-2] + z.shape[-1:],
                  batched=True)
-    _check_launchable("partial_sqdist", z, y, strided=True)
+    if mask is not None:
+        check_mask(z, mask)
+    _check_launchable("partial_sqdist", z, y,
+                      *(() if mask is None else (mask,)), strided=True)
     r, ld, rs = batch_strides(z)
     w, d = z.shape[-2:]
     lib = _build.load("weiszfeld", _SIGNATURES)
-    scratch = torch.empty((r * w, lib.partial_sqdist_scratch_cols(d)),
-                          dtype=torch.float32, device=z.device)
     out = torch.empty(z.shape[:-1], dtype=torch.float32, device=z.device)
+    stream = ctypes.c_void_p(_build.stream_of(z))
+    route = "unmasked" if mask is None else "masked"
     with torch.cuda.device(z.device):
-        rc = lib.partial_sqdist_f32(
-            _build.ptr(z), _build.ptr(y), _build.ptr(scratch), _build.ptr(out),
-            r, w, d, ld, rs, ctypes.c_void_p(_build.stream_of(z)))
+        if mask is None:
+            scratch = torch.empty((r * w, lib.partial_sqdist_scratch_cols(d)),
+                                  dtype=torch.float32, device=z.device)
+            rc = lib.partial_sqdist_f32(
+                _build.ptr(z), _build.ptr(y), _build.ptr(scratch),
+                _build.ptr(out), r, w, d, ld, rs, stream)
+        else:
+            scratch = torch.empty(
+                (r * w, lib.partial_sqdist_masked_scratch_cols(d)),
+                dtype=torch.float32, device=z.device)
+            rc = lib.partial_sqdist_masked_f32(
+                _build.ptr(z), _build.ptr(y), _build.ptr(mask),
+                _build.ptr(scratch), _build.ptr(out), r, w, d, ld, rs, stream)
     _build.check(lib, rc, "partial_sqdist")
     _build.LAUNCHES["partial_sqdist"] += 1
+    SQDIST_ROUTE_LAUNCHES[route] += 1
     return out
 
 

@@ -16,12 +16,16 @@ zero, filled with +inf out of sorts, or masked out of pairwise distances.
 
 Kernels on a CUDA device (their plain versions on the CPU):
 
-* ``trimmed_mean`` -- K7 ``masked_neighbor_reduce`` (one launch per step);
+* ``trimmed_mean`` -- K7 ``masked_neighbor_reduce`` (one launch per step;
+  its "select" kernel up to trim 16, "rank" beyond);
 * ``geomed``, ``geomed_groups``, ``geomed_blockwise`` -- the masked
-  Weiszfeld :func:`masked_weiszfeld`: K7 with trim 0 for the initial masked
-  mean, then per iteration one K2 and one K3 launch for all receivers at
-  once (their receiver-batched form);
+  Weiszfeld :func:`masked_weiszfeld`: K7 with trim 0 (its "sum" kernel) for
+  the initial masked mean, then per iteration one K2 launch on its masked
+  route and one K3 launch for all receivers at once (their
+  receiver-batched form); both read only the neighbours' rows;
 * ``mean`` (mixing-weighted) -- one K3 launch.
+
+Every kernel takes any number of senders and receivers that fits in memory.
 
 ``median``, ``krum`` and ``centered_clip`` are torch ops, as the
 reference's are jnp.  ``diagnostics=True`` is not ported yet (ROADMAP.md
@@ -94,7 +98,8 @@ def masked_weiszfeld(exchange: torch.Tensor, mask: torch.Tensor, *,
                      return_info: bool = False):
     """Per-receiver geometric median of the masked neighbourhood, all
     receivers in lockstep: from the masked mean (K7, trim 0), each
-    iteration takes the (R, S) distances (K2), the weights ``inv = mask /
+    iteration takes the (R, S) distances (K2, masked: 0 for a
+    non-neighbour, whose row is not read), the weights ``inv = mask /
     max(sqrt(sq), 1e-8)`` and the weighted means (K3), and one host read of
     ``sqrt(max_r move_r)`` decides the one stop for all receivers (``tol``,
     or ``max_iters``).  Non-neighbours get weight 0, so the restriction is
@@ -105,7 +110,7 @@ def masked_weiszfeld(exchange: torch.Tensor, mask: torch.Tensor, *,
     tol = _f32_tol(tol)
     delta, it = math.inf, 0
     while it < max_iters and delta > tol:
-        sq = ops.partial_sqdist(z, y)                           # (R, S)
+        sq = ops.partial_sqdist(z, y, mask)                     # (R, S)
         inv = mask / torch.clamp(torch.sqrt(sq), min=_DIST_FLOOR)
         y_new = _weighted_mean(z, inv)
         delta = float(torch.sqrt(torch.max(torch.sum((y_new - y) ** 2, dim=1))))

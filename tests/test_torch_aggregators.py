@@ -112,6 +112,20 @@ def test_order_rules_with_ties(name, weights):
     np.testing.assert_allclose(got_p, got, **TOL)
 
 
+@pytest.mark.parametrize("name,trim", [("median", 2), ("trimmed_mean", 2),
+                                       ("trimmed_mean", 150),
+                                       ("centered_clip", 2)])
+def test_order_rules_match_reference_past_454_workers(name, trim):
+    """455 workers (past the 454 whose columns fit K4/K5's shared memory),
+    with ties, at narrow D: the coordinate-wise rules agree with the
+    reference."""
+    rng = np.random.default_rng(trim)
+    buf = np.round(2 * rng.standard_normal((455, 24))).astype(np.float32) / 2
+    buf[:40] += 30.0
+    got, want = _both(name, buf, None, spec_sizes=(24,), trim=trim)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
 def _blockwise_buf(w=9):
     """Four leaves whose geometric medians converge at different speeds:
     a tight cloud, two spread ones and one whose rows all agree."""

@@ -17,8 +17,12 @@ rounds p to bfloat16 for p . v, which moves the output by at most 2^-8
 max|v|, far less in practice since the rounding errors take both signs
 (``tests/test_torch_models.py`` measures it on the CPU): it is held at the
 same 2e-2.
-K3 reads only the rows of nonzero weight; with finite z that changes no
-sum, so it is held at rtol 1e-5 like the others.
+K3, the masked route of K2 and K7 read only the rows of nonzero weight or
+of mask > 0; with finite inputs that changes no sum, so they are held at
+rtol 1e-5 like the others.  Every kernel takes any size that fits in
+memory: K4/K5 past 454 workers, K7 past 450 senders, K2/K3 past 12,288
+rows and every kernel past 65,535 rows or receivers on a grid dimension are
+held against the plain versions too.
 """
 import numpy as np
 import pytest
@@ -165,12 +169,22 @@ def test_order_stat_kernels_vs_plain(w, p, ties):
 
 @pytest.mark.gpu
 def test_order_stat_kernels_take_their_largest_w():
+    """Any W: up to 454 workers a block stages its columns in shared memory,
+    past that it counts ranks from global memory; both against the plain
+    versions, with ties, at odd and even W."""
     _need_card()
-    z, *_ = _inputs(rs.MAX_WORKERS, 1000)
-    assert torch.equal(rs.coordinate_median_call(z), rs.coordinate_median_plain(z))
-    _close(rs.trimmed_mean_call(z, 100), rs.trimmed_mean_plain(z, 100))
-    with pytest.raises(ValueError, match="exceeds"):
-        rs.coordinate_median_call(torch.zeros((rs.MAX_WORKERS + 1, 4), device="cuda"))
+    for w, p in [(454, 1000), (455, 1000), (1000, 300), (5000, 130)]:
+        z, *_ = _inputs(w, p, seed=w)
+        for zz in (z, torch.round(2 * z) / 2):
+            med = rs.coordinate_median_call(zz)
+            want = rs.coordinate_median_plain(zz)
+            if w % 2:
+                assert torch.equal(med, want), w
+            else:
+                assert _ulps(med, want) <= 1, w
+            for trim in (1, 100, (w - 1) // 2):
+                _close(rs.trimmed_mean_call(zz, trim), rs.trimmed_mean_plain(zz, trim))
+        assert torch.equal(rs.trimmed_mean_call(z, 7), rs.trimmed_mean_call(z, 7))
     with pytest.raises(ValueError, match="too large"):
         rs.trimmed_mean_call(z[:4], 2)
 
@@ -277,9 +291,184 @@ def test_masked_neighbor_reduce_kernel_reads_slices_and_broadcasts():
     shared = ex[0][None].expand(6, 9, 300)
     _close(tp.masked_neighbor_reduce_call(shared, mask, 1),
            tp.masked_neighbor_reduce_plain(shared.contiguous(), mask, 1))
-    with pytest.raises(ValueError, match="shared memory"):
-        tp.masked_neighbor_reduce_call(torch.zeros((1, 460, 8), device="cuda"),
-                                       torch.ones((1, 460), device="cuda"), 0)
+    # Past 450 senders (the most whose (S, 128) slab fits one block's shared
+    # memory), every route.
+    ex, mask = _masked_inputs(3, 460, 130, True)
+    for trim in (0, 2, 20):
+        for view in (ex[:, :, 3:120], ex[1][None].expand(3, 460, 130)):
+            _close(tp.masked_neighbor_reduce_call(view, mask, trim),
+                   tp.masked_neighbor_reduce_plain(view.contiguous(), mask, trim))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("s", [451, 1000, 2048])
+def test_masked_neighbor_reduce_kernel_at_many_senders(s, ties):
+    """K7 at any S, each route against the plain version: "sum" (trim 0),
+    "select" (1, 12 and 16, the largest its template serves), "rank" (17
+    and (n - 1) // 2 for the smallest neighbourhood n); two launches give
+    the same bits on every route."""
+    _need_card()
+    from repro_torch.kernels import topology as tp
+    ex, mask = _masked_inputs(3, s, 70, ties, seed=s)
+    n = int(mask.sum(1).min())
+    for trim in (0, 1, 12, 16, 17, (n - 1) // 2):
+        got = tp.masked_neighbor_reduce_call(ex, mask, trim)
+        _close(got, tp.masked_neighbor_reduce_plain(ex, mask, trim))
+        assert torch.equal(got, tp.masked_neighbor_reduce_call(ex, mask, trim))
+
+
+@pytest.mark.gpu
+def test_member_lists_span_chunks():
+    """5,000 senders: the member lists are compacted 2,048 senders at a time,
+    and the first chunk holds fewer than 2 * trim members.  K7 (every
+    route), the masked K2 and K3 against their plain versions."""
+    _need_card()
+    from repro_torch.kernels import topology as tp
+    ex, mask = _masked_inputs(3, 5000, 70, True, seed=5)
+    mask[:, :2048] = 0.0
+    mask[:, [10, 500, 1000, 1500, 2000]] = 1.0
+    mask[:, 4096:] = 1.0
+    for trim in (0, 1, 12, 16, 17):
+        _close(tp.masked_neighbor_reduce_call(ex, mask, trim),
+               tp.masked_neighbor_reduce_plain(ex, mask, trim))
+    y = ex.mean(1)
+    _close(wz.partial_sqdist_call(ex, y, mask), wz.partial_sqdist_plain(ex, y, mask))
+    a = mask * torch.rand(mask.shape, device="cuda")
+    _close(wz.weighted_sum_call(ex, a), wz.weighted_sum_plain(ex, a))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trim", [1, 12, 20])
+def test_masked_neighbor_reduce_kernel_drops_huge_rows_without_trace(trim):
+    """Rows 1e6 times larger than the rest, fewer than trim of them on each
+    side: once dropped they leave no trace in the sum (no cancellation), so
+    the kernel holds the plain version at rtol 1e-5 of the honest scale.  A
+    receiver with n <= 2 * trim members gives exactly 0."""
+    _need_card()
+    from repro_torch.kernels import topology as tp
+    ex, mask = _masked_inputs(4, 70, 300, False, seed=trim)
+    mask[:, :] = 1.0
+    big = min(trim, 10)
+    ex[:, :big] = 1e6 * (1.0 + ex[:, :big].abs())
+    ex[:, big:2 * big] = -1e6 * (1.0 + ex[:, big:2 * big].abs())
+    mask[3] = 0.0
+    mask[3, :2 * trim] = 1.0      # exactly 2 * trim members
+    got = tp.masked_neighbor_reduce_call(ex, mask, trim)
+    want = tp.masked_neighbor_reduce_plain(ex, mask, trim)
+    assert float(want[:3].abs().max()) < 10.0
+    _close(got, want)
+    assert torch.equal(got[3], torch.zeros(300, device="cuda"))
+
+
+@pytest.mark.gpu
+def test_masked_neighbor_reduce_kernel_orders_nan_like_the_sort():
+    """A member's NaN counts as the largest value, as torch.sort orders it:
+    among the trim largest it is dropped, as in the plain version; a
+    non-member's NaN or inf is never read.  A kept NaN (trim 0) gives NaN;
+    the plain version gives NaN too when every sender is a member, and +inf
+    when some are not (its +inf fill of the non-members sorts below NaN):
+    the non-finite edge left to the guards, pinned on both sides."""
+    _need_card()
+    from repro_torch.kernels import topology as tp
+    ex, mask = _masked_inputs(3, 48, 64, False)
+    mask[:, :36] = 1.0
+    mask[:, 36:] = 0.0
+    ex[:, 36:, :8] = float("inf")
+    ex[:, 37:, 8:16] = float("nan")
+    ex[:, 2, :4] = float("nan")
+    for trim in (1, 12, 17):
+        got = tp.masked_neighbor_reduce_call(ex, mask, trim)
+        assert bool(torch.isfinite(got).all())
+        _close(got, tp.masked_neighbor_reduce_plain(ex, mask, trim))
+    got = tp.masked_neighbor_reduce_call(ex, mask, 0)
+    want = tp.masked_neighbor_reduce_plain(ex, mask, 0)
+    assert bool(torch.isnan(got[:, :4]).all()) and bool(torch.isinf(want[:, :4]).all())
+    _close(got[:, 4:], want[:, 4:])
+    full = torch.ones((3, 36), device="cuda")
+    exf = ex[:, :36]
+    torch.testing.assert_close(tp.masked_neighbor_reduce_call(exf, full, 0),
+                               tp.masked_neighbor_reduce_plain(exf, full, 0),
+                               rtol=1e-5, atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.gpu
+def test_masked_neighbor_reduce_kernel_takes_every_receiver():
+    """Past 65,535 receivers (the grid's y limit) the blocks walk on; each
+    route gives the plain version's rows, counted per route."""
+    _need_card()
+    from repro_torch.kernels import topology as tp
+    ops.reset_launch_counts()
+    for trim, s in [(0, 5), (1, 5), (17, 40)]:
+        ex, mask = _masked_inputs(70_000, s, 3, False)
+        mask[:, :] = 1.0
+        _close(tp.masked_neighbor_reduce_call(ex, mask, trim),
+               tp.masked_neighbor_reduce_plain(ex, mask, trim))
+    assert tp.ROUTE_LAUNCHES == {"sum": 1, "select": 1, "rank": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,s,d", MASKED_SHAPES + [(3, 451, 4097)])
+def test_partial_sqdist_masked_route_vs_plain(r, s, d):
+    """K2's masked route: 0 for a non-member (also a receiver with no
+    member), the plain version's distances on the mask, each receiver
+    bitwise its R = 1 call and two launches the same bits; a column slice and
+    a broadcast read in place; an all-ones mask agrees with the unmasked
+    route at rtol 1e-5."""
+    _need_card()
+    ex, mask = _masked_inputs(r, s, d, False, seed=d)
+    mask[0] = 0.0
+    g = torch.Generator(device="cuda").manual_seed(2)
+    y = ex.mean(1) + 0.1 * torch.randn((r, d), generator=g, device="cuda")
+    ops.reset_launch_counts()
+    got = wz.partial_sqdist_call(ex, y, mask)
+    assert wz.SQDIST_ROUTE_LAUNCHES == {"unmasked": 0, "masked": 1}
+    _close(got, wz.partial_sqdist_plain(ex, y, mask))
+    assert torch.equal(got[0], torch.zeros(s, device="cuda"))
+    assert torch.equal(got, torch.where(mask > 0, got, 0.0))
+    assert torch.equal(got, wz.partial_sqdist_call(ex, y, mask))
+    for i in {0, r - 1}:
+        assert torch.equal(got[i], wz.partial_sqdist_call(ex[i], y[i], mask[i]))
+    ones = torch.ones_like(mask)
+    _close(wz.partial_sqdist_call(ex, y, ones), wz.partial_sqdist_call(ex, y))
+    if d > 2:
+        cols = ex[:, :, 1:d - 1]
+        yc = y[:, 1:d - 1].contiguous()
+        assert torch.equal(wz.partial_sqdist_call(cols, yc, mask),
+                           wz.partial_sqdist_call(cols.contiguous(), yc, mask))
+    shared = ex[1 % r][None].expand(r, s, d)
+    assert torch.equal(wz.partial_sqdist_call(shared, y, mask),
+                       wz.partial_sqdist_call(shared.contiguous(), y, mask))
+
+
+@pytest.mark.gpu
+def test_weiszfeld_kernels_take_every_row_count():
+    """K2 (both routes) and K3 past 12,288 rows (K3's compaction runs in
+    chunks of 2,048 weights) and past 65,535 rows or receivers (the grid's
+    y and z limits), against the plain versions; two launches the same
+    bits."""
+    _need_card()
+    for w, d in [(12_289, 300), (70_000, 5)]:
+        z, y, a, *_ = _inputs(w, d, seed=w)
+        a = a * (torch.rand((w,), device="cuda") < 0.6)
+        mask = (a != 0).float()
+        for got, want in [(wz.partial_sqdist_call(z, y), wz.partial_sqdist_plain(z, y)),
+                          (wz.partial_sqdist_call(z, y, mask),
+                           wz.partial_sqdist_plain(z, y, mask)),
+                          (wz.weighted_sum_call(z, a), wz.weighted_sum_plain(z, a))]:
+            _close(got, want)
+        assert torch.equal(wz.weighted_sum_call(z, a), wz.weighted_sum_call(z, a))
+        assert torch.equal(wz.partial_sqdist_call(z, y, mask),
+                           wz.partial_sqdist_call(z, y, mask))
+    ex, mask = _masked_inputs(70_000, 3, 5, False)
+    y = ex.mean(1)
+    _close(wz.partial_sqdist_call(ex, y), wz.partial_sqdist_plain(ex, y))
+    _close(wz.partial_sqdist_call(ex, y, mask), wz.partial_sqdist_plain(ex, y, mask))
+    _close(wz.weighted_sum_call(ex, mask), wz.weighted_sum_plain(ex, mask))
+    z, y, *_ = _inputs(70_000, 5)
+    seg = torch.tensor([0, 0, 1, -1, 1], dtype=torch.int32, device="cuda")
+    _close(wz.partial_sqdist_segments_call(z, y, seg, 2),
+           wz.partial_sqdist_segments_plain(z, y, seg, 2))
 
 
 @pytest.mark.gpu

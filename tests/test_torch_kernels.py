@@ -167,6 +167,22 @@ def test_cpu_dispatch_counts_no_launch():
         "masked_neighbor_reduce": 0, "flash_attention": 0}
 
 
+def test_route_counts_reset_and_stay_zero_on_the_cpu():
+    """K2's and K7's per-route counts: the plain versions on the CPU launch
+    nothing, and ``reset_launch_counts`` zeroes them with the rest."""
+    from repro_torch.kernels import topology as tp
+    wz.SQDIST_ROUTE_LAUNCHES["masked"] = 3
+    tp.ROUTE_LAUNCHES["select"] = 2
+    ops.reset_launch_counts()
+    z, y, _ = _msgs(7, 30)
+    ops.partial_sqdist(_t(z), _t(y), torch.ones(7))
+    ops.partial_sqdist(_t(z[None]), _t(y[None]), torch.ones(1, 7))
+    for trim in (0, 1, 3):
+        ops.masked_neighbor_reduce(_t(z)[None], torch.ones(1, 7), trim=trim)
+    assert wz.SQDIST_ROUTE_LAUNCHES == {"unmasked": 0, "masked": 0}
+    assert tp.ROUTE_LAUNCHES == {"sum": 0, "select": 0, "rank": 0}
+
+
 @pytest.mark.parametrize("kernel", ["saga_correct", "partial_sqdist",
                                     "weighted_sum"])
 def test_kernels_reject_non_float32(kernel):

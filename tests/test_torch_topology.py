@@ -241,6 +241,45 @@ def test_batched_weiszfeld_plain_sweeps_match_reference_per_receiver():
                                (a @ ex[0]), rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("r", [1, 5])
+def test_partial_sqdist_plain_with_mask_matches_reference(r):
+    """K2's masked form: exactly 0 where mask <= 0 (a receiver with no
+    member too), the reference's per-(receiver, sender) distances
+    (``masked._sqdist_partials``) on the mask; the same through ``ops`` on
+    a column slice, and as an unbatched (W,) mask."""
+    rng = np.random.default_rng(r)
+    ex = rng.standard_normal((r, 9, 40)).astype(np.float32)
+    y = rng.standard_normal((r, 40)).astype(np.float32)
+    mask = (rng.random((r, 9)) < 0.5).astype(np.float32)
+    mask[:, 0] = 1.0
+    mask[-1, 3] = -1.0                  # not > 0: no member
+    if r > 1:
+        mask[0] = 0.0
+    got = ops.partial_sqdist(_t(ex), _t(y), _t(mask)).numpy()
+    want = np.asarray(jmasked._sqdist_partials(jnp.asarray(ex), jnp.asarray(y)))
+    np.testing.assert_array_equal(got[mask <= 0], 0.0)
+    np.testing.assert_allclose(got[mask > 0], want[mask > 0], rtol=1e-6)
+    cols = _t(ex)[:, :, 5:30]
+    np.testing.assert_array_equal(
+        ops.partial_sqdist(cols, _t(y[:, 5:30]), _t(mask)).numpy(),
+        wz.partial_sqdist_plain(cols.contiguous(), _t(y[:, 5:30]), _t(mask)).numpy())
+    np.testing.assert_array_equal(
+        ops.partial_sqdist(_t(ex[-1]), _t(y[-1]), _t(mask[-1])).numpy(), got[-1])
+    with pytest.raises(TypeError, match="float32"):
+        ops.partial_sqdist(_t(ex), _t(y), _t(mask).double())
+    with pytest.raises(ValueError, match="does not match"):
+        ops.partial_sqdist(_t(ex), _t(y), _t(mask[:, :5]))
+
+
+def test_masked_neighbor_reduce_route_rule():
+    """K7's kernel by trim: "sum" for 0, "select" up to 16 (its template),
+    "rank" beyond."""
+    assert [tp.route(t) for t in (0, 1, 2, 12, 15, 16, 17, 18, 100)] == [
+        "sum", "select", "select", "select", "select", "select", "rank", "rank",
+        "rank"]
+    assert tp.MAX_SELECT_TRIM == 16 and tp.ROUTES == ("sum", "select", "rank")
+
+
 def test_unbatched_sweeps_keep_their_shapes():
     z, y, a = torch.randn(7, 30), torch.randn(30), torch.rand(7)
     assert ops.partial_sqdist(z, y).shape == (7,)
@@ -291,6 +330,47 @@ def test_masked_weiszfeld_runs_the_reference_iterations():
                                       tol=1e-5, return_info=True)
     assert info.iters == int(jinfo.iters)
     assert info.residual == pytest.approx(float(jinfo.residual), abs=1e-5)
+
+
+@pytest.mark.parametrize("rule,trim", [("trimmed_mean", 1), ("trimmed_mean", 12),
+                                       ("trimmed_mean", 20), ("geomed", 0)])
+def test_masked_rules_match_reference_past_450_senders(rule, trim):
+    """455 senders (past the 450 whose (S, 128) slab fits one block's
+    shared memory), 4 receivers, narrow D, with ties: the masked trimmed
+    mean and geometric median agree with the reference's jnp engine (1e-6;
+    1e-5 for the Weiszfeld rule)."""
+    rng = np.random.default_rng(trim)
+    ex = np.round(2.0 * rng.standard_normal((4, 455, 6))).astype(np.float32) / 2
+    ex[:, :30] -= 40.0
+    mask = (rng.random((4, 455)) < 0.6).astype(np.float32)
+    mask[:, :50] = 1.0
+    opts = dict(trim=trim, max_iters=200, tol=1e-7)
+    want = np.asarray(jmasked.masked_aggregate_flat(
+        rule, jnp.asarray(ex), jnp.asarray(mask), **opts))
+    got = masked.masked_aggregate_flat(rule, _t(ex), _t(mask), **opts).numpy()
+    tol = RULE_TOL.get(rule, 1e-6)
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+def test_masked_weiszfeld_sends_its_mask_to_the_distance_sweep(monkeypatch):
+    """Every K2 call of the masked solve carries the neighbour mask, so on
+    the card it takes the masked route and reads only the neighbours' rows;
+    the answer is the reference's."""
+    seen = []
+    real = ops.partial_sqdist
+
+    def spy(z, y, mask=None):
+        seen.append(mask)
+        return real(z, y, mask)
+
+    monkeypatch.setattr(ops, "partial_sqdist", spy)
+    ex, mask, *_ = _engine_inputs("erdos_renyi", False)
+    got = masked.masked_weiszfeld(_t(ex), _t(mask), max_iters=30, tol=0.0)
+    want = jmasked.masked_weiszfeld(jnp.asarray(ex), jnp.asarray(mask),
+                                    max_iters=30, tol=0.0)
+    assert len(seen) == 30
+    assert all(m is not None and torch.equal(m, _t(mask)) for m in seen)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 def test_masked_registry_pins_the_reference_names():
