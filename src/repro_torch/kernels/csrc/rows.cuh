@@ -1,8 +1,9 @@
 // Device pieces shared by the kernels that read only some rows of a matrix
 // (K3 weighted_sum, the masked route of K2 partial_sqdist, K7
 // masked_neighbor_reduce): compacting a row of weights or mask entries into
-// the ascending list of the rows to read, fixed-order block sums, and the
-// loads of a warp's 128 coordinates of one row.
+// the ascending list of the rows to read, fixed-order block sums, the loads
+// of a warp's 128 coordinates of one row, and the fixed-order sum of the
+// kept rows that K3 and K7's trim-0 route share.
 #pragma once
 
 #include "common.cuh"
@@ -122,6 +123,83 @@ __device__ __forceinline__ void store_cols(float* p, int64_t d0, int lane,
     const int64_t d = col_of<VEC>(d0, lane, i);
     if (d < D) p[d] = y[i];
   }
+}
+
+// ---- Fixed-order sums of the rows a predicate keeps (K3 weighted_sum, K7's
+// trim-0 route) -----------------------------------------------------------------
+
+constexpr int kSumWarps = 8;                 // warps per block, each over a share of the rows
+constexpr int kSumThreads = 32 * kSumWarps;
+constexpr int kSumCols = 32 * 4;             // coordinates per block, 4 a lane
+constexpr int kSumUnroll = 8;                // rows in flight per warp
+constexpr int kSumCap = 2048;                // entries compacted at a time
+
+__device__ __forceinline__ void fma4(float w, const float4& v, float4& acc) {
+  acc.x = fmaf(w, v.x, acc.x);
+  acc.y = fmaf(w, v.y, acc.y);
+  acc.z = fmaf(w, v.z, acc.z);
+  acc.w = fmaf(w, v.w, acc.w);
+}
+
+// Bytes of dynamic shared memory sum_kept_rows needs for S entries.
+__host__ __forceinline__ size_t kept_rows_smem(long long S, bool weighted) {
+  return static_cast<size_t>(S < kSumCap ? S : kSumCap) * (weighted ? 8 : 4);
+}
+
+// The block body of a sum over the rows s of z (at z + s * ld) whose entry
+// v[s] (s in [0, S)) passes keep, times v[s] with kWeighted, else once each,
+// over the 128 coordinates from d0 = blockIdx.x * kSumCols.  The kept
+// entries are compacted kSumCap at a time, ascending, into
+// kept_rows_smem(S, kWeighted) bytes of dynamic shared memory; warp w takes
+// the compacted rows w, w + 8, ... with up to kSumUnroll rows' loads in
+// flight and carries its sum from chunk to chunk; the 8 warps' sums are
+// added in warp order.  The order depends on nothing but v, so every run
+// gives the same bits.  S <= kSumCap (one chunk) takes a straight-line call
+// of the same chunk body, with the same bits: on the H100 it saves about
+// 0.18 us of K3's 5 us at workload B and 3 us of K7's 157 us at D
+// (tools/torch_kernel_times.py).  Every thread of the block (kSumThreads)
+// must call it.
+// Returns true in warp 0, whose lanes then hold in acc the sums of their 4
+// coordinates (as load_cols lays them out), false elsewhere.  VEC: z and ld
+// allow float4 loads.
+template <bool VEC, bool kWeighted, typename Keep>
+__device__ bool sum_kept_rows(const float* __restrict__ z, const float* __restrict__ v,
+                              int S, Keep keep, int64_t ld, int64_t D, float4& acc) {
+  extern __shared__ int s_row[];   // a chunk's kept rows, then (kWeighted) their weights
+  float* s_wt = kWeighted ? reinterpret_cast<float*>(s_row + min(S, kSumCap)) : nullptr;
+  __shared__ int warp_n[kSumWarps];
+  __shared__ float4 part[kSumWarps - 1][32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int64_t d0 = static_cast<int64_t>(blockIdx.x) * kSumCols;
+  acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto chunk = [&](int lo, int hi) {
+    const int n = compact<kSumWarps>(v, lo, hi, keep, s_row, s_wt, warp_n);
+    for (int j = warp; j < n; j += kSumUnroll * kSumWarps) {
+      float4 x[kSumUnroll];   // up to kSumUnroll rows' loads in flight, then in order
+#pragma unroll
+      for (int u = 0; u < kSumUnroll; ++u)
+        if (j + u * kSumWarps < n)
+          x[u] = load_cols<VEC>(z + s_row[j + u * kSumWarps] * ld, d0, lane, D);
+#pragma unroll
+      for (int u = 0; u < kSumUnroll; ++u)
+        if (j + u * kSumWarps < n) {
+          if (kWeighted)
+            fma4(s_wt[j + u * kSumWarps], x[u], acc);
+          else
+            add4(x[u], acc);
+        }
+    }
+  };
+  if (S <= kSumCap)
+    chunk(0, S);
+  else
+    for (int c0 = 0; c0 < S; c0 += kSumCap) chunk(c0, min(S, c0 + kSumCap));
+  if (warp > 0) part[warp - 1][lane] = acc;
+  __syncthreads();
+  if (warp != 0) return false;
+#pragma unroll
+  for (int i = 0; i < kSumWarps - 1; ++i) add4(part[i][lane], acc);
+  return true;
 }
 
 // n rows (or receivers) over the grid's y and z dimensions, each at most

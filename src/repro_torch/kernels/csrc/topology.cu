@@ -16,18 +16,20 @@
 // the mask and the (R, D) output, 409.4 MB: 122.21 us at 3.35 TB/s).
 //
 // Every route starts the same way: a block owns one receiver (the grid's y
-// and z dimensions, rows.cuh's grid_yz, so any R) and a tile
-// of coordinates, sums the receiver's mask row in a fixed order (n_r), and
-// compacts its members into an ascending list of senders in shared memory, up
-// to 2,048 at a time (a ballot and a prefix count per warp, rows.cuh).  Only
-// the members' rows are read, along D and coalesced, so any S runs and no
-// slab is staged.  The wrapper picks the route from trim (topology.route):
+// and z dimensions, rows.cuh's grid_yz, so any R) and a tile of
+// coordinates, and sums the receiver's mask row in a fixed order (n_r).
+// "sum" and "select" compact the members into an ascending list of senders
+// in shared memory, up to 2,048 at a time (a ballot and a prefix count per
+// warp, rows.cuh), and "rank" skips the non-members.  Only the members' rows
+// are read, along D and coalesced, so any S runs and no slab is staged.  masked_neighbor_reduce_f32 picks the route from trim and
+// reports it back, and the wrapper counts it (topology.ROUTE_LAUNCHES):
 //
-// * "sum", trim = 0: the fixed-order sum of the members' rows, K3's layout
-//   (8 warps over 128 coordinates, 4 a lane, float4 loads where the base
-//   and strides allow; members split across the warps, warp w taking
-//   members w, w + 8, ...; up to 8 rows' loads in flight a warp; the 8
-//   partial sums added in warp order), divided by max(n_r, 1).
+// * "sum", trim = 0: the fixed-order sum of the members' rows, in the body
+//   K3 runs (rows.cuh's sum_kept_rows: 8 warps over 128 coordinates, 4 a
+//   lane, float4 loads where the base and strides allow; members split
+//   across the warps, warp w taking members w, w + 8, ...; up to 8 rows'
+//   loads in flight a warp; the 8 partial sums added in warp order),
+//   divided by max(n_r, 1).
 // * "select", 1 <= trim <= 16 (a template over trim): one coordinate a
 //   thread, 128 a block, coalesced scalar loads, 4 rows in flight, one pass.
 //   The first 2 * trim members' values are sorted at once in registers (a
@@ -56,7 +58,7 @@
 //
 // Registers and spills of each specialisation (`nvcc -Xptxas -v`, printed by
 // chip_smoke.py's build phase): "select" 32 registers at trim 1-4, 40 at
-// 5-6, 48 at 7-10, 56 at 11-14, 64 at 15-16; "sum" 64 with scalar loads, 66
+// 5-6, 48 at 7-10, 56 at 11-14, 64 at 15-16; "sum" 68 with scalar loads, 64
 // with float4 loads; "rank" 30; none spills.
 //
 // NaN inputs: a member's NaN is not struck out; it is ordered above +inf, so
@@ -84,7 +86,7 @@ namespace {
 constexpr int kCap = 2048;              // members compacted at a time
 constexpr int kMaxSelectTrim = 16;
 
-// Routes, as topology.py passes them.
+// Routes, as masked_neighbor_reduce_f32 reports them (topology.ROUTES).
 constexpr int kRouteSum = 0;
 constexpr int kRouteSelect = 1;
 constexpr int kRouteRank = 2;
@@ -110,50 +112,23 @@ __device__ float mask_total(const float* __restrict__ m, int S, float* s_red) {
 
 // ---- "sum": trim = 0 -------------------------------------------------------
 
-constexpr int kSumWarps = 8;
-constexpr int kSumThreads = 32 * kSumWarps;
-constexpr int kSumCols = 128;
-constexpr int kSumUnroll = 8;
-
 template <bool VEC>
-__global__ void __launch_bounds__(kSumThreads)
+__global__ void __launch_bounds__(rows::kSumThreads)
 masked_sum_kernel(const float* __restrict__ x, const float* __restrict__ mask,
                   float* __restrict__ out, int R, int S, int64_t D, int64_t rs,
                   int64_t ss) {
-  __shared__ int s_row[kCap];
-  __shared__ int warp_n[kSumWarps];
-  __shared__ float s_red[kSumWarps];
-  __shared__ float4 part[kSumWarps - 1][32];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __shared__ float s_red[rows::kSumWarps];
   const int64_t r = rows::grid_row();
   if (r >= R) return;   // the whole block
   mask += r * S;
-  x += r * rs;
-  const int64_t d0 = static_cast<int64_t>(blockIdx.x) * kSumCols;
-  const float n = mask_total<kSumWarps>(mask, S, s_red);
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int c0 = 0; c0 < S; c0 += kCap) {
-    const int cnt = rows::compact<kSumWarps>(mask, c0, min(S, c0 + kCap),
-                                             rows::Positive(), s_row, nullptr, warp_n);
-    for (int j = warp; j < cnt; j += kSumUnroll * kSumWarps) {
-      float4 v[kSumUnroll];
-#pragma unroll
-      for (int u = 0; u < kSumUnroll; ++u)
-        if (j + u * kSumWarps < cnt)
-          v[u] = rows::load_cols<VEC>(x + s_row[j + u * kSumWarps] * ss, d0, lane, D);
-#pragma unroll
-      for (int u = 0; u < kSumUnroll; ++u)
-        if (j + u * kSumWarps < cnt) rows::add4(v[u], acc);
-    }
-  }
-  if (warp > 0) part[warp - 1][lane] = acc;
-  __syncthreads();
-  if (warp != 0) return;
-#pragma unroll
-  for (int i = 0; i < kSumWarps - 1; ++i) rows::add4(part[i][lane], acc);
+  const float n = mask_total<rows::kSumWarps>(mask, S, s_red);
+  float4 acc;
+  if (!rows::sum_kept_rows<VEC, false>(x + r * rs, mask, S, rows::Positive(), ss, D, acc))
+    return;
   const float den = fmaxf(n, 1.f);
   acc = make_float4(acc.x / den, acc.y / den, acc.z / den, acc.w / den);
-  rows::store_cols<VEC>(out + r * D, d0, lane, D, acc);
+  rows::store_cols<VEC>(out + r * D, static_cast<int64_t>(blockIdx.x) * rows::kSumCols,
+                        threadIdx.x % 32, D, acc);
 }
 
 // ---- "select": 1 <= trim <= 16 ------------------------------------------------
@@ -309,27 +284,30 @@ int launch_select(const float* x, const float* mask, float* out, int R, int S,
 }  // namespace
 
 // x: (R, S, D) float32 at x[r * rs + s * ss + d]; mask: (R, S), out: (R, D)
-// float32 contiguous; 0 <= trim; route: 0 "sum" (trim 0), 1 "select"
-// (1 <= trim <= 16), 2 "rank" (any trim).  A route that does not serve trim
-// returns cudaErrorInvalidValue.
+// float32 contiguous; 0 <= trim.  Picks the route from trim and writes its
+// code to *route: 0 "sum" (trim 0), 1 "select" (1 <= trim <= 16), 2 "rank"
+// (beyond).
 REPRO_EXPORT int masked_neighbor_reduce_f32(const float* x, const float* mask,
                                             float* out, int R, int S,
                                             long long D, long long rs,
-                                            long long ss, int trim, int route,
+                                            long long ss, int trim, int* route,
                                             void* stream) {
+  *route = trim == 0 ? kRouteSum : trim <= kMaxSelectTrim ? kRouteSelect : kRouteRank;
   if (R == 0 || D == 0) return static_cast<int>(cudaGetLastError());
   const auto s = static_cast<cudaStream_t>(stream);
-  if (route == kRouteSum && trim == 0) {
+  if (*route == kRouteSum) {
     const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && ss % 4 == 0 &&
                      rs % 4 == 0;
-    const dim3 grid = rows::grid_yz(static_cast<unsigned>((D + kSumCols - 1) / kSumCols), R);
+    const dim3 grid = rows::grid_yz(
+        static_cast<unsigned>((D + rows::kSumCols - 1) / rows::kSumCols), R);
+    const size_t smem = rows::kept_rows_smem(S, false);
     if (vec)
-      masked_sum_kernel<true><<<grid, kSumThreads, 0, s>>>(x, mask, out, R, S, D, rs, ss);
+      masked_sum_kernel<true><<<grid, rows::kSumThreads, smem, s>>>(x, mask, out, R, S, D, rs, ss);
     else
-      masked_sum_kernel<false><<<grid, kSumThreads, 0, s>>>(x, mask, out, R, S, D, rs, ss);
+      masked_sum_kernel<false><<<grid, rows::kSumThreads, smem, s>>>(x, mask, out, R, S, D, rs, ss);
     return static_cast<int>(cudaGetLastError());
   }
-  if (route == kRouteSelect && trim >= 1 && trim <= kMaxSelectTrim) {
+  if (*route == kRouteSelect) {
     switch (trim) {
 #define REPRO_SELECT(T) \
   case T:               \
@@ -340,11 +318,9 @@ REPRO_EXPORT int masked_neighbor_reduce_f32(const float* x, const float* mask,
       REPRO_SELECT(13) REPRO_SELECT(14) REPRO_SELECT(15) REPRO_SELECT(16)
 #undef REPRO_SELECT
     }
+    *route = kRouteRank;   // a trim with no case above: the rank count serves any
   }
-  if (route == kRouteRank && trim >= 0) {
-    const dim3 grid = rows::grid_yz(static_cast<unsigned>((D + kRankThreads - 1) / kRankThreads), R);
-    masked_rank_kernel<<<grid, kRankThreads, 0, s>>>(x, mask, out, R, S, D, rs, ss, trim);
-    return static_cast<int>(cudaGetLastError());
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid = rows::grid_yz(static_cast<unsigned>((D + kRankThreads - 1) / kRankThreads), R);
+  masked_rank_kernel<<<grid, kRankThreads, 0, s>>>(x, mask, out, R, S, D, rs, ss, trim);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -42,10 +42,11 @@
 //
 // K3 weighted_sum: out[r, d] = sum_s a[r, s] * z[r, s, d]  (unnormalized).
 // Replaces: repro/kernels/weiszfeld.py, weighted_sum_call (_wsum_kernel).
-// It reads only the rows of nonzero weight: each block of 8 warps compacts
+// It reads only the rows of nonzero weight, in rows.cuh's sum_kept_rows
+// (the body K7's trim-0 route shares): each block of 8 warps compacts
 // its receiver's nonzero weights, 2,048 weights at a time, into shared
 // memory as (row, weight) pairs in ascending row order (a ballot and a
-// prefix count per warp, rows.cuh), then covers 128 coordinates, 4
+// prefix count per warp), then covers 128 coordinates, 4
 // consecutive ones a thread (float4 loads where the base and the row stride
 // allow, else 4 scalar loads, so a column slice z[..., a:b] of a wider buffer
 // is read in place).  The compacted rows of each chunk are split across the
@@ -293,83 +294,31 @@ sqdist_masked_partial_kernel(const float* __restrict__ z, const float* __restric
   }
 }
 
-constexpr int kWsWarps = 8;                  // warps per block, each over a share of the rows
-constexpr int kWsThreads = 32 * kWsWarps;
-constexpr int kWsCols = 32 * 4;              // coordinates per block, 4 a thread
-constexpr int kWsUnroll = 8;                 // rows in flight per thread
-constexpr int kWsCap = 2048;                 // weights compacted at a time (16 KB)
-
-__device__ __forceinline__ void fma4(float w, const float4& v, float4& acc) {
-  acc.x = fmaf(w, v.x, acc.x);
-  acc.y = fmaf(w, v.y, acc.y);
-  acc.z = fmaf(w, v.z, acc.z);
-  acc.w = fmaf(w, v.w, acc.w);
-}
-
-// Adds a[row] * z[row] for the n compacted rows of one chunk to the warp's
-// share (warp w takes rows w, w + kWsWarps, ...), kWsUnroll rows' loads in
-// flight.
+// Grid (D-blocks of rows::kSumCols, rows::grid_yz over R); a: (R, W)
+// contiguous, out: (R, D) contiguous; rows::kept_rows_smem(W, true) bytes
+// of dynamic shared memory.  VEC: z, ld and rs allow float4 loads
+// (16-byte-aligned base, ld and rs multiples of 4).
 template <bool VEC>
-__device__ __forceinline__ void weighted_rows(const float* z, const int* s_row,
-                                              const float* s_wt, int n, int64_t ld,
-                                              int64_t d0, int64_t D, float4& acc) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int j = warp; j < n; j += kWsUnroll * kWsWarps) {
-    float4 v[kWsUnroll];   // up to kWsUnroll rows' loads in flight, then in order
-#pragma unroll
-    for (int u = 0; u < kWsUnroll; ++u)
-      if (j + u * kWsWarps < n)
-        v[u] = rows::load_cols<VEC>(z + s_row[j + u * kWsWarps] * ld, d0, lane, D);
-#pragma unroll
-    for (int u = 0; u < kWsUnroll; ++u)
-      if (j + u * kWsWarps < n) fma4(s_wt[j + u * kWsWarps], v[u], acc);
-  }
-}
-
-// Grid (D-blocks of 128, rows::grid_yz over R); a: (R, W)
-// contiguous, out: (R, D) contiguous; min(W, kWsCap) * 8 bytes of dynamic
-// shared memory.  VEC: z, ld and rs allow float4 loads (16-byte-aligned
-// base, ld and rs multiples of 4).
-template <bool VEC>
-__global__ void __launch_bounds__(kWsThreads)
+__global__ void __launch_bounds__(rows::kSumThreads)
 weighted_sum_kernel(const float* __restrict__ z, const float* __restrict__ a,
                     float* __restrict__ out, int R, int W, int64_t D, int64_t ld,
                     int64_t rs) {
-  extern __shared__ float s_wt[];   // a chunk's nonzero weights, then their rows
-  int* s_row = reinterpret_cast<int*>(s_wt + min(W, kWsCap));
-  __shared__ int warp_n[kWsWarps];
-  __shared__ float4 part[kWsWarps - 1][32];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int64_t r = rows::grid_row();
   if (r >= R) return;   // the whole block
-  a += r * W;
-  z += r * rs;
-  const int64_t d0 = static_cast<int64_t>(blockIdx.x) * kWsCols;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (W <= kWsCap) {   // one chunk, in straight-line code
-    const int n = rows::compact<kWsWarps>(a, 0, W, rows::NonZero(), s_row, s_wt, warp_n);
-    weighted_rows<VEC>(z, s_row, s_wt, n, ld, d0, D, acc);
-  } else {
-    for (int c0 = 0; c0 < W; c0 += kWsCap) {
-      const int n = rows::compact<kWsWarps>(a, c0, min(W, c0 + kWsCap),
-                                            rows::NonZero(), s_row, s_wt, warp_n);
-      weighted_rows<VEC>(z, s_row, s_wt, n, ld, d0, D, acc);
-    }
-  }
-  if (warp > 0) part[warp - 1][lane] = acc;
-  __syncthreads();
-  if (warp != 0) return;
-#pragma unroll
-  for (int i = 0; i < kWsWarps - 1; ++i) rows::add4(part[i][lane], acc);
-  rows::store_cols<VEC>(out + r * D, d0, lane, D, acc);
+  float4 acc;
+  if (rows::sum_kept_rows<VEC, true>(z + r * rs, a + r * W, W, rows::NonZero(), ld, D,
+                                     acc))
+    rows::store_cols<VEC>(out + r * D, static_cast<int64_t>(blockIdx.x) * rows::kSumCols,
+                          threadIdx.x % 32, D, acc);
 }
 
 template <bool VEC>
 int launch_weighted_sum(const float* z, const float* a, float* out, int R, int W,
                         int64_t D, int64_t ld, int64_t rs, cudaStream_t s) {
-  const size_t smem = static_cast<size_t>(W < kWsCap ? W : kWsCap) * 8;
-  const dim3 grid = rows::grid_yz(static_cast<unsigned>((D + kWsCols - 1) / kWsCols), R);
-  weighted_sum_kernel<VEC><<<grid, kWsThreads, smem, s>>>(z, a, out, R, W, D, ld, rs);
+  const dim3 grid = rows::grid_yz(
+      static_cast<unsigned>((D + rows::kSumCols - 1) / rows::kSumCols), R);
+  weighted_sum_kernel<VEC><<<grid, rows::kSumThreads, rows::kept_rows_smem(W, true), s>>>(
+      z, a, out, R, W, D, ld, rs);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,12 +10,11 @@ and the ``trim`` smallest, divided by ``max(n_r - 2 * trim, 1)`` with
 
 It launches the CUDA kernels of ``csrc/topology.cu`` on float32 inputs,
 for any R, S and D that fit in memory, reading only the members' rows
-(``mask > 0``).  :func:`route` picks the kernel from ``trim``: "sum" for
-trim 0 (the fixed-order masked sum), "select" for trims up to
-:data:`MAX_SELECT_TRIM` (the trim largest and smallest kept in registers,
-then the values between them summed), "rank" beyond (each value ranked
-against the others; correct, not fast).  :data:`ROUTE_LAUNCHES` counts each
-route.  :func:`masked_neighbor_reduce_plain` is the same function in plain
+(``mask > 0``).  The library picks the kernel from ``trim`` and reports it
+back: "sum" for trim 0 (the fixed-order masked sum), "select" for trims up
+to 16 (the trim largest and smallest kept in registers, then the values
+between them summed), "rank" beyond (each value ranked against the others;
+correct, not fast).  :data:`ROUTE_LAUNCHES` counts each route.  :func:`masked_neighbor_reduce_plain` is the same function in plain
 PyTorch (sort with non-neighbours filled with +inf, keep ranks
 ``[trim, n - trim)``), which the CPU path runs and the card's checks
 compare against.  The kernels order NaN above +inf, as that sort does.
@@ -39,22 +38,13 @@ from repro_torch.kernels.weiszfeld import batch_strides
 _SIGNATURES = {
     "masked_neighbor_reduce_f32": [ctypes.c_void_p] * 3 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_void_p],
 }
 
-ROUTES = ("sum", "select", "rank")   # the codes 0, 1, 2 of csrc/topology.cu
-# The largest trim the "select" kernel is built for (kMaxSelectTrim there).
-MAX_SELECT_TRIM = 16
+ROUTES = ("sum", "select", "rank")   # the route codes 0, 1, 2 of csrc/topology.cu
 # Launches per route (reset with the others by ops.reset_launch_counts).
 ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
-
-
-def route(trim: int) -> str:
-    """The kernel that serves ``trim``: "sum" for 0, "select" up to
-    :data:`MAX_SELECT_TRIM`, "rank" beyond."""
-    if trim == 0:
-        return "sum"
-    return "select" if trim <= MAX_SELECT_TRIM else "rank"
 
 
 def check_inputs(exchange: torch.Tensor, mask: torch.Tensor, trim: int) -> None:
@@ -98,17 +88,17 @@ def masked_neighbor_reduce_call(exchange: torch.Tensor, mask: torch.Tensor,
                          "device")
     if not mask.is_contiguous():
         raise ValueError("masked_neighbor_reduce: mask must be contiguous")
-    kernel = route(trim)
     r, ss, rs = batch_strides(exchange)
     s, d = exchange.shape[1:]
     lib = _build.load("topology", _SIGNATURES)
     out = torch.empty((r, d), dtype=torch.float32, device=exchange.device)
+    code = ctypes.c_int(-1)
     with torch.cuda.device(exchange.device):
         rc = lib.masked_neighbor_reduce_f32(
             _build.ptr(exchange), _build.ptr(mask), _build.ptr(out), r, s, d,
-            rs, ss, int(trim), ROUTES.index(kernel),
+            rs, ss, int(trim), ctypes.byref(code),
             ctypes.c_void_p(_build.stream_of(exchange)))
     _build.check(lib, rc, "masked_neighbor_reduce")
     _build.LAUNCHES["masked_neighbor_reduce"] += 1
-    ROUTE_LAUNCHES[kernel] += 1
+    ROUTE_LAUNCHES[ROUTES[code.value]] += 1
     return out

@@ -1,7 +1,7 @@
 """Import boundary of the PyTorch port.
 
-``src/repro_torch``, ``chip_smoke.py`` and ``tools/torch_step_times.py``
-must import neither ``jax`` nor anything of the JAX package ``repro`` (the
+``src/repro_torch``, ``chip_smoke.py`` and the port's timing tools
+(``tools/torch_step_times.py``, ``tools/torch_kernel_times.py``) must import neither ``jax`` nor anything of the JAX package ``repro`` (the
 port keeps its own copy of what it needs; the GPU machine has no JAX), and
 the port's entry points must not drop to the CPU on their own.
 """
@@ -13,7 +13,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-SCRIPTS = [ROOT / "tools" / "torch_step_times.py", ROOT / "chip_smoke.py"]
+SCRIPTS = [ROOT / "tools" / "torch_step_times.py",
+           ROOT / "tools" / "torch_kernel_times.py", ROOT / "chip_smoke.py"]
 FILES = PORT_FILES + SCRIPTS
 
 

@@ -304,16 +304,20 @@ def test_masked_neighbor_reduce_kernel_reads_slices_and_broadcasts():
 @pytest.mark.parametrize("ties", [False, True])
 @pytest.mark.parametrize("s", [451, 1000, 2048])
 def test_masked_neighbor_reduce_kernel_at_many_senders(s, ties):
-    """K7 at any S, each route against the plain version: "sum" (trim 0),
-    "select" (1, 12 and 16, the largest its template serves), "rank" (17
-    and (n - 1) // 2 for the smallest neighbourhood n); two launches give
-    the same bits on every route."""
+    """K7 at any S, each route against the plain version and counted as the
+    route the library picks by trim: "sum" (trim 0), "select" (1, 12 and
+    16, the largest its template serves), "rank" (17 and (n - 1) // 2 for
+    the smallest neighbourhood n); two launches give the same bits on every
+    route."""
     _need_card()
     from repro_torch.kernels import topology as tp
     ex, mask = _masked_inputs(3, s, 70, ties, seed=s)
     n = int(mask.sum(1).min())
     for trim in (0, 1, 12, 16, 17, (n - 1) // 2):
+        ops.reset_launch_counts()
         got = tp.masked_neighbor_reduce_call(ex, mask, trim)
+        route = "sum" if trim == 0 else "select" if trim <= 16 else "rank"
+        assert tp.ROUTE_LAUNCHES == {k: int(k == route) for k in tp.ROUTES}
         _close(got, tp.masked_neighbor_reduce_plain(ex, mask, trim))
         assert torch.equal(got, tp.masked_neighbor_reduce_call(ex, mask, trim))
 

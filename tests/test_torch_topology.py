@@ -271,13 +271,18 @@ def test_partial_sqdist_plain_with_mask_matches_reference(r):
         ops.partial_sqdist(_t(ex), _t(y), _t(mask[:, :5]))
 
 
-def test_masked_neighbor_reduce_route_rule():
-    """K7's kernel by trim: "sum" for 0, "select" up to 16 (its template),
-    "rank" beyond."""
-    assert [tp.route(t) for t in (0, 1, 2, 12, 15, 16, 17, 18, 100)] == [
-        "sum", "select", "select", "select", "select", "select", "rank", "rank",
-        "rank"]
-    assert tp.MAX_SELECT_TRIM == 16 and tp.ROUTES == ("sum", "select", "rank")
+def test_masked_kernel_wrappers_refuse_cpu_tensors():
+    """K7 and K2's masked route launch on the card or raise: a CPU tensor
+    never reaches a plain version through them, and counts nothing."""
+    ex = torch.randn(3, 5, 8)
+    mask = torch.ones(3, 5)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        tp.masked_neighbor_reduce_call(ex, mask, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        wz.partial_sqdist_call(ex, ex.mean(1), mask)
+    assert tp.ROUTE_LAUNCHES == {"sum": 0, "select": 0, "rank": 0}
+    assert wz.SQDIST_ROUTE_LAUNCHES == {"unmasked": 0, "masked": 0}
 
 
 def test_unbatched_sweeps_keep_their_shapes():

@@ -3,6 +3,7 @@
 comparing two checkouts within one machine.
 
     python3 tools/torch_step_times.py [--src SRC_DIR] [--label NAME]
+                                      [--cells CELL,CELL,...]
 
 Imports ``repro_torch`` from ``SRC_DIR`` (default: this checkout's
 ``src``) and times, as ``chip_smoke.py`` drives them:
@@ -13,7 +14,11 @@ Imports ``repro_torch`` from ``SRC_DIR`` (default: this checkout's
   workers x 1,200 samples + 20 Byzantine, the 9.54 GB SAGA table),
   sign_flip, 60 steps;
 
-each with geomed and with mean.  Prints the card's name and power limit,
+each with geomed and with mean; and workload D: workload B's data, model
+and table on the erdos_renyi(70, p=0.5, seed=0) graph, trim 12, sign_flip,
+60 steps, in cells D/gradient/geomed, D/gradient/trimmed_mean,
+D/gradient/mean and D/params/geomed.  ``--cells`` picks some of the cells
+(default: all); A's run first, the others in the order given.  Prints the card's name and power limit,
 then one JSON line per cell with the median step time on the host clock
 (ms, each step ending in ``torch.cuda.synchronize()``) and every step's
 time.  Host times vary between machines by tens of percent: run two trees
@@ -29,6 +34,8 @@ import sys
 import time
 
 SEED = 0
+CELLS = ("A/geomed", "A/mean", "B/geomed", "B/mean", "D/gradient/geomed",
+         "D/gradient/trimmed_mean", "D/gradient/mean", "D/params/geomed")
 
 
 def steps_ms(torch, step_fn, state, steps):
@@ -46,7 +53,13 @@ def main() -> int:
     ap.add_argument("--src", default=os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"))
     ap.add_argument("--label", default="")
+    ap.add_argument("--cells", default=",".join(CELLS),
+                    help="comma-separated cells (default: all)")
     args = ap.parse_args()
+    cells = args.cells.split(",")
+    unknown = sorted(set(cells) - set(CELLS))
+    if unknown:
+        ap.error(f"unknown cells {unknown}; the cells are {list(CELLS)}")
     import torch
     if not torch.cuda.is_available():
         print("torch_step_times: needs a CUDA card", file=sys.stderr)
@@ -56,6 +69,7 @@ def main() -> int:
     from repro_torch.data import ijcnn1_like, logreg_loss, mnist_like, partition
     from repro_torch.models import paper_nn
     from repro_torch.optim import get_optimizer
+    from repro_torch.topology import get_topology
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
@@ -72,6 +86,8 @@ def main() -> int:
     wd = partition({"a": data.x, "b": data.y}, 50, seed=1,
                    samples_per_worker=999, device="cuda")
     for agg in ("geomed", "mean"):
+        if f"A/{agg}" not in cells:
+            continue
         cfg = RobustConfig(aggregator=agg, vr="saga", attack="sign_flip",
                            num_byzantine=20)
         init_fn, step_fn = make_federated_step(
@@ -81,13 +97,24 @@ def main() -> int:
     del data, wd
     data = mnist_like(SEED, n=60_000, device="cuda")
     wd = partition({"x": data.x, "y": data.y}, 50, seed=2, device="cuda")
-    for agg in ("geomed", "mean"):
+    trim = min(20, (get_topology("erdos_renyi", 70, seed=0, p=0.5)
+                    .min_neighborhood - 1) // 2)
+    for cell in cells:
+        if cell[0] not in "BD":
+            continue
+        extra = {}
+        if cell[0] == "D":
+            _, gossip, agg = cell.split("/")
+            extra = dict(trim=trim, topology="erdos_renyi", topology_p=0.5,
+                         topology_seed=0, gossip=gossip)
+        else:
+            agg = cell[2:]
         cfg = RobustConfig(aggregator=agg, vr="saga", attack="sign_flip",
-                           num_byzantine=20)
+                           num_byzantine=20, **extra)
         init_fn, step_fn = make_federated_step(
             paper_nn.nn_loss, wd, cfg, get_optimizer("sgd", 0.1), device="cuda")
         st = init_fn(paper_nn.init_params(SEED + 7, device="cuda"), 5)
-        emit(f"B/{agg}", steps_ms(torch, step_fn, st, 60))
+        emit(cell, steps_ms(torch, step_fn, st, 60))
         del st
         torch.cuda.empty_cache()
     return 0
