@@ -16,9 +16,13 @@ Phases, in order; any failure exits non-zero:
    shapes (W=7 and 8, D=300, J=3, L=3 segments with some coordinates in
    none) and at workload B's shapes (W=70, D=39,760, table (50, 1,200,
    39,760), L=4 for the Table I network's four leaves).  K1 within 1 ulp
-   with only the drawn table rows changed; K4 bitwise for odd W and within
-   1 ulp for even W; K2, K3 (also on a column slice), K5 and K6 within
-   rtol 1e-5 (atol 1e-5 x max|plain|: the sum runs in another order).
+   with only the drawn table rows changed; K4 bitwise on its network route
+   (W <= 128; also at 127, 128 and 129 workers with ties and +-inf) and
+   for odd W past it, within 1 ulp for even W past it, and the same bits on
+   a second launch; K2, K3 (also on a column slice), K5 and K6 within
+   rtol 1e-5 (atol 1e-5 x max|plain|: the sum runs in another order); K6
+   the same bits on three back-to-back launches and one kernel on the card
+   per call (torch.profiler).
    Then the decentralized kernels: K7 and the receiver-batched K2 (both
    routes: unmasked, and masked, which reads only the rows of mask > 0) and
    K3 at a ragged (R, S, D) = (7, 7, 300) with ties and trim 0-2, at
@@ -40,7 +44,9 @@ Phases, in order; any failure exits non-zero:
 6. Timing: each kernel's device time at workload B's shapes (torch.profiler
    kernel durations), beside its bound, its plain version and one library
    call where one computes the same function (K3: ``a @ z``; K4:
-   ``torch.quantile``); the Weiszfeld loop's time per iteration on the host
+   ``torch.quantile``), and K4's network route beside its instruction floor
+   (its float min/max a coordinate at the card's top SM clock); the
+   Weiszfeld loop's time per iteration on the host
    clock; then workload B again with mean, the step without the Weiszfeld
    loop.
 7. Workload B with every other rule of the reference's registry (median,
@@ -289,29 +295,60 @@ def check_weiszfeld(torch, w, d, gen):
     return err2, err3
 
 
-def check_order_stats(torch, w, d, trim, gen, ties=False):
-    """K4 and K5 vs their plain versions; returns the largest absolute
-    differences."""
+def k4_bitwise(w):
+    """Whether K4 must give the plain version's bits at ``w`` workers: on
+    its network route (W <= NETWORK_CAP) always, past it at odd W (within 1
+    ulp at even W)."""
+    from repro_torch.kernels import robust_stats as rs
+    return w <= rs.NETWORK_CAP or w % 2 == 1
+
+
+def check_order_stats(torch, w, d, trim, gen, ties=False, infs=False):
+    """K4 and K5 vs their plain versions (with ``infs``, +inf and -inf in
+    some columns; K5 then only where the plain version is finite); K4 gives
+    the same bits on a second launch.  Returns the largest absolute
+    differences over the finite entries."""
     from repro_torch.kernels import robust_stats as rs
     z = torch.randn((w, d), generator=gen, device="cuda")
     if ties:
         z = torch.round(z * 2.0) / 2.0
+    if infs:
+        z[: w // 3 + 1, : d // 16] = float("inf")
+        z[w // 3 + 1: w // 2 + 1, d // 32: d // 8] = float("-inf")
     med_k, med_p = rs.coordinate_median_call(z), rs.coordinate_median_plain(z)
     tm_k, tm_p = rs.trimmed_mean_call(z, trim), rs.trimmed_mean_plain(z, trim)
     torch.cuda.synchronize()
-    if w % 2:
+    if k4_bitwise(w):
         assert torch.equal(med_k, med_p), f"K4 not bitwise at {(w, d)}"
     else:
         assert ulps(med_k, med_p) <= 1, \
             f"K4 off by {ulps(med_k, med_p)} ulp at {(w, d)}"
-    ok5, err5 = close(tm_k, tm_p)
+    assert torch.equal(med_k.view(torch.int32),
+                       rs.coordinate_median_call(z).view(torch.int32)), \
+        f"K4 gave other bits on a second launch at {(w, d)}"
+    fin = torch.isfinite(tm_p)
+    ok5, err5 = close(tm_k[fin], tm_p[fin])
     assert ok5, f"K5 trimmed_mean disagrees at {(w, d)}, trim {trim}: {err5}"
-    return float((med_k - med_p).abs().max()), err5
+    fin = torch.isfinite(med_p)
+    return float((med_k[fin] - med_p[fin]).abs().max()), err5
+
+
+def device_kernels(torch, fn):
+    """The names of the kernels the card ran for one call of ``fn``
+    (torch.profiler's device records, one per launch)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
 def check_segments(torch, w, d, boundaries, gen):
     """K6 vs its plain version (coordinates past the last block in none,
-    the same bits on a second run), and K3 on each block's column slice;
+    the same bits on three back-to-back launches, one kernel on the card
+    per call), and K3 on each block's column slice;
     returns the largest relative-tolerance errors of K6 and K3."""
     from repro_torch.core.geomed import segment_ids
     from repro_torch.kernels import weiszfeld as wz
@@ -320,11 +357,15 @@ def check_segments(torch, w, d, boundaries, gen):
     a = torch.rand((w,), generator=gen, device="cuda") + 0.5
     seg = segment_ids(tuple(boundaries), d, torch.device("cuda"))
     nseg = len(boundaries)
-    got = wz.partial_sqdist_segments_call(z, y, seg, nseg)
+    runs = [wz.partial_sqdist_segments_call(z, y, seg, nseg) for _ in range(3)]
+    got = runs[0]
     ok6, err6 = close(got, wz.partial_sqdist_segments_plain(z, y, seg, nseg))
     assert ok6, f"K6 partial_sqdist_segments disagrees at {(w, d)}: {err6}"
-    assert torch.equal(got, wz.partial_sqdist_segments_call(z, y, seg, nseg)), \
-        "K6 gave other bits on a second run"
+    assert all(torch.equal(r.view(torch.int32), got.view(torch.int32))
+               for r in runs[1:]), "K6 gave other bits on back-to-back launches"
+    names = device_kernels(torch, lambda: wz.partial_sqdist_segments_call(z, y, seg, nseg))
+    assert len(names) == 1 and "sqdist_segments_kernel" in names[0], \
+        f"K6 ran {names} for one call, not one kernel"
     err3 = 0.0
     for lo, hi in boundaries:
         ok3, e = close(wz.weighted_sum_call(z[:, lo:hi], a),
@@ -373,9 +414,23 @@ def phase_kernel_checks(torch):
         errs["partial_sqdist_segments"] = max(errs["partial_sqdist_segments"], e6)
         errs["weighted_sum"] = max(errs["weighted_sum"], e3)
         log(f"kernel check messages ({w}, {d}), blocks {list(bounds)}: "
-            f"K4 max|err| {e4:.3g} ({'bitwise' if w % 2 else '<= 1 ulp'}), "
-            f"K5 (trim {trim}) {e5:.3g}, K6 {e6:.3g} (same bits twice), "
+            f"K4 max|err| {e4:.3g} ({'bitwise' if k4_bitwise(w) else '<= 1 ulp'}), "
+            f"K5 (trim {trim}) {e5:.3g}, K6 {e6:.3g} (same bits three times, one "
+            f"kernel a call), "
             f"K3 on column slices {e3:.3g} (rtol 1e-5): ok")
+    # K4 at its network route's cap and one past it (the rank count), with
+    # and without ties, +-inf in some columns.
+    from repro_torch.kernels import robust_stats as rs
+    for w in (rs.NETWORK_CAP - 1, rs.NETWORK_CAP, rs.NETWORK_CAP + 1):
+        for ties in (False, True):
+            e4, e5 = check_order_stats(torch, w, d_b, (w - 1) // 2, gen, ties, infs=True)
+            errs["coordinate_median"] = max(errs["coordinate_median"], e4)
+            errs["trimmed_mean"] = max(errs["trimmed_mean"], e5)
+        log(f"kernel check messages ({w}, {d_b}) with and without ties, +-inf in "
+            f"columns: K4 max|err| {e4:.3g} "
+            f"({'bitwise' if k4_bitwise(w) else '<= 1 ulp'}, same bits twice; "
+            f"{'network' if w <= rs.NETWORK_CAP else 'rank count'} route), "
+            f"K5 (trim {(w - 1) // 2}) {e5:.3g} (rtol 1e-5): ok")
     # K4/K5 past 454 workers (ranks counted from global memory), K2/K3 past
     # 12,288 rows (K3 compacts its weights 2,048 at a time).
     for w, d, trim in [(455, d_b, 100), (1000, d_b, 333), (5000, 1000, 2499)]:
@@ -384,7 +439,7 @@ def phase_kernel_checks(torch):
             errs["coordinate_median"] = max(errs["coordinate_median"], e4)
             errs["trimmed_mean"] = max(errs["trimmed_mean"], e5)
         log(f"kernel check messages ({w}, {d}) with and without ties: K4 max|err| "
-            f"{e4:.3g} ({'bitwise' if w % 2 else '<= 1 ulp'}), K5 (trim {trim}) "
+            f"{e4:.3g} ({'bitwise' if k4_bitwise(w) else '<= 1 ulp'}), K5 (trim {trim}) "
             f"{e5:.3g} (rtol 1e-5): ok")
     e2, e3 = check_weiszfeld(torch, 12_289, 4_000, gen)
     errs["partial_sqdist"] = max(errs["partial_sqdist"], e2)
@@ -754,6 +809,23 @@ def phase_timing(torch, state):
         log(f"timing {name} (device time): {r['ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us "
             f"({r['bound_by']}), plain {r['plain_ms'] * 1e3:.2f} us"
             + (f", library {r['library_ms'] * 1e3:.2f} us" if r["library_ms"] else ""))
+    # K4's network route beside its instruction floor: the float min/max a
+    # coordinate that the network needs at W, at 64 results a clock per SM
+    # (half the float32 FMA rate) and the card's top SM clock.
+    r = out["coordinate_median"]
+    n_minmax = rs.median_network_ops(wm)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    floor_ms = n_minmax * d / (sms * 64 * mhz * 1e6) * 1e3
+    log(f"timing coordinate_median network route (W={wm} <= {rs.NETWORK_CAP}, "
+        f"{rs.median_network_pairs(wm)[0]} wires): {r['ms'] * 1e3:.2f} us, "
+        f"{r['bound_ms'] / r['ms']:.0%} of its bound {r['bound_ms'] * 1e3:.2f} us "
+        f"({r['bound_by']}, {(wm * d * 4 + d * 4) / 1e6:.1f} MB at 3.35 TB/s); "
+        f"instruction floor {floor_ms * 1e3:.2f} us ({n_minmax} float min/max a "
+        f"coordinate x {d} coordinates / ({sms} SMs x 64 a clock x {mhz:.0f} MHz), "
+        f"against {wm * wm} comparisons a coordinate for the rank count)")
     # The Weiszfeld loop as the step runs it: K2, (W,)-sized ops, K3 and the
     # host read of the stop test, per iteration.
     iters = 16

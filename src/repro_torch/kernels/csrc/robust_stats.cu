@@ -10,8 +10,34 @@
 // trimmed_mean_call (_trimmed_kernel).
 //
 // The TPU kernels keep a (W, tile) slab in VMEM and sort it along the worker
-// axis.  Here a block of kTile threads owns kTile coordinates, one column per
-// thread, and each thread ranks its column's values by counting,
+// axis.  Here one thread owns one column (coordinate), and two designs
+// serve it.
+//
+// K4 at W <= 128 (kNetCap): a sorting network in registers.  Each thread
+// loads its column's W values into registers (W coalesced loads, all in
+// flight at once), pads them with +inf to N, W rounded up to a multiple of 8
+// (one network for each of the 16 widths N = 8, 16, ..., 128), and runs
+// Batcher's odd-even merge sort on them: the network for the next power of
+// two with every compare-exchange that touches a wire >= N left out (its
+// min goes to the lower wire, so +inf padding there would never move).
+// Only ranks (N - 8) / 2 .. N / 2 are read, which hold lo and hi for every W
+// of the bucket, so the compiler drops every compare-exchange whose outputs
+// cannot reach them: at W = 70 (N = 72) 1,163 float min/max a coordinate
+// (robust_stats.median_network_ops), against the W^2 = 4,900 comparisons
+// of the rank count below, with no shared memory (94 registers at N = 72,
+// 160 at N = 128, no spills).  NaN orders last, as the plain version's sort puts it: each NaN
+// enters the network as +inf and is counted, and a rank of W - #NaN or more
+// is NaN.  The selection moves values, so the result is the plain
+// version's bits (a zero's sign aside where -0 and +0 share a column: the
+// sort leaves their order open too), and (lo + hi) * 0.5 is computed with
+// the same two roundings.  One warp a block, so the ~1,243 warps at D =
+// 39,760 spread evenly over the 132 SMs.  The network body
+// (load_column, sort_network) is generic over the ranks read, for K5's
+// kept-range sum.
+//
+// Past that cap, and for K5 at every W, a block of kTile threads owns kTile
+// coordinates, one column per thread, and each thread ranks its column's
+// values by counting,
 //
 //     rank(i) = #{j : v_j < v_i  or  (v_j == v_i and j < i)},
 //
@@ -34,20 +60,118 @@
 // Both use 32 registers and no spills.
 //
 // Bound on the H100: the W * D * 4 bytes of z are read from HBM once
-// (11.1 MB at W = 70, D = 39,760: 3.3 us), but the counting does W^2
-// comparisons per coordinate (4,900 at W = 70), one thread per coordinate:
-// this simple form is bound by instruction issue and latency (about nine
-// warps per SM at D = 39,760), not by HBM.  Splitting a column's candidates
-// over several threads, or a selection network in registers, is later work.
+// (11.1 MB at W = 70, D = 39,760: 3.3 us).  The network's 1,163 min/max a
+// coordinate at W = 70 take 2.8 us at 64 results per clock per SM (half the
+// float32 FMA rate) on 132 SMs at 1.98 GHz, below the bytes.  The rank count
+// does W^2 comparisons per coordinate (4,900 at W = 70) and is bound by
+// instruction issue and latency (about nine warps per SM at D = 39,760), not
+// by HBM: K5's route, to be replaced by a sum over the network's kept ranks.
 //
-// NaN: every comparison with NaN is false, so a NaN gets rank 0 and the
-// ranks of its column are no longer a permutation; that column's result is
-// then unspecified and may differ from the plain version (which sorts NaN
-// last).  NaN rows come only from the fault attacks, which the guards of
-// the reference remove before aggregation.
+// NaN on the rank-count routes: every comparison with NaN is false, so a
+// NaN gets rank 0 and the ranks of its column are no longer a permutation;
+// that column's result is then unspecified and may differ from the plain
+// version (which sorts NaN last).  NaN rows come only from the fault
+// attacks, which the guards of the reference remove before aggregation.
+#include <cmath>
+
 #include "common.cuh"
 
 namespace {
+
+// ---- K4 at W <= kNetCap: a sorting network in registers --------------------
+
+constexpr int kNetCap = 128;     // the most workers the network route takes
+constexpr int kNetStep = 8;      // one network per multiple of 8 workers
+constexpr int kNetThreads = 32;  // one column a thread, one warp a block
+
+__host__ __device__ constexpr int pow2_at_least(int n) { return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2); }
+
+// One stage of Batcher's odd-even merge sort on P = pow2_at_least(N) wires,
+// merge size p = 2^SP, distance k = 2^SK, keeping only the compare-exchanges
+// between wires below N (min to the lower wire).
+template <int N, int SP, int SK>
+__device__ __forceinline__ void sort_stage(float (&v)[N]) {
+  constexpr int P = pow2_at_least(N), p = 1 << SP, k = 1 << SK;
+#pragma unroll
+  for (int j = k % p; j + k < P; j += 2 * k) {
+#pragma unroll
+    for (int i = 0; i < k; ++i) {
+      const int a = i + j, b = a + k;
+      if (b < N && a / (2 * p) == b / (2 * p)) {
+        const float x = v[a], y = v[b];
+        v[a] = fminf(x, y);
+        v[b] = fmaxf(x, y);
+      }
+    }
+  }
+}
+
+// The stages in order: SP = 0, 1, ...; within each, SK = SP down to 0.
+template <int N, int SP = 0, int SK = 0>
+__device__ __forceinline__ void sort_network(float (&v)[N]) {
+  if constexpr ((1 << SP) < pow2_at_least(N)) {
+    sort_stage<N, SP, SK>(v);
+    if constexpr (SK > 0)
+      sort_network<N, SP, SK - 1>(v);
+    else
+      sort_network<N, SP + 1, SP + 1>(v);
+  }
+}
+
+// Column `col` of the (W, D) matrix z into v[0 .. W), +inf in v[W .. N) and
+// in place of each NaN; returns the number of NaN.
+template <int N>
+__device__ __forceinline__ int load_column(const float* __restrict__ z, int W,
+                                           int64_t D, int64_t col, float (&v)[N]) {
+  int nan = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float x = i < W ? __ldg(z + static_cast<int64_t>(i) * D + col) : INFINITY;
+    const bool is_nan = x != x;
+    nan += is_nan;
+    v[i] = is_nan ? INFINITY : x;
+  }
+  return nan;
+}
+
+// The median of each column for W in (N - kNetStep, N]: the values of ranks
+// lo = (W - 1) / 2 and hi = W / 2 of the sorted column, NaN from rank
+// W - #NaN on.
+template <int N>
+__global__ void __launch_bounds__(kNetThreads)
+median_network_kernel(const float* __restrict__ z, float* __restrict__ out, int W,
+                      int64_t D) {
+  const int64_t col = static_cast<int64_t>(blockIdx.x) * kNetThreads + threadIdx.x;
+  if (col >= D) return;
+  float v[N];
+  const int nan = load_column<N>(z, W, D, col, v);
+  sort_network<N>(v);
+  const int lo = (W - 1) / 2, hi = W / 2;
+  float a = 0.f, b = 0.f;
+#pragma unroll
+  for (int r = (N - kNetStep) / 2; r <= N / 2; ++r) {   // every lo and hi of the bucket
+    if (r == lo) a = v[r];
+    if (r == hi) b = v[r];
+  }
+  if (lo >= W - nan) a = NAN;
+  if (hi >= W - nan) b = NAN;
+  out[col] = lo == hi ? a : __fmul_rn(__fadd_rn(a, b), 0.5f);
+}
+
+// Launches the network of the smallest multiple of kNetStep >= W.
+template <int N = kNetStep>
+int launch_median_network(const float* z, float* out, int W, long long D,
+                          cudaStream_t s) {
+  if constexpr (N < kNetCap) {
+    if (W > N) return launch_median_network<N + kNetStep>(z, out, W, D, s);
+  }
+  const unsigned blocks = static_cast<unsigned>((D + kNetThreads - 1) / kNetThreads);
+  median_network_kernel<N><<<blocks, kNetThreads, 0, s>>>(z, out, W,
+                                                           static_cast<int64_t>(D));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- The rank count: K4 past kNetCap, K5 at every W ------------------------
 
 constexpr int kTile = 128;   // coordinates (threads) per block
 constexpr int kGroup = 4;    // candidates ranked per pass over the column
@@ -185,9 +309,14 @@ int launch(const float* z, float* out, int W, long long D, int lo, int hi,
 
 }  // namespace
 
-// z: (W, D) float32 contiguous, out: (D,); W >= 1.
+// z: (W, D) float32 contiguous, out: (D,); W >= 1.  The network route up
+// to kNetCap workers, the rank count past it.
 REPRO_EXPORT int coordinate_median_f32(const float* z, float* out, int W,
                                        long long D, void* stream) {
+  if (W <= kNetCap) {
+    if (D == 0) return static_cast<int>(cudaGetLastError());
+    return launch_median_network(z, out, W, D, static_cast<cudaStream_t>(stream));
+  }
   return launch<true>(z, out, W, D, (W - 1) / 2, W / 2, stream);
 }
 

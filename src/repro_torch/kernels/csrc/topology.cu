@@ -64,13 +64,11 @@
 // NaN inputs: a member's NaN is not struck out; it is ordered above +inf, so
 // it is dropped when it falls among the trim largest, and a kept NaN (with
 // trim = 0 every member is kept) makes its coordinate's result NaN.  The
-// plain version, like the
-// reference's jnp engine, sorts the members together with the non-members
-// filled in as +inf, and NaN sorts after that fill: a NaN it would keep is
-// then replaced by a fill, so it gives +inf where the kernel gives NaN, when
-// the receiver has non-members.  That edge of non-finite messages waits for
-// the guards (ROADMAP Queue C, A7e), as K3's does; no ported attack sends
-// one.  Non-members are never read, so a NaN or inf there changes nothing.
+// plain version orders the non-members after every member, a NaN member
+// included, so it gives the same NaN.  Non-members are never read, so a
+// NaN or inf there changes nothing, here and in the plain version: the
+// reference's masked engine promises that mask-0 senders do not influence
+// the result (repro/topology/masked.py).
 //
 // Strides: x[r, s, d] lies at r * rs + s * ss + d, so a column slice of a
 // wider exchange, or one shared message row per sender broadcast to every

@@ -30,14 +30,13 @@
 //   non-member, whose row is never read.  So the bits depend on nothing but
 //   the inputs (not on R, the grid or the other receivers).  For finite z a
 //   non-member's distance only ever meets a weight of 0, so leaving it at 0
-//   changes no iterate.  A mask-0 row holding inf or NaN is the one input on
-//   which the masked route and the unmasked one part (inf or NaN there, and
-//   the masked Weiszfeld's 0 / inf or 0 / NaN weight after it; 0 here, the
-//   row never read, as the plain version's where(mask > 0, sq, 0) gives);
-//   the reference's masked engine promises that mask-0 senders do not
-//   influence the result (repro/topology/masked.py), and the skip keeps that
-//   promise.  It is K3's non-finite zero-weight edge, below.  96 registers
-//   (97 with float4 loads), no spills.
+//   changes no iterate; a mask-0 row holding inf or NaN gives 0 too, as the
+//   plain version's where(mask > 0, sq, 0) does (the unmasked route would
+//   give inf or NaN).  The reference's masked engine promises that mask-0
+//   senders do not influence the result (repro/topology/masked.py); the
+//   port keeps that promise in its kernels and plain versions alike, where
+//   the reference's own jnp engine lets 0 * inf through.  96 registers (97
+//   with float4 loads), no spills.
 // No atomics: the same inputs give the same bits on every run.
 //
 // K3 weighted_sum: out[r, d] = sum_s a[r, s] * z[r, s, d]  (unnormalized).
@@ -55,12 +54,10 @@
 // sums are added in warp order in shared memory.  The split depends on
 // nothing but the weights, so a single matrix gives the same bits as each
 // receiver of a batch, and every run the same bits.  For finite z a row of
-// weight exactly 0 adds +-0, so skipping it changes no sum.  A zero-weight row
-// holding inf or NaN is the one input on which the kernel and the plain
-// version part (0 * inf is NaN there, skipped here); the reference's masked
-// engine promises that mask-0 senders do not influence the result
-// (repro/topology/masked.py), and the skip keeps that promise.  64
-// registers, no spills.
+// weight exactly 0 adds +-0, so skipping it changes no sum; a zero-weight row
+// holding inf or NaN contributes nothing, here and in the plain version
+// (which zeroes such rows before its product), as the masked engine's
+// promise above asks.  64 registers, no spills.
 //
 // K6 partial_sqdist_segments: out[w, s] = sum over the coordinates d of
 // segment s of (z[w, d] - y[d])^2, for s in [0, L); a coordinate whose
@@ -69,11 +66,40 @@
 // (_sqdist_seg_kernel), which takes an (L, p) one-hot membership matrix and
 // accumulates a (W, L) block across its sequential grid.  The port takes the
 // (D,) int32 ids instead (the same function without L x the bytes) and
-// reduces in two passes like K2: a (D-chunk, worker) grid writes one partial
-// sum per (worker, segment, chunk) -- each block sums only the segments its
-// chunk holds, one fixed-order block reduction each, and writes 0 for the
-// rest -- then one block per (worker, segment) sums its row of chunks.  No
-// atomics: the same inputs give the same bits on every run.
+// reduces in one launch.  A block of 256 threads owns a chunk of 2,048
+// coordinates, 8 a thread (float4 loads of z, y and the ids where the bases
+// and D allow; scalar loads otherwise), for a group of 4 workers: it loads
+// the chunk's y and ids once for the 4 rows, so they cross L2 ceil(W / 4)
+// times rather than W times.
+//
+// * Each block finds the range [lo, hi] of the segments its chunk holds, and
+//   each row's sum of squares in one fixed-order reduction (each thread's 8
+//   in order, a warp tree, the warps in order; the 4 rows share the
+//   barriers).  A chunk of one segment, all but the boundary chunks of the
+//   packed leaves (at workload B the third leaf holds 39,200 of the 39,760
+//   coordinates), is done: those sums are its partials.  Otherwise the
+//   block reduces each segment of [lo, hi] the same way.  Its thread 0
+//   writes the partials of those segments only, and lo and hi.
+// * Then thread 0 signals through an integer counter per group of workers:
+//   one device-scope acq_rel fetch_add, whose release covers the block's
+//   writes (all its own).  The block that arrives last (its acquire, then a
+//   barrier) sums, for each row and segment, the partials of the chunks
+//   whose [lo, hi] holds the segment, in chunk order (half a warp per (row,
+//   segment), lane l taking chunks l, l + 16, ... in order, then a fixed
+//   tree), writes the rows, and sets the counter back to 0.  The counters
+//   live in a buffer the wrapper keeps per device and stream, zeroed once,
+//   so no call needs a memset.
+//
+// Why this shape: on the H100 the signal costs more with more blocks, and
+// the last block's sums cost about one L2 round trip per pair a warp takes
+// in turn, so a block takes few enough rows that each half warp finishes
+// one (row, segment) pair at workload B; one thread writes and signals,
+// because every thread fencing before the signal cost more than the whole
+// pass's reduction.
+//
+// Integer counters only: no float atomics, and every sum runs in an order
+// fixed by the shapes and ids, so the same inputs give the same bits on
+// every run.  A segment that holds no coordinate gives exactly 0.
 //
 // Bound on the H100: device-memory bytes.  Each sweep reads the z bytes once
 // (W * D * 4 = 11.1 MB at W = 70, D = 39,760; R * S * D * 4 = 779 MB for
@@ -84,6 +110,9 @@
 // the master's Weiszfeld loop z is re-read every iteration and fits in the
 // 50 MB L2, so the sweeps may run above the HBM rate; the decentralized
 // exchange does not fit.
+#include <climits>
+#include <cuda/atomic>
+
 #include "common.cuh"
 #include "rows.cuh"
 
@@ -109,27 +138,6 @@ __device__ float block_sum(float v) {
   }
   __syncthreads();
   return total;
-}
-
-// Block-wide min of `lo` and max of `hi`, returned to every thread.
-__device__ void block_range(int& lo, int& hi) {
-  __shared__ int warp_lo[kWarps], warp_hi[kWarps];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-  }
-  if ((threadIdx.x & 31) == 0) {
-    warp_lo[threadIdx.x >> 5] = lo;
-    warp_hi[threadIdx.x >> 5] = hi;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kWarps; ++i) {
-    lo = min(lo, warp_lo[i]);
-    hi = max(hi, warp_hi[i]);
-  }
-  __syncthreads();
 }
 
 // Grid (nchunks, rows::grid_yz over the R * S rows); row q = r * S + s
@@ -180,48 +188,201 @@ __global__ void sqdist_finish_kernel(const float* __restrict__ partial,
   if (threadIdx.x == 0) out[blockIdx.x] = s;
 }
 
-// Pass one of K6, grid (nchunks, rows::grid_yz over W): partial[(w * L +
-// s) * nchunks + chunk].
-__global__ void sqdist_segments_partial_kernel(const float* __restrict__ z,
-                                               const float* __restrict__ y,
-                                               const int* __restrict__ seg,
-                                               float* __restrict__ partial,
-                                               int W, int64_t D, int L,
-                                               int nchunks) {
-  const int64_t w = rows::grid_row();
-  if (w >= W) return;   // the whole block
-  const float* zw = z + w * D;
-  const int64_t start = static_cast<int64_t>(blockIdx.x) * kChunk + threadIdx.x;
-  float d2[kItems];
-  int sid[kItems];
-  int lo = L, hi = -1;
+// ---- K6: one launch; the last block of each group of workers finishes it --
+
+constexpr int kSegThreads = 256;
+constexpr int kSegWarps = kSegThreads / 32;
+constexpr int kSegRows = 4;                          // workers a block
+constexpr int kSegVecs = 2;                          // float4 groups a thread
+constexpr int kSegItems = 4 * kSegVecs;              // coordinates a thread
+constexpr int kSegChunk = kSegThreads * kSegItems;   // 2,048 a block
+
+// The coordinate of item i of thread t in the chunk from c0: group i / 4
+// covers the 1,024 coordinates from c0 + 1,024 (i / 4), 4 consecutive ones
+// a thread with VEC (one float4), else one every 256.
+template <bool VEC>
+__device__ __forceinline__ int64_t seg_coord(int64_t c0, int t, int i) {
+  const int64_t base = c0 + 4 * kSegThreads * (i / 4);
+  return VEC ? base + 4 * t + i % 4 : base + t + kSegThreads * (i % 4);
+}
+
+// Each of the kSegRows values summed over the block in a fixed order (each
+// warp's tree, then the warps in order), to every thread.  Every thread must
+// call it; it may be called again right away.
+__device__ __forceinline__ void row_totals(float (&v)[kSegRows],
+                                           float (*s_part)[kSegRows]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int64_t i = start + static_cast<int64_t>(k) * kThreads;
-    d2[k] = 0.f;
-    sid[k] = -1;
-    if (i < D) {
-      const int s = seg[i];
-      if (s >= 0 && s < L) {
-        const float d = zw[i] - y[i];
-        d2[k] = d * d;
-        sid[k] = s;
-        lo = min(lo, s);
-        hi = max(hi, s);
+  for (int r = 0; r < kSegRows; ++r) {
+    const float x = rows::warp_total(v[r]);
+    if (lane == 0) s_part[warp][r] = x;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kSegRows; ++r) {
+    v[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kSegWarps; ++i) v[r] += s_part[i][r];
+  }
+  __syncthreads();
+}
+
+// Grid (nchunks, rows::grid_yz over the ceil(W / kSegRows) groups of
+// workers).  partial: (W, L, nchunks), entry (w, s, c) written only when s
+// lies in chunk c's [lo, hi]; span: (>= groups, nchunks, 2) that [lo, hi]
+// (lo > hi: the chunk holds no segment); arrived: (>= groups,) zeros on
+// entry, zeros again on exit.  VEC: z, y and seg 16-byte aligned and
+// D % 4 == 0.
+template <bool VEC>
+__global__ void __launch_bounds__(kSegThreads)
+sqdist_segments_kernel(const float* __restrict__ z, const float* __restrict__ y,
+                       const int* __restrict__ seg, float* __restrict__ partial,
+                       int* __restrict__ span, unsigned* __restrict__ arrived,
+                       float* __restrict__ out, int W, int64_t D, int L,
+                       int nchunks) {
+  __shared__ float s_part[kSegWarps][kSegRows];
+  __shared__ int s_lo[kSegWarps], s_hi[kSegWarps];
+  __shared__ bool s_last;
+  const int64_t g = rows::grid_row();
+  const int64_t w0 = g * kSegRows;
+  if (w0 >= W) return;   // the whole block
+  const int rows_here = static_cast<int>(min(static_cast<int64_t>(kSegRows), W - w0));
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int c = blockIdx.x;
+  const int64_t c0 = static_cast<int64_t>(c) * kSegChunk;
+  // y and the ids of the thread's coordinates, once for all the rows.
+  float yv[kSegItems];
+  int sid[kSegItems];   // the coordinate's segment, -1 for none
+#pragma unroll
+  for (int v = 0; v < kSegVecs; ++v) {
+    const int64_t d0 = seg_coord<VEC>(c0, t, 4 * v);
+    if (VEC && d0 < D) {   // D % 4 == 0: all four lie below D
+      const float4 b = __ldg(reinterpret_cast<const float4*>(y + d0));
+      const int4 q = __ldg(reinterpret_cast<const int4*>(seg + d0));
+      yv[4 * v] = b.x; yv[4 * v + 1] = b.y; yv[4 * v + 2] = b.z; yv[4 * v + 3] = b.w;
+      sid[4 * v] = q.x; sid[4 * v + 1] = q.y; sid[4 * v + 2] = q.z; sid[4 * v + 3] = q.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int64_t d = seg_coord<VEC>(c0, t, 4 * v + k);
+        yv[4 * v + k] = d < D ? __ldg(y + d) : 0.f;
+        sid[4 * v + k] = d < D ? __ldg(seg + d) : -1;
       }
     }
   }
-  block_range(lo, hi);   // the segments this chunk holds: [lo, hi]
-  float* out = partial + w * L * nchunks + blockIdx.x;
-  for (int s = 0; s < L; ++s) {
-    float total = 0.f;
-    if (s >= lo && s <= hi) {   // the same branch for the whole block
-      float acc = 0.f;
+  int lo = INT_MAX, hi = -1;
 #pragma unroll
-      for (int k = 0; k < kItems; ++k) acc += (sid[k] == s) ? d2[k] : 0.f;
-      total = block_sum(acc);
+  for (int i = 0; i < kSegItems; ++i) {
+    if (sid[i] < 0 || sid[i] >= L) sid[i] = -1;
+    if (sid[i] >= 0) {
+      lo = min(lo, sid[i]);
+      hi = max(hi, sid[i]);
     }
-    if (threadIdx.x == 0) out[static_cast<int64_t>(s) * nchunks] = total;
+  }
+  // Each row's squares, and each thread's sum of them in order.
+  float d2[kSegRows][kSegItems], tot[kSegRows];
+#pragma unroll
+  for (int r = 0; r < kSegRows; ++r) {
+    float zv[kSegItems];
+    const float* zr = z + (w0 + r) * D;
+#pragma unroll
+    for (int v = 0; v < kSegVecs; ++v) {
+      const int64_t d0 = seg_coord<VEC>(c0, t, 4 * v);
+      if (r < rows_here && VEC && d0 < D) {
+        const float4 a = __ldg(reinterpret_cast<const float4*>(zr + d0));
+        zv[4 * v] = a.x; zv[4 * v + 1] = a.y; zv[4 * v + 2] = a.z; zv[4 * v + 3] = a.w;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int64_t d = seg_coord<VEC>(c0, t, 4 * v + k);
+          zv[4 * v + k] = r < rows_here && d < D ? __ldg(zr + d) : 0.f;
+        }
+      }
+    }
+    tot[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kSegItems; ++i) {
+      const float e = zv[i] - yv[i];
+      d2[r][i] = sid[i] >= 0 ? e * e : 0.f;
+      tot[r] += d2[r][i];
+    }
+  }
+  // The chunk's segment range [lo, hi] and each row's sum, to every thread.
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+  }
+  if (lane == 0) {
+    s_lo[warp] = lo;
+    s_hi[warp] = hi;
+  }
+  row_totals(tot, s_part);   // its barriers publish s_lo and s_hi
+#pragma unroll
+  for (int i = 0; i < kSegWarps; ++i) {
+    lo = min(lo, s_lo[i]);
+    hi = max(hi, s_hi[i]);
+  }
+  // Thread 0 writes every partial and the span, then signals: one thread's
+  // release covers all of the block's writes.
+  float* pw = partial + w0 * L * nchunks + c;   // row w0 + r, segment s: + (r L + s) nchunks
+  if (lo == hi) {   // one segment: each row's sum is its partial
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < kSegRows; ++r)
+        if (r < rows_here) pw[(static_cast<int64_t>(r) * L + lo) * nchunks] = tot[r];
+    }
+  } else {
+    for (int s = lo; s <= hi; ++s) {   // the same range in every thread
+      float acc[kSegRows];
+#pragma unroll
+      for (int r = 0; r < kSegRows; ++r) {
+        acc[r] = 0.f;
+#pragma unroll
+        for (int i = 0; i < kSegItems; ++i) acc[r] += sid[i] == s ? d2[r][i] : 0.f;
+      }
+      row_totals(acc, s_part);
+      if (t == 0) {
+#pragma unroll
+        for (int r = 0; r < kSegRows; ++r)
+          if (r < rows_here) pw[(static_cast<int64_t>(r) * L + s) * nchunks] = acc[r];
+      }
+    }
+  }
+  if (t == 0) {
+    int* sp = span + (g * nchunks + c) * 2;
+    sp[0] = lo;
+    sp[1] = hi;
+    cuda::atomic_ref<unsigned, cuda::thread_scope_device> count(arrived[g]);
+    s_last = count.fetch_add(1u, cuda::memory_order_acq_rel) ==
+             static_cast<unsigned>(nchunks - 1);
+    if (s_last) count.store(0u, cuda::memory_order_relaxed);   // all have arrived
+  }
+  __syncthreads();
+  if (!s_last) return;
+  // The last block (thread 0's acquire, then the barrier): out[w, s] = the
+  // partials of the chunks that hold s, in chunk order.  Each half warp
+  // takes one (row, segment) pair a round (row-major: pairs 2 warp + half,
+  // then 16 further each round), its lane l the chunks l, l + 16, ..., then
+  // a fixed tree over the 16 lanes.
+  const int* sg = span + g * nchunks * 2;
+  const int half = lane / 16, hl = lane % 16;
+  int r = 0, s = 2 * warp + half;
+  while (s >= L) s -= L, ++r;   // that pair, without a division
+  for (int64_t q0 = 0; q0 < static_cast<int64_t>(rows_here) * L; q0 += 2 * kSegWarps) {
+    const bool valid = r < rows_here;   // the same for the round's 16 lanes
+    const float* ps = pw - c + (static_cast<int64_t>(valid ? r : 0) * L + s) * nchunks;
+    float acc = 0.f;
+#pragma unroll 2
+    for (int cc = hl; cc < nchunks; cc += 16) {
+      const int a = __ldcg(sg + 2 * cc), b = __ldcg(sg + 2 * cc + 1);
+      const float x = valid ? __ldcg(ps + cc) : 0.f;
+      acc += a <= s && s <= b ? x : 0.f;
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (hl == 0 && valid) out[(w0 + r) * L + s] = acc;
+    for (s += 2 * kSegWarps; s >= L && r < rows_here;) s -= L, ++r;
   }
 }
 
@@ -403,25 +564,34 @@ REPRO_EXPORT int weighted_sum_f32(const float* z, const float* a, float* out,
              : launch_weighted_sum<false>(z, a, out, R, W, D, ld, rs, s);
 }
 
-// z: (W, D), y: (D,), seg: (D,) int32, partial: (W, L,
-// partial_sqdist_scratch_cols(D)), out: (W, L); float32, contiguous.
-// Launches both passes on `stream`.
+// Chunks of K6's grid for D coordinates (at least 1, so that every worker's
+// row is written even at D = 0).
+REPRO_EXPORT int partial_sqdist_segments_chunks(long long D) {
+  return D > 0 ? static_cast<int>((D + kSegChunk - 1) / kSegChunk) : 1;
+}
+
+// z: (W, D), y: (D,), seg: (D,) int32, partial: (W, L, nchunks) float32,
+// span: (W, nchunks, 2) int32 (ceil(W / 4) rows used), arrived: (>= W,)
+// uint32 zeros (zeros again when the kernel ends), out: (W, L); nchunks =
+// partial_sqdist_segments_chunks(D); contiguous.  One launch on `stream`.
 REPRO_EXPORT int partial_sqdist_segments_f32(const float* z, const float* y,
                                              const int* seg, float* partial,
+                                             int* span, unsigned* arrived,
                                              float* out, int W, long long D,
                                              int L, void* stream) {
   if (W == 0 || L == 0) return static_cast<int>(cudaGetLastError());
   const auto s = static_cast<cudaStream_t>(stream);
-  const int nchunks = partial_sqdist_scratch_cols(D);
-  if (nchunks > 0) {
-    const dim3 grid = rows::grid_yz(static_cast<unsigned>(nchunks), W);
-    sqdist_segments_partial_kernel<<<grid, kThreads, 0, s>>>(
-        z, y, seg, partial, W, static_cast<int64_t>(D), L, nchunks);
-    const int rc = static_cast<int>(cudaGetLastError());
-    if (rc != 0) return rc;
-  }
-  // (W * L) rows of nchunks partials, summed one block per row.
-  sqdist_finish_kernel<false><<<static_cast<unsigned>(W) * L, kThreads, 0, s>>>(
-      partial, nullptr, out, nchunks);
+  const int nchunks = partial_sqdist_segments_chunks(D);
+  const dim3 grid = rows::grid_yz(static_cast<unsigned>(nchunks),
+                                  (static_cast<long long>(W) + kSegRows - 1) / kSegRows);
+  const bool vec = aligned16(z) && aligned16(y) && aligned16(seg) && D % 4 == 0;
+  if (vec)
+    sqdist_segments_kernel<true><<<grid, kSegThreads, 0, s>>>(
+        z, y, seg, partial, span, arrived, out, W, static_cast<int64_t>(D), L,
+        nchunks);
+  else
+    sqdist_segments_kernel<false><<<grid, kSegThreads, 0, s>>>(
+        z, y, seg, partial, span, arrived, out, W, static_cast<int64_t>(D), L,
+        nchunks);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,11 +9,15 @@
   the ``trim`` largest values and average the rest; ``2 * trim < W``.
 
 Both launch the CUDA kernels of ``csrc/robust_stats.cu`` on float32
-inputs, for any W >= 1 (up to 454 workers a block stages its columns in
-shared memory; past that it counts ranks from global memory); ``*_plain`` are the same functions in plain PyTorch (a sort along
-the worker axis), which the CPU path runs and the card's checks compare
-against.  A column holding a NaN gives an unspecified value on the card
-(see the source); the plain versions sort NaN last.
+inputs, for any W >= 1.  K4 up to :data:`NETWORK_CAP` workers runs a
+sorting network in registers (:func:`median_network_pairs` lists its
+compare-exchanges) and gives the plain version's bits, NaN sorted last as
+the plain version sorts it.  Past that, and K5 at every W, each column's
+values are ranked by counting (up to 454 workers from a slab in shared
+memory, past that from global memory), and a column holding a NaN gives an
+unspecified value (see the source).  ``*_plain`` are the same functions in
+plain PyTorch (a sort along the worker axis), which the CPU path runs and
+the card's checks compare against.
 """
 from __future__ import annotations
 
@@ -29,6 +33,51 @@ _SIGNATURES = {
     "trimmed_mean_f32": [ctypes.c_void_p] * 2 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
 }
+
+
+# K4's network route: W up to NETWORK_CAP, one network per multiple of
+# NETWORK_STEP workers (the constants kNetCap and kNetStep of the source).
+NETWORK_CAP = 128
+NETWORK_STEP = 8
+
+
+def median_network_pairs(w: int) -> tuple[int, list[tuple[int, int]]]:
+    """K4's network for ``w <= NETWORK_CAP`` workers, as the kernel runs it:
+    (N, the compare-exchanges (a, b), a < b, min to a, in order) for the
+    N = w rounded up to a multiple of NETWORK_STEP wires, those past w
+    holding +inf.  Batcher's odd-even merge sort on the next power of two,
+    without the compare-exchanges that touch a wire >= N."""
+    if not 1 <= w <= NETWORK_CAP:
+        raise ValueError(f"the network route takes 1 <= W <= {NETWORK_CAP}, got {w}")
+    n = -(-w // NETWORK_STEP) * NETWORK_STEP
+    p2 = 1 << (n - 1).bit_length()
+    pairs = []
+    for sp in range(p2.bit_length() - 1):
+        p = 1 << sp
+        for sk in range(sp, -1, -1):
+            k = 1 << sk
+            for j in range(k % p, p2 - k, 2 * k):
+                for i in range(k):
+                    a, b = i + j, i + j + k
+                    if b < n and a // (2 * p) == b // (2 * p):
+                        pairs.append((a, b))
+    return n, pairs
+
+
+def median_network_ops(w: int) -> int:
+    """Float min/max a coordinate that K4's network route needs at ``w``
+    workers: the compare-exchange outputs that can reach the ranks the
+    kernel reads ((N - NETWORK_STEP) // 2 .. N // 2), counted backwards from
+    them (the compiler drops the rest)."""
+    n, pairs = median_network_pairs(w)
+    need = set(range((n - NETWORK_STEP) // 2, n // 2 + 1))
+    ops = 0
+    for a, b in reversed(pairs):
+        used = (a in need) + (b in need)
+        if used:
+            ops += used
+            need.update((a, b))
+    return ops
 
 
 def check_inputs(what: str, z: torch.Tensor) -> None:

@@ -15,9 +15,10 @@ back: "sum" for trim 0 (the fixed-order masked sum), "select" for trims up
 to 16 (the trim largest and smallest kept in registers, then the values
 between them summed), "rank" beyond (each value ranked against the others;
 correct, not fast).  :data:`ROUTE_LAUNCHES` counts each route.  :func:`masked_neighbor_reduce_plain` is the same function in plain
-PyTorch (sort with non-neighbours filled with +inf, keep ranks
-``[trim, n - trim)``), which the CPU path runs and the card's checks
-compare against.  The kernels order NaN above +inf, as that sort does.
+PyTorch (sort with the non-neighbours ordered after every member, keep
+ranks ``[trim, n - trim)``), which the CPU path runs and the card's checks
+compare against.  Both order a member's NaN above +inf, as torch.sort does,
+and neither lets a non-member's value (inf or NaN included) into the result.
 
 The kernel reduces by 0/1 counts: a mask entry counts as a neighbour when
 it is > 0.  This slice's masks are always 0/1 (participation and its
@@ -69,7 +70,10 @@ def masked_neighbor_reduce_plain(exchange: torch.Tensor, mask: torch.Tensor,
                                  trim: int) -> torch.Tensor:
     z = exchange.float()
     n = torch.sum(mask, dim=1)                                  # (R,)
-    s = torch.sort(torch.where(mask[:, :, None] > 0, z, torch.inf),
+    # Non-members are filled with NaN, which torch.sort puts last: they sort
+    # after every member, a NaN member included, so a kept NaN member gives
+    # NaN, as in the kernel, and no non-member value is ever kept.
+    s = torch.sort(torch.where(mask[:, :, None] > 0, z, torch.nan),
                    dim=1).values
     ranks = torch.arange(z.shape[1], device=z.device)[None, :, None]
     keep = (ranks >= trim) & (ranks < (n[:, None, None] - trim))

@@ -9,9 +9,9 @@
   of ``mask <= 0`` are not read and their distance is exactly 0
   (:data:`SQDIST_ROUTE_LAUNCHES` counts each route).
 * :func:`weighted_sum_call`   -- unnormalized ``sum_w a_w z_w`` -> (D,).
-  It reads only the rows whose weight is not 0 (for finite z the sum is the
-  same; a zero-weight row holding inf or NaN is skipped, where the plain
-  version's ``0 * inf`` gives NaN), splits them in a fixed order, so the
+  It reads only the rows whose weight is not 0 (a zero-weight row holding
+  inf or NaN contributes nothing, in the plain version too: mask-0 senders
+  do not influence the result), splits them in a fixed order, so the
   result is the same bits on every run and for every receiver of a batch.
 
 Both also take a leading receiver axis, the decentralized step's masked
@@ -23,7 +23,9 @@ shared by every receiver, ``expand``): it is read in place.  Any W, S and R
 that fit in memory.
 * :func:`partial_sqdist_segments_call` -- per-(worker, segment) squared
   distances -> (W, L), given each coordinate's segment id (an id outside
-  ``[0, L)`` counts nowhere).  Two passes like K2, the same bits each run.
+  ``[0, L)`` counts nowhere).  One launch: the block that finishes last
+  for each group of 4 workers sums their partials in a fixed order, so the
+  same bits each run.
 
 All launch the CUDA kernels of ``csrc/weiszfeld.cu`` on float32 inputs;
 ``*_plain`` are the same functions in plain PyTorch, which the CPU path
@@ -49,9 +51,15 @@ _SIGNATURES = {
     "weighted_sum_f32": [ctypes.c_void_p] * 3 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_void_p],
-    "partial_sqdist_segments_f32": [ctypes.c_void_p] * 5 + [
+    "partial_sqdist_segments_chunks": [ctypes.c_longlong],
+    "partial_sqdist_segments_f32": [ctypes.c_void_p] * 7 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
 }
+
+# K6's arrival counters (one int32 per group of workers; sized by rows, which
+# is more), kept per (device, stream): zeroed once when made or grown, and
+# left at zero by every launch.
+_ARRIVALS: dict[tuple[int, int], torch.Tensor] = {}
 
 SQDIST_ROUTES = ("unmasked", "masked")
 # K2 launches per route (reset with the others by ops.reset_launch_counts).
@@ -145,6 +153,10 @@ def partial_sqdist_plain(z: torch.Tensor, y: torch.Tensor,
 
 
 def weighted_sum_plain(z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    # A row of weight exactly 0 contributes nothing, even one holding inf or
+    # NaN (where 0 * inf would give NaN), as in the kernel, which never reads
+    # it.  On finite rows the product's order is unchanged.
+    z = torch.where((a != 0).unsqueeze(-1), z, 0.0)
     if z.dim() == 3:
         return torch.bmm(a.unsqueeze(1), z).squeeze(1)
     return a @ z
@@ -216,24 +228,43 @@ def weighted_sum_call(z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _arrival_counters(device: torch.device, stream: int,
+                      rows: int) -> torch.Tensor:
+    """K6's (>= rows,) zeroed int32 counters for launches on ``stream``;
+    grown (zeroed again, on that stream) when a call needs more rows."""
+    key = (device.index, stream)
+    buf = _ARRIVALS.get(key)
+    if buf is None or buf.numel() < rows:
+        size = max(rows, 2 * buf.numel() if buf is not None else 1024)
+        buf = torch.zeros(size, dtype=torch.int32, device=device)
+        _ARRIVALS[key] = buf
+    return buf
+
+
 def partial_sqdist_segments_call(z: torch.Tensor, y: torch.Tensor,
                                  seg_ids: torch.Tensor,
                                  num_segments: int) -> torch.Tensor:
     """z (W, D), y (D,), seg_ids (D,) int32 -> (W, num_segments) float32,
-    on the card."""
+    on the card, in one kernel launch."""
     check_inputs("partial_sqdist_segments", z, y, z.shape[-1:])
     check_segments(z, seg_ids, num_segments)
     _check_launchable("partial_sqdist_segments", z, y, seg_ids)
     w, d = z.shape
-    lib = _build.load("weiszfeld", _SIGNATURES)
-    scratch = torch.empty((w, num_segments, lib.partial_sqdist_scratch_cols(d)),
-                          dtype=torch.float32, device=z.device)
     out = torch.empty((w, num_segments), dtype=torch.float32, device=z.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load("weiszfeld", _SIGNATURES)
+    nchunks = lib.partial_sqdist_segments_chunks(d)
+    partial = torch.empty((w, num_segments, nchunks), dtype=torch.float32,
+                          device=z.device)
+    span = torch.empty((w, nchunks, 2), dtype=torch.int32, device=z.device)
     with torch.cuda.device(z.device):
+        stream = _build.stream_of(z)
+        arrived = _arrival_counters(z.device, stream, w)
         rc = lib.partial_sqdist_segments_f32(
             _build.ptr(z), _build.ptr(y), _build.ptr(seg_ids),
-            _build.ptr(scratch), _build.ptr(out), w, d, num_segments,
-            ctypes.c_void_p(_build.stream_of(z)))
+            _build.ptr(partial), _build.ptr(span), _build.ptr(arrived),
+            _build.ptr(out), w, d, num_segments, ctypes.c_void_p(stream))
     _build.check(lib, rc, "partial_sqdist_segments")
     _build.LAUNCHES["partial_sqdist_segments"] += 1
     return out

@@ -209,6 +209,47 @@ def test_coordinate_median_plain_vs_reference(w, p):
     np.testing.assert_allclose(ref.coordinate_median(_t(z)).numpy(), got, **TOL)
 
 
+def _network_median(z: torch.Tensor) -> torch.Tensor:
+    """K4's network route emulated in torch, as the kernel runs it: each
+    NaN enters as +inf and is counted, the column is padded with +inf to N
+    wires, ``median_network_pairs`` sorts it with float min/max, and a rank
+    of W - #NaN or more reads NaN."""
+    w = z.shape[0]
+    n, pairs = rs.median_network_pairs(w)
+    nan = torch.isnan(z)
+    v = list(torch.where(nan, torch.inf, z)) + [
+        torch.full_like(z[0], torch.inf)] * (n - w)
+    for a, b in pairs:
+        v[a], v[b] = torch.minimum(v[a], v[b]), torch.maximum(v[a], v[b])
+    count = nan.sum(0)
+
+    def rank(r):
+        return torch.where(r >= w - count, torch.nan, v[r])
+    lo, hi = (w - 1) // 2, w // 2
+    return rank(lo) if lo == hi else (rank(lo) + rank(hi)) * 0.5
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 7, 8, 69, 70, 71, 127, 128])
+def test_median_network_gives_the_plain_bits(w):
+    """K4's network route (W <= 128 on the card) emulated on the CPU: the
+    plain version's bits at odd and even W, with ties, +-inf, and NaN that
+    sorts last (a column of mostly NaN gives NaN); fewer min/max a
+    coordinate than the rank count's W^2 comparisons."""
+    rng = np.random.default_rng(w)
+    z = rng.standard_normal((w, 96)).astype(np.float32)
+    z[:, 32:64] = np.round(2 * z[:, 32:64]) / 2          # ties
+    z[: w // 3, 64:70] = np.inf
+    z[w // 3: w // 2 + 1, 66:72] = -np.inf
+    z[: (w + 1) // 2, 72:76] = np.nan                  # the median's rank is NaN
+    z[:1, 76:80] = np.nan
+    got = _network_median(_t(z))
+    torch.testing.assert_close(got, rs.coordinate_median_plain(_t(z)),
+                               rtol=0, atol=0, equal_nan=True)
+    assert rs.median_network_ops(w) < max(w * w, 64)
+    if w == 70:
+        assert rs.median_network_ops(w) == 1163
+
+
 @pytest.mark.parametrize("w,p", SHAPES)
 def test_trimmed_mean_plain_vs_reference(w, p):
     z = np.random.default_rng(w + p).standard_normal((w, p)).astype(np.float32)

@@ -9,7 +9,11 @@ and the port only (no JAX), so it runs on a machine with a card:
 Tolerances: K1 is elementwise in the plain version's order, so it agrees
 to within 1 ulp and its table bitwise; K2, K3, K5 and K6 sum in another
 order than PyTorch, so they agree to rtol 1e-5 (atol 1e-5 x max|plain|);
-K4 selects, so it is bitwise for odd W and within 1 ulp for even W.
+K4 selects, so it is bitwise: at every W on its network route (W <= 128,
+NaN sorted last as the plain version sorts it), and for odd W (within 1
+ulp for even W) on the rank count past it.  K6 adds in another order than
+its plain version (rtol 1e-5) but in one fixed order: the same bits on
+every launch.
 K8 (flash attention) computes in float32 in another order than its plain
 version: rtol/atol 2e-5 in float32 and 2e-2 in bfloat16, the tolerances of
 ``tests/test_kernels.py``.  Its wgmma route (bfloat16, hd 64 and 128) also
@@ -18,8 +22,9 @@ max|v|, far less in practice since the rounding errors take both signs
 (``tests/test_torch_models.py`` measures it on the CPU): it is held at the
 same 2e-2.
 K3, the masked route of K2 and K7 read only the rows of nonzero weight or
-of mask > 0; with finite inputs that changes no sum, so they are held at
-rtol 1e-5 like the others.  Every kernel takes any size that fits in
+of mask > 0, and their plain versions leave those rows out too (a row of
+weight 0 holding inf or NaN contributes nothing), so they are held at
+rtol 1e-5 like the others, non-finite inputs included.  Every kernel takes any size that fits in
 memory: K4/K5 past 454 workers, K7 past 450 senders, K2/K3 past 12,288
 rows and every kernel past 65,535 rows or receivers on a grid dimension are
 held against the plain versions too.
@@ -203,13 +208,145 @@ def test_segment_sqdist_kernel_vs_plain(w, p):
     seg[p - p // 20:] = -1
     got = wz.partial_sqdist_segments_call(z, y, seg, 4)
     _close(got, wz.partial_sqdist_segments_plain(z, y, seg, 4))
-    # Deterministic: two passes, fixed order, no atomics.
+    # Deterministic: a fixed order, no float atomics.
     assert torch.equal(got, wz.partial_sqdist_segments_call(z, y, seg, 4))
     # Scattered ids, and a segment that holds no coordinate.
     g = torch.Generator(device="cuda").manual_seed(p)
     seg = torch.randint(-1, 6, (p,), generator=g, device="cuda").to(torch.int32)
     _close(wz.partial_sqdist_segments_call(z, y, seg, 7),
            wz.partial_sqdist_segments_plain(z, y, seg, 7))
+
+
+NETWORK_WIDTHS = [1, 2, 3, 7, 8, 69, 70, 71, rs.NETWORK_CAP - 1,
+                  rs.NETWORK_CAP, rs.NETWORK_CAP + 1]
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("w", NETWORK_WIDTHS)
+def test_median_network_route_gives_the_plain_bits(w, ties):
+    """K4's network route (W <= 128) at odd and even W, its cap and one
+    past it (the rank count), with and without ties, +-inf in columns and
+    a ragged D: the plain version's bits (equal values; NaN equal to NaN),
+    NaN sorted last on the network route, and the same bits on a second
+    launch."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(w)
+    d = 4_099
+    z = torch.randn((w, d), generator=g, device="cuda")
+    if ties:
+        z = torch.round(2 * z) / 2
+    z[: w // 3 + 1, 2000:2100] = float("inf")
+    z[w // 3 + 1: w // 2 + 1, 2050:2150] = float("-inf")
+    clean = torch.ones(d, dtype=torch.bool, device="cuda")
+    if w <= rs.NETWORK_CAP:   # the rank count leaves a NaN column unspecified
+        z[: (w + 1) // 2, 2200:2210] = float("nan")
+        z[:1, 2210:2220] = float("nan")
+        clean[2200:2220] = False
+        assert bool(torch.isnan(rs.coordinate_median_plain(z)[2200:2210]).all())
+    got = rs.coordinate_median_call(z)
+    want = rs.coordinate_median_plain(z)
+    if w % 2 or w <= rs.NETWORK_CAP:
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    else:
+        assert _ulps(got[clean], want[clean]) <= 1
+    assert torch.equal(_bits(got), _bits(rs.coordinate_median_call(z)))
+
+
+def _segment_ids(case: str, d: int) -> tuple[torch.Tensor, int]:
+    """(D,) int32 ids and L for K6's cases over chunks of 4,096
+    coordinates."""
+    idx = torch.arange(d, device="cuda")
+    if case == "one segment a chunk":
+        return (idx // 4096).to(torch.int32), (d + 4095) // 4096
+    if case == "crossing chunks":       # cuts inside chunks, a 1-coordinate leaf
+        cuts = torch.tensor([1000, 5000, 5001, 9000], device="cuda")
+        return torch.bucketize(idx, cuts, right=True).to(torch.int32), 5
+    if case == "scattered":
+        g = torch.Generator(device="cuda").manual_seed(d)
+        return torch.randint(-1, 10, (d,), generator=g, device="cuda").to(torch.int32), 9
+    if case == "empty segments":        # ids 0, 1, 3: 2 and 4 hold nothing
+        seg = torch.bucketize(idx, torch.tensor([3000, 7000], device="cuda"),
+                              right=True).to(torch.int32)
+        return torch.where(seg == 2, 3, seg).to(torch.int32), 5
+    # padding: ids -1 and L past the last leaf and in a band inside it
+    seg = (idx * 3 // d).to(torch.int32)
+    seg[d - 300:] = -1
+    seg[4000:4300] = 3
+    return seg, 3
+
+
+SEGMENT_CASES = ["one segment a chunk", "crossing chunks", "scattered",
+                 "empty segments", "padding"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [12_324, 12_325])   # float4 loads; scalar loads
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_segment_sqdist_one_launch_vs_plain(case, d):
+    """K6 against its plain version (rtol 1e-5) on chunks of one segment,
+    chunks that cross segment boundaries, scattered ids, segments that hold
+    no coordinate (exactly 0) and padding ids; the same bits on three
+    back-to-back launches (the arrival counters are back at 0 after a
+    launch), and one launch per call."""
+    _need_card()
+    from repro_torch.kernels import ops
+    z, y, *_ = _inputs(7, d, seed=d)
+    seg, nseg = _segment_ids(case, d)
+    want = wz.partial_sqdist_segments_plain(z, y, seg, nseg)
+    ops.reset_launch_counts()
+    runs = [wz.partial_sqdist_segments_call(z, y, seg, nseg) for _ in range(3)]
+    assert ops.launch_counts()["partial_sqdist_segments"] == 3
+    _close(runs[0], want)
+    for other in runs[1:]:
+        assert torch.equal(_bits(other), _bits(runs[0]))
+    held = torch.bincount(seg[(seg >= 0) & (seg < nseg)].long(), minlength=nseg)
+    assert bool((runs[0][:, held == 0] == 0).all())
+
+
+@pytest.mark.gpu
+def test_segment_sqdist_is_one_kernel_launch():
+    """One call of K6 runs exactly one kernel on the card (the profiler's
+    device records), with no finish pass and no memset."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+    z, y, *_ = _inputs(70, 39_760, seed=5)
+    seg, nseg = _segment_ids("crossing chunks", 39_760)
+    wz.partial_sqdist_segments_call(z, y, seg, nseg)   # makes the counters
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wz.partial_sqdist_segments_call(z, y, seg, nseg)
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "sqdist_segments_kernel" in names[0], names
+
+
+@pytest.mark.gpu
+def test_segment_sqdist_calls_of_other_widths_share_one_stream():
+    """Calls of different W queued back to back on one stream (the
+    counters of the wider call serve the narrower, and grow for a wider
+    one), and W past 65,535 rows of one grid dimension."""
+    _need_card()
+    d = 9_000
+    seg, nseg = _segment_ids("crossing chunks", d)
+    calls = []
+    for w in (70, 7, 2_000, 70):
+        z, y, *_ = _inputs(w, d, seed=w)
+        calls.append((z, y, wz.partial_sqdist_segments_call(z, y, seg, nseg)))
+    for z, y, got in calls:
+        _close(got, wz.partial_sqdist_segments_plain(z, y, seg, nseg))
+    assert torch.equal(_bits(calls[0][2]), _bits(calls[3][2]))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    z = torch.randn((65_537, 300), generator=g, device="cuda")
+    y = z[:5].mean(0)
+    seg = (torch.arange(300, device="cuda") % 4).to(torch.int32)
+    _close(wz.partial_sqdist_segments_call(z, y, seg, 4),
+           wz.partial_sqdist_segments_plain(z, y, seg, 4))
 
 
 @pytest.mark.gpu
@@ -368,11 +505,10 @@ def test_masked_neighbor_reduce_kernel_drops_huge_rows_without_trace(trim):
 @pytest.mark.gpu
 def test_masked_neighbor_reduce_kernel_orders_nan_like_the_sort():
     """A member's NaN counts as the largest value, as torch.sort orders it:
-    among the trim largest it is dropped, as in the plain version; a
-    non-member's NaN or inf is never read.  A kept NaN (trim 0) gives NaN;
-    the plain version gives NaN too when every sender is a member, and +inf
-    when some are not (its +inf fill of the non-members sorts below NaN):
-    the non-finite edge left to the guards, pinned on both sides."""
+    among the trim largest it is dropped; a kept NaN (trim 0) gives NaN, in
+    the kernel and in the plain version alike (which orders the non-members
+    after every member, NaN included); a non-member's NaN or inf is never
+    read, and never reaches the plain version's result either."""
     _need_card()
     from repro_torch.kernels import topology as tp
     ex, mask = _masked_inputs(3, 48, 64, False)
@@ -387,8 +523,9 @@ def test_masked_neighbor_reduce_kernel_orders_nan_like_the_sort():
         _close(got, tp.masked_neighbor_reduce_plain(ex, mask, trim))
     got = tp.masked_neighbor_reduce_call(ex, mask, 0)
     want = tp.masked_neighbor_reduce_plain(ex, mask, 0)
-    assert bool(torch.isnan(got[:, :4]).all()) and bool(torch.isinf(want[:, :4]).all())
-    _close(got[:, 4:], want[:, 4:])
+    assert bool(torch.isnan(got[:, :4]).all()) and bool(torch.isnan(want[:, :4]).all())
+    assert bool(torch.isfinite(got[:, 4:]).all())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5, equal_nan=True)
     full = torch.ones((3, 36), device="cuda")
     exf = ex[:, :36]
     torch.testing.assert_close(tp.masked_neighbor_reduce_call(exf, full, 0),
@@ -536,10 +673,10 @@ def test_weighted_sum_kernel_skips_zero_weight_rows(r, s, d):
 
 @pytest.mark.gpu
 def test_weighted_sum_kernel_skips_non_finite_zero_weight_rows():
-    """The one input on which K3 and its plain version part: a row of weight
-    0 that holds inf or NaN is skipped (the reference's masked engine
-    promises that mask-0 senders do not influence the result), where the
-    plain version's 0 * inf gives NaN."""
+    """A row of weight 0 that holds inf or NaN contributes nothing, in K3
+    and in its plain version alike (the reference's masked engine promises
+    that mask-0 senders do not influence the result); so does a mask-0 row
+    in the masked K2, which gives exactly 0 there."""
     _need_card()
     ex, _ = _masked_inputs(3, 6, 300, False)
     a = torch.ones((3, 6), device="cuda")
@@ -547,10 +684,15 @@ def test_weighted_sum_kernel_skips_non_finite_zero_weight_rows():
     ex[:, 2, :7] = float("inf")
     ex[:, 2, 7:9] = float("nan")
     got = wz.weighted_sum_call(ex, a)
-    assert bool(torch.isfinite(got).all())
-    assert bool(torch.isnan(wz.weighted_sum_plain(ex, a)[:, :9]).all())
+    want = wz.weighted_sum_plain(ex, a)
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())
+    _close(got, want)
     keep = torch.tensor([0, 1, 3, 4, 5], device="cuda")
     _close(got, wz.weighted_sum_plain(ex[:, keep], a[:, keep]))
+    y = ex[:, keep].mean(1)
+    sq = wz.partial_sqdist_call(ex, y, a)
+    assert bool((sq[:, 2] == 0).all())
+    _close(sq, wz.partial_sqdist_plain(ex, y, a))
 
 
 DECENTRALIZED_RULES = ["mean", "median", "trimmed_mean", "geomed",

@@ -378,6 +378,77 @@ def test_masked_weiszfeld_sends_its_mask_to_the_distance_sweep(monkeypatch):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
+def _poisoned_exchange():
+    """The (9, 9, 30) erdos_renyi exchange and mask, and a copy in which
+    a mask-0 sender's row of every receiver that has one holds inf (and
+    NaN further along)."""
+    ex, mask, *_ = _engine_inputs("erdos_renyi", False)
+    bad = ex.copy()
+    off = mask == 0
+    assert off.any()
+    bad[off, :4] = np.inf
+    bad[off, 4:6] = -np.inf
+    bad[off, 6:8] = np.nan
+    return ex, bad, mask, off.any(axis=1)
+
+
+@pytest.mark.parametrize("rule", ["mean", "geomed"])
+def test_mask_zero_non_finite_row_fault_of_the_reference_is_not_copied(rule):
+    """ROADMAP Queue C: the reference's masked engine promises that mask-0
+    senders do not influence a receiver's result (repro/topology/masked.py),
+    but its ``_weighted_mean`` computes ``0 * inf``, so a non-member's row
+    holding inf gives NaN.  The port keeps the promise on its plain path as
+    its kernels do on the card: the result is finite and equal to the
+    result without those rows (the clean exchange), which is the
+    reference's clean result (1e-6; 1e-5 for the Weiszfeld rule)."""
+    ex, bad, mask, hit = _poisoned_exchange()
+    opts = dict(max_iters=200, tol=1e-7)
+    ref_bad = np.asarray(jmasked.masked_aggregate_flat(
+        rule, jnp.asarray(bad), jnp.asarray(mask), **opts))
+    ref_clean = np.asarray(jmasked.masked_aggregate_flat(
+        rule, jnp.asarray(ex), jnp.asarray(mask), **opts))
+    assert np.isnan(ref_bad[hit][:, :8]).all()
+    got = masked.masked_aggregate_flat(rule, _t(bad), _t(mask), **opts)
+    clean = masked.masked_aggregate_flat(rule, _t(ex), _t(mask), **opts)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, clean)
+    tol = RULE_TOL.get(rule, 1e-6)
+    np.testing.assert_allclose(got.numpy(), ref_clean, rtol=tol, atol=tol)
+
+
+def test_plain_sweeps_leave_out_non_finite_zero_weight_rows():
+    """The plain versions as the kernels: K3's zero-weight rows and the
+    masked K2's mask-0 rows contribute nothing even when they hold inf or
+    NaN (equal to the result without those rows), and K7 never keeps a
+    non-member's value; a member's NaN sorts above +inf, so it is dropped
+    among the trim largest and kept (NaN out) with trim 0."""
+    ex, bad, mask, hit = _poisoned_exchange()
+    y = ex.mean(axis=1)
+    np.testing.assert_array_equal(
+        ops.weighted_sum(_t(bad), _t(mask)).numpy(),
+        ops.weighted_sum(_t(ex), _t(mask)).numpy())
+    assert bool(torch.isnan(torch.bmm(_t(mask)[:, None], _t(bad))).any())
+    keep = mask[0] > 0
+    np.testing.assert_allclose(
+        ops.weighted_sum(_t(bad[0]), _t(mask[0])).numpy(),
+        ops.weighted_sum(_t(bad[0][keep]), _t(mask[0][keep])).numpy(),
+        rtol=1e-6, atol=1e-6)
+    sq = ops.partial_sqdist(_t(bad), _t(y), _t(mask)).numpy()
+    np.testing.assert_array_equal(sq, ops.partial_sqdist(
+        _t(ex), _t(y), _t(mask)).numpy())
+    for trim in (0, 1):
+        np.testing.assert_array_equal(
+            ops.masked_neighbor_reduce(_t(bad), _t(mask), trim=trim).numpy(),
+            ops.masked_neighbor_reduce(_t(ex), _t(mask), trim=trim).numpy())
+    member = int(np.argmax(mask[0]))
+    nan_member = bad.copy()
+    nan_member[0, member, 10:12] = np.nan
+    for trim, want_nan in ((0, True), (1, False)):
+        got = ops.masked_neighbor_reduce(_t(nan_member), _t(mask), trim=trim)
+        assert bool(torch.isnan(got[0, 10:12]).all()) == want_nan
+        assert bool(torch.isfinite(got[0, 12:]).all())
+
+
 def test_masked_registry_pins_the_reference_names():
     assert set(masked.MASKED_AGGREGATOR_NAMES) == set(
         jmasked.MASKED_AGGREGATOR_NAMES)

@@ -7,8 +7,10 @@ comparing two checkouts within one machine.
 Imports ``repro_torch`` from ``SRC_DIR`` (default: this checkout's
 ``src``) and times, on random inputs from a fixed seed:
 
-* at workload B's shapes, messages (70, 39,760): K2 ``partial_sqdist`` and
-  K3 ``weighted_sum``, 200 launches a window;
+* at workload B's shapes, messages (70, 39,760): K2 ``partial_sqdist``,
+  K3 ``weighted_sum``, K4 ``coordinate_median``, K5 ``trimmed_mean``
+  (trim 20) and K6 ``partial_sqdist_segments`` (the Table I network's four
+  leaves, ``chip_smoke.table1_boundaries``), 200 launches a window;
 * at workload D's exchange (70, 70, 39,760) under its erdos_renyi(70,
   p=0.5, seed=0) mask: K3 batched with weights 0 off the mask, K2 batched
   unmasked and (where the tree has it) masked, and K7
@@ -44,8 +46,10 @@ def main() -> int:
         print("torch_kernel_times: needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from chip_smoke import event_ms
+    from chip_smoke import event_ms, table1_boundaries
     sys.path.insert(0, os.path.abspath(args.src))
+    from repro_torch.core.geomed import segment_ids
+    from repro_torch.kernels import robust_stats as rs
     from repro_torch.kernels import topology as tp
     from repro_torch.kernels import weiszfeld as wz
     from repro_torch.topology import get_topology
@@ -66,6 +70,12 @@ def main() -> int:
     a = torch.rand(70, generator=g, device="cuda")
     emit("K2 at B", lambda: wz.partial_sqdist_call(z, y), 200)
     emit("K3 at B", lambda: wz.weighted_sum_call(z, a), 200)
+    emit("K4 at B", lambda: rs.coordinate_median_call(z), 200)
+    emit("K5 trim 20 at B", lambda: rs.trimmed_mean_call(z, 20), 200)
+    bounds, d = table1_boundaries(torch)
+    seg = segment_ids(tuple(bounds), d, torch.device("cuda"))
+    emit("K6 at B", lambda: wz.partial_sqdist_segments_call(z, y, seg, len(bounds)),
+         200)
     del z
     topo = get_topology("erdos_renyi", 70, seed=0, p=0.5)
     mask = torch.as_tensor(topo.neighbor_mask, device="cuda")

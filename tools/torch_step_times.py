@@ -14,7 +14,8 @@ Imports ``repro_torch`` from ``SRC_DIR`` (default: this checkout's
   workers x 1,200 samples + 20 Byzantine, the 9.54 GB SAGA table),
   sign_flip, 60 steps;
 
-each with geomed and with mean; and workload D: workload B's data, model
+each with geomed and with mean (B also with median and geomed_blockwise,
+the rules that run K4 and K6); and workload D: workload B's data, model
 and table on the erdos_renyi(70, p=0.5, seed=0) graph, trim 12, sign_flip,
 60 steps, in cells D/gradient/geomed, D/gradient/trimmed_mean,
 D/gradient/mean and D/params/geomed.  ``--cells`` picks some of the cells
@@ -34,8 +35,9 @@ import sys
 import time
 
 SEED = 0
-CELLS = ("A/geomed", "A/mean", "B/geomed", "B/mean", "D/gradient/geomed",
-         "D/gradient/trimmed_mean", "D/gradient/mean", "D/params/geomed")
+CELLS = ("A/geomed", "A/mean", "B/geomed", "B/mean", "B/median",
+         "B/geomed_blockwise", "D/gradient/geomed", "D/gradient/trimmed_mean",
+         "D/gradient/mean", "D/params/geomed")
 
 
 def steps_ms(torch, step_fn, state, steps):
