@@ -19,7 +19,10 @@ Phases, in order; any failure exits non-zero:
    with only the drawn table rows changed; K4 bitwise on its network route
    (W <= 128; also at 127, 128 and 129 workers with ties and +-inf) and
    for odd W past it, within 1 ulp for even W past it, and the same bits on
-   a second launch; K2, K3 (also on a column slice), K5 and K6 within
+   a second launch; K5 on its network route (W <= 128) with columns of trim
+   and trim + 1 NaN, NaN and +-inf exactly where the plain version has
+   them, and the same bits on a second launch; K2, K3 (also on a column
+   slice), K5 and K6 within
    rtol 1e-5 (atol 1e-5 x max|plain|: the sum runs in another order); K6
    the same bits on three back-to-back launches and one kernel on the card
    per call (torch.profiler).
@@ -32,10 +35,17 @@ Phases, in order; any failure exits non-zero:
    16, 17 and (n - 1) // 2, with ties), K4/K5 at W = 455, 1,000 and 5,000,
    K2/K3 at W = 12,289; all within rtol 1e-5.
 4. Workload A: logistic regression at IJCNN1 scale (n=49,990, D=22,
-   50 honest + 20 Byzantine workers), sign_flip, 300 steps with geomed and
-   with mean; then the C1 claim of tests/test_convergence.py (W_h=12, B=5,
-   n=960, 700 steps, three attacks); then 20 steps on the card against the
-   plain CPU path from the same state and draws.
+   50 honest + 20 Byzantine workers), sign_flip, 300 steps of SAGA and of
+   BSGD (50 samples a worker), each with geomed and with mean, launch
+   counts asserted per solver and rule; then the C1 claim of
+   tests/test_convergence.py (W_h=12, B=5, n=960, 700 steps, three
+   attacks); then 20 SAGA and 20 BSGD steps on the card against the plain
+   CPU path from the same state and draws.
+   Workload F: covtype_like at the real set's size (581,012 x 54), 50
+   honest workers x 11,620 samples + 20 Byzantine, sign_flip; SGD, BSGD
+   and SAGA at benchmarks/common.py's learning rates, each with mean and
+   geomed, 300 steps: step time, device busy and idle share (20 traced
+   steps), Weiszfeld iterations, peak memory and loss for each.
 5. Workload B: the Table I network at MNIST size (60,000 x 784, D=39,760,
    50 honest workers x 1,200 samples + 20 Byzantine), sign_flip, geomed,
    20 steps, with the launch counters of K1-K3 reset just before and read
@@ -44,8 +54,9 @@ Phases, in order; any failure exits non-zero:
 6. Timing: each kernel's device time at workload B's shapes (torch.profiler
    kernel durations), beside its bound, its plain version and one library
    call where one computes the same function (K3: ``a @ z``; K4:
-   ``torch.quantile``), and K4's network route beside its instruction floor
-   (its float min/max a coordinate at the card's top SM clock); the
+   ``torch.quantile``), and K4's and K5's network route beside its bytes
+   bound and instruction floor (its float min/max a coordinate at the
+   card's top SM clock); the
    Weiszfeld loop's time per iteration on the host
    clock; then workload B again with mean, the step without the Weiszfeld
    loop.
@@ -57,9 +68,13 @@ Phases, in order; any failure exits non-zero:
    geomed_blockwise); the SAGA table is freed between runs.
 8. Fig. 6 at workload A's scale: 300 steps for each of the four attacks of
    benchmarks/common.py and alie, times every rule; the optimality gaps as
-   a table.
+   a table.  Then the grids of benchmarks/fig3_ijcnn1.py, fig4_covtype.py,
+   fig5_zero_outer.py and table1_nn.py at their sizes, with GRID_STEPS'
+   steps (cut from the benchmarks' own; logged), as tables, and the
+   orderings of GRID_ORDERINGS asserted.
 9. The claims C2-C4 and the krum/median/trimmed-mean claim of
-   tests/test_convergence.py at their sizes and thresholds, then
+   tests/test_convergence.py at their sizes and thresholds, and
+   tests/test_system.py's BSGD claim (honest variance below SGD's), then
    ``repro_torch.quickstart`` on the card.
 10. Workload D, the decentralized step at full width: workload B's data,
    model and table on an erdos_renyi(p=0.5, seed=0) graph of the 70 nodes
@@ -183,6 +198,32 @@ FLASH_CHECKS = (((2, 64, 4, 2, 16), True), ((1, 100, 2, 2, 32), True),
                 ((2, 65, 2, 1, 128), False), ((4, 2048, 28, 4, 128), True))
 # Workload E: qwen2-7b served at full width and depth.
 E_ARCH, E_BATCH, E_PROMPT, E_DECODE = "qwen2-7b", 4, 2048, 32
+# The paper's three solvers (label, vr, sgd learning rate), as
+# benchmarks/common.py ALGOS; BSGD draws 50 samples a worker.
+ALGOS = (("SGD", "sgd", 0.02), ("BSGD", "minibatch", 0.01), ("SAGA", "saga", 0.02))
+# Workload F: covtype at the real set's size, 50 honest workers x 11,620
+# samples + 20 Byzantine, sign_flip, 300 steps of each solver x rule.
+F_N, F_WORKERS, F_BYZ, F_STEPS = 581_012, 50, 20, 300
+# The paper's grids at benchmarks/'s sizes: the attacks of
+# benchmarks/common.py, and each grid's steps, cut from the benchmarks' 600
+# (Figs. 3 and 4), 800 (Fig. 5) and 500 (Table I) to keep the phase near
+# two minutes (at 400, 400, 500 and 300 it took 192 s on an H100).
+GRID_ATTACKS = ("none", "gaussian", "sign_flip", "zero_gradient")
+GRID_STEPS = {"fig3": 250, "fig4": 250, "fig5": 300, "table1": 200}
+# (grid, attack, run, run): the first run's optimality gap lies below the
+# second's.  Each holds in the reference's benchmarks run on the CPU at the
+# same sizes and steps (PERF.md); Table I's accuracies at 300 steps sit near
+# chance there, so none of its orderings is asserted.
+GRID_ORDERINGS = tuple(
+    [(fig, attack, lo, hi) for fig in ("fig3", "fig4")
+     for attack in ("sign_flip", "zero_gradient")
+     for lo, hi in (("SAGA-geomed", "BSGD-geomed"), ("BSGD-geomed", "SGD-geomed"),
+                    ("SAGA-geomed", "SAGA-mean"))]
+    + [(fig, "gaussian", f"{s}-geomed", f"{s}-mean") for fig in ("fig3", "fig4")
+       for s in ("SGD", "SAGA")]
+    + [("fig5", attack, lo, hi) for attack in ("sign_flip", "zero_gradient")
+       for lo, hi in (("SAGA-geomed", "BSGD-geomed"), ("BSGD-geomed", "SGD-geomed"))]
+    + [("fig5", attack, "SAGA-geomed", "SGD-geomed") for attack in ("none", "gaussian")])
 
 
 def log(msg=""):
@@ -303,10 +344,18 @@ def k4_bitwise(w):
     return w <= rs.NETWORK_CAP or w % 2 == 1
 
 
+def same_values(a, b) -> bool:
+    """Equal values, NaN equal to NaN."""
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
 def check_order_stats(torch, w, d, trim, gen, ties=False, infs=False):
     """K4 and K5 vs their plain versions (with ``infs``, +inf and -inf in
-    some columns; K5 then only where the plain version is finite); K4 gives
-    the same bits on a second launch.  Returns the largest absolute
+    some columns); both give the same bits on a second launch.  On the
+    network route (W <= 128) the last 64 columns hold ``trim`` NaN (K5
+    finite) and ``trim + 1`` NaN (K5 NaN), and both kernels must put NaN
+    and +-inf exactly where the plain versions do; past it K5 is compared
+    where the plain version is finite.  Returns the largest absolute
     differences over the finite entries."""
     from repro_torch.kernels import robust_stats as rs
     z = torch.randn((w, d), generator=gen, device="cuda")
@@ -315,18 +364,30 @@ def check_order_stats(torch, w, d, trim, gen, ties=False, infs=False):
     if infs:
         z[: w // 3 + 1, : d // 16] = float("inf")
         z[w // 3 + 1: w // 2 + 1, d // 32: d // 8] = float("-inf")
+    network = w <= rs.NETWORK_CAP
+    if network:
+        z[:trim, d - 64: d - 32] = float("nan")
+        z[:trim + 1, d - 32:] = float("nan")
     med_k, med_p = rs.coordinate_median_call(z), rs.coordinate_median_plain(z)
     tm_k, tm_p = rs.trimmed_mean_call(z, trim), rs.trimmed_mean_plain(z, trim)
     torch.cuda.synchronize()
     if k4_bitwise(w):
-        assert torch.equal(med_k, med_p), f"K4 not bitwise at {(w, d)}"
+        assert same_values(med_k, med_p), f"K4 not bitwise at {(w, d)}"
     else:
         assert ulps(med_k, med_p) <= 1, \
             f"K4 off by {ulps(med_k, med_p)} ulp at {(w, d)}"
     assert torch.equal(med_k.view(torch.int32),
                        rs.coordinate_median_call(z).view(torch.int32)), \
         f"K4 gave other bits on a second launch at {(w, d)}"
+    assert torch.equal(tm_k.view(torch.int32),
+                       rs.trimmed_mean_call(z, trim).view(torch.int32)), \
+        f"K5 gave other bits on a second launch at {(w, d)}, trim {trim}"
     fin = torch.isfinite(tm_p)
+    if network:
+        assert torch.equal(torch.isnan(tm_k), torch.isnan(tm_p)), \
+            f"K5 NaN where the plain version has none, or the other way, at {(w, d)}"
+        assert bool(torch.isnan(tm_k[d - 32:]).all()), "K5: #NaN > trim is not NaN"
+        assert same_values(tm_k[~fin], tm_p[~fin]), f"K5 +-inf differ at {(w, d)}"
     ok5, err5 = close(tm_k[fin], tm_p[fin])
     assert ok5, f"K5 trimmed_mean disagrees at {(w, d)}, trim {trim}: {err5}"
     fin = torch.isfinite(med_p)
@@ -415,22 +476,24 @@ def phase_kernel_checks(torch):
         errs["weighted_sum"] = max(errs["weighted_sum"], e3)
         log(f"kernel check messages ({w}, {d}), blocks {list(bounds)}: "
             f"K4 max|err| {e4:.3g} ({'bitwise' if k4_bitwise(w) else '<= 1 ulp'}), "
-            f"K5 (trim {trim}) {e5:.3g}, K6 {e6:.3g} (same bits three times, one "
+            f"K5 (trim {trim}) {e5:.3g} (network route: NaN in columns of trim + 1 "
+            f"NaN, finite with trim; same bits twice), K6 {e6:.3g} (same bits three times, one "
             f"kernel a call), "
             f"K3 on column slices {e3:.3g} (rtol 1e-5): ok")
-    # K4 at its network route's cap and one past it (the rank count), with
-    # and without ties, +-inf in some columns.
+    # K4 and K5 at their network route's cap and one past it (the rank
+    # count), with and without ties, +-inf in some columns (and NaN on the
+    # network route).
     from repro_torch.kernels import robust_stats as rs
     for w in (rs.NETWORK_CAP - 1, rs.NETWORK_CAP, rs.NETWORK_CAP + 1):
         for ties in (False, True):
             e4, e5 = check_order_stats(torch, w, d_b, (w - 1) // 2, gen, ties, infs=True)
             errs["coordinate_median"] = max(errs["coordinate_median"], e4)
             errs["trimmed_mean"] = max(errs["trimmed_mean"], e5)
-        log(f"kernel check messages ({w}, {d_b}) with and without ties, +-inf in "
-            f"columns: K4 max|err| {e4:.3g} "
+        log(f"kernel check messages ({w}, {d_b}) with and without ties, +-inf "
+            f"{'and NaN ' if w <= rs.NETWORK_CAP else ''}in columns: K4 max|err| {e4:.3g} "
             f"({'bitwise' if k4_bitwise(w) else '<= 1 ulp'}, same bits twice; "
             f"{'network' if w <= rs.NETWORK_CAP else 'rank count'} route), "
-            f"K5 (trim {(w - 1) // 2}) {e5:.3g} (rtol 1e-5): ok")
+            f"K5 (trim {(w - 1) // 2}) {e5:.3g} (rtol 1e-5, same bits twice): ok")
     # K4/K5 past 454 workers (ranks counted from global memory), K2/K3 past
     # 12,288 rows (K3 compacts its weights 2,048 at a time).
     for w, d, trim in [(455, d_b, 100), (1000, d_b, 333), (5000, 1000, 2499)]:
@@ -530,7 +593,8 @@ def profile_steps(torch, label, step_fn, state, steps, median_s):
     """Trace ``steps`` steps with torch.profiler: device time by kernel, and
     the device's idle share against the untraced median step time
     ``median_s`` (the tracer slows the host, so its own wall time is
-    printed but not used)."""
+    printed but not used).  Returns the state and the device busy time a
+    step (us)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -548,46 +612,77 @@ def profile_steps(torch, label, step_fn, state, steps, median_s):
     for e in events[:10]:
         log(f"  {e.self_device_time_total / steps:9.1f} us/step "
             f"{e.count / steps:7.1f} calls/step  {e.key[:80]}")
-    return state
+    return state, busy_us
+
+
+def logreg_cell(torch, label, loss, batch, wd, *, vr, agg, lr, steps,
+                f_star=None):
+    """One sign_flip run of the master step on a logistic regression (20
+    Byzantine workers): ``steps`` steps with the launch counts reset just
+    before and read just after, asserted for ``vr`` and ``agg`` (K1 on
+    every step for saga and never otherwise; K2 and K3 for geomed, never
+    the masked K2); then a 20-step profile.  mean is driven uphill by
+    sign_flip; geomed with saga or minibatch (50 samples a worker) lowers
+    the loss.  Returns a summary."""
+    from repro_torch.core import RobustConfig, make_federated_step
+    from repro_torch.kernels import ops
+    from repro_torch.optim import get_optimizer
+    cfg = RobustConfig(aggregator=agg, vr=vr, attack="sign_flip",
+                       num_byzantine=20, minibatch_size=50)
+    init_fn, step_fn = make_federated_step(
+        loss, wd, cfg, get_optimizer("sgd", lr), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    st = init_fn({"w": torch.zeros(wd["a"].shape[-1], device="cuda")}, SEED)
+    f0 = float(loss(st.params, batch))
+    ops.reset_launch_counts()
+    st, times, metrics = run_steps(torch, step_fn, st, steps)
+    counts = launch_counts()
+    f1 = float(loss(st.params, batch))
+    peak = torch.cuda.max_memory_allocated()
+    iters = counts["partial_sqdist"] / steps
+    median_s = statistics.median(times)
+    table = (f", SAGA table {tuple(st.vr.table.shape)} = "
+             f"{st.vr.table.numel() * 4 / 1e6:.1f} MB" if vr == "saga" else "")
+    gap = f" (gap {f1 - f_star:.6f})" if f_star is not None else ""
+    log(f"{label}: loss {f0:.6f} -> {f1:.6f}{gap} after {steps} steps, "
+        f"median step {median_s * 1e3:.3f} ms, peak memory {peak / 1e6:.1f} MB, "
+        f"Weiszfeld iters/step {iters:.2f}, honest variance "
+        f"{float(metrics['honest_variance']):.6g}{table}, launches {counts}")
+    st, busy_us = profile_steps(torch, label, step_fn, st, 20, median_s)
+    assert math.isfinite(f1), f"{label}: loss is not finite"
+    assert counts["partial_sqdist masked"] == 0, counts
+    assert counts["saga_correct"] == (steps if vr == "saga" else 0), counts
+    if agg == "geomed":
+        assert counts["partial_sqdist"] == counts["weighted_sum"] >= steps, counts
+        if vr != "sgd":
+            assert f1 < f0, f"{label}: geomed did not lower the loss"
+    else:
+        assert counts["partial_sqdist"] == counts["weighted_sum"] == 0, counts
+        assert f1 > f0, f"{label}: mean was not driven uphill by sign_flip"
+    summary = dict(step_ms=median_s * 1e3, busy_us=busy_us,
+                   idle=1 - busy_us / (median_s * 1e6), iters=iters,
+                   peak_mb=peak / 1e6, loss=f1)
+    del st
+    torch.cuda.empty_cache()
+    return summary
 
 
 def phase_workload_a(torch):
+    """Workload A: SAGA (the main path) and BSGD, each with geomed and mean;
+    then C1 and the card against the CPU."""
     from repro_torch.core import RobustConfig, make_federated_step
     from repro_torch.data import (ijcnn1_like, logreg_full_loss_and_opt,
                                   logreg_loss, partition)
-    from repro_torch.kernels import ops
     from repro_torch.optim import get_optimizer
     loss = logreg_loss(0.01)
     data = ijcnn1_like(SEED, n=49_990, device="cuda")
     batch = {"a": data.x, "b": data.y}
     wd = partition(batch, 50, seed=1, samples_per_worker=999, device="cuda")
-    counts = {}
-    for agg in ("geomed", "mean"):
-        cfg = RobustConfig(aggregator=agg, vr="saga", attack="sign_flip",
-                           num_byzantine=20)
-        init_fn, step_fn = make_federated_step(
-            loss, wd, cfg, get_optimizer("sgd", 0.02), device="cuda")
-        torch.cuda.reset_peak_memory_stats()
-        st = init_fn({"w": torch.zeros(22, device="cuda")}, SEED)
-        f0 = float(loss(st.params, batch))
-        ops.reset_launch_counts()
-        st, times, _ = run_steps(torch, step_fn, st, 300)
-        counts[agg] = launch_counts()
-        f1 = float(loss(st.params, batch))
-        iters = counts[agg]["partial_sqdist"] / 300
-        log(f"workload A {agg}: loss {f0:.6f} -> {f1:.6f} after 300 steps, "
-            f"median step {statistics.median(times) * 1e3:.3f} ms, peak memory "
-            f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB, "
-            f"Weiszfeld iters/step {iters:.2f}, launches {counts[agg]}")
-        st = profile_steps(torch, f"workload A {agg}", step_fn, st, 20,
-                           statistics.median(times))
-        assert counts[agg]["partial_sqdist masked"] == 0, counts[agg]
-        if agg == "geomed":
-            assert f1 < f0, "workload A: geomed did not lower the loss"
-            assert min(counts[agg][k] for k in RULE_KERNELS[agg]) > 0, \
-                f"workload A: a kernel never ran: {counts[agg]}"
-        else:
-            assert f1 > f0, "workload A: mean was not driven uphill by sign_flip"
+    for vr, lr, prefix in (("saga", 0.02, "workload A"),
+                           ("minibatch", 0.01, "workload A BSGD")):
+        for agg in ("geomed", "mean"):
+            logreg_cell(torch, f"{prefix} {agg}", loss, batch, wd, vr=vr,
+                        agg=agg, lr=lr, steps=300)
 
     # C1 of tests/test_convergence.py: mean fails, geomed survives.
     data = ijcnn1_like(SEED, n=960, device="cuda")
@@ -610,25 +705,60 @@ def phase_workload_a(torch):
         assert gaps["geomed"] < 0.1, f"C1 {attack}: geomed gap {gaps['geomed']}"
         assert gaps["mean"] > 3 * gaps["geomed"], f"C1 {attack}: {gaps}"
 
-    # The card's step against the plain CPU path, same state and draws.
-    cfg = RobustConfig(aggregator="geomed", vr="saga", attack="zero_gradient",
-                       num_byzantine=5)
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        init_fn, step_fn = make_federated_step(
-            loss, {k: v.cpu() for k, v in wd.items()}, cfg,
-            get_optimizer("sgd", 0.02), device=dev)
-        st = init_fn({"w": torch.zeros(22)}, 0)
-        draws = torch.Generator().manual_seed(3)
-        for _ in range(20):
-            st, _ = step_fn(st, sample_idx=torch.randint(0, 80, (12,),
-                                                         generator=draws))
-        runs[dev] = st.params["w"].cpu()
-    torch.testing.assert_close(runs["cuda"], runs["cpu"], rtol=1e-4, atol=1e-5)
-    log("20 steps on the card agree with the plain CPU path "
-        f"(max|diff| {float((runs['cuda'] - runs['cpu']).abs().max()):.3g}, "
-        "rtol 1e-4, atol 1e-5)")
-    return counts
+    # The card's step against the plain CPU path, same state and draws: SAGA
+    # with one sample a worker, BSGD with 20.
+    for vr, shape in (("saga", (12,)), ("minibatch", (12, 20))):
+        cfg = RobustConfig(aggregator="geomed", vr=vr, attack="zero_gradient",
+                           num_byzantine=5, minibatch_size=20)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            init_fn, step_fn = make_federated_step(
+                loss, {k: v.cpu() for k, v in wd.items()}, cfg,
+                get_optimizer("sgd", 0.02), device=dev)
+            st = init_fn({"w": torch.zeros(22)}, 0)
+            draws = torch.Generator().manual_seed(3)
+            for _ in range(20):
+                st, _ = step_fn(st, sample_idx=torch.randint(0, 80, shape,
+                                                             generator=draws))
+            runs[dev] = st.params["w"].cpu()
+        torch.testing.assert_close(runs["cuda"], runs["cpu"], rtol=1e-4, atol=1e-5)
+        log(f"20 {vr} steps on the card agree with the plain CPU path "
+            f"(max|diff| {float((runs['cuda'] - runs['cpu']).abs().max()):.3g}, "
+            "rtol 1e-4, atol 1e-5)")
+
+
+def phase_workload_f(torch):
+    """Workload F: covtype at the real set's size (581,012 x 54), 50 honest
+    workers x 11,620 samples on an iid partition + 20 Byzantine, sign_flip,
+    rho = 0.01; SGD, BSGD (50 samples a worker) and SAGA at ALGOS' learning
+    rates, each with mean and geomed, 300 steps; a table of the runs."""
+    from repro_torch.data import (covtype_like, logreg_full_loss_and_opt,
+                                  logreg_loss, partition)
+    loss = logreg_loss(0.01)
+    t0 = time.perf_counter()
+    data = covtype_like(SEED, n=F_N, device="cuda")
+    batch = {"a": data.x, "b": data.y}
+    _, f_star = logreg_full_loss_and_opt(data, iters=4000, lr=0.5)
+    wd = partition(batch, F_WORKERS, seed=1, samples_per_worker=F_N // F_WORKERS,
+                   device="cuda")
+    torch.cuda.synchronize()
+    log(f"workload F: covtype_like ({F_N:,} x {data.x.shape[1]}), {F_WORKERS} honest "
+        f"workers x {F_N // F_WORKERS:,} samples + {F_BYZ} Byzantine, sign_flip, "
+        f"f* {f_star:.6f}; data, f* and partition in {time.perf_counter() - t0:.1f} s")
+    summaries = {}
+    for label, vr, lr in ALGOS:
+        for agg in ("mean", "geomed"):
+            run = f"F {label} {agg}"
+            summaries[run] = logreg_cell(
+                torch, f"workload {run}", loss, batch, wd, vr=vr, agg=agg,
+                lr=lr, steps=F_STEPS, f_star=f_star)
+    log(f"workload F per run: step ms / device busy us / idle share / Weiszfeld "
+        "iters per step / peak MB / loss after")
+    for run, r in summaries.items():
+        log(f"  {run:<17} {r['step_ms']:9.3f} {r['busy_us']:9.1f} {r['idle']:7.3f} "
+            f"{r['iters']:7.2f} {r['peak_mb']:9.1f} {r['loss']:10.6f}")
+    del data, batch, wd
+    torch.cuda.empty_cache()
 
 
 def phase_workload_b(torch, agg, steps=20):
@@ -670,8 +800,8 @@ def phase_workload_b(torch, agg, steps=20):
         f"median step {statistics.median(times) * 1e3:.3f} ms, peak memory "
         f"{peak / 1e9:.2f} GB, honest variance "
         f"{float(metrics['honest_variance']):.6g}, launches {counts}")
-    st = profile_steps(torch, f"workload B {agg}", step_fn, st, 3,
-                       statistics.median(times))
+    st, _ = profile_steps(torch, f"workload B {agg}", step_fn, st, 3,
+                          statistics.median(times))
     assert math.isfinite(f1), "workload B: loss is not finite"
     assert all(bool(torch.isfinite(p).all()) for p in st.params.values())
     ran = {k: counts[k] for k in RULE_KERNELS[agg]}
@@ -809,23 +939,27 @@ def phase_timing(torch, state):
         log(f"timing {name} (device time): {r['ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us "
             f"({r['bound_by']}), plain {r['plain_ms'] * 1e3:.2f} us"
             + (f", library {r['library_ms'] * 1e3:.2f} us" if r["library_ms"] else ""))
-    # K4's network route beside its instruction floor: the float min/max a
-    # coordinate that the network needs at W, at 64 results a clock per SM
-    # (half the float32 FMA rate) and the card's top SM clock.
-    r = out["coordinate_median"]
-    n_minmax = rs.median_network_ops(wm)
+    # K4's and K5's network route beside its bytes bound and its instruction
+    # floor: the float min/max a coordinate that the network needs at W, at
+    # 64 results a clock per SM (half the float32 FMA rate) and the card's
+    # top SM clock.
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True).stdout.split()[0])
-    floor_ms = n_minmax * d / (sms * 64 * mhz * 1e6) * 1e3
-    log(f"timing coordinate_median network route (W={wm} <= {rs.NETWORK_CAP}, "
-        f"{rs.median_network_pairs(wm)[0]} wires): {r['ms'] * 1e3:.2f} us, "
-        f"{r['bound_ms'] / r['ms']:.0%} of its bound {r['bound_ms'] * 1e3:.2f} us "
-        f"({r['bound_by']}, {(wm * d * 4 + d * 4) / 1e6:.1f} MB at 3.35 TB/s); "
-        f"instruction floor {floor_ms * 1e3:.2f} us ({n_minmax} float min/max a "
-        f"coordinate x {d} coordinates / ({sms} SMs x 64 a clock x {mhz:.0f} MHz), "
-        f"against {wm * wm} comparisons a coordinate for the rank count)")
+    for name, n_minmax, what in (
+            ("coordinate_median", rs.median_network_ops(wm), "the ranks read"),
+            ("trimmed_mean", rs.trimmed_network_ops(wm), "every rank, trim 20")):
+        r = out[name]
+        floor_ms = n_minmax * d / (sms * 64 * mhz * 1e6) * 1e3
+        log(f"timing {name} network route (W={wm} <= {rs.NETWORK_CAP}, "
+            f"{rs.median_network_pairs(wm)[0]} wires): {r['ms'] * 1e3:.2f} us, "
+            f"{r['bound_ms'] / r['ms']:.0%} of its bound {r['bound_ms'] * 1e3:.2f} us "
+            f"({r['bound_by']}, {(wm * d * 4 + d * 4) / 1e6:.1f} MB at 3.35 TB/s); "
+            f"instruction floor {floor_ms * 1e3:.2f} us ({n_minmax} float min/max a "
+            f"coordinate for {what} x {d} coordinates / ({sms} SMs x 64 a clock x "
+            f"{mhz:.0f} MHz), against {wm * wm} comparisons a coordinate for the "
+            f"rank count)")
     # The Weiszfeld loop as the step runs it: K2, (W,)-sized ops, K3 and the
     # host read of the stop test, per iteration.
     iters = 16
@@ -841,14 +975,14 @@ def phase_timing(torch, state):
     return out
 
 
-def federated_run(torch, loss, wd, steps, seed, **cfg):
-    """``steps`` steps of the master step on the card from w = 0; returns
-    the final params and the per-step host seconds."""
+def federated_run(torch, loss, wd, steps, seed, lr=0.02, **cfg):
+    """``steps`` steps of the master step on the card from w = 0 (sgd at
+    ``lr``); returns the final params and the per-step host seconds."""
     from repro_torch.core import RobustConfig, make_federated_step
     from repro_torch.optim import get_optimizer
     init_fn, step_fn = make_federated_step(
-        loss, wd, RobustConfig(**cfg), get_optimizer("sgd", 0.02), device="cuda")
-    st = init_fn({"w": torch.zeros(22, device="cuda")}, seed)
+        loss, wd, RobustConfig(**cfg), get_optimizer("sgd", lr), device="cuda")
+    st = init_fn({"w": torch.zeros(wd["a"].shape[-1], device="cuda")}, seed)
     st, times, _ = run_steps(torch, step_fn, st, steps)
     return st.params, times
 
@@ -890,10 +1024,98 @@ def phase_fig6(torch):
     return gaps
 
 
+def grid_table(title, values, runs, fmt):
+    log(title)
+    log("  " + f"{'attack':<14}" + "".join(f"{r:>13}" for r in runs))
+    for attack in GRID_ATTACKS:
+        log("  " + f"{attack:<14}" + "".join(format(values[attack, r], fmt).rjust(13)
+                                             for r in runs))
+
+
+def phase_paper_grids(torch):
+    """The grids of benchmarks/fig3_ijcnn1.py, fig4_covtype.py,
+    fig5_zero_outer.py and table1_nn.py at those scripts' sizes (25 honest
+    + 10 Byzantine workers on 2,000 samples; Fig. 5 every worker the same
+    400; Table I 10 + 4 workers on 1,500 blob images, 500 held out) and
+    GRID_STEPS' steps: each attack x solver (x mean and geomed but in Fig.
+    5), the optimality gap (Table I: test accuracy) as a table.  Asserts the
+    orderings of GRID_ORDERINGS, which the reference's benchmarks show at the
+    same sizes and steps on the CPU."""
+    from repro_torch.core import RobustConfig, make_federated_step
+    from repro_torch.data import (covtype_like, ijcnn1_like, logreg_full_loss_and_opt,
+                                  logreg_loss, mnist_like, partition)
+    from repro_torch.models import paper_nn
+    from repro_torch.optim import get_optimizer
+    loss = logreg_loss(0.01)
+    values = {}
+    t_all = time.perf_counter()
+    for fig, make, replicated in (("fig3", ijcnn1_like, False),
+                                  ("fig4", covtype_like, False),
+                                  ("fig5", ijcnn1_like, True)):
+        t0 = time.perf_counter()
+        data = make(SEED, n=400 if replicated else 2000, device="cuda")
+        batch = {"a": data.x, "b": data.y}
+        _, f_star = logreg_full_loss_and_opt(data, iters=4000, lr=0.5)
+        wd = partition(batch, 25, mode="replicated" if replicated else "iid",
+                       seed=1, device="cuda")
+        gaps = {}
+        aggs = ("geomed",) if replicated else ("mean", "geomed")
+        runs = [f"{label}-{agg}" for label, _, _ in ALGOS for agg in aggs]
+        for attack in GRID_ATTACKS:
+            for label, vr, lr in ALGOS:
+                for agg in aggs:
+                    params, _ = federated_run(
+                        torch, loss, wd, GRID_STEPS[fig], 11,
+                        lr=lr * 0.5 if replicated else lr, aggregator=agg, vr=vr,
+                        attack=attack, num_byzantine=0 if attack == "none" else 10,
+                        minibatch_size=50)
+                    gaps[attack, f"{label}-{agg}"] = float(loss(params, batch)) - f_star
+        assert all(math.isfinite(g) for g in gaps.values()), gaps
+        values[fig] = gaps
+        grid_table(f"{fig} ({'replicated ' if replicated else ''}{make.__name__} "
+                   f"n={data.x.shape[0]}, 25 + 10 workers, {GRID_STEPS[fig]} steps, "
+                   f"f* {f_star:.6f}) in {time.perf_counter() - t0:.1f} s; "
+                   "optimality gap:", gaps, runs, ".5f")
+    t0 = time.perf_counter()
+    train = mnist_like(SEED, n=1500, device="cuda")
+    test = mnist_like(SEED + 1, n=500, device="cuda")
+    wd = partition({"x": train.x, "y": train.y}, 10, seed=2, device="cuda")
+    test_batch = {"x": test.x, "y": test.y}
+    acc = {}
+    runs = [f"{label}-{agg}" for label, _, _ in ALGOS for agg in ("mean", "geomed")]
+    for attack in GRID_ATTACKS:
+        # table1_nn.py's learning rates.
+        for label, vr, lr in (("SGD", "sgd", 0.1), ("BSGD", "minibatch", 0.5),
+                              ("SAGA", "saga", 0.1)):
+            for agg in ("mean", "geomed"):
+                cfg = RobustConfig(aggregator=agg, vr=vr, attack=attack,
+                                   num_byzantine=0 if attack == "none" else 4,
+                                   minibatch_size=20)
+                init_fn, step_fn = make_federated_step(
+                    paper_nn.nn_loss, wd, cfg, get_optimizer("sgd", lr),
+                    device="cuda")
+                st = init_fn(paper_nn.init_params(SEED + 7, device="cuda"), 5)
+                st, _, _ = run_steps(torch, step_fn, st, GRID_STEPS["table1"])
+                acc[attack, f"{label}-{agg}"] = paper_nn.accuracy(st.params, test_batch)
+    values["table1"] = acc
+    grid_table(f"table1 (mnist_like 1,500 + 500 held out, 10 + 4 workers, "
+               f"{GRID_STEPS['table1']} steps) in {time.perf_counter() - t0:.1f} s; "
+               "test accuracy:", acc, runs, ".4f")
+    for fig, attack, lower, higher in GRID_ORDERINGS:
+        lo, hi = values[fig][attack, lower], values[fig][attack, higher]
+        log(f"{fig} {attack}: gap {lower} {lo:.5f} < {higher} {hi:.5f} "
+            f"(ratio {hi / lo:.2f})")
+        assert lo < hi, f"{fig} {attack}: {lower} {lo} not below {higher} {hi}"
+    assert all(0.0 <= a <= 1.0 for a in acc.values()), acc
+    log(f"paper grids in {time.perf_counter() - t_all:.1f} s")
+    return values
+
+
 def phase_claims(torch):
     """C2-C4 and test_krum_and_median_also_robust of
-    tests/test_convergence.py on the card, at their sizes and thresholds
-    (C1 runs in workload A's phase)."""
+    tests/test_convergence.py, and tests/test_system.py's
+    test_minibatch_between_sgd_and_saga, on the card at their sizes and
+    thresholds (C1 runs in workload A's phase)."""
     from repro_torch.data import (ijcnn1_like, logreg_full_loss_and_opt,
                                   logreg_loss, partition)
     loss = logreg_loss(0.01)
@@ -946,6 +1168,23 @@ def phase_claims(torch):
                               num_groups=4, trim=5)[0])
         log(f"{agg} sign_flip: gap {g:.5f} (< 0.2)")
         assert g < 0.2, f"{agg} failed: {g}"
+
+    # tests/test_system.py::test_minibatch_between_sgd_and_saga: the honest
+    # messages' variance under BSGD (20 samples a worker) is below SGD's.
+    data = ijcnn1_like(SEED, n=600, device="cuda")
+    wd = partition({"a": data.x, "b": data.y}, 10, seed=1, device="cuda")
+    var = {}
+    for vr in ("minibatch", "sgd"):
+        init_fn, step_fn = make_federated_step(
+            loss, wd, RobustConfig(aggregator="geomed", vr=vr, minibatch_size=20,
+                                   attack="none", num_byzantine=0),
+            get_optimizer("sgd", 0.02), device="cuda")
+        st = init_fn({"w": torch.zeros(22, device="cuda")}, 3)
+        _, _, metrics = run_steps(torch, step_fn, st, 400)
+        var[vr] = float(metrics["honest_variance"])
+    log(f"BSGD claim, 400 steps: honest variance BSGD {var['minibatch']:.6g} < "
+        f"SGD {var['sgd']:.6g} (ratio {var['minibatch'] / var['sgd']:.4f})")
+    assert var["minibatch"] < var["sgd"], var
 
 
 def phase_quickstart():
@@ -1008,7 +1247,7 @@ def phase_workload_d(torch, gossip, agg, steps=20):
         f"{statistics.median(times) * 1e3:.3f} ms, peak memory {peak / 1e9:.2f} GB, "
         f"Weiszfeld iters/step {iters:.2f}, launches {counts}")
     median_s = statistics.median(times)
-    st = profile_steps(torch, f"workload {label}", step_fn, st, 3, median_s)
+    st, _ = profile_steps(torch, f"workload {label}", step_fn, st, 3, median_s)
     assert math.isfinite(f1), f"workload {label}: loss is not finite"
     assert all(bool(torch.isfinite(p).all()) for p in st.params.values())
     assert counts["saga_correct"] == steps, counts
@@ -1459,6 +1698,7 @@ def main() -> int:
     phase_build()
     errs = phase_kernel_checks(torch)
     phase_workload_a(torch)
+    phase_workload_f(torch)
     counts, summaries = {}, {}
     counts["geomed"], state, summaries["geomed"] = phase_workload_b(torch, "geomed")
     timing = phase_timing(torch, state)
@@ -1475,6 +1715,7 @@ def main() -> int:
         log(f"  {agg:<17} {r['step_ms']:9.3f} {r['peak_gb']:7.2f} "
             f"{r['loss']:10.6f} {r['accuracy']:8.4f}")
     phase_fig6(torch)
+    phase_paper_grids(torch)
     phase_claims(torch)
     phase_quickstart()
     topo_d, _, trim_d = workload_d_graph(torch)

@@ -39,7 +39,7 @@ Params = dict[str, torch.Tensor]
 # Queue A items 7, 9 and 10).
 _SLICE_FIELDS = ("aggregator", "vr", "attack", "num_byzantine",
                  "topology", "topology_seed", "topology_p", "gossip",
-                 "schedule", "schedule_period",
+                 "schedule", "schedule_period", "minibatch_size",
                  "weiszfeld_iters", "weiszfeld_tol", "num_groups", "trim",
                  "clip_radius", "gaussian_variance", "sign_flip_magnitude",
                  "alie_z", "ipm_eps")
@@ -132,7 +132,8 @@ class FederatedState(NamedTuple):
     # (N, ...) on the decentralized path.
     params: Params
     opt_state: Any
-    # Variance-reduction state (SagaState for "saga", None for "sgd").
+    # Variance-reduction state (SagaState for "saga", None for "sgd" and
+    # "minibatch").
     vr: Optional[Any]
     step: int
     # The run's random stream: sample draws, then attack noise, each step.
@@ -163,16 +164,28 @@ def per_sample_table(per_sample_grads, params: Params,
 def sample_rows(reducer: vr_lib.VarianceReducer, generator: torch.Generator,
                 sample_idx, wh: int, j: int,
                 dev: torch.device) -> torch.Tensor:
-    """The step's (W_h,) sample rows: drawn from ``generator``, or the
+    """The step's sample rows, shaped ``reducer.index_shape(wh)`` ((W_h,),
+    or (W_h, B) for ``minibatch``): drawn from ``generator``, or the
     caller's ``sample_idx`` checked and moved to ``dev``."""
     if sample_idx is None:
         return reducer.draw_indices(generator, wh, j)
     idx = torch.as_tensor(sample_idx, dtype=torch.int64)
-    if tuple(idx.shape) != (wh,):
-        raise ValueError(f"sample_idx must be ({wh},), got {tuple(idx.shape)}")
+    shape = reducer.index_shape(wh)
+    if tuple(idx.shape) != shape:
+        raise ValueError(f"sample_idx must be {shape}, got {tuple(idx.shape)}")
     if idx.device.type == "cpu" and bool(((idx < 0) | (idx >= j)).any()):
         raise ValueError(f"sample_idx out of range [0, {j})")
     return idx.to(dev)
+
+
+def worker_batches(data: dict[str, torch.Tensor], w_ids: torch.Tensor,
+                   idx: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Each worker's batch of the step, (W_h, 1, ...) for (W_h,) sample
+    rows and (W_h, B, ...) for (W_h, B) rows: a gradient of the mean loss
+    over it is the worker's one-sample or minibatch gradient."""
+    if idx.dim() == 2:
+        return {k: v[w_ids[:, None], idx] for k, v in data.items()}
+    return as_batches({k: v[w_ids, idx] for k, v in data.items()})
 
 
 def resolve_topology(cfg: RobustConfig, num_nodes: int, topology=None):
@@ -251,7 +264,8 @@ def make_federated_step(
     ``init_fn(params, seed)`` -> :class:`FederatedState`; for ``saga`` it
     fills the packed (W_h, J, D) table of Alg. 1 one worker at a time.
     ``step_fn(state, *, sample_idx=None, attack_noise=None)`` ->
-    ``(new_state, metrics)``.  ``sample_idx`` ((W_h,) rows) and
+    ``(new_state, metrics)``.  ``sample_idx`` ((W_h,) rows, or (W_h, B)
+    for ``minibatch``) and
     ``attack_noise`` ((B, D) standard-normal draws for ``gaussian``)
     replace the step's own draws, so a test can hand in the reference's.
     """
@@ -271,8 +285,9 @@ def make_federated_step(
     # The rule is built from the messages' PackSpec, which the first step
     # reads from its gradients (a state may come from elsewhere than init_fn).
     flat_fns: dict[packing.PackSpec, agg_lib.FlatAggregator] = {}
-    # One gradient per sample: each sample is a batch of one, as in the
-    # reference's per-worker grad of sample_batch(data_w, idx[None]).
+    # One gradient per worker batch: a sample is a batch of one, as in the
+    # reference's per-worker grad of sample_batch(data_w, idx[None]); a
+    # minibatch is the worker's (B, ...) rows.
     per_sample_grads = torch.func.vmap(torch.func.grad(loss_fn),
                                        in_dims=(None, 0))
     w_ids = torch.arange(wh, device=dev)
@@ -294,8 +309,7 @@ def make_federated_step(
                 attack_noise: Optional[torch.Tensor] = None):
         params = state.params
         idx = sample_rows(reducer, state.generator, sample_idx, wh, j, dev)
-        honest_tree = per_sample_grads(params, as_batches(
-            {k: v[w_ids, idx] for k, v in data.items()}))
+        honest_tree = per_sample_grads(params, worker_batches(data, w_ids, idx))
         spec = cfg.message_spec(honest_tree, batch_ndim=1)
         honest = spec.pack(honest_tree)                       # (W_h, D)
         honest, vr_state, vr_metrics = reducer.correct(state.vr, honest, idx)

@@ -3,8 +3,9 @@
 
 The step builder never branches on ``cfg.vr``: it dispatches through the
 reducer :func:`get_reducer` builds.  Ported reducers: ``sgd`` (plain
-stochastic gradients) and ``saga`` (Alg. 1, packed table updated in place).
-``minibatch`` and ``lsvrg`` wait for ROADMAP.md Queue A item 7.
+stochastic gradients), ``minibatch`` (the paper's BSGD: each worker's mean
+gradient over a drawn minibatch) and ``saga`` (Alg. 1, packed table
+updated in place).  ``lsvrg`` waits for ROADMAP.md Queue A item 7b.
 """
 from __future__ import annotations
 
@@ -24,11 +25,18 @@ class VarianceReducer:
 
     name = "sgd"
 
+    def __init__(self, cfg=None):
+        self.cfg = cfg
+
+    def index_shape(self, num_workers: int) -> tuple[int, ...]:
+        """Shape of one step's sample draw: (W,), one sample a worker."""
+        return (num_workers,)
+
     def draw_indices(self, generator: torch.Generator, num_workers: int,
                      num_samples: int) -> torch.Tensor:
-        """Per-worker sample draw for this step: (W,) int64 on the
+        """This step's sample draw, :meth:`index_shape` int64 on the
         generator's device."""
-        return torch.randint(0, num_samples, (num_workers,),
+        return torch.randint(0, num_samples, self.index_shape(num_workers),
                              generator=generator, device=generator.device)
 
     def init_sim(self, params, *,
@@ -42,6 +50,19 @@ class VarianceReducer:
     def correct(self, state, grads: torch.Tensor,
                 sample_idx: torch.Tensor) -> CorrectOut:
         return grads, state, {}
+
+
+class MinibatchReducer(VarianceReducer):
+    """The paper's BSGD baseline: mean gradient of a random minibatch.
+    Reduction happens in the SAMPLING (a (W, B) index draw feeding a mean
+    loss, B = ``cfg.minibatch_size``), so the correction itself is the
+    identity."""
+
+    name = "minibatch"
+
+    def index_shape(self, num_workers):
+        """(W, B): B samples a worker, drawn with replacement."""
+        return (num_workers, self.cfg.minibatch_size)
 
 
 class SagaReducer(VarianceReducer):
@@ -61,13 +82,14 @@ class SagaReducer(VarianceReducer):
 
 _REDUCERS: dict[str, type[VarianceReducer]] = {
     "sgd": VarianceReducer,
+    "minibatch": MinibatchReducer,
     "saga": SagaReducer,
 }
 
 VR_NAMES = tuple(_REDUCERS)
 
 # The reference's reducers that the port does not carry yet.
-UNPORTED = ("minibatch", "lsvrg")
+UNPORTED = ("lsvrg",)
 
 
 def get_reducer(cfg) -> VarianceReducer:
@@ -78,6 +100,6 @@ def get_reducer(cfg) -> VarianceReducer:
         raise ValueError(
             f"unknown variance reducer {cfg.vr!r}; ported: "
             f"{', '.join(sorted(_REDUCERS))}; still to port from the "
-            f"reference: {', '.join(UNPORTED)} (ROADMAP.md Queue A item 7)"
+            f"reference: {', '.join(UNPORTED)} (ROADMAP.md Queue A item 7b)"
         ) from None
-    return cls()
+    return cls(cfg)

@@ -1,8 +1,9 @@
 from repro_torch.data.federated import partition
-from repro_torch.data.synthetic import (Dataset, ijcnn1_like, logreg_dataset,
+from repro_torch.data.synthetic import (Dataset, covtype_like, ijcnn1_like,
+                                        logreg_dataset,
                                         logreg_full_loss_and_opt, logreg_loss,
                                         mnist_like)
 
-__all__ = ["Dataset", "ijcnn1_like", "logreg_dataset",
+__all__ = ["Dataset", "covtype_like", "ijcnn1_like", "logreg_dataset",
            "logreg_full_loss_and_opt", "logreg_loss", "mnist_like",
            "partition"]

@@ -7,7 +7,7 @@ not JAX's: parity tests build their arrays with the reference and hand them
 in (``convert.params_from_jax`` / ``torch.as_tensor``).
 
 * :func:`logreg_dataset` -- binary classification with labels in {-1, +1}
-  from a planted logistic model (IJCNN1-like: p=22).
+  from a planted logistic model (IJCNN1-like: p=22; COVTYPE-like: p=54).
 * :func:`mnist_like`     -- 10-class Gaussian-blob images (p=784) for the
   one-hidden-layer network of Table I.
 * :func:`logreg_loss` / :func:`logreg_full_loss_and_opt` -- the paper's
@@ -47,6 +47,12 @@ def ijcnn1_like(seed: int | torch.Generator, n: int = 4_000, *,
                 device: str | torch.device = DEFAULT_DEVICE) -> Dataset:
     """IJCNN1 surrogate: p=22 (real set: 49,990 x 22)."""
     return logreg_dataset(seed, n, 22, device=device)
+
+
+def covtype_like(seed: int | torch.Generator, n: int = 4_000, *,
+                 device: str | torch.device = DEFAULT_DEVICE) -> Dataset:
+    """COVTYPE surrogate: p=54 (real set: 581,012 x 54)."""
+    return logreg_dataset(seed, n, 54, device=device)
 
 
 def mnist_like(seed: int | torch.Generator, n: int = 2_000,

@@ -13,31 +13,43 @@
 // axis.  Here one thread owns one column (coordinate), and two designs
 // serve it.
 //
-// K4 at W <= 128 (kNetCap): a sorting network in registers.  Each thread
-// loads its column's W values into registers (W coalesced loads, all in
-// flight at once), pads them with +inf to N, W rounded up to a multiple of 8
-// (one network for each of the 16 widths N = 8, 16, ..., 128), and runs
+// K4 and K5 at W <= 128 (kNetCap): a sorting network in registers.  Each
+// thread loads its column's W values into registers (W coalesced loads, all
+// in flight at once), pads them with +inf to N, W rounded up to a multiple
+// of 8 (one network for each of the 16 widths N = 8, 16, ..., 128), and runs
 // Batcher's odd-even merge sort on them: the network for the next power of
 // two with every compare-exchange that touches a wire >= N left out (its
 // min goes to the lower wire, so +inf padding there would never move).
-// Only ranks (N - 8) / 2 .. N / 2 are read, which hold lo and hi for every W
-// of the bucket, so the compiler drops every compare-exchange whose outputs
-// cannot reach them: at W = 70 (N = 72) 1,163 float min/max a coordinate
-// (robust_stats.median_network_ops), against the W^2 = 4,900 comparisons
-// of the rank count below, with no shared memory (94 registers at N = 72,
-// 160 at N = 128, no spills).  NaN orders last, as the plain version's sort puts it: each NaN
-// enters the network as +inf and is counted, and a rank of W - #NaN or more
-// is NaN.  The selection moves values, so the result is the plain
-// version's bits (a zero's sign aside where -0 and +0 share a column: the
-// sort leaves their order open too), and (lo + hi) * 0.5 is computed with
-// the same two roundings.  One warp a block, so the ~1,243 warps at D =
-// 39,760 spread evenly over the 132 SMs.  The network body
-// (load_column, sort_network) is generic over the ranks read, for K5's
-// kept-range sum.
+// NaN orders last, as the plain version's sort puts it: each NaN enters the
+// network as +inf and is counted, and a rank of W - #NaN or more is NaN.
+// One warp a block, so the ~1,243 warps at D = 39,760 spread evenly over
+// the 132 SMs; no shared memory.
 //
-// Past that cap, and for K5 at every W, a block of kTile threads owns kTile
-// coordinates, one column per thread, and each thread ranks its column's
-// values by counting,
+// * K4 reads only ranks (N - 8) / 2 .. N / 2, which hold lo and hi for
+//   every W of the bucket, so the compiler drops every compare-exchange
+//   whose outputs cannot reach them: at W = 70 (N = 72) 1,163 float min/max
+//   a coordinate (robust_stats.median_network_ops), against the W^2 = 4,900
+//   comparisons of the rank count below (94 registers at N = 72, 160 at
+//   N = 128, no spills).  The selection moves values, so the result is the
+//   plain version's bits (a zero's sign aside where -0 and +0 share a
+//   column: the sort leaves their order open too), and (lo + hi) * 0.5 is
+//   computed with the same two roundings.
+// * K5 adds the kept ranks [trim, W - trim) in ascending rank order in
+//   float32 and divides by W - 2 trim.  trim is a runtime value, so every
+//   rank may be read and only the compare-exchanges on wires >= N are gone:
+//   750 at N = 72, 1,500 float min/max a coordinate
+//   (robust_stats.trimmed_network_ops).  The sum is one fully unrolled loop
+//   over the wires with a predicate, so v[] is never indexed by a runtime
+//   rank and stays in registers (96 registers at N = 72, 158 at N = 128,
+//   no spills).  It adds only kept values: a sum of every value less the
+//   tails would let dropped rows of 1e6 cancel the kept values' digits.  The result is NaN exactly when #NaN > trim (a NaN is
+//   then among the kept ranks), as the plain version's mean of the sorted
+//   kept rows gives; +inf and -inf among the kept ranks give NaN in both.
+//   It sums in rank order, the plain version in its own: rtol 1e-5, and the
+//   same bits on every launch.
+//
+// Past that cap a block of kTile threads owns kTile coordinates, one column
+// per thread, and each thread ranks its column's values by counting,
 //
 //     rank(i) = #{j : v_j < v_i  or  (v_j == v_i and j < i)},
 //
@@ -60,12 +72,12 @@
 // Both use 32 registers and no spills.
 //
 // Bound on the H100: the W * D * 4 bytes of z are read from HBM once
-// (11.1 MB at W = 70, D = 39,760: 3.3 us).  The network's 1,163 min/max a
-// coordinate at W = 70 take 2.8 us at 64 results per clock per SM (half the
-// float32 FMA rate) on 132 SMs at 1.98 GHz, below the bytes.  The rank count
-// does W^2 comparisons per coordinate (4,900 at W = 70) and is bound by
-// instruction issue and latency (about nine warps per SM at D = 39,760), not
-// by HBM: K5's route, to be replaced by a sum over the network's kept ranks.
+// (11.1 MB at W = 70, D = 39,760: 3.3 us).  At 64 float min/max results per
+// clock per SM (half the float32 FMA rate) on 132 SMs at 1.98 GHz, K4's
+// network takes 2.8 us at W = 70, below the bytes, and K5's 3.6 us, just
+// above them.  The rank count does W^2 comparisons per coordinate and is
+// bound by instruction issue and latency (about nine warps per SM at
+// D = 39,760), not by HBM.
 //
 // NaN on the rank-count routes: every comparison with NaN is false, so a
 // NaN gets rank 0 and the ranks of its column are no longer a permutation;
@@ -78,7 +90,7 @@
 
 namespace {
 
-// ---- K4 at W <= kNetCap: a sorting network in registers --------------------
+// ---- K4 and K5 at W <= kNetCap: a sorting network in registers ------------
 
 constexpr int kNetCap = 128;     // the most workers the network route takes
 constexpr int kNetStep = 8;      // one network per multiple of 8 workers
@@ -158,20 +170,44 @@ median_network_kernel(const float* __restrict__ z, float* __restrict__ out, int 
   out[col] = lo == hi ? a : __fmul_rn(__fadd_rn(a, b), 0.5f);
 }
 
-// Launches the network of the smallest multiple of kNetStep >= W.
-template <int N = kNetStep>
-int launch_median_network(const float* z, float* out, int W, long long D,
-                          cudaStream_t s) {
+// The mean of each column's values of rank [trim, W - trim) for W in
+// (N - kNetStep, N], summed in ascending rank order; NaN when a NaN (sorted
+// last) falls in that range, that is when #NaN > trim.
+template <int N>
+__global__ void __launch_bounds__(kNetThreads)
+trimmed_network_kernel(const float* __restrict__ z, float* __restrict__ out, int W,
+                       int64_t D, int trim) {
+  const int64_t col = static_cast<int64_t>(blockIdx.x) * kNetThreads + threadIdx.x;
+  if (col >= D) return;
+  float v[N];
+  const int nan = load_column<N>(z, W, D, col, v);
+  sort_network<N>(v);
+  float acc = 0.f;
+#pragma unroll
+  for (int r = 0; r < N; ++r)   // a predicate per wire: v[] stays in registers
+    if (r >= trim && r < W - trim) acc += v[r];
+  out[col] = nan > trim ? NAN : acc / static_cast<float>(W - 2 * trim);
+}
+
+// Launches K4's (kMedian) or K5's network for the smallest multiple of
+// kNetStep >= W.
+template <bool kMedian, int N = kNetStep>
+int launch_network(const float* z, float* out, int W, long long D, int trim,
+                   cudaStream_t s) {
   if constexpr (N < kNetCap) {
-    if (W > N) return launch_median_network<N + kNetStep>(z, out, W, D, s);
+    if (W > N) return launch_network<kMedian, N + kNetStep>(z, out, W, D, trim, s);
   }
   const unsigned blocks = static_cast<unsigned>((D + kNetThreads - 1) / kNetThreads);
-  median_network_kernel<N><<<blocks, kNetThreads, 0, s>>>(z, out, W,
-                                                           static_cast<int64_t>(D));
+  if constexpr (kMedian)
+    median_network_kernel<N><<<blocks, kNetThreads, 0, s>>>(z, out, W,
+                                                             static_cast<int64_t>(D));
+  else
+    trimmed_network_kernel<N><<<blocks, kNetThreads, 0, s>>>(
+        z, out, W, static_cast<int64_t>(D), trim);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- The rank count: K4 past kNetCap, K5 at every W ------------------------
+// ---- The rank count: K4 and K5 past kNetCap ---------------------------------
 
 constexpr int kTile = 128;   // coordinates (threads) per block
 constexpr int kGroup = 4;    // candidates ranked per pass over the column
@@ -307,21 +343,29 @@ int launch(const float* z, float* out, int W, long long D, int lo, int hi,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The network route up to kNetCap workers; past it the rank count of ranks
+// lo and hi (K4) or of the kept range [lo, hi) (K5).
+template <bool kMedian>
+int launch_any(const float* z, float* out, int W, long long D, int trim,
+               void* stream) {
+  if (W > kNetCap) {
+    const int lo = kMedian ? (W - 1) / 2 : trim, hi = kMedian ? W / 2 : W - trim;
+    return launch<kMedian>(z, out, W, D, lo, hi, stream);
+  }
+  if (D == 0) return static_cast<int>(cudaGetLastError());
+  return launch_network<kMedian>(z, out, W, D, trim, static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
-// z: (W, D) float32 contiguous, out: (D,); W >= 1.  The network route up
-// to kNetCap workers, the rank count past it.
+// z: (W, D) float32 contiguous, out: (D,); W >= 1.
 REPRO_EXPORT int coordinate_median_f32(const float* z, float* out, int W,
                                        long long D, void* stream) {
-  if (W <= kNetCap) {
-    if (D == 0) return static_cast<int>(cudaGetLastError());
-    return launch_median_network(z, out, W, D, static_cast<cudaStream_t>(stream));
-  }
-  return launch<true>(z, out, W, D, (W - 1) / 2, W / 2, stream);
+  return launch_any<true>(z, out, W, D, 0, stream);
 }
 
 // z: (W, D) float32 contiguous, out: (D,); 0 <= trim, 2 * trim < W.
 REPRO_EXPORT int trimmed_mean_f32(const float* z, float* out, int W,
                                   long long D, int trim, void* stream) {
-  return launch<false>(z, out, W, D, trim, W - trim, stream);
+  return launch_any<false>(z, out, W, D, trim, stream);
 }

@@ -9,15 +9,18 @@
   the ``trim`` largest values and average the rest; ``2 * trim < W``.
 
 Both launch the CUDA kernels of ``csrc/robust_stats.cu`` on float32
-inputs, for any W >= 1.  K4 up to :data:`NETWORK_CAP` workers runs a
-sorting network in registers (:func:`median_network_pairs` lists its
-compare-exchanges) and gives the plain version's bits, NaN sorted last as
-the plain version sorts it.  Past that, and K5 at every W, each column's
-values are ranked by counting (up to 454 workers from a slab in shared
-memory, past that from global memory), and a column holding a NaN gives an
-unspecified value (see the source).  ``*_plain`` are the same functions in
-plain PyTorch (a sort along the worker axis), which the CPU path runs and
-the card's checks compare against.
+inputs, for any W >= 1.  Up to :data:`NETWORK_CAP` workers both sort each
+column in registers with one sorting network (:func:`median_network_pairs`
+lists its compare-exchanges), NaN sorted last as the plain version sorts
+it: K4 gives the plain version's bits; K5 sums the kept ranks in ascending
+rank order (rtol 1e-5 against the plain version, the same bits on every
+launch) and gives NaN exactly when a column holds more than ``trim`` NaN,
+as the plain version does.  Past that cap each column's values are ranked
+by counting (up to 454 workers from a slab in shared memory, past that
+from global memory), and a column holding a NaN gives an unspecified value
+(see the source).  ``*_plain`` are the same functions in plain PyTorch (a
+sort along the worker axis), which the CPU path runs and the card's checks
+compare against.
 """
 from __future__ import annotations
 
@@ -35,14 +38,14 @@ _SIGNATURES = {
 }
 
 
-# K4's network route: W up to NETWORK_CAP, one network per multiple of
-# NETWORK_STEP workers (the constants kNetCap and kNetStep of the source).
+# K4 and K5's network route: W up to NETWORK_CAP, one network per multiple
+# of NETWORK_STEP workers (the constants kNetCap and kNetStep of the source).
 NETWORK_CAP = 128
 NETWORK_STEP = 8
 
 
 def median_network_pairs(w: int) -> tuple[int, list[tuple[int, int]]]:
-    """K4's network for ``w <= NETWORK_CAP`` workers, as the kernel runs it:
+    """The network for ``w <= NETWORK_CAP`` workers, as K4 and K5 run it:
     (N, the compare-exchanges (a, b), a < b, min to a, in order) for the
     N = w rounded up to a multiple of NETWORK_STEP wires, those past w
     holding +inf.  Batcher's odd-even merge sort on the next power of two,
@@ -78,6 +81,13 @@ def median_network_ops(w: int) -> int:
             ops += used
             need.update((a, b))
     return ops
+
+
+def trimmed_network_ops(w: int) -> int:
+    """Float min/max a coordinate that K5's network route needs at ``w``
+    workers: every compare-exchange of the network, two each (the kept
+    range depends on the runtime trim, so the compiler can drop none)."""
+    return 2 * len(median_network_pairs(w)[1])
 
 
 def check_inputs(what: str, z: torch.Tensor) -> None:

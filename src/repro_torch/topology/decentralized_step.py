@@ -3,7 +3,7 @@ device (port of the simulation side of
 ``repro/topology/decentralized_step.py``).
 
 There is no master: every node keeps its own parameters, computes its own
-SAGA-corrected stochastic gradient at them, exchanges messages only with
+(variance-reduced) stochastic gradient at them, exchanges messages only with
 its graph neighbours, and robustly aggregates its masked neighbourhood
 with any rule of :mod:`repro_torch.topology.masked`.  ``cfg.gossip``
 chooses the channel:
@@ -33,8 +33,8 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.core import attacks as attack_lib
-from repro_torch.core.robust_step import (FederatedState, as_batches,
-                                          per_sample_table, sample_rows)
+from repro_torch.core.robust_step import (FederatedState, per_sample_table,
+                                          sample_rows, worker_batches)
 from repro_torch.device import DEFAULT_DEVICE, generator_for, resolve_device
 from repro_torch.optim import optimizers as optim_lib
 from repro_torch.telemetry import metrics as telemetry
@@ -139,9 +139,10 @@ def make_decentralized_step(
     params.  ``step_fn(state, *, sample_idx=None, attack_noise=None)`` ->
     ``(new_state, metrics)`` with ``honest_variance`` and
     ``consensus_dist`` (the honest-variance formula on the honest nodes'
-    parameter copies).  ``sample_idx`` ((W_h,) rows) and ``attack_noise``
-    ((N, N, D) standard-normal per-edge draws for ``gaussian``) replace the
-    step's own draws, so a test can hand in the reference's.
+    parameter copies).  ``sample_idx`` ((W_h,) rows, (W_h, B) for
+    ``minibatch``) and ``attack_noise`` ((N, N, D) standard-normal per-edge
+    draws for ``gaussian``) replace the step's own draws, so a test can
+    hand in the reference's.
     """
     sched = as_schedule(topology)
     dev = resolve_device(device)
@@ -157,7 +158,8 @@ def make_decentralized_step(
     grad_fn = torch.func.grad(loss_fn)
     # Alg. 1 init: every sample's gradient at the shared initial params.
     per_sample_grads = torch.func.vmap(grad_fn, in_dims=(None, 0))
-    # Each honest node's gradient at its own params, on its drawn sample.
+    # Each honest node's gradient at its own params, on its drawn sample
+    # (or minibatch).
     per_node_grads = torch.func.vmap(grad_fn, in_dims=(0, 0))
     is_byz = torch.arange(n, device=dev) >= wh
     w_ids = torch.arange(wh, device=dev)
@@ -186,8 +188,8 @@ def make_decentralized_step(
         mixing = stacks.mixing_at(state.step)
         idx = sample_rows(reducer, state.generator, sample_idx, wh, j, dev)
         honest_params = {k: v[:wh] for k, v in state.params.items()}
-        honest_tree = per_node_grads(honest_params, as_batches(
-            {k: v[w_ids, idx] for k, v in data.items()}))
+        honest_tree = per_node_grads(honest_params,
+                                     worker_batches(data, w_ids, idx))
         spec = cfg.message_spec(honest_tree, batch_ndim=1)
         honest = spec.pack(honest_tree)                         # (W_h, D)
         honest, vr_state, vr_metrics = reducer.correct(state.vr, honest, idx)

@@ -209,19 +209,25 @@ def test_coordinate_median_plain_vs_reference(w, p):
     np.testing.assert_allclose(ref.coordinate_median(_t(z)).numpy(), got, **TOL)
 
 
-def _network_median(z: torch.Tensor) -> torch.Tensor:
-    """K4's network route emulated in torch, as the kernel runs it: each
-    NaN enters as +inf and is counted, the column is padded with +inf to N
-    wires, ``median_network_pairs`` sorts it with float min/max, and a rank
-    of W - #NaN or more reads NaN."""
-    w = z.shape[0]
-    n, pairs = rs.median_network_pairs(w)
-    nan = torch.isnan(z)
-    v = list(torch.where(nan, torch.inf, z)) + [
-        torch.full_like(z[0], torch.inf)] * (n - w)
+def _network_sort(z: torch.Tensor, n: int,
+                  pairs: list[tuple[int, int]]) -> list[torch.Tensor]:
+    """The network of K4 and K5 emulated in torch, as the kernels run it on
+    each column of ``z`` (W <= n rows): each NaN enters as +inf, the column
+    is padded with +inf to ``n`` wires and ``pairs`` sort it with float
+    min/max.  Returns the ``n`` sorted wires."""
+    v = list(torch.where(torch.isnan(z), torch.inf, z)) + [
+        torch.full_like(z[0], torch.inf)] * (n - z.shape[0])
     for a, b in pairs:
         v[a], v[b] = torch.minimum(v[a], v[b]), torch.maximum(v[a], v[b])
-    count = nan.sum(0)
+    return v
+
+
+def _network_median(z: torch.Tensor) -> torch.Tensor:
+    """K4's network route: the sorted wires of :func:`_network_sort`, a
+    rank of W - #NaN or more reading NaN."""
+    w = z.shape[0]
+    v = _network_sort(z, *rs.median_network_pairs(w))
+    count = torch.isnan(z).sum(0)
 
     def rank(r):
         return torch.where(r >= w - count, torch.nan, v[r])
@@ -248,6 +254,81 @@ def test_median_network_gives_the_plain_bits(w):
     assert rs.median_network_ops(w) < max(w * w, 64)
     if w == 70:
         assert rs.median_network_ops(w) == 1163
+
+
+def _trimmed_columns(w: int, rng) -> tuple[np.ndarray, np.ndarray]:
+    """(w, D) columns for K5's network test and each column's count of rows
+    at +-1e6 (0 for the others): random values, ties, +-inf in random
+    counts, one column for each NaN count 1..w, and k = 1, 2, 3 rows at
+    +1e6 and k at -1e6."""
+    z = rng.standard_normal((w, 64 + w + 24)).astype(np.float32)
+    huge = np.zeros(z.shape[1], np.int64)
+    z[:, 32:48] = np.round(2 * z[:, 32:48]) / 2
+    for c in range(48, 64):
+        rows = rng.permutation(w)
+        pos, neg = rng.integers(0, w + 1, 2)
+        z[rows[:pos], c] = np.inf
+        z[rows[pos:pos + neg], c] = -np.inf
+    for c in range(1, w + 1):
+        z[rng.permutation(w)[:c], 63 + c] = np.nan
+    for i in range(24):
+        k = 1 + i // 8
+        if 2 * k <= w:
+            rows = rng.permutation(w)
+            c = 64 + w + i
+            z[rows[:k], c] = 1e6 * (1 + rng.random(k))
+            z[rows[k:2 * k], c] = -1e6 * (1 + rng.random(k))
+            huge[c] = k
+    return z, huge
+
+
+@pytest.mark.parametrize("n", range(rs.NETWORK_STEP, rs.NETWORK_CAP + 1,
+                                    rs.NETWORK_STEP))
+def test_trimmed_network_matches_the_plain_mean(n):
+    """K5's network route (W <= 128 on the card) emulated on the CPU for
+    the eight W of the network of ``n`` wires and every trim with
+    2 trim < W: the kept ranks [trim, W - trim) of the sorted wires summed
+    in ascending rank order in float32 (one predicated add per wire, as
+    the kernel adds) and divided by W - 2 trim, NaN where #NaN > trim.
+    Held against ``trimmed_mean_plain`` at rtol 1e-5 (|got - want| <=
+    1e-5 (|want| + max|want|): the sums run in other orders), with NaN and
+    +-inf exactly where the plain version has them; rows of +-1e6 leave no
+    trace once every one is dropped (trim >= their count)."""
+    rng = np.random.default_rng(n)
+    ws = range(n - rs.NETWORK_STEP + 1, n + 1)
+    cols = [_trimmed_columns(w, rng) for w in ws]
+    # One network run for the bucket: every W's columns side by side.
+    wide = torch.cat([torch.nn.functional.pad(_t(z), (0, 0, 0, n - w),
+                                              value=np.inf)
+                      for w, (z, _) in zip(ws, cols)], dim=1)
+    n_, pairs = rs.median_network_pairs(n)
+    assert n_ == n
+    v = _network_sort(wide, n, pairs)
+    assert rs.trimmed_network_ops(n) == 2 * len(pairs)
+    start = 0
+    for w, (z, huge) in zip(ws, cols):
+        d = z.shape[1]
+        wires = [x[start:start + d] for x in v]
+        start += d
+        trims = torch.arange((w + 1) // 2)[:, None]
+        acc = torch.zeros((len(trims), d))
+        for r in range(n):
+            keep = (r >= trims) & (r < w - trims)
+            acc = torch.where(keep, acc + wires[r], acc)
+        nan = torch.isnan(_t(z)).sum(0)
+        got = torch.where(nan > trims, torch.nan, acc / (w - 2 * trims))
+        for t in range(len(trims)):
+            want = rs.trimmed_mean_plain(_t(z), t)
+            ok = torch.from_numpy(huge <= t)        # the +-1e6 rows all dropped
+            g, x = got[t][ok], want[ok]
+            assert torch.equal(torch.isnan(g), torch.isnan(x)), (w, t)
+            inf = torch.isinf(x)
+            assert torch.equal(g[inf], x[inf]), (w, t)
+            fin = torch.isfinite(x)
+            scale = float(x[fin].abs().max())
+            assert bool(((g[fin] - x[fin]).abs()
+                         <= 1e-5 * (x[fin].abs() + scale)).all()), (w, t)
+            assert bool(torch.isfinite(got[t][torch.from_numpy(huge > 0) & ok]).all())
 
 
 @pytest.mark.parametrize("w,p", SHAPES)

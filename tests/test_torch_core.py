@@ -100,6 +100,21 @@ def test_synthetic_generators_shapes_and_labels():
     assert torch.equal(d.x, d2.x)
 
 
+def test_covtype_like_shape_dtype_and_labels():
+    """covtype_like: p = 54 float32 features and +-1 float32 labels, as the
+    reference's; the same seed gives the same set."""
+    d = synthetic.covtype_like(0, n=40, device="cpu")
+    want = jsynthetic.covtype_like(jax.random.PRNGKey(0), n=40)
+    assert d.x.shape == want.x.shape == (40, 54)
+    assert d.y.shape == want.y.shape == (40,)
+    assert d.x.dtype == d.y.dtype == torch.float32
+    assert str(want.x.dtype) == str(want.y.dtype) == "float32"
+    assert set(d.y.unique().tolist()) <= {-1.0, 1.0}
+    assert torch.equal(d.x, synthetic.covtype_like(0, n=40, device="cpu").x)
+    from repro_torch import data
+    assert data.covtype_like is synthetic.covtype_like
+
+
 def test_nn_loss_and_grad_match_reference():
     rng = np.random.default_rng(4)
     params = {"w1": 0.05 * rng.standard_normal((784, 16)).astype(np.float32),
@@ -311,9 +326,30 @@ def test_sgd_reducer_and_unported_reducers():
     assert out is g and state is None and m == {}
     idx = red.draw_indices(torch.Generator().manual_seed(0), 50, 7)
     assert idx.dtype == torch.int64 and int(idx.min()) >= 0 and int(idx.max()) < 7
-    for name in ("minibatch", "lsvrg"):
-        with pytest.raises(ValueError, match="Queue A item 7"):
-            robust_step.RobustConfig(vr=name).reducer()
+    assert tuple(idx.shape) == (50,)
+    assert variance.UNPORTED == ("lsvrg",)
+    with pytest.raises(ValueError, match="Queue A item 7b"):
+        robust_step.RobustConfig(vr="lsvrg").reducer()
+
+
+def test_minibatch_reducer_matches_reference():
+    """BSGD: a (W, minibatch_size) draw in [0, J) like the reference's, no
+    state, and the identity correction (the reduction is in the
+    sampling)."""
+    jred = jstep.RobustConfig(vr="minibatch", minibatch_size=9).reducer()
+    tred = robust_step.RobustConfig(vr="minibatch", minibatch_size=9).reducer()
+    assert tred.name == jred.name == "minibatch"
+    want = jred.draw_indices(jax.random.PRNGKey(0), 5, 7)
+    got = tred.draw_indices(torch.Generator().manual_seed(0), 5, 7)
+    assert tuple(got.shape) == tuple(want.shape) == (5, 9)
+    assert got.dtype == torch.int64
+    assert int(got.min()) >= 0 and int(got.max()) < 7
+    assert tred.init_sim(None, per_sample_grads_fn=None, num_workers=5) is None
+    g = torch.ones(5, 4)
+    jm, jstate, jmetrics = jred.correct(None, jnp.ones((5, 4)), want, None)
+    out, state, m = tred.correct(None, g, got)
+    assert out is g and state is None and m == {} == jmetrics
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jm))
 
 
 def test_saga_init_zeros_is_packed():

@@ -9,6 +9,8 @@ and the port only (no JAX), so it runs on a machine with a card:
 Tolerances: K1 is elementwise in the plain version's order, so it agrees
 to within 1 ulp and its table bitwise; K2, K3, K5 and K6 sum in another
 order than PyTorch, so they agree to rtol 1e-5 (atol 1e-5 x max|plain|);
+K5 on its network route (W <= 128) also gives NaN exactly where the plain
+version does and the same bits on every launch;
 K4 selects, so it is bitwise: at every W on its network route (W <= 128,
 NaN sorted last as the plain version sorts it), and for odd W (within 1
 ulp for even W) on the rank count past it.  K6 adds in another order than
@@ -255,6 +257,87 @@ def test_median_network_route_gives_the_plain_bits(w, ties):
     else:
         assert _ulps(got[clean], want[clean]) <= 1
     assert torch.equal(_bits(got), _bits(rs.coordinate_median_call(z)))
+
+
+def _trimmed_network_inputs(w: int, trim: int, ties: bool, seed: int):
+    """(w, 2,000) columns for K5's network route at ``trim``: random values
+    (rounded to halves with ``ties``), +inf and -inf in random counts, ``trim``
+    NaN (a finite result) and ``trim + 1`` NaN (NaN) in some columns, and
+    ``trim`` rows of +1e6 and ``trim`` of -1e6 in others (all dropped)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    d = 2_000
+    z = torch.randn((w, d), generator=g, device="cuda")
+    if ties:
+        z = torch.round(2 * z) / 2
+    u = torch.rand((w, d), generator=g, device="cuda")
+    rows = torch.argsort(torch.rand((w, d), generator=g, device="cuda"), dim=0)
+    counts = torch.randint(0, w + 1, (2, d), generator=g, device="cuda")
+    inf_cols = slice(100, 300)
+    pos = rows < counts[0]
+    neg = (rows >= counts[0]) & (rows < counts[0] + counts[1])
+    z[:, inf_cols] = torch.where(pos, torch.inf, torch.where(neg, -torch.inf, z))[:, inf_cols]
+    for lo, hi, k in ((300, 400, trim), (400, 500, min(trim + 1, w))):
+        z[:, lo:hi] = torch.where(rows[:, lo:hi] < k, torch.nan, z[:, lo:hi])
+    big = torch.where(rows < trim, 1e6 * (1 + u),
+                      torch.where(rows < 2 * trim, -1e6 * (1 + u), z))
+    z[:, 500:700] = big[:, 500:700]
+    return z
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("n", range(rs.NETWORK_STEP, rs.NETWORK_CAP + 1,
+                                    rs.NETWORK_STEP))
+def test_trimmed_network_route_vs_plain(n, ties):
+    """K5's network route at every W of the network of ``n`` wires and trim
+    0, 1 and (W - 1) // 2: rtol 1e-5 against the plain version on the
+    finite results (it sums in rank order), NaN exactly where the plain
+    version gives NaN (#NaN > trim, or +inf and -inf both kept), the same
+    +-inf, rows of +-1e6 leaving no trace once dropped, and the same bits on
+    a second launch."""
+    _need_card()
+    for w in range(n - rs.NETWORK_STEP + 1, n + 1):
+        for trim in sorted({0, 1, (w - 1) // 2}):
+            if 2 * trim >= w:
+                continue
+            z = _trimmed_network_inputs(w, trim, ties, seed=w * 7 + trim)
+            got = rs.trimmed_mean_call(z, trim)
+            want = rs.trimmed_mean_plain(z, trim)
+            torch.cuda.synchronize()
+            assert torch.equal(torch.isnan(got), torch.isnan(want)), (w, trim)
+            assert bool(torch.isnan(got[400:500]).all()), (w, trim)
+            inf = torch.isinf(want)
+            assert torch.equal(got[inf], want[inf]), (w, trim)
+            fin = torch.isfinite(want)
+            if trim:
+                assert bool(fin[500:700].all()) and float(want[500:700].abs().max()) < 10
+            _close(got[fin], want[fin])
+            assert torch.equal(_bits(got), _bits(rs.trimmed_mean_call(z, trim)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,kernel", [(1, "trimmed_network_kernel"),
+                                      (70, "trimmed_network_kernel"),
+                                      (rs.NETWORK_CAP, "trimmed_network_kernel"),
+                                      (rs.NETWORK_CAP + 1, "order_stat_kernel"),
+                                      (455, "order_stat_global_kernel")])
+def test_trimmed_mean_routes_by_worker_count(w, kernel):
+    """K5 runs its network kernel up to 128 workers and the rank count past
+    it (from shared memory up to 454 workers, from global memory past
+    that): one kernel a call, named in the profiler's device records, and
+    the result within rtol 1e-5 of the plain version."""
+    _need_card()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    z, *_ = _inputs(w, 3_000, seed=w)
+    trim = (w - 1) // 3
+    _close(rs.trimmed_mean_call(z, trim), rs.trimmed_mean_plain(z, trim))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rs.trimmed_mean_call(z, trim)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and kernel in names[0], names
 
 
 def _segment_ids(case: str, d: int) -> tuple[torch.Tensor, int]:

@@ -8,6 +8,9 @@ handed each step's sample draws, recomputed from the reference's key the
 way ``step_fn_packed`` draws them.  After 20 steps the parameters agree to
 rtol 1e-4 / atol 1e-5: the Weiszfeld tol early stop may end one iteration
 apart across the frameworks, and 20 steps carry that difference along.
+BSGD (``vr="minibatch"``) is held the same way for 3 steps, with the
+reference's (W_h, B) draws handed in, on the master and the decentralized
+steps.
 """
 import functools
 
@@ -147,6 +150,88 @@ def test_gaussian_step_with_reference_noise():
     np.testing.assert_allclose(t_state.params["w"].numpy(),
                                np.asarray(j_state.params["w"]),
                                rtol=1e-4, atol=1e-5)
+
+
+BSGD_CASES = [(agg, attack) for agg in ("mean", "geomed")
+              for attack in ("none", "sign_flip")]
+MINIBATCH = 7
+
+
+def _bsgd_parity(j_loss, t_loss, wd, params, wh, lr, steps, **cfg):
+    """``steps`` BSGD steps of the reference and of the port from the
+    reference's init state, the port handed the reference's (W_h, B)
+    draws; returns both final states."""
+    cfg = dict(vr="minibatch", minibatch_size=MINIBATCH, **cfg)
+    j_init, j_step = j_make_step(j_loss, wd, JConfig(**cfg),
+                                 j_get_optimizer("sgd", lr))
+    _, t_step = make_federated_step(t_loss, _numpy(wd), RobustConfig(**cfg),
+                                    get_optimizer("sgd", lr), device="cpu")
+    j_state = j_init({k: jnp.asarray(v) for k, v in params.items()},
+                     jax.random.PRNGKey(5))
+    t_state = convert.state_from_jax(_numpy(j_state), device="cpu")
+    assert t_state.vr is None
+    j = next(iter(wd.values())).shape[1]
+    j_step = jax.jit(j_step)
+    for _ in range(steps):
+        _, k_idx, _ = jax.random.split(j_state.key, 3)
+        idx = np.array(jax.random.randint(k_idx, (wh, MINIBATCH), 0, j))
+        j_state, j_metrics = j_step(j_state)
+        t_state, t_metrics = t_step(t_state, sample_idx=idx)
+    np.testing.assert_allclose(float(t_metrics["honest_variance"]),
+                               float(j_metrics["honest_variance"]), rtol=1e-4)
+    return t_state, j_state
+
+
+@pytest.mark.parametrize("agg,attack", BSGD_CASES)
+def test_minibatch_step_parity_with_reference(agg, attack):
+    """BSGD on the master path: each worker's gradient of the mean loss
+    over its B = 7 drawn rows, 3 steps against the reference's
+    ``make_federated_step`` (rtol 1e-4 / atol 1e-5, the tolerance of the
+    SAGA runs above)."""
+    j_loss, t_loss, wd, params, wh, b, lr = _problem("logreg")
+    nb = b if attack != "none" else 0
+    t_state, j_state = _bsgd_parity(j_loss, t_loss, wd, params, wh, lr, 3,
+                                    aggregator=agg, attack=attack,
+                                    num_byzantine=nb)
+    np.testing.assert_allclose(t_state.params["w"].numpy(),
+                               np.asarray(j_state.params["w"]),
+                               rtol=1e-4, atol=1e-5)
+    assert t_state.step == 3
+
+
+def test_minibatch_decentralized_step_parity_with_reference():
+    """BSGD on the decentralized step (a ring of 12 honest + 5 Byzantine
+    nodes, geomed, sign_flip per edge): every node's params after 3 steps
+    agree with the reference's."""
+    j_loss, t_loss, wd, params, wh, b, lr = _problem("logreg")
+    t_state, j_state = _bsgd_parity(j_loss, t_loss, wd, params, wh, lr, 3,
+                                    aggregator="geomed", attack="sign_flip",
+                                    num_byzantine=b, topology="ring",
+                                    weiszfeld_iters=32)
+    assert t_state.params["w"].shape == (wh + b, 22)
+    np.testing.assert_allclose(t_state.params["w"].numpy(),
+                               np.asarray(j_state.params["w"]),
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_minibatch_sample_idx_is_validated():
+    """BSGD takes (W_h, B) draws and refuses the one-sample (W_h,) layout,
+    a wrong B and rows out of range; its own draws are (W_h, B)."""
+    _, t_loss, wd, _, wh, _, lr = _problem("logreg")
+    init, step = make_federated_step(
+        t_loss, _numpy(wd), RobustConfig(vr="minibatch", minibatch_size=4),
+        get_optimizer("sgd", lr), device="cpu")
+    st = init({"w": torch.zeros(22)}, 0)
+    with pytest.raises(ValueError, match=r"\(12, 4\)"):
+        step(st, sample_idx=np.zeros(wh, np.int64))
+    with pytest.raises(ValueError, match=r"\(12, 4\)"):
+        step(st, sample_idx=np.zeros((wh, 5), np.int64))
+    with pytest.raises(ValueError, match="out of range"):
+        step(st, sample_idx=np.full((wh, 4), 80))
+    st, _ = step(st, sample_idx=np.zeros((wh, 4), np.int64))
+    st, metrics = step(st)
+    assert st.step == 2 and bool(torch.isfinite(st.params["w"]).all())
+    assert float(metrics["honest_variance"]) > 0.0
 
 
 def test_sample_idx_is_validated():

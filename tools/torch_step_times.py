@@ -14,8 +14,9 @@ Imports ``repro_torch`` from ``SRC_DIR`` (default: this checkout's
   workers x 1,200 samples + 20 Byzantine, the 9.54 GB SAGA table),
   sign_flip, 60 steps;
 
-each with geomed and with mean (B also with median and geomed_blockwise,
-the rules that run K4 and K6); and workload D: workload B's data, model
+each with geomed and with mean (B also with median, trimmed_mean with
+trim 20 and geomed_blockwise, the rules that run K4, K5 and K6); and
+workload D: workload B's data, model
 and table on the erdos_renyi(70, p=0.5, seed=0) graph, trim 12, sign_flip,
 60 steps, in cells D/gradient/geomed, D/gradient/trimmed_mean,
 D/gradient/mean and D/params/geomed.  ``--cells`` picks some of the cells
@@ -36,7 +37,7 @@ import time
 
 SEED = 0
 CELLS = ("A/geomed", "A/mean", "B/geomed", "B/mean", "B/median",
-         "B/geomed_blockwise", "D/gradient/geomed", "D/gradient/trimmed_mean",
+         "B/trimmed_mean", "B/geomed_blockwise", "D/gradient/geomed", "D/gradient/trimmed_mean",
          "D/gradient/mean", "D/params/geomed")
 
 
@@ -111,6 +112,7 @@ def main() -> int:
                          topology_seed=0, gossip=gossip)
         else:
             agg = cell[2:]
+            extra = dict(trim=20, num_groups=5)   # as chip_smoke.py's workload B
         cfg = RobustConfig(aggregator=agg, vr="saga", attack="sign_flip",
                            num_byzantine=20, **extra)
         init_fn, step_fn = make_federated_step(
