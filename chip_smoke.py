@@ -121,8 +121,30 @@ Phases, in order; any failure exits non-zero:
    bfloat16 inputs, beside the bound, the plain version and
    ``scaled_dot_product_attention`` (the library yardstick, timed here only;
    the port never calls it).
-16. One JSON line with the kernels (K1-K8, and the masked route of K2 and
-   the trim-0 kernel of K7 as entries of their own), then the result line.
+16. The simulation options.  K1's client-row route (a table resident per client,
+   updated through (W,) distinct client rows) bitwise against its plain
+   version at (C, J, D) = (13, 3, 300) with 7 rows and at workload G's
+   (500, 120, 39,760) with a cohort of 50, only the drawn entries changed,
+   an out-of-range row giving NaN and touching no state.  Workload G: the
+   Table I network at MNIST size under partial participation (500 clients x
+   120 samples, cohorts of 50 honest slots + 20 Byzantine), SAGA, geomed,
+   sgd 0.1, 20 steps each of G1 straggler (straggler_k 4, staleness decay
+   0.9) and G2 dropout: step time, device busy and idle share, Weiszfeld
+   iterations, K1 launches by route, peak memory (asserted below workload
+   B's plus 0.5 GB: no copy of the cohort's table rows), loss and accuracy;
+   K1's two routes timed on G's table.  Workload B with the new options, 20
+   steps each: lsvrg (p = 1/1,200, every coin up on step 10, so the
+   refresh runs at full width) under sign_flip; guards under nan,
+   inf_overflow and bitflip (prob 0.02), finite and every Byzantine row
+   quarantined every step; guards under sign_flip and diagnostics, each
+   with B geomed's loss to every printed digit, the diagnostics' mean weight
+   of the honest and the Byzantine slots.  Workload D gradient geomed with
+   guards under per-edge bitflip and diagnostics.  The twins of
+   tests/test_convergence.py's lsvrg claim and tests/test_guards.py's
+   fault containment on the simulated master.
+17. One JSON line with the kernels (K1-K8, and K1's client-row route, the
+   masked route of K2 and the trim-0 kernel of K7 as entries of their
+   own), then the result line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -145,6 +167,8 @@ SEED = 0
 KERNEL_SOURCES = {
     "saga_correct": ("src/repro_torch/kernels/csrc/saga_correct.cu",
                      "src/repro/kernels/saga_correct.py:52"),
+    "saga_correct clients": ("src/repro_torch/kernels/csrc/saga_correct.cu",
+                             "src/repro/kernels/saga_correct.py:52"),
     "partial_sqdist": ("src/repro_torch/kernels/csrc/weiszfeld.cu",
                        "src/repro/kernels/weiszfeld.py:58"),
     "weighted_sum": ("src/repro_torch/kernels/csrc/weiszfeld.cu",
@@ -177,7 +201,8 @@ RULE_KERNELS = {
                          "weighted_sum"),
 }
 # The path whose run gives each kernel's launch count in the kernels line.
-KERNEL_PATH = {"saga_correct": "geomed", "partial_sqdist": "geomed",
+KERNEL_PATH = {"saga_correct": "geomed", "saga_correct clients": "G1",
+               "partial_sqdist": "geomed",
                "weighted_sum": "geomed", "coordinate_median": "median",
                "trimmed_mean": "trimmed_mean",
                "partial_sqdist_segments": "geomed_blockwise",
@@ -191,6 +216,11 @@ D_RUNS = (("gradient", "geomed"), ("gradient", "trimmed_mean"),
 FIG6_RULES = ("mean", "geomed", "median", "krum", "trimmed_mean",
               "geomed_groups", "centered_clip", "geomed_blockwise")
 FIG6_ATTACKS = ("none", "gaussian", "sign_flip", "zero_gradient", "alie")
+# Workload G: workload B's data and network under partial participation,
+# 500 clients x 120 samples, cohorts of 50 honest slots + 20 Byzantine.
+G_CLIENTS, G_COHORT, G_BYZ = 500, 50, 20
+G_RUNS = (("G1", dict(attack="straggler", straggler_k=4, staleness_decay=0.9)),
+          ("G2", dict(attack="dropout")))
 # K8 checks: (B, S, H, KV, hd), causal.
 FLASH_CHECKS = (((2, 64, 4, 2, 16), True), ((1, 100, 2, 2, 32), True),
                 ((2, 37, 4, 4, 8), False), ((1, 192, 2, 1, 64), True),
@@ -249,13 +279,16 @@ def close(got, want, rtol=1e-5):
 
 
 def launch_counts():
-    """Launches per kernel since the last reset, with K2's per-route counts
-    ("partial_sqdist unmasked" / "masked") and K7's ("masked_neighbor_reduce
-    sum" / "select" / "rank")."""
+    """Launches per kernel since the last reset, with K1's per-route counts
+    ("saga_correct workers" / "clients"), K2's ("partial_sqdist unmasked" /
+    "masked") and K7's ("masked_neighbor_reduce sum" / "select" /
+    "rank")."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels import saga_correct as sc
     from repro_torch.kernels import topology as tp
     from repro_torch.kernels import weiszfeld as wz
     counts = ops.launch_counts()
+    counts.update({f"saga_correct {k}": v for k, v in sc.ROUTE_LAUNCHES.items()})
     counts.update({f"partial_sqdist {k}": v
                    for k, v in wz.SQDIST_ROUTE_LAUNCHES.items()})
     counts.update({f"masked_neighbor_reduce {k}": v
@@ -822,7 +855,9 @@ def phase_workload_b(torch, agg, steps=20):
 def device_ms(torch, fn, reps):
     """Device time per call of ``fn``: the durations of the kernels (and
     copies) it launched, from a torch.profiler trace of ``reps`` calls after
-    a warm-up.  Host launch overhead is not in it."""
+    a warm-up.  Host launch overhead is not in it.  Where the trace holds no
+    device time (torch.profiler now and then returns no kernel records in
+    this long process), CUDA events time the same calls (:func:`event_ms`)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -833,7 +868,8 @@ def device_ms(torch, fn, reps):
         torch.cuda.synchronize()
     total_us = sum(e.self_device_time_total for e in device_events(prof))
     if total_us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
+        log("torch.profiler recorded no device time; timing with CUDA events")
+        return event_ms(torch, fn, reps)
     return total_us / reps / 1e3
 
 
@@ -887,10 +923,11 @@ def phase_timing(torch, state):
     w, j, d = table.shape
     g = 0.01 * torch.randn((w, d), generator=gen, device="cuda")
     # A fresh draw of rows for every call, as in a step: the 50 rows read
-    # and written are cold in L2 (the table is 9.5 GB).
+    # and written are cold in L2 (the table is 9.5 GB); room for device_ms's
+    # event fallback too.
     reps = 50
     draws = iter([torch.randint(0, j, (w,), generator=gen, device="cuda")
-                  for _ in range(2 * (reps + 3))])
+                  for _ in range(4 * (reps + 3))])
     out = {}
     b, by = bound(6 * w * d * 4 + w * 8, 4 * w * d)
     out["saga_correct"] = dict(
@@ -1684,6 +1721,403 @@ def phase_timing_e(torch):
     return out
 
 
+def check_saga_rows(torch, c, j, d, w, gen):
+    """K1's client-row route on a fresh (c, j, d) resident table through w
+    distinct client rows (a permutation's first w) against its plain
+    version: the same bits, only the drawn (row, idx) entries and avg rows
+    changed; then an out-of-range row: NaN in that message, no state
+    touched.  Returns the largest absolute difference (0.0)."""
+    from repro_torch.kernels import saga_correct as sc
+    dev = torch.device("cuda")
+    table = torch.randn((c, j, d), generator=gen, device=dev)
+    avg = torch.randn((c, d), generator=gen, device=dev)
+    g = torch.randn((w, d), generator=gen, device=dev)
+    rows = torch.randperm(c, generator=gen, device=dev)[:w]
+    idx = torch.randint(0, j, (w,), generator=gen, device=dev)
+    t_kern, a_kern = table.clone(), avg.clone()
+    msg_k = sc.saga_correct_call(g, t_kern, a_kern, idx, rows)
+    msg_p = sc.saga_correct_plain(g, table, avg, idx, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(msg_k, msg_p), f"K1 rows: msg off by {ulps(msg_k, msg_p)} ulp"
+    assert torch.equal(a_kern, avg), f"K1 rows: avg off by {ulps(a_kern, avg)} ulp"
+    assert torch.equal(t_kern, table), "K1 rows: table != plain table"
+    del table, avg, t_kern
+    # Only the drawn entries moved: put the old rows back and compare with
+    # a second, untouched copy made from the same generator state.
+    gen2 = torch.Generator(device="cuda").manual_seed(SEED + 100)
+    fresh = torch.randn((c, j, d), generator=gen2, device=dev)
+    fresh_avg = torch.randn((c, d), generator=gen2, device=dev)
+    before, before_avg = fresh.clone(), fresh_avg.clone()
+    sc.saga_correct_call(g, fresh, fresh_avg, idx, rows)
+    touched = torch.zeros((c, j), dtype=torch.bool, device=dev)
+    touched[rows, idx] = True
+    moved = torch.zeros(c, dtype=torch.bool, device=dev)
+    moved[rows] = True
+    assert torch.equal(fresh[~touched], before[~touched]), "K1 rows moved other entries"
+    assert torch.equal(fresh_avg[~moved], before_avg[~moved]), "K1 rows moved other avg rows"
+    assert torch.equal(fresh[rows, idx], g), "K1 rows: drawn entries != gradient"
+    # An out-of-range row: NaN message, the state as it was.
+    bad = rows.clone()
+    bad[w // 2] = c
+    before, before_avg = fresh.clone(), fresh_avg.clone()
+    msg = sc.saga_correct_call(g, fresh, fresh_avg, idx, bad)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(msg[w // 2]).all()), "K1 rows: out-of-range row not NaN"
+    keep = torch.ones(w, dtype=torch.bool, device=dev)
+    keep[w // 2] = False
+    assert bool(torch.isfinite(msg[keep]).all())
+    moved = torch.zeros(c, dtype=torch.bool, device=dev)
+    moved[bad[keep]] = True
+    assert torch.equal(fresh[~moved], before[~moved]), \
+        "K1 rows: an out-of-range row touched the state"
+    assert torch.equal(fresh_avg[~moved], before_avg[~moved])
+    del fresh, before
+    torch.cuda.empty_cache()
+    return float((msg_k - msg_p).abs().max())
+
+
+def phase_client_row_checks(torch):
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    err = 0.0
+    for c, j, d, w in ((13, 3, 300, 7), (G_CLIENTS, 120, 39760, G_COHORT)):
+        e = check_saga_rows(torch, c, j, d, w, gen)
+        err = max(err, e)
+        log(f"kernel check K1 client rows: table ({c}, {j}, {d}), {w} rows from a "
+            f"permutation: max|err| {e:.3g} (bitwise), only the drawn entries "
+            "changed; an out-of-range row gives NaN and touches no state: ok")
+    return err
+
+
+def mnist_clients(torch, clients):
+    """Workload B's data (mnist_like 60,000 x 784 from SEED) split iid into
+    ``clients`` shards on the card -> (batch, worker data)."""
+    from repro_torch.data import mnist_like, partition
+    data = mnist_like(SEED, n=60_000, device="cuda")
+    batch = {"x": data.x, "y": data.y}
+    return batch, partition(batch, clients, seed=2, device="cuda")
+
+
+def nn_run(torch, label, batch, wd, steps=20, step_kw=None, **cfg_kw):
+    """``steps`` master steps of the Table I network from workload B's
+    initial state and seed (geomed, SAGA, 20 Byzantine, sgd 0.1 unless
+    ``cfg_kw`` says otherwise), launch counts reset just before and read
+    just after.  ``step_kw`` maps a step's index to extra arguments of
+    ``step_fn`` (lsvrg's ``coin``).  Returns (state, per-step metrics,
+    per-step seconds, counts, summary)."""
+    from repro_torch.core import RobustConfig, make_federated_step
+    from repro_torch.kernels import ops
+    from repro_torch.models import paper_nn
+    from repro_torch.optim import get_optimizer
+    kw = dict(aggregator="geomed", vr="saga", num_byzantine=20, trim=20,
+              num_groups=5)
+    kw.update(cfg_kw)
+    init_fn, step_fn = make_federated_step(
+        paper_nn.nn_loss, wd, RobustConfig(**kw), get_optimizer("sgd", 0.1),
+        device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st = init_fn(paper_nn.init_params(SEED + 7, device="cuda"), 5)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    history, times = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        st, metrics = step_fn(st, **(step_kw or {}).get(i, {}))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        history.append(metrics)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        f1 = float(paper_nn.nn_loss(st.params, batch))
+    acc = paper_nn.accuracy(st.params, batch)
+    summary = dict(step_ms=statistics.median(times) * 1e3, peak_gb=peak / 1e9,
+                   loss=f1, accuracy=acc, init_s=t_init,
+                   iters=counts["partial_sqdist"] / steps)
+    log(f"{label}: loss {f1:.6f}, accuracy {acc:.4f} after {steps} steps, median "
+        f"step {summary['step_ms']:.3f} ms, peak memory {peak / 1e9:.2f} GB, init "
+        f"{t_init:.2f} s, Weiszfeld iters/step {summary['iters']:.2f}, launches {counts}")
+    assert math.isfinite(f1), f"{label}: loss is not finite"
+    assert all(bool(torch.isfinite(p).all()) for p in st.params.values()), label
+    return st, step_fn, history, times, counts, summary
+
+
+def initial_flat_params(torch):
+    """Workload B's initial parameters (nn_run's), packed as the messages
+    are: (D,) on the card."""
+    from repro_torch.core import RobustConfig
+    from repro_torch.models import paper_nn
+    p0 = paper_nn.init_params(SEED + 7, device="cuda")
+    return RobustConfig().message_spec(p0, batch_ndim=0).pack(p0, batch_ndim=0)
+
+
+def phase_workload_g(torch, card, b_peak_gb):
+    """Workload G: partial participation at MNIST size (G_RUNS); K1's two
+    routes timed on G's resident table.  Returns (counts per run, K1
+    client-route timing)."""
+    from repro_torch.kernels import saga_correct as sc
+    t_phase = time.perf_counter()
+    batch, wd = mnist_clients(torch, G_CLIENTS)
+    counts, summaries, timing = {}, {}, None
+    for name, extra in G_RUNS:
+        label = f"workload {name} {extra['attack']}"
+        st, step_fn, history, times, c, summ = nn_run(
+            torch, label, batch, wd, num_clients=G_CLIENTS, cohort_size=G_COHORT,
+            **extra)
+        st, busy_us = profile_steps(torch, label, step_fn, st, 3,
+                                    summ["step_ms"] / 1e3)
+        summ.update(busy_us=busy_us, idle=1 - busy_us / (summ["step_ms"] * 1e3),
+                    mean_staleness=float(history[-1]["mean_staleness"]))
+        log(f"{label}: resident SAGA table {tuple(st.vr.table.shape)} = "
+            f"{st.vr.table.numel() * 4 / 1e9:.2f} GB, K1 launches by route "
+            f"{{'workers': {c['saga_correct workers']}, 'clients': "
+            f"{c['saga_correct clients']}}}, mean slot staleness "
+            f"{summ['mean_staleness']:.3f}, peak {summ['peak_gb']:.2f} GB against "
+            f"workload B's {b_peak_gb:.2f} GB + 0.5 GB")
+        assert c["saga_correct clients"] == 20 and c["saga_correct workers"] == 0, c
+        assert summ["peak_gb"] < b_peak_gb + 0.5, (summ["peak_gb"], b_peak_gb)
+        counts[name], summaries[name] = c, summ
+        if timing is None:
+            timing = time_client_rows(torch, st.vr.table, st.vr.avg)
+        del st
+        torch.cuda.empty_cache()
+    log(f"workload G per run ({card}): step ms / device busy us / idle share / "
+        "Weiszfeld iters per step / peak GB / loss / accuracy")
+    for name, r in summaries.items():
+        log(f"  {name:<3} {r['step_ms']:9.3f} {r['busy_us']:9.1f} {r['idle']:7.3f} "
+            f"{r['iters']:7.2f} {r['peak_gb']:7.2f} {r['loss']:10.6f} {r['accuracy']:8.4f}")
+    log(f"workload G phase {time.perf_counter() - t_phase:.1f} s")
+    return counts, timing
+
+
+def time_client_rows(torch, table, avg):
+    """K1's client-row route on G's resident (500, 120, D) table with a
+    fresh cohort and draw each call, beside its plain version and the
+    worker route on the first 50 clients' (50, 120, D) view (the same
+    bytes), in one phase."""
+    from repro_torch.kernels import saga_correct as sc
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    c, j, d = table.shape
+    w = G_COHORT
+    g = 0.01 * torch.randn((w, d), generator=gen, device="cuda")
+    reps = 50
+    # (idx, a cohort of the 500 clients, a cohort of the first 50
+    # clients); device_ms makes reps + 3 calls, and as many again where it
+    # falls back to events.
+    draws = iter([(torch.randint(0, j, (w,), generator=gen, device="cuda"),
+                   torch.randperm(c, generator=gen, device="cuda")[:w],
+                   torch.randperm(w, generator=gen, device="cuda"))
+                  for _ in range(8 * (reps + 3))])
+
+    def clients():
+        idx, rows, _ = next(draws)
+        sc.saga_correct_call(g, table, avg, idx, rows)
+
+    def clients_plain():
+        idx, rows, _ = next(draws)
+        sc.saga_correct_plain(g, table, avg, idx, rows)
+
+    view, view_avg = table[:w], avg[:w]
+
+    def workers():
+        idx, _, _ = next(draws)
+        sc.saga_correct_call(g, view, view_avg, idx)
+
+    def clients_near():
+        # The client route on the view's rows: the same memory as workers().
+        idx, _, near = next(draws)
+        sc.saga_correct_call(g, table, avg, idx, near)
+
+    b, by = bound(6 * w * d * 4 + 2 * w * 8, 4 * w * d)
+    out = dict(ms=device_ms(torch, clients, reps),
+               plain_ms=device_ms(torch, clients_plain, reps),
+               bound_ms=b, bound_by=by, library_ms=None)
+    workers_ms = device_ms(torch, workers, reps)
+    near_ms = device_ms(torch, clients_near, reps)
+    log(f"timing saga_correct client rows (device time, G's ({c}, {j}, {d}) table, "
+        f"cohort {w}): {out['ms'] * 1e3:.2f} us, worker route on the (50, {j}, {d}) "
+        f"view {workers_ms * 1e3:.2f} us ({out['ms'] / workers_ms:.3f}x), the client "
+        f"route with its cohort among those 50 clients {near_ms * 1e3:.2f} us, bound "
+        f"{b * 1e3:.2f} us ({by}), plain {out['plain_ms'] * 1e3:.2f} us")
+    return out
+
+
+def phase_options_b(torch, card, b_geomed):
+    """Workload B with lsvrg, guards and diagnostics, 20 steps each."""
+    t_phase = time.perf_counter()
+    batch, wd = mnist_clients(torch, 50)
+    want = f"{b_geomed['loss']:.6f}"
+    rows = {}
+    # At p = 1/1,200 a coin rarely comes up in 20 steps, so step 10 hands in
+    # every coin: the refresh (each worker's full local gradient over its
+    # 1,200 samples, then the snapshot and anchor rows) runs at full width.
+    refresh = 10
+    up = torch.ones(50, dtype=torch.bool, device="cuda")
+    st, _, hist, _, c, summ = nn_run(torch, "workload B lsvrg geomed/sign_flip",
+                                     batch, wd, step_kw={refresh: dict(coin=up)},
+                                     vr="lsvrg", lsvrg_p=1 / 1200,
+                                     attack="sign_flip")
+    rates = [float(m["vr_snapshot_rate"]) for m in hist]
+    x0 = initial_flat_params(torch)
+    moved = float(torch.amax(torch.abs(st.vr.snapshot - x0), dim=1).min())
+    log(f"workload B lsvrg: state 2 x {tuple(st.vr.snapshot.shape)} = "
+        f"{2 * st.vr.snapshot.numel() * 4 / 1e6:.1f} MB, snapshot rate "
+        f"{rates[refresh]:.4f} on step {refresh} (all coins handed in), mean "
+        f"{statistics.fmean(rates):.4f}; least max-abs move of a snapshot row "
+        f"from the initial params {moved:.6g}; K1 launches {c['saga_correct']}")
+    assert rates[refresh] == 1.0 and statistics.fmean(rates) > 0, rates
+    assert moved > 0, moved
+    assert all(bool(torch.isfinite(t).all()) for t in st.vr), "lsvrg state"
+    assert c["saga_correct"] == 0 and summ["peak_gb"] < 0.5 * b_geomed["peak_gb"], summ
+    rows["lsvrg sign_flip"] = summ
+    del st
+    for attack, kw in (("nan", {}), ("inf_overflow", {}),
+                       ("bitflip", dict(bitflip_prob=0.02))):
+        st, _, hist, _, c, summ = nn_run(
+            torch, f"workload B guards geomed/{attack}", batch, wd, attack=attack,
+            guards=True, **kw)
+        quarantined = [int(m["quarantined_rows"]) for m in hist]
+        rejected = int(hist[-1]["rejected_rounds"])
+        log(f"workload B guards {attack}: quarantined rows per step {quarantined}, "
+            f"rejected rounds {rejected}")
+        assert min(quarantined) >= 20, quarantined
+        rows[f"guards {attack}"] = summ
+        del st
+    st, _, hist, _, c, summ = nn_run(torch, "workload B guards geomed/sign_flip",
+                                     batch, wd, attack="sign_flip", guards=True)
+    log(f"workload B guards sign_flip: loss {summ['loss']:.6f} against B geomed's "
+        f"{want}, quarantined rows {[int(m['quarantined_rows']) for m in hist]}")
+    assert f"{summ['loss']:.6f}" == want, (summ["loss"], want)
+    rows["guards sign_flip"] = summ
+    del st
+    st, _, hist, _, c, summ = nn_run(torch, "workload B diagnostics geomed/sign_flip",
+                                     batch, wd, attack="sign_flip", diagnostics=True)
+    weight = hist[-1]["diag_weight"]
+    honest, byz = float(weight[:50].mean()), float(weight[50:].mean())
+    log(f"workload B diagnostics: loss {summ['loss']:.6f} against B geomed's {want}; "
+        f"mean diagnostic weight honest {honest:.6g}, Byzantine {byz:.6g}; "
+        f"residual {float(hist[-1]['diag_residual']):.3g}, iters "
+        f"{int(hist[-1]['diag_iters'])}, converged {bool(hist[-1]['diag_converged'])}")
+    assert f"{summ['loss']:.6f}" == want, (summ["loss"], want)
+    assert byz < honest, (honest, byz)
+    rows["diagnostics sign_flip"] = summ
+    del st
+    torch.cuda.empty_cache()
+    log(f"workload B options ({card}): step ms / peak GB / Weiszfeld iters per "
+        "step / loss / accuracy")
+    for name, r in rows.items():
+        log(f"  {name:<22} {r['step_ms']:9.3f} {r['peak_gb']:7.2f} {r['iters']:7.2f} "
+            f"{r['loss']:10.6f} {r['accuracy']:8.4f}")
+    log(f"workload B options phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_options_d(torch, card):
+    """Workload D gradient geomed with guards under per-edge bitflip and
+    diagnostics, 20 steps."""
+    from repro_torch.core import RobustConfig, make_federated_step
+    from repro_torch.models import paper_nn
+    from repro_torch.optim import get_optimizer
+    t_phase = time.perf_counter()
+    batch, wd = mnist_clients(torch, 50)
+    _, _, trim = workload_d_graph(torch)
+    cfg = RobustConfig(aggregator="geomed", vr="saga", attack="bitflip",
+                       num_byzantine=20, trim=trim, topology="erdos_renyi",
+                       topology_p=0.5, topology_seed=0, guards=True,
+                       diagnostics=True)
+    init_fn, step_fn = make_federated_step(
+        paper_nn.nn_loss, wd, cfg, get_optimizer("sgd", 0.1), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    st = init_fn(paper_nn.init_params(SEED + 7, device="cuda"), 5)
+    st, times, metrics = run_steps(torch, step_fn, st, 20)
+    nodes = [{k: v[i] for k, v in st.params.items()} for i in range(50)]
+    with torch.no_grad():
+        f1 = statistics.fmean(float(paper_nn.nn_loss(p, batch)) for p in nodes)
+    weight = metrics["diag_weight"]
+    log(f"workload D guards + diagnostics geomed/bitflip ({card}): mean honest loss "
+        f"{f1:.6f} after 20 steps, median step {statistics.median(times) * 1e3:.3f} ms, "
+        f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, quarantined edges "
+        f"{int(metrics['quarantined_edges'])}, rejected rounds "
+        f"{int(metrics['rejected_rounds'])}; per-sender diagnostic weight honest "
+        f"{float(weight[:50].mean()):.6g}, Byzantine {float(weight[50:].mean()):.6g}, "
+        f"mean dist honest {float(metrics['diag_dist'][:50].mean()):.6g}, iters "
+        f"{int(metrics['diag_iters'])}, consensus_dist "
+        f"{float(metrics['consensus_dist']):.6g} ({time.perf_counter() - t_phase:.1f} s)")
+    assert math.isfinite(f1)
+    assert all(bool(torch.isfinite(p).all()) for p in st.params.values())
+    assert int(metrics["quarantined_edges"]) > 0
+    del st
+    torch.cuda.empty_cache()
+
+
+def phase_options_claims(torch):
+    """The twins of tests/test_convergence.py's lsvrg claim (W_h = 12,
+    B = 5, n = 960, 700 steps, p = 1/80; sign_flip asserted as the
+    reference asserts it; under gaussian the reference's own run fails its
+    third bound -- lsvrg 0.00617 against 0.75 x SGD's 0.00500 -- so only
+    the two bounds it meets are asserted) and of tests/test_guards.py's
+    fault containment on the simulated master (n = 600, 8 workers, 3 fault
+    rows, 150 steps)."""
+    from repro_torch.data import (ijcnn1_like, logreg_full_loss_and_opt,
+                                  logreg_loss, partition)
+    t_phase = time.perf_counter()
+    loss = logreg_loss(0.01)
+    data = ijcnn1_like(SEED, n=960, device="cuda")
+    batch = {"a": data.x, "b": data.y}
+    _, f_star = logreg_full_loss_and_opt(data, iters=4000, lr=0.5)
+    wd = partition(batch, 12, seed=1, device="cuda")
+    for attack in ("sign_flip", "gaussian"):
+        gaps = {}
+        for vr in ("saga", "lsvrg", "sgd"):
+            params, _ = federated_run(torch, loss, wd, 700, 7, aggregator="geomed",
+                                      vr=vr, attack=attack, num_byzantine=5,
+                                      lsvrg_p=1 / 80)
+            gaps[vr] = float(loss(params, batch)) - f_star
+        factor = 0.5 if attack == "sign_flip" else 0.75
+        log(f"lsvrg claim {attack}: gap lsvrg {gaps['lsvrg']:.5f} (< 0.1, < 2 x "
+            f"max(SAGA {gaps['saga']:.5f}, 0.03)), SGD {gaps['sgd']:.5f} "
+            f"({factor} x SGD = {factor * gaps['sgd']:.5f}"
+            f"{'' if attack == 'sign_flip' else ', not asserted: the reference fails it'})")
+        assert gaps["lsvrg"] < 0.1, gaps
+        assert gaps["lsvrg"] < 2 * max(gaps["saga"], 0.03), gaps
+        if attack == "sign_flip":
+            assert gaps["lsvrg"] < factor * gaps["sgd"], gaps
+    data = ijcnn1_like(SEED, n=600, device="cuda")
+    batch = {"a": data.x, "b": data.y}
+    wd = partition(batch, 8, seed=1, device="cuda")
+
+    def train(steps=150, **cfg):
+        params, _ = federated_run(torch, loss, wd, steps, 3, lr=0.05,
+                                  aggregator="geomed", vr="saga", **cfg)
+        return float(loss(params, batch))
+
+    floor = train(attack="none", num_byzantine=0)
+    for attack in ("nan", "inf_overflow", "bitflip"):
+        guarded = train(attack=attack, num_byzantine=3, guards=True,
+                        bitflip_prob=0.5)
+        log(f"fault containment {attack}: guarded loss {guarded:.6f} <= 2 x "
+            f"attack-free {floor:.6f} + 1e-3")
+        assert math.isfinite(guarded) and guarded <= 2.0 * floor + 1e-3, (guarded, floor)
+    bare = train(steps=5, attack="nan", num_byzantine=3)
+    log(f"fault containment nan without guards: loss {bare} (not finite)")
+    assert not math.isfinite(bare)
+    log(f"options claims phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_options(torch, card, errs, counts, timing, b_geomed):
+    """Phase 16: K1's client-row checks, workload G, workload B's and D's
+    option runs and the two claims."""
+    t0 = time.perf_counter()
+    errs["saga_correct clients"] = phase_client_row_checks(torch)
+    g_counts, timing["saga_correct clients"] = phase_workload_g(
+        torch, card, b_geomed["peak_gb"])
+    counts.update(g_counts)
+    phase_options_b(torch, card, b_geomed)
+    phase_options_d(torch, card)
+    phase_options_claims(torch)
+    log(f"options phases {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1704,6 +2138,10 @@ def main() -> int:
     timing = phase_timing(torch, state)
     del state
     torch.cuda.empty_cache()
+    # The options phase (16) runs here, early: late in this long process
+    # torch.profiler's kernel records come back incomplete (phase 6's
+    # device_ms, which its K1 timing uses, is reliable at this point).
+    phase_options(torch, card, errs, counts, timing, summaries["geomed"])
     # The step without the Weiszfeld loop, then every other rule.
     for agg in ("mean", "median", "trimmed_mean", "krum", "geomed_groups",
                 "centered_clip", "geomed_blockwise"):

@@ -15,6 +15,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.robust_step import FederatedState
 from repro_torch.core.saga import SagaState
+from repro_torch.core.variance import LsvrgState
 from repro_torch.device import DEFAULT_DEVICE, generator_for, resolve_device
 from repro_torch.models import transformer as tfm
 
@@ -39,24 +40,41 @@ def state_from_jax(state: Any, *, seed: int | torch.Generator = 0,
     """A reference ``FederatedState`` of the packed master or decentralized
     path -> the port's.  Carries params (per-node (N, ...) leaves on the
     decentralized path), the packed ``SagaState`` table (W_h, J, D) and avg
-    (W_h, D), and step; the optimizer must be stateless (``sgd``).  The
-    reference's PRNG key has no torch counterpart: the port's generator is
-    seeded with ``seed``."""
+    (W_h, D) or ``LsvrgState`` snapshot and anchor (W_h, D) -- per client,
+    (C, ...), under partial participation -- the staleness counters, the
+    guards' health vector and step; the optimizer must be stateless
+    (``sgd``).  The reference's PRNG key has no torch counterpart: the
+    port's generator is seeded with ``seed``."""
     dev = resolve_device(device)
     opt = state.opt_state
     if not (opt is None or (isinstance(opt, tuple) and not opt)):
         raise ValueError("state_from_jax carries the stateless sgd optimizer "
                          "only; other optimizers are still to port")
+
+    def tensor(a, dtype=np.float32):
+        return torch.as_tensor(np.array(a, dtype), device=dev)
+
     vr = state.vr
     if vr is not None:
-        if not hasattr(vr, "table") or isinstance(vr.table, dict):
-            raise ValueError("state_from_jax expects the packed SagaState "
-                             "(table (W, J, D), avg (W, D))")
-        vr = SagaState(
-            table=torch.as_tensor(np.array(vr.table, np.float32), device=dev),
-            avg=torch.as_tensor(np.array(vr.avg, np.float32), device=dev))
-    return FederatedState(params_from_jax(state.params, device=dev), (), vr,
-                          int(np.asarray(state.step)), generator_for(seed, dev))
+        if hasattr(vr, "snapshot") and not isinstance(vr.snapshot, dict):
+            vr = LsvrgState(snapshot=tensor(vr.snapshot),
+                            anchor=tensor(vr.anchor))
+        elif hasattr(vr, "table") and not isinstance(vr.table, dict):
+            vr = SagaState(table=tensor(vr.table), avg=tensor(vr.avg))
+        else:
+            raise ValueError("state_from_jax expects a packed SagaState "
+                             "(table (W, J, D), avg (W, D)) or LsvrgState "
+                             "(snapshot, anchor (W, D))")
+    if getattr(state, "ef", None) is not None:
+        raise ValueError("state_from_jax: error-feedback residuals come with "
+                         "the wires (ROADMAP.md Queue A item 7d)")
+    staleness = getattr(state, "staleness", None)
+    health = getattr(state, "health", None)
+    return FederatedState(
+        params_from_jax(state.params, device=dev), (), vr,
+        int(np.asarray(state.step)), generator_for(seed, dev),
+        None if staleness is None else tensor(staleness, np.int32),
+        None if health is None else tensor(health))
 
 
 def _flatten(tree: dict[str, Any], prefix: str = "") -> dict[str, Any]:

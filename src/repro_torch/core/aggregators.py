@@ -19,6 +19,12 @@ The weighted forms of ``median`` and ``trimmed_mean`` sort with the weights
 along each coordinate in plain PyTorch on both devices, as the reference
 computes them outside any kernel; so do Krum's Gram product and its (W, W)
 sort.
+
+Every rule also takes ``diagnostics=False``; True returns ``(aggregate,
+AggDiagnostics)`` (:mod:`repro_torch.telemetry.diagnostics`: each row's
+distance to the aggregate by kernel K2, the rule's implicit weights, Krum's
+scores and choice, the clip fraction, the Weiszfeld residual, iterations
+and convergence).  False runs the program it ran before.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core.geomed import weiszfeld_blockwise_flat, weiszfeld_flat
 from repro_torch.kernels import ops
+from repro_torch.telemetry.diagnostics import flat_diagnostics
 
 FlatAggregator = Callable[..., torch.Tensor]  # (W, D)[, row_weights] -> (D,)
 
@@ -45,15 +52,27 @@ def _sorted_with_weights(buf: torch.Tensor, row_weights: torch.Tensor):
     return vals, row_weights.float()[order]
 
 
-def mean_flat(buf: torch.Tensor, *, row_weights=None) -> torch.Tensor:
+def mean_flat(buf: torch.Tensor, *, row_weights=None,
+              diagnostics: bool = False) -> torch.Tensor:
     if row_weights is None:
-        return torch.mean(buf.float(), dim=0)
-    w = row_weights.float()
-    num = torch.sum(buf.float() * w[:, None], dim=0)
-    return num / torch.clamp(torch.sum(w), min=_WEIGHT_FLOOR)
+        out = torch.mean(buf.float(), dim=0)
+    else:
+        w = row_weights.float()
+        num = torch.sum(buf.float() * w[:, None], dim=0)
+        out = num / torch.clamp(torch.sum(w), min=_WEIGHT_FLOOR)
+    if not diagnostics:
+        return out
+    # The mean's implicit weight is the (normalized) row weights.
+    rw = (torch.ones((buf.shape[0],), device=buf.device)
+          if row_weights is None else row_weights.float())
+    return out, flat_diagnostics(buf, out, row_weights=row_weights, weight=rw)
 
 
-def median_flat(buf: torch.Tensor, *, row_weights=None) -> torch.Tensor:
+def median_flat(buf: torch.Tensor, *, row_weights=None,
+                diagnostics: bool = False) -> torch.Tensor:
+    if diagnostics:
+        out = median_flat(buf, row_weights=row_weights)
+        return out, flat_diagnostics(buf, out, row_weights=row_weights)
     if row_weights is None:
         return ops.coordinate_median(buf.float().contiguous())
     # Weighted median per coordinate: the smallest value whose cumulative
@@ -67,10 +86,14 @@ def median_flat(buf: torch.Tensor, *, row_weights=None) -> torch.Tensor:
 
 
 def trimmed_mean_flat(buf: torch.Tensor, *, trim: int,
-                      row_weights=None) -> torch.Tensor:
+                      row_weights=None, diagnostics: bool = False
+                      ) -> torch.Tensor:
     w = buf.shape[0]
     if 2 * trim >= w:
         raise ValueError(f"trim={trim} too large for W={w}")
+    if diagnostics:
+        out = trimmed_mean_flat(buf, trim=trim, row_weights=row_weights)
+        return out, flat_diagnostics(buf, out, row_weights=row_weights)
     if row_weights is None:
         return ops.trimmed_mean(buf.float().contiguous(), trim=trim)
     # Weight-MASS trimming: per coordinate, drop the trim/W fraction of the
@@ -88,7 +111,15 @@ def trimmed_mean_flat(buf: torch.Tensor, *, trim: int,
 
 
 def geomed_flat(buf: torch.Tensor, *, max_iters: int = 64, tol: float = 1e-6,
-                row_weights=None) -> torch.Tensor:
+                row_weights=None, diagnostics: bool = False) -> torch.Tensor:
+    if diagnostics:
+        out, info = weiszfeld_flat(buf, max_iters=max_iters, tol=tol,
+                                   row_weights=row_weights, return_info=True)
+        # The inverse-distance weight at the fixed point IS each message's
+        # implicit Weiszfeld weight.
+        return out, flat_diagnostics(buf, out, row_weights=row_weights,
+                                     residual=info.residual, iters=info.iters,
+                                     converged=info.converged)
     return weiszfeld_flat(buf, max_iters=max_iters, tol=tol,
                           row_weights=row_weights)
 
@@ -115,7 +146,25 @@ def group_means(z: torch.Tensor, num_groups: int) -> torch.Tensor:
 
 def geomed_groups_flat(buf: torch.Tensor, *, num_groups: int,
                        max_iters: int = 64, tol: float = 1e-6,
-                       row_weights=None) -> torch.Tensor:
+                       row_weights=None, diagnostics: bool = False
+                       ) -> torch.Tensor:
+    if diagnostics:
+        # The solve runs on the group means; each worker's distance and
+        # weight are taken against the final aggregate.  The weighted form
+        # reports no loop facts, as in the reference.
+        info = {}
+        if row_weights is None:
+            grouped = group_means(buf.float(), num_groups)
+            out, winfo = weiszfeld_flat(grouped, max_iters=max_iters, tol=tol,
+                                        return_info=True)
+            info = dict(residual=winfo.residual, iters=winfo.iters,
+                        converged=winfo.converged)
+        else:
+            out = geomed_groups_flat(buf, num_groups=num_groups,
+                                     max_iters=max_iters, tol=tol,
+                                     row_weights=row_weights)
+        return out, flat_diagnostics(buf, out, row_weights=row_weights,
+                                     **info)
     if row_weights is None:
         grouped = group_means(buf.float(), num_groups)              # (G, D)
         return weiszfeld_flat(grouped, max_iters=max_iters, tol=tol)
@@ -151,12 +200,17 @@ def krum_scores(d2: torch.Tensor, num_byzantine: int) -> torch.Tensor:
 
 
 def krum_flat(buf: torch.Tensor, *, num_byzantine: int,
-              row_weights=None) -> torch.Tensor:
+              row_weights=None, diagnostics: bool = False) -> torch.Tensor:
     """Krum [14] on the packed buffer: score = sum of squared distances to
     the W-B-2 nearest other messages; output the winning row."""
     if row_weights is None:
         scores = krum_scores(flat_sq_dists(buf), num_byzantine)
-        return buf.float()[torch.argmin(scores)]
+        best = torch.argmin(scores)
+        out = buf.float()[best]
+        if diagnostics:
+            # Winner takes all: the implicit weight is a one-hot.
+            return out, _krum_diagnostics(buf, out, None, scores, best)
+        return out
     # Weighted Krum: dropped rows (weight 0) are neither neighbours nor
     # candidates, the neighbour count shrinks to the live rows, and live
     # scores are divided by their weight.
@@ -173,11 +227,22 @@ def krum_flat(buf: torch.Tensor, *, num_byzantine: int,
     scores = torch.sum(torch.where(keep, ds, 0.0), dim=1)
     scores = torch.where(alive, scores / torch.clamp(wts, min=_WEIGHT_FLOOR),
                          big)
-    return buf.float()[torch.argmin(scores)]
+    best = torch.argmin(scores)
+    out = buf.float()[best]
+    if diagnostics:
+        return out, _krum_diagnostics(buf, out, row_weights, scores, best)
+    return out
+
+
+def _krum_diagnostics(buf, out, row_weights, scores, best):
+    onehot = (torch.arange(buf.shape[0], device=buf.device) == best).float()
+    return flat_diagnostics(buf, out, row_weights=row_weights, weight=onehot,
+                            score=scores, selected=best)
 
 
 def centered_clip_flat(buf: torch.Tensor, *, radius: float = 1.0,
-                       iters: int = 3, row_weights=None) -> torch.Tensor:
+                       iters: int = 3, row_weights=None,
+                       diagnostics: bool = False) -> torch.Tensor:
     """Centered clipping (Karimireddy et al. 2021): v <- v + mean_w
     clip(m_w - v, radius), iterated from the coordinate median (the
     weighted median and weight-normalized means with ``row_weights``)."""
@@ -197,37 +262,69 @@ def centered_clip_flat(buf: torch.Tensor, *, radius: float = 1.0,
             v = v + torch.mean(diffs * scale[:, None], dim=0)
         else:
             v = v + torch.sum(diffs * (scale * wnorm)[:, None], dim=0)
+    if diagnostics:
+        # Implicit weight: each row's share of the last clipped update;
+        # clip_frac counts the live rows whose residual was clipped.
+        w = buf.shape[0]
+        if row_weights is None:
+            base = torch.full((w,), 1.0 / w, device=buf.device)
+            live = torch.ones((w,), device=buf.device)
+        else:
+            base, live = wnorm, (row_weights.float() > 0).float()
+        clip_frac = (torch.sum(live * (scale < 1.0))
+                     / torch.clamp(torch.sum(live), min=1.0))
+        return v, flat_diagnostics(buf, v, row_weights=row_weights,
+                                   weight=base * scale, clip_frac=clip_frac)
     return v
 
 
 def geomed_blockwise_flat(buf: torch.Tensor, *, spec: packing.PackSpec,
                           max_iters: int = 64, tol: float = 1e-6,
-                          row_weights=None) -> torch.Tensor:
+                          row_weights=None, diagnostics: bool = False
+                          ) -> torch.Tensor:
     """Per-leaf geometric median on the packed buffer: each leaf's
     coordinate slice stops on its own (the reference's independent per-leaf
     loops); padding coordinates aggregate to zero."""
+    if diagnostics:
+        out, infos = weiszfeld_blockwise_flat(
+            buf, spec.boundaries, max_iters=max_iters, tol=tol,
+            row_weights=row_weights, return_info=True)
+        # The worst block: largest residual and iteration count.
+        return out, flat_diagnostics(
+            buf, out, row_weights=row_weights,
+            residual=max(i.residual for i in infos),
+            iters=max(i.iters for i in infos),
+            converged=all(i.converged for i in infos))
     return weiszfeld_blockwise_flat(buf, spec.boundaries, max_iters=max_iters,
                                     tol=tol, row_weights=row_weights)
 
 
 # name -> builder(spec, opts) -> FlatAggregator; the reference's names.
 _FLAT_REGISTRY: dict[str, Callable[[packing.PackSpec, dict], FlatAggregator]] = {
-    "mean": lambda spec, o: mean_flat,
-    "median": lambda spec, o: median_flat,
+    "mean": lambda spec, o: functools.partial(
+        mean_flat, diagnostics=o.get("diagnostics", False)),
+    "median": lambda spec, o: functools.partial(
+        median_flat, diagnostics=o.get("diagnostics", False)),
     "trimmed_mean": lambda spec, o: functools.partial(
-        trimmed_mean_flat, trim=o.get("trim", 1)),
+        trimmed_mean_flat, trim=o.get("trim", 1),
+        diagnostics=o.get("diagnostics", False)),
     "geomed": lambda spec, o: functools.partial(
-        geomed_flat, max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6)),
+        geomed_flat, max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6),
+        diagnostics=o.get("diagnostics", False)),
     "geomed_groups": lambda spec, o: functools.partial(
         geomed_groups_flat, num_groups=o["num_groups"],
-        max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6)),
+        max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6),
+        diagnostics=o.get("diagnostics", False)),
     "krum": lambda spec, o: functools.partial(
-        krum_flat, num_byzantine=o.get("num_byzantine", 0)),
+        krum_flat, num_byzantine=o.get("num_byzantine", 0),
+        diagnostics=o.get("diagnostics", False)),
     "centered_clip": lambda spec, o: functools.partial(
-        centered_clip_flat, radius=o.get("clip_radius", 1.0)),
+        centered_clip_flat, radius=o.get("clip_radius", 1.0),
+        diagnostics=o.get("diagnostics", False)),
     "geomed_blockwise": lambda spec, o: functools.partial(
         geomed_blockwise_flat, spec=spec,
-        max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6)),
+        max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6),
+        diagnostics=o.get("diagnostics", False)),
 }
 
 AGGREGATOR_NAMES = tuple(_FLAT_REGISTRY)
@@ -243,10 +340,9 @@ def get_flat_aggregator(name: str, spec: packing.PackSpec | None,
     ``spec`` is the buffer's :class:`~repro_torch.core.packing.PackSpec`
     (``geomed_blockwise`` reads its leaf boundaries; the other rules take
     ``None`` as well).  Options: ``max_iters``, ``tol`` (Weiszfeld rules),
-    ``num_groups``, ``trim``, ``num_byzantine``, ``clip_radius``."""
-    if opts.get("diagnostics"):
-        raise ValueError("aggregation diagnostics are not ported yet "
-                         "(ROADMAP.md Queue A item 7)")
+    ``num_groups``, ``trim``, ``num_byzantine``, ``clip_radius``, and
+    ``diagnostics`` (True: the rule returns ``(aggregate,
+    AggDiagnostics)``)."""
     try:
         build = _FLAT_REGISTRY[name]
     except KeyError:

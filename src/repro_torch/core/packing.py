@@ -15,7 +15,7 @@ coordinates in the same places.
   restored).
 
 Only the ``float32`` wire is ported; the quantized and bfloat16 wires wait
-for ROADMAP.md Queue A item 7.
+for ROADMAP.md Queue A item 7d.
 """
 from __future__ import annotations
 
@@ -54,7 +54,7 @@ def resolve_wire_format(name: str | WireFormat) -> WireFormat:
     try:
         return WIRE_FORMATS[name]
     except KeyError:
-        hint = (" (ported with the quantized wires, ROADMAP.md Queue A item 7)"
+        hint = (" (ported with the quantized wires, ROADMAP.md Queue A item 7d)"
                 if name in _UNPORTED_WIRES else "")
         raise ValueError(
             f"message_dtype must be one of {sorted(WIRE_FORMATS)}, got "

@@ -2,7 +2,7 @@
 ``repro/core/robust_step.py``'s simulated federation).
 
 :func:`make_federated_step` builds ``(init_fn, step_fn)`` for the packed,
-full-participation, float32-wire simulation.  With the default star
+float32-wire simulation.  With the default star
 topology and static schedule it is the master path: W_h honest workers
 each send a (variance-reduced) stochastic gradient, B Byzantine rows are
 injected by an attack model, the master aggregates the packed (W, D)
@@ -16,6 +16,26 @@ aggregation rules their kernels (K2-K6, see :mod:`repro_torch.core.aggregators`)
 on the CPU their plain versions run.
 The SAGA table, the step's generator and the state passed to ``step_fn``
 are updated in place (see :mod:`repro_torch.core.saga`).
+
+Besides the paper's path the step takes the reference's simulation
+options:
+
+* partial participation (``num_clients``, ``cohort_size``): each round a
+  seeded cohort of clients fills the honest slots
+  (:mod:`repro_torch.core.participation`); the variance-reduction state is
+  resident per client and the cohort's SAGA rows are updated in place by
+  K1's client-row route, never gathered into a copy;
+* bounded staleness (``max_staleness``, ``staleness_decay``, the
+  ``straggler`` and ``dropout`` attacks): per-row staleness weights of the
+  flat rules;
+* guards (``guards``): quarantined rows get weight 0
+  (:mod:`repro_torch.core.guards`), and a rejected round keeps params,
+  optimizer state and the variance-reduction state -- the drawn rows are
+  copied before the correction and written back;
+* diagnostics (``diagnostics``): the rule's AggDiagnostics as ``diag_*``
+  metrics.
+
+With all of them off (the defaults) the step is the program it was.
 """
 from __future__ import annotations
 
@@ -26,23 +46,22 @@ import torch
 
 from repro_torch.core import aggregators as agg_lib
 from repro_torch.core import attacks as attack_lib
+from repro_torch.core import guards as guards_lib
 from repro_torch.core import packing
+from repro_torch.core import participation as participation_lib
 from repro_torch.core import variance as vr_lib
 from repro_torch.device import DEFAULT_DEVICE, generator_for, resolve_device
 from repro_torch.optim import optimizers as optim_lib
+from repro_torch.telemetry import diagnostics as diag_lib
 from repro_torch.telemetry import metrics as telemetry
 
 Params = dict[str, torch.Tensor]
 
-# RobustConfig fields the ported slice reads; every other field must keep
-# its default (the features behind them are still to port, ROADMAP.md
-# Queue A items 7, 9 and 10).
-_SLICE_FIELDS = ("aggregator", "vr", "attack", "num_byzantine",
-                 "topology", "topology_seed", "topology_p", "gossip",
-                 "schedule", "schedule_period", "minibatch_size",
-                 "weiszfeld_iters", "weiszfeld_tol", "num_groups", "trim",
-                 "clip_radius", "gaussian_variance", "sign_flip_magnitude",
-                 "alie_z", "ipm_eps")
+# RobustConfig fields the port does not take yet, with the ROADMAP.md Queue A
+# item that ports each; they must keep their defaults.
+_UNPORTED_FIELDS = {"packed": "7g (the per-leaf baseline)",
+                    "message_dtype": "7d (the wires)",
+                    "comm": "10 (the distributed runtime)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,12 +110,12 @@ class RobustConfig:
 
     def __post_init__(self):
         for f in dataclasses.fields(self):
-            if f.name not in _SLICE_FIELDS and getattr(self, f.name) != f.default:
+            if f.name in _UNPORTED_FIELDS and getattr(self, f.name) != f.default:
                 raise ValueError(
                     f"RobustConfig.{f.name}={getattr(self, f.name)!r} is "
                     "outside the ported slice (packed simulated master and "
-                    "decentralized steps, full participation, float32 wire); "
-                    "see ROADMAP.md Queue A")
+                    "decentralized steps, float32 wire); ROADMAP.md Queue A "
+                    f"item {_UNPORTED_FIELDS[f.name]}")
 
     def reducer(self) -> vr_lib.VarianceReducer:
         """The variance reducer named by ``self.vr``."""
@@ -108,7 +127,9 @@ class RobustConfig:
             name=self.attack, num_byzantine=self.num_byzantine,
             gaussian_variance=self.gaussian_variance,
             sign_flip_magnitude=self.sign_flip_magnitude,
-            alie_z=self.alie_z, ipm_eps=self.ipm_eps)
+            alie_z=self.alie_z, ipm_eps=self.ipm_eps,
+            straggler_k=self.straggler_k, bitflip_prob=self.bitflip_prob,
+            bitflip_seed=self.bitflip_seed)
 
     def message_spec(self, tree: Params, *, batch_ndim: int = 1
                      ) -> packing.PackSpec:
@@ -119,12 +140,14 @@ class RobustConfig:
     def flat_aggregator_fn(self, spec: packing.PackSpec
                            ) -> agg_lib.FlatAggregator:
         """Flat aggregator ``(W, D) -> (D,) f32`` for this config's messages
-        laid out by ``spec``."""
+        laid out by ``spec``; with ``self.diagnostics`` it returns
+        ``(aggregate, AggDiagnostics)``."""
         return agg_lib.get_flat_aggregator(
             self.aggregator, spec,
             max_iters=self.weiszfeld_iters, tol=self.weiszfeld_tol,
             num_groups=self.num_groups, trim=self.trim,
-            num_byzantine=self.num_byzantine, clip_radius=self.clip_radius)
+            num_byzantine=self.num_byzantine, clip_radius=self.clip_radius,
+            diagnostics=self.diagnostics)
 
 
 class FederatedState(NamedTuple):
@@ -132,12 +155,19 @@ class FederatedState(NamedTuple):
     # (N, ...) on the decentralized path.
     params: Params
     opt_state: Any
-    # Variance-reduction state (SagaState for "saga", None for "sgd" and
-    # "minibatch").
+    # Variance-reduction state (SagaState for "saga", LsvrgState for
+    # "lsvrg", None for "sgd" and "minibatch"); under partial participation
+    # its rows are per client, (num_clients, ...).
     vr: Optional[Any]
     step: int
-    # The run's random stream: sample draws, then attack noise, each step.
+    # The run's random stream: sample draws, lsvrg's refresh coins, then
+    # attack noise, each step.
     generator: torch.Generator
+    # (num_clients,) int32 rounds since each client last took part, or
+    # None under full participation.
+    staleness: Optional[torch.Tensor] = None
+    # (4,) float32 round-health vector when cfg.guards, else None.
+    health: Optional[torch.Tensor] = None
 
 
 def as_batches(rows: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
@@ -186,6 +216,48 @@ def worker_batches(data: dict[str, torch.Tensor], w_ids: torch.Tensor,
     if idx.dim() == 2:
         return {k: v[w_ids[:, None], idx] for k, v in data.items()}
     return as_batches({k: v[w_ids, idx] for k, v in data.items()})
+
+
+def resolve_plan(cfg: RobustConfig, worker_data: dict[str, Any]):
+    """The participation plan of ``cfg`` for ``worker_data`` (one shard a
+    client under partial participation), or None; checks the two agree."""
+    num_rows = next(iter(worker_data.values())).shape[0]
+    if cfg.num_clients:
+        if cfg.num_clients != num_rows:
+            raise ValueError(f"num_clients={cfg.num_clients} but worker_data "
+                             f"has {num_rows} client shards")
+        if not cfg.cohort_size:
+            raise ValueError("partial participation in the simulated "
+                             "federation needs an explicit cohort_size")
+    return participation_lib.resolve_participation(
+        cfg, cfg.cohort_size if cfg.num_clients else num_rows)
+
+
+def slot_weights(cfg: RobustConfig, honest_stal: Optional[torch.Tensor],
+                 num_byzantine: int):
+    """(W,) staleness weights of the full message buffer (honest slots,
+    then the Byzantine ones) and the slots' staleness, or (None, None) on
+    the unweighted path."""
+    if honest_stal is None:
+        return None, None
+    slot_stal = participation_lib.slot_staleness(
+        honest_stal, cfg.attack, num_byzantine, straggler_k=cfg.straggler_k,
+        max_staleness=cfg.max_staleness)
+    return participation_lib.staleness_weights(
+        slot_stal, decay=cfg.staleness_decay,
+        max_staleness=cfg.max_staleness), slot_stal
+
+
+def round_slots(plan, weighted: bool, state: "FederatedState",
+                w_ids: torch.Tensor):
+    """The round's (slot data rows (W_h,), state rows or None, honest
+    staleness or None): the cohort under partial participation, the
+    workers ``w_ids`` themselves otherwise."""
+    if plan is None:
+        stal = torch.zeros_like(w_ids, dtype=torch.int32) if weighted else None
+        return w_ids, None, stal
+    cohort = plan.cohort_at(state.step, w_ids.device)
+    return cohort, cohort, state.staleness[cohort]
 
 
 def resolve_topology(cfg: RobustConfig, num_nodes: int, topology=None):
@@ -261,16 +333,24 @@ def make_federated_step(
     its gradient).  ``worker_data``: values shaped (W_h, J, ...), moved to
     ``device``.
 
+    With ``cfg.num_clients > 0`` (partial participation) ``worker_data``
+    holds one shard per client, (num_clients, J, ...), and each round's
+    cohort of ``cfg.cohort_size`` clients fills the honest slots.
+
     ``init_fn(params, seed)`` -> :class:`FederatedState`; for ``saga`` it
-    fills the packed (W_h, J, D) table of Alg. 1 one worker at a time.
-    ``step_fn(state, *, sample_idx=None, attack_noise=None)`` ->
+    fills the packed (W_h, J, D) table of Alg. 1 one worker (client) at a
+    time, for ``lsvrg`` the snapshots and their full local gradients.
+    ``step_fn(state, *, sample_idx=None, attack_noise=None, coin=None)`` ->
     ``(new_state, metrics)``.  ``sample_idx`` ((W_h,) rows, or (W_h, B)
-    for ``minibatch``) and
-    ``attack_noise`` ((B, D) standard-normal draws for ``gaussian``)
-    replace the step's own draws, so a test can hand in the reference's.
+    for ``minibatch``), ``attack_noise`` ((B, D) standard-normal draws for
+    ``gaussian``) and ``coin`` ((W_h,) bool snapshot refreshes for
+    ``lsvrg``) replace the step's own draws, so a test can hand in the
+    reference's.
     """
     dev = resolve_device(device)
-    wh = next(iter(worker_data.values())).shape[0]
+    plan = resolve_plan(cfg, worker_data)
+    wh = (plan.cohort_size if plan is not None
+          else next(iter(worker_data.values())).shape[0])
     b = cfg.num_byzantine if cfg.attack != "none" else 0
     sched = resolve_schedule(cfg, wh + b, topology, schedule)
     if sched is not None:
@@ -279,17 +359,21 @@ def make_federated_step(
         return make_decentralized_step(loss_fn, worker_data, cfg, optimizer,
                                        sched, device=dev)
     data = {k: torch.as_tensor(v, device=dev) for k, v in worker_data.items()}
-    wh, j = next(iter(data.values())).shape[:2]
+    num_clients, j = next(iter(data.values())).shape[:2]
+    weighted = participation_lib.uses_staleness(cfg, plan)
     attack_cfg = cfg.attack_config()
     reducer = cfg.reducer()
     # The rule is built from the messages' PackSpec, which the first step
     # reads from its gradients (a state may come from elsewhere than init_fn).
     flat_fns: dict[packing.PackSpec, agg_lib.FlatAggregator] = {}
+    grad_fn = torch.func.grad(loss_fn)
     # One gradient per worker batch: a sample is a batch of one, as in the
     # reference's per-worker grad of sample_batch(data_w, idx[None]); a
-    # minibatch is the worker's (B, ...) rows.
-    per_sample_grads = torch.func.vmap(torch.func.grad(loss_fn),
-                                       in_dims=(None, 0))
+    # minibatch is the worker's (B, ...) rows; a client's whole shard gives
+    # its full local gradient.
+    per_sample_grads = torch.func.vmap(grad_fn, in_dims=(None, 0))
+    # Each slot's gradient at its own params (lsvrg's snapshots).
+    per_worker_grads = torch.func.vmap(grad_fn, in_dims=(0, 0))
     w_ids = torch.arange(wh, device=dev)
 
     def init_fn(params: Params, seed: int | torch.Generator = 0
@@ -300,30 +384,86 @@ def make_federated_step(
             vr_state = reducer.init_sim(
                 params, per_sample_grads_fn=lambda: per_sample_table(
                     per_sample_grads, params, data, spec),
-                num_workers=wh)
+                full_grads_fn=lambda: spec.pack(per_sample_grads(params, data)),
+                num_workers=num_clients, spec=spec)
+        staleness = (participation_lib.init_staleness(num_clients, dev)
+                     if plan is not None else None)
+        health = guards_lib.init_health(dev) if cfg.guards else None
         return FederatedState(params, optimizer.init(params), vr_state, 0,
-                              generator_for(seed, dev))
+                              generator_for(seed, dev), staleness, health)
+
+    def oracles(params, spec, slots, batches) -> dict:
+        """lsvrg's oracles: the slots' packed params, their gradients at
+        packed params on this step's batches, and the full local gradients
+        of the slots ``sel`` at the current params."""
+        if not reducer.uses_oracles:
+            return {}
+        flat = spec.pack(params, batch_ndim=0)
+        return dict(
+            params=flat[None].expand(wh, flat.shape[0]),
+            grads_at=lambda p: spec.pack(per_worker_grads(
+                spec.unpack(p, batch_ndim=1), batches)),
+            full_grads_at=lambda sel: spec.pack(per_sample_grads(
+                params, {k: v[slots[sel]] for k, v in data.items()})))
 
     @torch.no_grad()
     def step_fn(state: FederatedState, *, sample_idx=None,
-                attack_noise: Optional[torch.Tensor] = None):
+                attack_noise: Optional[torch.Tensor] = None, coin=None):
         params = state.params
+        slots, rows, honest_stal = round_slots(plan, weighted, state, w_ids)
         idx = sample_rows(reducer, state.generator, sample_idx, wh, j, dev)
-        honest_tree = per_sample_grads(params, worker_batches(data, w_ids, idx))
+        batches = worker_batches(data, slots, idx)
+        honest_tree = per_sample_grads(params, batches)
         spec = cfg.message_spec(honest_tree, batch_ndim=1)
         honest = spec.pack(honest_tree)                       # (W_h, D)
-        honest, vr_state, vr_metrics = reducer.correct(state.vr, honest, idx)
+        held = reducer.hold(state.vr, idx, rows) if cfg.guards else None
+        honest, vr_state, vr_metrics = reducer.correct(
+            state.vr, honest, idx, rows=rows, generator=state.generator,
+            coin=coin, **oracles(params, spec, slots, batches))
+        staleness = (state.staleness if plan is None else
+                     participation_lib.tick_staleness(state.staleness, rows))
         var = telemetry.honest_variance(honest, wh)
         msgs = attack_lib.apply_attack(attack_cfg, honest, state.generator,
-                                       noise=attack_noise)    # (W, D)
+                                       noise=attack_noise, spec=spec)  # (W, D)
+        rw, slot_stal = slot_weights(cfg, honest_stal, b)
+        metrics = {"honest_variance": var, **vr_metrics,
+                   **telemetry.staleness_metrics(slot_stal)}
         if spec not in flat_fns:
             flat_fns[spec] = cfg.flat_aggregator_fn(spec)
-        agg = spec.unpack(flat_fns[spec](msgs), batch_ndim=0)
+        flat_fn = flat_fns[spec]
+        if cfg.guards:
+            gmask = guards_lib.guard_mask(
+                msgs, multiplier=cfg.guard_multiplier, base_weights=rw)
+            out = guards_lib.guarded_flat_call(flat_fn, msgs, gmask,
+                                               row_weights=rw)
+            metrics["quarantined_rows"] = torch.sum(1.0 - gmask)
+        else:
+            out = flat_fn(msgs) if rw is None else flat_fn(msgs, row_weights=rw)
+        if cfg.diagnostics:
+            agg_vec, diag = out
+            metrics.update(diag_lib.diagnostics_metrics(diag))
+        else:
+            agg_vec = out
+        agg = spec.unpack(agg_vec, batch_ndim=0)
         updates, opt_state = optimizer.update(agg, state.opt_state, params,
                                               state.step)
         new_params = optim_lib.apply_updates(params, updates)
+        health = state.health
+        if cfg.guards:
+            # A rejected round keeps params, optimizer and VR state (the
+            # drawn rows copied before the correction are written back);
+            # step, generator, staleness and health move on.
+            accept, health = guards_lib.round_verdict(
+                guards_lib.tree_norm(agg_vec), state.health,
+                decay=cfg.reject_ema, zmax=cfg.reject_zmax,
+                warmup=cfg.reject_warmup)
+            if not bool(accept):
+                new_params, opt_state = params, state.opt_state
+                reducer.restore(vr_state, held, idx, rows)
+            metrics.update(telemetry.health_metrics(health, accept))
         new_state = FederatedState(new_params, opt_state, vr_state,
-                                   state.step + 1, state.generator)
-        return new_state, {"honest_variance": var, **vr_metrics}
+                                   state.step + 1, state.generator, staleness,
+                                   health)
+        return new_state, metrics
 
     return init_fn, step_fn

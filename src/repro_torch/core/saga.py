@@ -13,7 +13,9 @@ then sets ``avg[w] += (f'_{w,i}(x) - table[w, i]) / J`` and
 The port keeps the state packed for the whole run -- table (W, J, D), avg
 (W, D) -- and updates both IN PLACE: the table is the O(W*J*D) memory wall
 (9.5 GB for the Table I network at MNIST size), so no step may hold a copy
-of it.  On a CUDA device the update is kernel K1.
+of it.  On a CUDA device the update is kernel K1.  Under partial
+participation the state is resident per client, (C, J, D) and (C, D), and
+the round's cohort works on its own rows through K1's client-row route.
 """
 from __future__ import annotations
 
@@ -58,15 +60,42 @@ def saga_init_zeros(params: dict[str, torch.Tensor], num_workers: int,
 
 
 def saga_correct_scatter(state: SagaState, grads: torch.Tensor,
-                         sample_idx: torch.Tensor
+                         sample_idx: torch.Tensor,
+                         rows: torch.Tensor | None = None
                          ) -> tuple[torch.Tensor, SagaState]:
     """SAGA correction and table update for every worker at once.
 
     ``grads``: (W, D) fresh stochastic gradients; ``sample_idx``: (W,)
-    int64 drawn rows.  Returns ``(messages (W, D), state)``, where
-    ``state`` is the SAME object with ``table`` and ``avg`` updated in
-    place (the TPU kernel's ``input_output_aliases`` contract).  Callers
-    that need the old state must copy it first.
+    int64 drawn rows; ``rows``: (W,) distinct client rows of a state
+    resident per client, or None (worker w owns state row w).  Returns
+    ``(messages (W, D), state)``, where ``state`` is the SAME object with
+    ``table`` and ``avg`` updated in place (the TPU kernel's
+    ``input_output_aliases`` contract).  Callers that need the old state
+    must copy it first (:func:`held_rows`).
     """
-    msgs = ops.saga_correct(grads, state.table, state.avg, sample_idx)
+    msgs = ops.saga_correct(grads, state.table, state.avg, sample_idx, rows)
     return msgs, state
+
+
+def _state_rows(state: SagaState, sample_idx: torch.Tensor,
+                rows: torch.Tensor | None) -> torch.Tensor:
+    if rows is not None:
+        return rows
+    return torch.arange(sample_idx.shape[0], device=sample_idx.device)
+
+
+def held_rows(state: SagaState, sample_idx: torch.Tensor,
+              rows: torch.Tensor | None = None):
+    """Copies of the entries a correction with these draws will write --
+    ``table[r, sample_idx]`` and ``avg[r]``, (W, D) each -- so that a
+    rejected round can put them back (:func:`restore_rows`)."""
+    r = _state_rows(state, sample_idx, rows)
+    return state.table[r, sample_idx], state.avg[r]
+
+
+def restore_rows(state: SagaState, held, sample_idx: torch.Tensor,
+                 rows: torch.Tensor | None = None) -> None:
+    """Write :func:`held_rows`' copies back into the state, in place."""
+    r = _state_rows(state, sample_idx, rows)
+    state.table[r, sample_idx] = held[0]
+    state.avg[r] = held[1]

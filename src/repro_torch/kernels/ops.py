@@ -26,13 +26,16 @@ def _on_card(t: torch.Tensor) -> bool:
 
 
 def saga_correct(grad: torch.Tensor, table: torch.Tensor, avg: torch.Tensor,
-                 idx: torch.Tensor) -> torch.Tensor:
+                 idx: torch.Tensor, rows: torch.Tensor | None = None
+                 ) -> torch.Tensor:
     """K1: msg (W, D); ``avg`` (W, D) and ``table`` (W, J, D) are updated in
-    place."""
-    sc.check_inputs(grad, table, avg, idx)
+    place.  With ``rows`` ((W,) distinct int64 client rows) the state is
+    resident per client, table (C, J, D) and avg (C, D), and only rows
+    ``rows`` move."""
+    sc.check_inputs(grad, table, avg, idx, rows)
     if _on_card(grad):
-        return sc.saga_correct_call(grad, table, avg, idx)
-    return sc.saga_correct_plain(grad, table, avg, idx)
+        return sc.saga_correct_call(grad, table, avg, idx, rows)
+    return sc.saga_correct_plain(grad, table, avg, idx, rows)
 
 
 def partial_sqdist(z: torch.Tensor, y: torch.Tensor,
@@ -119,10 +122,11 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Zero every kernel's count, and the per-route counts of K2
-    (``weiszfeld.SQDIST_ROUTE_LAUNCHES``), K7 (``topology.ROUTE_LAUNCHES``)
-    and K8 (``flash_attention.VARIANT_LAUNCHES``)."""
-    for counts in (_build.LAUNCHES, wz.SQDIST_ROUTE_LAUNCHES,
+    """Zero every kernel's count, and the per-route counts of K1
+    (``saga_correct.ROUTE_LAUNCHES``), K2 (``weiszfeld.SQDIST_ROUTE_LAUNCHES``),
+    K7 (``topology.ROUTE_LAUNCHES``) and K8
+    (``flash_attention.VARIANT_LAUNCHES``)."""
+    for counts in (_build.LAUNCHES, sc.ROUTE_LAUNCHES, wz.SQDIST_ROUTE_LAUNCHES,
                    tp.ROUTE_LAUNCHES, fa.VARIANT_LAUNCHES):
         for name in counts:
             counts[name] = 0

@@ -94,7 +94,7 @@ def check_inputs(what: str, z: torch.Tensor) -> None:
     """z (W, D) float32 with W >= 1.  Raises on anything else."""
     if z.dtype != torch.float32:
         raise TypeError(f"{what}: z must be float32, got {z.dtype} (bf16 "
-                        "comes with ROADMAP.md Queue A 7)")
+                        "comes with ROADMAP.md Queue A item 7d)")
     if z.dim() != 2 or z.shape[0] == 0:
         raise ValueError(f"{what}: z must be (W, D) with W >= 1, got "
                          f"{tuple(z.shape)}")

@@ -21,11 +21,11 @@ compare against.  Both order a member's NaN above +inf, as torch.sort does,
 and neither lets a non-member's value (inf or NaN included) into the result.
 
 The kernel reduces by 0/1 counts: a mask entry counts as a neighbour when
-it is > 0.  This slice's masks are always 0/1 (participation and its
-staleness weights are not ported), so the decentralized ``trimmed_mean``
-always takes K7 on the card.  When fractional sender weights land, the
-route follows the reference's rule (``decentralized_step.py:872``, K7 only
-when ``row_weights is None``) and weighted masks go to the torch rules.
+it is > 0.  Masks that carry staleness weights take the torch rules instead
+(``row_weights`` in :mod:`repro_torch.topology.masked`), as the reference
+sends them to its jnp engine (``decentralized_step.py:872``, K7 only when
+``row_weights is None``); the guards' masks stay 0/1, so guarded rounds
+keep K7.
 """
 from __future__ import annotations
 
@@ -54,7 +54,7 @@ def check_inputs(exchange: torch.Tensor, mask: torch.Tensor, trim: int) -> None:
     if exchange.dtype != torch.float32 or mask.dtype != torch.float32:
         raise TypeError(f"masked_neighbor_reduce: inputs must be float32, got "
                         f"{exchange.dtype} and {mask.dtype} (bf16 comes with "
-                        "the bf16 wire, ROADMAP.md Queue A 7)")
+                        "the bf16 wire, ROADMAP.md Queue A item 7d)")
     if exchange.dim() != 3 or tuple(mask.shape) != tuple(exchange.shape[:2]):
         raise ValueError(f"masked_neighbor_reduce: exchange "
                          f"{tuple(exchange.shape)} and mask "

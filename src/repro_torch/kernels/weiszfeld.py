@@ -73,7 +73,8 @@ def check_inputs(what: str, z: torch.Tensor, v: torch.Tensor,
     anything else."""
     if z.dtype != torch.float32 or v.dtype != torch.float32:
         raise TypeError(f"{what}: inputs must be float32, got {z.dtype} and "
-                        f"{v.dtype} (bf16 comes with ROADMAP.md Queue A 7)")
+                        f"{v.dtype} (bf16 comes with ROADMAP.md Queue A "
+                        "item 7d)")
     if z.dim() not in ((2, 3) if batched else (2,)) \
             or tuple(v.shape) != tuple(v_shape):
         raise ValueError(f"{what}: shapes {tuple(z.shape)} and "

@@ -22,6 +22,15 @@ Byzantine.  Byzantine nodes attack per edge (:func:`build_exchange`): the
 message a Byzantine sender sends receiver r is built from r's own honest
 neighbourhood, so two receivers see different poison.
 
+The master step's options carry over: under partial participation
+(``num_clients``) a seeded cohort of clients mans the W_h honest node slots
+each round (their data and variance-reduction rows; node parameters stay
+per slot), K1 updating the cohort's rows of the resident SAGA table in
+place; staleness weights scale the sender columns of the mask; guards
+quarantine edges per receiver (:func:`repro_torch.core.guards.pairwise_guard_mask`)
+and a rejected round keeps every node's state; diagnostics report the
+masked rules' per-sender summary.
+
 The sharded, ``torch.distributed`` form of the reference's
 ``decentralized_aggregate`` is ROADMAP.md Queue A item 10.
 """
@@ -33,10 +42,15 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.core import attacks as attack_lib
+from repro_torch.core import guards as guards_lib
+from repro_torch.core import participation as participation_lib
 from repro_torch.core.robust_step import (FederatedState, per_sample_table,
-                                          sample_rows, worker_batches)
+                                          resolve_plan, round_slots,
+                                          sample_rows, slot_weights,
+                                          worker_batches)
 from repro_torch.device import DEFAULT_DEVICE, generator_for, resolve_device
 from repro_torch.optim import optimizers as optim_lib
+from repro_torch.telemetry import diagnostics as diag_lib
 from repro_torch.telemetry import metrics as telemetry
 from repro_torch.topology.masked import masked_aggregate_flat
 from repro_torch.topology.schedule import as_schedule, validate_schedule
@@ -44,15 +58,6 @@ from repro_torch.topology.schedule import as_schedule, validate_schedule
 Params = dict[str, torch.Tensor]
 
 GOSSIP_MODES = ("gradient", "params")
-
-# Per-edge attacks of the reference that the port does not build yet.
-_UNPORTED_EDGE_ATTACKS = {
-    "straggler": "ROADMAP.md Queue A items 5 and 7 (participation)",
-    "dropout": "ROADMAP.md Queue A items 5 and 7 (participation)",
-    "nan": "ROADMAP.md Queue A items 5 and 7 (guards)",
-    "inf_overflow": "ROADMAP.md Queue A items 5 and 7 (guards)",
-    "bitflip": "ROADMAP.md Queue A items 5 and 7 (guards)",
-}
 
 
 def _check_gossip(cfg) -> str:
@@ -66,7 +71,8 @@ def _check_gossip(cfg) -> str:
 def build_exchange(msgs: torch.Tensor, cfg: attack_lib.AttackConfig,
                    mask: torch.Tensor, is_byz: torch.Tensor,
                    generator: Optional[torch.Generator] = None, *,
-                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   noise: Optional[torch.Tensor] = None,
+                   spec=None) -> torch.Tensor:
     """The per-edge message exchange (R, S, D) float32.
 
     ``msgs``: (S, D) honestly computed messages (Byzantine rows are
@@ -78,10 +84,11 @@ def build_exchange(msgs: torch.Tensor, cfg: attack_lib.AttackConfig,
     every receiver (a view, no copy).  ``gaussian`` draws per-edge noise
     from ``generator``, or takes the standard-normal draws ready-made as
     ``noise`` (R, S, D) (only the Byzantine senders' entries are read).
+    ``straggler`` scales r's mean by ``1 + 0.25 * straggler_k``,
+    ``dropout`` sends zeros, ``nan`` and ``inf_overflow`` fill r's mean
+    (padding of ``spec`` kept at 0), and ``bitflip`` corrupts it at
+    coordinates hashed per sender id (:func:`attacks.bitflip_edges`).
     """
-    if cfg.name in _UNPORTED_EDGE_ATTACKS:
-        raise ValueError(f"attack {cfg.name!r} has no per-edge form in the "
-                         f"port yet: {_UNPORTED_EDGE_ATTACKS[cfg.name]}")
     attack_lib.check_attack_name(cfg.name)
     r = mask.shape[0]
     s, d = msgs.shape
@@ -105,6 +112,19 @@ def build_exchange(msgs: torch.Tensor, cfg: attack_lib.AttackConfig,
         sq = (hon_w @ (m32 * m32)) / h_cnt[:, None]
         byz = mean + cfg.alie_z * torch.sqrt(torch.clamp(sq - mean * mean,
                                                          min=0.0))
+    elif cfg.name == "straggler":
+        byz = (1.0 + 0.25 * cfg.straggler_k) * mean
+    elif cfg.name == "dropout":
+        byz = torch.zeros_like(mean)
+    elif cfg.name == "nan":
+        byz = attack_lib._fault_fill(attack_lib._nan_fill, mean, spec)
+    elif cfg.name == "inf_overflow":
+        byz = attack_lib._fault_fill(attack_lib._overflow_fill, mean, spec)
+    elif cfg.name == "bitflip":
+        # Only the Byzantine senders' payloads: the hash is per sender id.
+        byz = attack_lib.bitflip_edges(
+            mean, torch.arange(s, device=msgs.device)[is_byz],
+            prob=cfg.bitflip_prob, seed=cfg.bitflip_seed, spec=spec)
     else:   # gaussian: per-edge draws around each receiver's mean
         if noise is None:
             draws = torch.randn((r, nb, d), generator=generator,
@@ -134,20 +154,25 @@ def make_decentralized_step(
     but with per-node parameters.
 
     ``topology``: a fixed :class:`Topology` or a :class:`GraphSchedule`.
-    ``init_fn(params, seed)`` copies ``params`` to every node and fills the
-    honest workers' packed (W_h, J, D) SAGA table at those shared initial
-    params.  ``step_fn(state, *, sample_idx=None, attack_noise=None)`` ->
+    ``init_fn(params, seed)`` copies ``params`` to every node and builds the
+    honest workers' (clients', under partial participation) variance-
+    reduction state at those shared initial params.
+    ``step_fn(state, *, sample_idx=None, attack_noise=None, coin=None)`` ->
     ``(new_state, metrics)`` with ``honest_variance`` and
     ``consensus_dist`` (the honest-variance formula on the honest nodes'
     parameter copies).  ``sample_idx`` ((W_h,) rows, (W_h, B) for
-    ``minibatch``) and ``attack_noise`` ((N, N, D) standard-normal per-edge
-    draws for ``gaussian``) replace the step's own draws, so a test can
-    hand in the reference's.
+    ``minibatch``), ``attack_noise`` ((N, N, D) standard-normal per-edge
+    draws for ``gaussian``) and ``coin`` ((W_h,) bool refreshes for
+    ``lsvrg``) replace the step's own draws, so a test can hand in the
+    reference's.
     """
     sched = as_schedule(topology)
     dev = resolve_device(device)
+    plan = resolve_plan(cfg, worker_data)
     data = {k: torch.as_tensor(v, device=dev) for k, v in worker_data.items()}
-    wh, j = next(iter(data.values())).shape[:2]
+    num_clients, j = next(iter(data.values())).shape[:2]
+    wh = plan.cohort_size if plan is not None else num_clients
+    weighted = participation_lib.uses_staleness(cfg, plan)
     b = cfg.num_byzantine if cfg.attack != "none" else 0
     n = wh + b
     validate_schedule(cfg, sched, n)
@@ -156,10 +181,11 @@ def make_decentralized_step(
     attack_cfg = cfg.attack_config()
     reducer = cfg.reducer()
     grad_fn = torch.func.grad(loss_fn)
-    # Alg. 1 init: every sample's gradient at the shared initial params.
+    # Alg. 1 init: every sample's gradient at the shared initial params (a
+    # client's whole shard: its full local gradient).
     per_sample_grads = torch.func.vmap(grad_fn, in_dims=(None, 0))
     # Each honest node's gradient at its own params, on its drawn sample
-    # (or minibatch).
+    # (or minibatch, or whole shard).
     per_node_grads = torch.func.vmap(grad_fn, in_dims=(0, 0))
     is_byz = torch.arange(n, device=dev) >= wh
     w_ids = torch.arange(wh, device=dev)
@@ -177,53 +203,115 @@ def make_decentralized_step(
             vr_state = reducer.init_sim(
                 params, per_sample_grads_fn=lambda: per_sample_table(
                     per_sample_grads, params, data, spec),
-                num_workers=wh)
+                full_grads_fn=lambda: spec.pack(per_sample_grads(params, data)),
+                num_workers=num_clients, spec=spec)
+        staleness = (participation_lib.init_staleness(num_clients, dev)
+                     if plan is not None else None)
+        health = guards_lib.init_health(dev) if cfg.guards else None
         return FederatedState(nodes, optimizer.init(nodes), vr_state, 0,
-                              generator_for(seed, dev))
+                              generator_for(seed, dev), staleness, health)
+
+    def oracles(honest_params, spec, slots, batches) -> dict:
+        """lsvrg's oracles against each honest node's own params."""
+        if not reducer.uses_oracles:
+            return {}
+        return dict(
+            params=spec.pack(honest_params),
+            grads_at=lambda p: spec.pack(per_node_grads(
+                spec.unpack(p, batch_ndim=1), batches)),
+            full_grads_at=lambda sel: spec.pack(per_node_grads(
+                {k: v[sel] for k, v in honest_params.items()},
+                {k: v[slots[sel]] for k, v in data.items()})))
 
     @torch.no_grad()
     def step_fn(state: FederatedState, *, sample_idx=None,
-                attack_noise: Optional[torch.Tensor] = None):
+                attack_noise: Optional[torch.Tensor] = None, coin=None):
         mask = stacks.mask_at(state.step)
         mixing = stacks.mixing_at(state.step)
+        slots, rows, honest_stal = round_slots(plan, weighted, state, w_ids)
         idx = sample_rows(reducer, state.generator, sample_idx, wh, j, dev)
         honest_params = {k: v[:wh] for k, v in state.params.items()}
-        honest_tree = per_node_grads(honest_params,
-                                     worker_batches(data, w_ids, idx))
+        batches = worker_batches(data, slots, idx)
+        honest_tree = per_node_grads(honest_params, batches)
         spec = cfg.message_spec(honest_tree, batch_ndim=1)
         honest = spec.pack(honest_tree)                         # (W_h, D)
-        honest, vr_state, vr_metrics = reducer.correct(state.vr, honest, idx)
+        held = reducer.hold(state.vr, idx, rows) if cfg.guards else None
+        honest, vr_state, vr_metrics = reducer.correct(
+            state.vr, honest, idx, rows=rows, generator=state.generator,
+            coin=coin, **oracles(honest_params, spec, slots, batches))
+        staleness = (state.staleness if plan is None else
+                     participation_lib.tick_staleness(state.staleness, rows))
+        # Staleness weights scale the mask's sender columns.
+        sw, slot_stal = slot_weights(cfg, honest_stal, b)
+        wmask = mask if sw is None else mask * sw[None, :]
         var = telemetry.honest_variance(honest, wh)
         # Byzantine node rows carry zeros until the attack replaces them.
         msgs = torch.zeros((n, honest.shape[1]), dtype=honest.dtype,
                            device=dev)
         msgs[:wh] = honest
+        guard_info = {}
 
-        def gossip_agg(wire: torch.Tensor) -> Params:
-            exchange = build_exchange(wire, attack_cfg, mask, is_byz,
-                                      state.generator, noise=attack_noise)
-            out = masked_aggregate_flat(cfg.aggregator, exchange, mask,
-                                        spec=spec, mixing=mixing * mask,
+        def gossip_agg(wire: torch.Tensor):
+            exchange = build_exchange(wire, attack_cfg, wmask, is_byz,
+                                      state.generator, noise=attack_noise,
+                                      spec=spec)
+            gm = mask
+            if cfg.guards:
+                # Each receiver quarantines its non-finite or oversized
+                # in-edges (weight 0, payload zeroed); a clean round keeps
+                # the exchange and the mask as they are.
+                emask = guards_lib.pairwise_guard_mask(
+                    exchange, wmask, multiplier=cfg.guard_multiplier)
+                if not bool(guards_lib.all_valid(emask)):
+                    exchange = guards_lib.sanitize_rows(exchange, emask)
+                    gm = mask * emask
+                guard_info["quarantined_edges"] = torch.sum(
+                    (wmask > 0) * (1.0 - emask))
+            # The rule scales gm's sender columns by the staleness weights.
+            out = masked_aggregate_flat(cfg.aggregator, exchange, gm,
+                                        spec=spec, mixing=mixing * gm,
+                                        row_weights=sw,
+                                        diagnostics=cfg.diagnostics,
                                         **opts)                 # (N, D)
-            return spec.unpack(out, batch_ndim=1)
+            out, diag = out if cfg.diagnostics else (out, None)
+            return spec.unpack(out, batch_ndim=1), diag
 
         if gossip == "params":
             updates, opt_state = optimizer.update(
                 spec.unpack(msgs, batch_ndim=1), state.opt_state,
                 state.params, state.step)
             half = optim_lib.apply_updates(state.params, updates)
-            params = gossip_agg(spec.pack(half))
+            params, diag = gossip_agg(spec.pack(half))
+            watch = params
         else:
-            agg = gossip_agg(msgs)
+            agg, diag = gossip_agg(msgs)
             updates, opt_state = optimizer.update(agg, state.opt_state,
                                                   state.params, state.step)
             params = optim_lib.apply_updates(state.params, updates)
+            watch = agg
+        health = state.health
+        if cfg.guards:
+            # The verdict on the gossip output's norm; a rejected round
+            # keeps every node's params, optimizer and VR state.
+            accept, health = guards_lib.round_verdict(
+                guards_lib.tree_norm(watch), state.health,
+                decay=cfg.reject_ema, zmax=cfg.reject_zmax,
+                warmup=cfg.reject_warmup)
+            if not bool(accept):
+                params, opt_state = state.params, state.opt_state
+                reducer.restore(vr_state, held, idx, rows)
+            guard_info.update(telemetry.health_metrics(health, accept))
         consensus = telemetry.honest_variance(
             spec.pack({k: v[:wh] for k, v in params.items()}), wh)
         new_state = FederatedState(params, opt_state, vr_state,
-                                   state.step + 1, state.generator)
-        return new_state, {"honest_variance": var,
-                           "consensus_dist": consensus, **vr_metrics}
+                                   state.step + 1, state.generator, staleness,
+                                   health)
+        metrics = {"honest_variance": var, "consensus_dist": consensus,
+                   **vr_metrics, **telemetry.staleness_metrics(slot_stal),
+                   **guard_info}
+        if diag is not None:
+            metrics.update(diag_lib.diagnostics_metrics(
+                diag_lib.reduce_masked_diagnostics(diag, wmask)))
+        return new_state, metrics
 
     return init_fn, step_fn
-

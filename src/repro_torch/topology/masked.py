@@ -28,11 +28,23 @@ Kernels on a CUDA device (their plain versions on the CPU):
 Every kernel takes any number of senders and receivers that fits in memory.
 
 ``median``, ``krum`` and ``centered_clip`` are torch ops, as the
-reference's are jnp.  ``diagnostics=True`` is not ported yet (ROADMAP.md
-Queue A item 7).
+reference's are jnp.
+
+K7 reduces by 0/1 counts (a sender with mask > 0 counts once).  Staleness
+weights come in as ``row_weights`` (S,), which :func:`masked_aggregate_flat`
+multiplies into the mask's sender columns (and ``mixing``'s); given them,
+the trimmed mean takes the reference's torch form (its neighbour count
+``int(sum_s mask)``) and the masked Weiszfeld starts from the weighted mean
+(K3) instead of K7's count mean, as the reference's step uses K7 only when
+``row_weights is None``.
+
+``diagnostics=True`` returns ``(out, AggDiagnostics)`` with (R, S)
+receiver-by-sender fields (:func:`repro_torch.telemetry.masked_diagnostics`;
+the distances by the masked, receiver-batched K2).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Optional
 
@@ -41,6 +53,7 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core.geomed import WeiszfeldInfo, _f32_tol
 from repro_torch.kernels import ops
+from repro_torch.telemetry.diagnostics import masked_diagnostics
 
 # The reference's floor for distances and for weight sums.
 _DIST_FLOOR = 1e-8
@@ -84,20 +97,31 @@ def masked_median(exchange: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def masked_trimmed_mean(exchange: torch.Tensor, mask: torch.Tensor, *,
-                        trim: int) -> torch.Tensor:
+                        trim: int, weighted: bool = False
+                        ) -> torch.Tensor:
     """Coordinate-wise trimmed mean per neighbourhood: drop the ``trim``
     largest and smallest masked entries per coordinate, average the rest
     (kernel K7).  Every neighbourhood must have > 2 * trim members
-    (``validate_schedule`` checks the graph)."""
-    return ops.masked_neighbor_reduce(exchange.float(), mask.contiguous(),
-                                      trim=trim)
+    (``validate_schedule`` checks the graph).  With ``weighted`` (the mask
+    carries staleness weights) the neighbour count is ``int(sum_s mask[r,
+    s])``, the reference's, and the rule runs in torch."""
+    if not weighted:
+        return ops.masked_neighbor_reduce(exchange.float(), mask.contiguous(),
+                                          trim=trim)
+    n = torch.sum(mask, dim=1).to(torch.int64)                  # (R,)
+    s = _masked_sorted(exchange.float(), mask)
+    ranks = torch.arange(s.shape[1], device=s.device)[None, :, None]
+    keep = (ranks >= trim) & (ranks < (n - trim)[:, None, None])
+    return (torch.sum(torch.where(keep, s, 0.0), dim=1)
+            / torch.clamp(n - 2 * trim, min=1).float()[:, None])
 
 
 def masked_weiszfeld(exchange: torch.Tensor, mask: torch.Tensor, *,
                      max_iters: int = 64, tol: float = 1e-6,
-                     return_info: bool = False):
+                     weighted: bool = False, return_info: bool = False):
     """Per-receiver geometric median of the masked neighbourhood, all
-    receivers in lockstep: from the masked mean (K7, trim 0), each
+    receivers in lockstep: from the masked mean (K7, trim 0; the weighted
+    mean by K3 when the mask is ``weighted``), each
     iteration takes the (R, S) distances (K2, masked: 0 for a
     non-neighbour, whose row is not read), the weights ``inv = mask /
     max(sqrt(sq), 1e-8)`` and the weighted means (K3), and one host read of
@@ -106,7 +130,8 @@ def masked_weiszfeld(exchange: torch.Tensor, mask: torch.Tensor, *,
     exact.  ``exchange`` may be a column slice of a wider buffer."""
     z = exchange if exchange.dtype == torch.float32 else exchange.float()
     mask = mask.contiguous()
-    y = ops.masked_neighbor_reduce(z, mask, trim=0)
+    y = (_weighted_mean(z, mask) if weighted
+         else ops.masked_neighbor_reduce(z, mask, trim=0))
     tol = _f32_tol(tol)
     delta, it = math.inf, 0
     while it < max_iters and delta > tol:
@@ -141,23 +166,31 @@ def masked_geomed_groups(exchange: torch.Tensor, mask: torch.Tensor, *,
 
 def masked_geomed_blockwise(exchange: torch.Tensor, mask: torch.Tensor, *,
                             spec: packing.PackSpec, max_iters: int = 64,
-                            tol: float = 1e-6) -> torch.Tensor:
+                            tol: float = 1e-6, weighted: bool = False,
+                            return_info: bool = False):
     """Per-block masked geometric median: each leaf's coordinate slice of
     the packed buffer runs its own lockstep masked Weiszfeld (read in
-    place), one block after another; padding aggregates to zero."""
+    place), one block after another; padding aggregates to zero.  With
+    ``return_info``, one :class:`WeiszfeldInfo` per block as well."""
     z = exchange.float()
-    parts = [masked_weiszfeld(z[:, :, a:b], mask, max_iters=max_iters, tol=tol)
-             for a, b in spec.boundaries]
-    return packing.assemble(parts, pad=spec.pad, batch_shape=(z.shape[0],),
-                            device=z.device)
+    solved = [masked_weiszfeld(z[:, :, a:b], mask, max_iters=max_iters,
+                               tol=tol, weighted=weighted,
+                               return_info=True)
+              for a, b in spec.boundaries]
+    out = packing.assemble([p for p, _ in solved], pad=spec.pad,
+                           batch_shape=(z.shape[0],), device=z.device)
+    if return_info:
+        return out, [i for _, i in solved]
+    return out
 
 
 def masked_krum(exchange: torch.Tensor, mask: torch.Tensor, *,
-                num_byzantine: int) -> torch.Tensor:
+                num_byzantine: int, return_scores: bool = False):
     """Per-receiver Krum over the masked neighbourhood: a candidate's score
     sums its ``m_r - B - 2`` smallest distances to other neighbourhood
     members (clipped to >= 1; the guarantee is void below Krum's bound),
-    and the winning sender's message is selected."""
+    and the winning sender's message is selected.  ``return_scores``: also
+    the (R, S) scores (+inf off the mask) and the (R,) choices."""
     z = exchange.float()
     sq = torch.sum(z ** 2, dim=-1)                              # (R, S)
     d2 = sq[:, :, None] + sq[:, None, :] - 2.0 * torch.bmm(z, z.transpose(1, 2))
@@ -173,7 +206,10 @@ def masked_krum(exchange: torch.Tensor, mask: torch.Tensor, *,
                           torch.sort(d2, dim=2).values, 0.0)
     scores = torch.where(mask > 0, torch.sum(contrib, dim=2), torch.inf)
     best = torch.argmin(scores, dim=1)                          # (R,)
-    return z[torch.arange(z.shape[0], device=z.device), best]
+    out = z[torch.arange(z.shape[0], device=z.device), best]
+    if return_scores:
+        return out, scores, best
+    return out
 
 
 def masked_centered_clip(exchange: torch.Tensor, mask: torch.Tensor, *,
@@ -199,15 +235,16 @@ _MASKED: dict[str, Any] = {
     "mean": lambda ex, m, spec, o: masked_mean(ex, m, mixing=o.get("mixing")),
     "median": lambda ex, m, spec, o: masked_median(ex, m),
     "trimmed_mean": lambda ex, m, spec, o: masked_trimmed_mean(
-        ex, m, trim=o.get("trim", 1)),
+        ex, m, trim=o.get("trim", 1), weighted=o["weighted"]),
     "geomed": lambda ex, m, spec, o: masked_weiszfeld(
-        ex, m, max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6)),
+        ex, m, max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6),
+        weighted=o["weighted"]),
     "geomed_groups": lambda ex, m, spec, o: masked_geomed_groups(
         ex, m, num_groups=o["num_groups"],
         max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6)),
     "geomed_blockwise": lambda ex, m, spec, o: masked_geomed_blockwise(
         ex, m, spec=spec, max_iters=o.get("max_iters", 64),
-        tol=o.get("tol", 1e-6)),
+        tol=o.get("tol", 1e-6), weighted=o["weighted"]),
     "krum": lambda ex, m, spec, o: masked_krum(
         ex, m, num_byzantine=o.get("num_byzantine", 0)),
     "centered_clip": lambda ex, m, spec, o: masked_centered_clip(
@@ -219,22 +256,62 @@ MASKED_AGGREGATOR_NAMES = tuple(_MASKED)
 
 def masked_aggregate_flat(name: str, buf: torch.Tensor, mask: torch.Tensor,
                           *, spec: Optional[packing.PackSpec] = None,
+                          row_weights: Optional[torch.Tensor] = None,
                           diagnostics: bool = False,
                           **opts) -> torch.Tensor:
     """Flat masked engine: packed (R, S, D) exchange -> (R, D) float32
     per-receiver aggregates.  ``spec`` is needed by ``geomed_blockwise``
     only (its leaf boundaries).  Options: ``mixing`` (mean), ``max_iters``,
-    ``tol``, ``num_groups``, ``trim``, ``num_byzantine``, ``clip_radius``."""
+    ``tol``, ``num_groups``, ``trim``, ``num_byzantine``, ``clip_radius``.
+    ``row_weights`` (S,) are per-sender staleness weights: they scale the
+    mask's (and ``mixing``'s) sender columns here, and the rules K7 runs by
+    0/1 counts take their weighted forms.  ``diagnostics=True`` returns
+    ``(out, AggDiagnostics)``."""
     if name not in _MASKED:
         raise ValueError(
             f"unknown masked aggregator {name!r}; known: "
             f"{', '.join(sorted(_MASKED))}")
-    if diagnostics:
-        raise ValueError("masked aggregation diagnostics are not ported yet "
-                         "(ROADMAP.md Queue A item 7)")
     if name == "geomed_blockwise" and spec is None:
         raise ValueError(
             "masked_aggregate_flat('geomed_blockwise') needs spec= for the "
             "block boundaries")
-    return _MASKED[name](buf, mask.float(), spec, opts)
+    mask = mask.float()
+    if row_weights is not None:
+        cols = row_weights.float()[None, :]
+        mask = mask * cols
+        if opts.get("mixing") is not None:
+            opts["mixing"] = opts["mixing"] * cols
+    opts["weighted"] = row_weights is not None
+    if not diagnostics:
+        return _MASKED[name](buf, mask, spec, opts)
+    extras = {}
+    if name in ("geomed", "geomed_blockwise"):
+        fn = masked_weiszfeld if name == "geomed" else functools.partial(
+            masked_geomed_blockwise, spec=spec)
+        out, info = fn(buf, mask, max_iters=opts.get("max_iters", 64),
+                       tol=opts.get("tol", 1e-6),
+                       weighted=opts["weighted"],
+                       return_info=True)
+        infos = [info] if name == "geomed" else info
+        extras = dict(residual=max(i.residual for i in infos),
+                      iters=max(i.iters for i in infos),
+                      converged=all(i.converged for i in infos))
+    elif name == "krum":
+        out, scores, best = masked_krum(
+            buf, mask, num_byzantine=opts.get("num_byzantine", 0),
+            return_scores=True)
+        # Off-mask scores are +inf sentinels; zero them to keep the
+        # struct finite.
+        extras = dict(score=torch.where(mask > 0, scores, 0.0), selected=best)
+    else:
+        out = _MASKED[name](buf, mask, spec, opts)
+    diag = masked_diagnostics(buf, out, mask, **extras)
+    if name == "centered_clip":
+        # A live sender whose residual to the final centre exceeds the
+        # radius had its influence clipped this round.
+        live = (mask > 0).float()
+        clipped = live * (diag.dist > opts.get("clip_radius", 1.0))
+        diag = diag._replace(clip_frac=torch.sum(clipped)
+                             / torch.clamp(torch.sum(live), min=1.0))
+    return out, diag
 

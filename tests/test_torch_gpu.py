@@ -113,6 +113,72 @@ def test_saga_kernel_out_of_range_index_poisons_only_the_message():
     assert torch.equal(table[1], tab0[1]) and torch.equal(avg[1], avg0[1])
 
 
+def _client_inputs(c, j, p, w, seed=0):
+    """A (c, j, p) resident table, its (c, p) avg, (w, p) gradients, (w,)
+    distinct client rows from a permutation and (w,) drawn samples."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    table = torch.randn((c, j, p), generator=g, device="cuda")
+    grad = torch.randn((w, p), generator=g, device="cuda")
+    rows = torch.randperm(c, generator=g, device="cuda")[:w]
+    idx = torch.randint(0, j, (w,), generator=g, device="cuda")
+    return grad, table, table.mean(1), idx, rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,j,p,w", [(13, 3, 300, 7), (9, 5, 1, 9),
+                                     (40, 4, 39_760, 11)])
+def test_saga_kernel_client_rows_vs_plain(c, j, p, w):
+    """K1's client-row route: bitwise the plain version, and only the
+    drawn (row, idx) entries and avg rows change."""
+    _need_card()
+    grad, table, avg, idx, rows = _client_inputs(c, j, p, w)
+    tab_k, avg_k = table.clone(), avg.clone()
+    tab_p, avg_p = table.clone(), avg.clone()
+    ops.reset_launch_counts()
+    msg_k = ops.saga_correct(grad, tab_k, avg_k, idx, rows)
+    msg_p = sc.saga_correct_plain(grad, tab_p, avg_p, idx, rows)
+    torch.cuda.synchronize()
+    assert sc.ROUTE_LAUNCHES == {"workers": 0, "clients": 1}
+    assert torch.equal(msg_k, msg_p) and torch.equal(avg_k, avg_p)
+    assert torch.equal(tab_k, tab_p)
+    touched = torch.zeros((c, j), dtype=torch.bool, device="cuda")
+    touched[rows, idx] = True
+    assert torch.equal(tab_k[~touched], table[~touched])
+    others = torch.ones(c, dtype=torch.bool, device="cuda")
+    others[rows] = False
+    assert torch.equal(avg_k[others], avg[others])
+
+
+@pytest.mark.gpu
+def test_saga_kernel_out_of_range_client_row_poisons_only_the_message():
+    _need_card()
+    grad, table, avg, idx, rows = _client_inputs(6, 3, 64, 3)
+    rows[1] = 6
+    tab0, avg0 = table.clone(), avg.clone()
+    msg = sc.saga_correct_call(grad, table, avg, idx, rows)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(msg[1]).all()) and bool(torch.isfinite(msg[0]).all())
+    keep = torch.ones(6, dtype=torch.bool, device="cuda")
+    keep[rows[[0, 2]]] = False
+    assert torch.equal(table[keep], tab0[keep]) and torch.equal(avg[keep], avg0[keep])
+
+
+@pytest.mark.gpu
+def test_saga_kernel_without_rows_is_the_worker_route():
+    """rows=None: the worker route, the same bits as rows = 0..W-1."""
+    _need_card()
+    *_, grad, table, avg, idx = _inputs(7, 300)
+    tab_a, avg_a, tab_b, avg_b = table.clone(), avg.clone(), table.clone(), avg.clone()
+    ops.reset_launch_counts()
+    msg_a = sc.saga_correct_call(grad, tab_a, avg_a, idx)
+    msg_b = sc.saga_correct_call(grad, tab_b, avg_b, idx,
+                                 torch.arange(7, device="cuda"))
+    torch.cuda.synchronize()
+    assert sc.ROUTE_LAUNCHES == {"workers": 1, "clients": 1}
+    assert torch.equal(msg_a, msg_b) and torch.equal(tab_a, tab_b)
+    assert torch.equal(avg_a, avg_b)
+
+
 @pytest.mark.gpu
 def test_cuda_dispatch_counts_launches():
     _need_card()
