@@ -142,9 +142,30 @@ Phases, in order; any failure exits non-zero:
    guards under per-edge bitflip and diagnostics.  The twins of
    tests/test_convergence.py's lsvrg claim and tests/test_guards.py's
    fault containment on the simulated master.
-17. One JSON line with the kernels (K1-K8, and K1's client-row route, the
+17. The wires (``message_dtype`` bfloat16, int8, sign1).  Every bf16 route
+   of K1-K7: K1 (both routes) bitwise its plain version's bf16 ops at
+   (7, 3, 300), B's (50, 1,200, 39,760) and G's (500, 120, 39,760) with 50
+   client rows, only the drawn rows changed; K2-K6 at (7, 300), (8, 300),
+   B's (70, 39,760), (455, 39,760) (K4/K5's global rank count) and
+   (129, 1,000), and K7, the batched K2 (both routes) and K3 at (7, 7, 300),
+   D's exchange under its mask and S = 451, each contiguous and as a
+   misaligned column slice (the scalar loads): the float32 kernel's bits on
+   the upcast laid out alike, and the plain version within rtol 1e-5.
+   Each bf16 route timed beside the float32 route on the same values in the
+   same phase, its bound (messages at 2 B) and its plain version.  Runs of
+   20 steps: workload B under bfloat16 with geomed, median, trimmed_mean
+   and geomed_blockwise (the SAGA table 4.77 GB, peak below B's float32
+   peak, every launch on a bf16 route), under int8 and sign1 with geomed;
+   G1 under sign1 (the residual rows move with the cohort) and bfloat16
+   (K1's client-row bf16 route); D gradient geomed and trimmed_mean under
+   bfloat16 and D params geomed under sign1.  The twins of
+   tests/test_convergence.py's quantized-wire floor (int8 < 2 x max(f32,
+   0.03), sign1 < 4 x max(f32, 0.03) and < 0.2) and of
+   tests/test_packing.py's bf16-tracks-f32 check (10 steps within 5e-2, a
+   bf16 table).
+18. One JSON line with the kernels (K1-K8, and K1's client-row route, the
    masked route of K2 and the trim-0 kernel of K7 as entries of their
-   own), then the result line.
+   own, then each bf16 route: "<entry> bf16"), then the result line.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -281,8 +302,9 @@ def close(got, want, rtol=1e-5):
 def launch_counts():
     """Launches per kernel since the last reset, with K1's per-route counts
     ("saga_correct workers" / "clients"), K2's ("partial_sqdist unmasked" /
-    "masked") and K7's ("masked_neighbor_reduce sum" / "select" /
-    "rank")."""
+    "masked"), K7's ("masked_neighbor_reduce sum" / "select" / "rank"), and
+    the bf16 routes' ("saga_correct bf16", "saga_correct clients bf16",
+    ...)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import saga_correct as sc
     from repro_torch.kernels import topology as tp
@@ -293,6 +315,9 @@ def launch_counts():
                    for k, v in wz.SQDIST_ROUTE_LAUNCHES.items()})
     counts.update({f"masked_neighbor_reduce {k}": v
                    for k, v in tp.ROUTE_LAUNCHES.items()})
+    # The bf16 routes' launches, under "<kernel>[ <route>] bf16" (absent when
+    # none ran).
+    counts.update({f"{k} bf16": v for k, v in ops.bf16_launch_counts().items()})
     return counts
 
 
@@ -794,10 +819,11 @@ def phase_workload_f(torch):
     torch.cuda.empty_cache()
 
 
-def phase_workload_b(torch, agg, steps=20):
-    """Workload B with rule ``agg``: 20 steps with the launch counts reset
-    just before and read just after, asserted against the rule's kernels;
-    then a 3-step profile.  Returns (counts, state, summary)."""
+def phase_workload_b(torch, agg, steps=20, wire="float32"):
+    """Workload B with rule ``agg`` on the ``wire`` message format: 20 steps
+    with the launch counts reset just before and read just after, asserted
+    against the rule's kernels (on the bf16 wire, every launch on the bf16
+    routes); then a 3-step profile.  Returns (counts, state, summary)."""
     from repro_torch.core import RobustConfig, make_federated_step
     from repro_torch.data import mnist_like, partition
     from repro_torch.kernels import ops
@@ -808,7 +834,8 @@ def phase_workload_b(torch, agg, steps=20):
     batch = {"x": data.x, "y": data.y}
     wd = partition(batch, 50, seed=2, device="cuda")
     cfg = RobustConfig(aggregator=agg, vr="saga", attack="sign_flip",
-                       num_byzantine=20, trim=20, num_groups=5)
+                       num_byzantine=20, trim=20, num_groups=5,
+                       message_dtype=wire)
     init_fn, step_fn = make_federated_step(
         paper_nn.nn_loss, wd, cfg, get_optimizer("sgd", 0.1), device="cuda")
     t0 = time.perf_counter()
@@ -816,8 +843,10 @@ def phase_workload_b(torch, agg, steps=20):
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     w, j, d = st.vr.table.shape
-    log(f"workload B: SAGA table ({w}, {j}, {d}) = "
-        f"{st.vr.table.numel() * 4 / 1e9:.2f} GB filled worker by worker in "
+    table_gb = st.vr.table.numel() * st.vr.table.element_size() / 1e9
+    tag = "" if wire == "float32" else f" {wire}"
+    log(f"workload B{tag}: SAGA table ({w}, {j}, {d}) = "
+        f"{table_gb:.2f} GB filled worker by worker in "
         f"{t_init:.2f} s")
     with torch.no_grad():
         f0 = float(paper_nn.nn_loss(st.params, batch))
@@ -828,13 +857,13 @@ def phase_workload_b(torch, agg, steps=20):
         f1 = float(paper_nn.nn_loss(st.params, batch))
     peak = torch.cuda.max_memory_allocated()
     acc = paper_nn.accuracy(st.params, batch)
-    log(f"workload B {agg}/sign_flip: loss {f0:.6f} -> {f1:.6f} after {steps} "
+    log(f"workload B{tag} {agg}/sign_flip: loss {f0:.6f} -> {f1:.6f} after {steps} "
         f"steps, accuracy {acc:.4f}, "
         f"median step {statistics.median(times) * 1e3:.3f} ms, peak memory "
         f"{peak / 1e9:.2f} GB, honest variance "
         f"{float(metrics['honest_variance']):.6g}, launches {counts}")
-    st, _ = profile_steps(torch, f"workload B {agg}", step_fn, st, 3,
-                          statistics.median(times))
+    st, busy_us = profile_steps(torch, f"workload B{tag} {agg}", step_fn, st, 3,
+                                statistics.median(times))
     assert math.isfinite(f1), "workload B: loss is not finite"
     assert all(bool(torch.isfinite(p).all()) for p in st.params.values())
     ran = {k: counts[k] for k in RULE_KERNELS[agg]}
@@ -847,8 +876,14 @@ def phase_workload_b(torch, agg, steps=20):
     if agg == "geomed_blockwise":
         assert counts["partial_sqdist_segments"] >= steps, counts
         assert counts["partial_sqdist"] == 0, counts
+    bf16 = wire == "bfloat16"
+    assert st.vr.table.dtype == (torch.bfloat16 if bf16 else torch.float32)
+    for k in RULE_KERNELS[agg]:   # the bf16 wire launches only the bf16 routes
+        assert counts.get(f"{k} bf16", 0) == (counts[k] if bf16 else 0), counts
     summary = dict(step_ms=statistics.median(times) * 1e3, peak_gb=peak / 1e9,
-                   loss=f1, accuracy=acc)
+                   loss=f1, accuracy=acc, table_gb=table_gb, busy_us=busy_us,
+                   idle=1 - busy_us / (statistics.median(times) * 1e6),
+                   iters=counts["partial_sqdist"] / steps)
     return counts, st, summary
 
 
@@ -1242,11 +1277,12 @@ def workload_d_graph(torch):
     return topo, torch.as_tensor(topo.neighbor_mask, device="cuda"), trim
 
 
-def phase_workload_d(torch, gossip, agg, steps=20):
+def phase_workload_d(torch, gossip, agg, steps=20, wire="float32"):
     """Workload D (workload B's data, model and table on workload D's graph)
-    with rule ``agg`` in ``gossip`` mode: ``steps`` steps with the launch
-    counts reset just before and read just after, asserted; a 3-step
-    profile.  Returns (counts, summary)."""
+    with rule ``agg`` in ``gossip`` mode on the ``wire`` message format:
+    ``steps`` steps with the launch counts reset just before and read just
+    after, asserted (on the bf16 wire, every launch on the bf16 routes); a
+    3-step profile.  Returns (counts, summary)."""
     from repro_torch.core import RobustConfig, make_federated_step
     from repro_torch.data import mnist_like, partition
     from repro_torch.kernels import ops
@@ -1259,7 +1295,8 @@ def phase_workload_d(torch, gossip, agg, steps=20):
     wd = partition(batch, 50, seed=2, device="cuda")
     cfg = RobustConfig(aggregator=agg, vr="saga", attack="sign_flip",
                        num_byzantine=20, trim=trim, topology="erdos_renyi",
-                       topology_p=0.5, topology_seed=0, gossip=gossip)
+                       topology_p=0.5, topology_seed=0, gossip=gossip,
+                       message_dtype=wire)
     init_fn, step_fn = make_federated_step(
         paper_nn.nn_loss, wd, cfg, get_optimizer("sgd", 0.1), device="cuda")
     st = init_fn(paper_nn.init_params(SEED + 7, device="cuda"), 5)
@@ -1276,7 +1313,7 @@ def phase_workload_d(torch, gossip, agg, steps=20):
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     f1, acc = honest_loss_acc(st.params)
-    label = f"D {gossip} {agg}"
+    label = f"D {gossip} {agg}" + ("" if wire == "float32" else f" {wire}")
     iters = counts["partial_sqdist"] / steps
     log(f"workload {label}/sign_flip (trim {trim}): mean honest loss {f0:.6f} -> "
         f"{f1:.6f} after {steps} steps, mean honest accuracy {acc:.4f}, "
@@ -1284,7 +1321,7 @@ def phase_workload_d(torch, gossip, agg, steps=20):
         f"{statistics.median(times) * 1e3:.3f} ms, peak memory {peak / 1e9:.2f} GB, "
         f"Weiszfeld iters/step {iters:.2f}, launches {counts}")
     median_s = statistics.median(times)
-    st, _ = profile_steps(torch, f"workload {label}", step_fn, st, 3, median_s)
+    st, busy_us = profile_steps(torch, f"workload {label}", step_fn, st, 3, median_s)
     assert math.isfinite(f1), f"workload {label}: loss is not finite"
     assert all(bool(torch.isfinite(p).all()) for p in st.params.values())
     assert counts["saga_correct"] == steps, counts
@@ -1303,8 +1340,16 @@ def phase_workload_d(torch, gossip, agg, steps=20):
     if agg == "mean":
         assert counts["weighted_sum"] == steps, counts
         assert counts["masked_neighbor_reduce"] == counts["partial_sqdist"] == 0
+    bf16 = wire == "bfloat16"
+    for k in ("saga_correct", "partial_sqdist", "weighted_sum",
+              "masked_neighbor_reduce"):
+        assert counts.get(f"{k} bf16", 0) == (counts[k] if bf16 else 0), counts
+    if wire == "sign1":
+        assert tuple(st.ef.shape) == (50, st.vr.table.shape[-1]), st.ef.shape
+        assert bool(torch.isfinite(st.ef).all()) and float(st.ef.abs().max()) > 0
     summary = dict(step_ms=median_s * 1e3, peak_gb=peak / 1e9, loss=f1,
-                   accuracy=acc, iters=iters,
+                   accuracy=acc, iters=iters, busy_us=busy_us,
+                   idle=1 - busy_us / (median_s * 1e6),
                    consensus=float(metrics["consensus_dist"]))
     del st
     torch.cuda.empty_cache()
@@ -1908,7 +1953,7 @@ def time_client_rows(torch, table, avg):
     draws = iter([(torch.randint(0, j, (w,), generator=gen, device="cuda"),
                    torch.randperm(c, generator=gen, device="cuda")[:w],
                    torch.randperm(w, generator=gen, device="cuda"))
-                  for _ in range(8 * (reps + 3))])
+                  for _ in range(10 * (reps + 3))])
 
     def clients():
         idx, rows, _ = next(draws)
@@ -2118,6 +2163,460 @@ def phase_options(torch, card, errs, counts, timing, b_geomed):
     log(f"options phases {time.perf_counter() - t0:.1f} s")
 
 
+# ---- Phase 17: the wires (bfloat16, int8, sign1) --------------------------------
+
+# The bf16 routes in the kernels line: entry -> (the key of its launches in
+# launch_counts(), the run whose counts give them).
+BF16_KERNELS = {
+    "saga_correct bf16": ("saga_correct bf16", "B bfloat16 geomed"),
+    "saga_correct clients bf16": ("saga_correct clients bf16", "G1 bfloat16"),
+    "partial_sqdist bf16": ("partial_sqdist bf16", "B bfloat16 geomed"),
+    "weighted_sum bf16": ("weighted_sum bf16", "B bfloat16 geomed"),
+    "coordinate_median bf16": ("coordinate_median bf16", "B bfloat16 median"),
+    "trimmed_mean bf16": ("trimmed_mean bf16", "B bfloat16 trimmed_mean"),
+    "partial_sqdist_segments bf16": ("partial_sqdist_segments bf16",
+                                     "B bfloat16 geomed_blockwise"),
+    "masked_neighbor_reduce bf16": ("masked_neighbor_reduce select bf16",
+                                    "D gradient trimmed_mean bfloat16"),
+    "partial_sqdist masked bf16": ("partial_sqdist masked bf16",
+                                   "D gradient geomed bfloat16"),
+    "masked_neighbor_reduce sum bf16": ("masked_neighbor_reduce sum bf16",
+                                        "D gradient geomed bfloat16"),
+}
+# The wires phase's runs: workload B (wire, rule), workload D (wire, gossip,
+# rule).
+WIRE_B_RUNS = (("bfloat16", "geomed"), ("bfloat16", "median"),
+               ("bfloat16", "trimmed_mean"), ("bfloat16", "geomed_blockwise"),
+               ("int8", "geomed"), ("sign1", "geomed"))
+WIRE_D_RUNS = (("bfloat16", "gradient", "geomed"),
+               ("bfloat16", "gradient", "trimmed_mean"),
+               ("sign1", "params", "geomed"))
+
+
+def raw_bits(t):
+    """A float32 or bfloat16 tensor's bits, as integers."""
+    import torch
+    return t.contiguous().view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+def same_bits(a, b) -> bool:
+    import torch
+    return a.dtype == b.dtype and torch.equal(raw_bits(a), raw_bits(b))
+
+
+def check_bf16_saga(torch, w, j, d, gen, c=None):
+    """K1's bf16 route (the worker route, or with ``c`` the client-row
+    route on a (c, j, d) resident table through w distinct rows) against its
+    plain version on the same bf16 tensors: msg, avg and table bitwise, only
+    the drawn rows changed.  Returns the largest |msg difference| (0.0)."""
+    from repro_torch.kernels import saga_correct as sc
+    dev = torch.device("cuda")
+    c = w if c is None else c
+    table = torch.randn((c, j, d), generator=gen, device=dev).bfloat16()
+    avg = torch.randn((c, d), generator=gen, device=dev).bfloat16()
+    g = torch.randn((w, d), generator=gen, device=dev).bfloat16()
+    idx = torch.randint(0, j, (w,), generator=gen, device=dev)
+    rows = None if c == w else torch.randperm(c, generator=gen, device=dev)[:w]
+    r = torch.arange(w, device=dev) if rows is None else rows
+    t_k, a_k = table.clone(), avg.clone()
+    msg_k = sc.saga_correct_call(g, t_k, a_k, idx, rows)
+    torch.cuda.synchronize()
+    assert same_bits(t_k[r, idx], g), "K1 bf16: drawn rows != gradient"
+    msg_p = sc.saga_correct_plain(g, table, avg, idx, rows)
+    torch.cuda.synchronize()
+    assert same_bits(msg_k, msg_p), "K1 bf16: msg != plain bf16 ops"
+    assert same_bits(a_k, avg), "K1 bf16: avg != plain bf16 ops"
+    assert same_bits(t_k, table), "K1 bf16: table != plain (other rows moved?)"
+    err = float((msg_k.float() - msg_p.float()).abs().max())
+    del table, t_k
+    torch.cuda.empty_cache()
+    return err
+
+
+def check_bf16_flat(torch, w, d, trim, bounds, gen):
+    """K2, K3, K4, K5 and K6 on a bf16 (w, d) z: float32 out, the bits of
+    the float32 kernel on z.float(), and the plain version (on the bf16 z)
+    within rtol 1e-5.  Returns the largest |difference| from the plain
+    version per kernel."""
+    from repro_torch.core.geomed import segment_ids
+    from repro_torch.kernels import robust_stats as rs
+    from repro_torch.kernels import weiszfeld as wz
+    dev = torch.device("cuda")
+    zb = torch.randn((w, d), generator=gen, device=dev).bfloat16()
+    zb[min(1, w - 1)] = zb[0]                          # ties
+    zf = zb.float()
+    y = zf.mean(0) + 0.1 * torch.randn((d,), generator=gen, device=dev)
+    a = torch.rand((w,), generator=gen, device=dev) + 0.5
+    seg = segment_ids(tuple(bounds), d, dev)
+    nseg = len(bounds)
+    calls = {
+        "partial_sqdist": (lambda z: wz.partial_sqdist_call(z, y),
+                           lambda z: wz.partial_sqdist_plain(z, y)),
+        "weighted_sum": (lambda z: wz.weighted_sum_call(z, a),
+                         lambda z: wz.weighted_sum_plain(z, a)),
+        "coordinate_median": (rs.coordinate_median_call, rs.coordinate_median_plain),
+        "trimmed_mean": (lambda z: rs.trimmed_mean_call(z, trim),
+                         lambda z: rs.trimmed_mean_plain(z, trim)),
+        "partial_sqdist_segments": (
+            lambda z: wz.partial_sqdist_segments_call(z, y, seg, nseg),
+            lambda z: wz.partial_sqdist_segments_plain(z, y, seg, nseg)),
+    }
+    errs = {}
+    for name, (call, plain) in calls.items():
+        got = call(zb)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32, name
+        assert same_bits(got, call(zf)), f"{name} bf16 != float32 kernel on z.float()"
+        ok, errs[name] = close(got, plain(zb))
+        assert ok, f"{name} bf16 disagrees with its plain version: {errs[name]}"
+    return errs
+
+
+def check_bf16_masked(torch, r, s, d, trims, mask, gen, ties=True):
+    """K7 (each trim), the masked and unmasked batched K2 and the batched K3
+    on a bf16 (r, s, d) exchange, contiguous and as a column slice of a
+    wider one (misaligned: the scalar loads): the float32 kernel's bits on
+    the upcast laid out alike, and the plain versions within rtol 1e-5.
+    Returns the largest differences (K7 trim > 0, K7 trim 0, K2 unmasked,
+    K2 masked, K3)."""
+    from repro_torch.kernels import topology as tp
+    from repro_torch.kernels import weiszfeld as wz
+    dev = torch.device("cuda")
+    wide = torch.randn((r, s, d + 3), generator=gen, device=dev).bfloat16()
+    if ties:
+        wide[:, 1] = wide[:, 0]
+    widef = wide.float()
+    if mask is None:
+        mask = (torch.rand((r, s), generator=gen, device=dev) < 0.6).float()
+        mask[:, :min(s, 2 * max(t or 0 for t in trims) + 2)] = 1.0
+    y = torch.randn((r, d), generator=gen, device=dev)
+    n_min = int(mask.sum(1).min())
+    e7 = e7s = e2 = e2m = e3 = 0.0
+    for x, xf in ((wide[..., :d].contiguous(), widef[..., :d].contiguous()),
+                  (wide[..., 3:], widef[..., 3:])):
+        for t in trims:
+            t = (n_min - 1) // 2 if t is None else t
+            got = tp.masked_neighbor_reduce_call(x, mask, t)
+            assert same_bits(got, tp.masked_neighbor_reduce_call(xf, mask, t)), t
+            ok, e = close(got, tp.masked_neighbor_reduce_plain(x, mask, t))
+            assert ok, f"K7 bf16 trim {t}: {e}"
+            if t:
+                e7 = max(e7, e)
+            else:
+                e7s = max(e7s, e)
+        for m in (None, mask):
+            got = wz.partial_sqdist_call(x, y, m)
+            assert same_bits(got, wz.partial_sqdist_call(xf, y, m))
+            ok, e = close(got, wz.partial_sqdist_plain(x, y, m))
+            assert ok, f"K2 bf16 (mask {m is not None}): {e}"
+            if m is None:
+                e2 = max(e2, e)
+            else:
+                e2m = max(e2m, e)
+        got = wz.weighted_sum_call(x, mask)
+        assert same_bits(got, wz.weighted_sum_call(xf, mask))
+        ok, e = close(got, wz.weighted_sum_plain(x, mask))
+        assert ok, f"K3 bf16 batched: {e}"
+        e3 = max(e3, e)
+        torch.cuda.synchronize()
+    del wide, widef
+    torch.cuda.empty_cache()
+    return e7, e7s, e2, e2m, e3
+
+
+def phase_wires_kernel_checks(torch):
+    """Every bf16 route against its plain version and, K2-K7, against the
+    float32 kernel on the upcast input, at the ragged and the workloads'
+    shapes and past each route's cap.  Returns the errors per entry of
+    BF16_KERNELS."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    errs = dict.fromkeys(BF16_KERNELS, 0.0)
+    bounds_b, d_b = table1_boundaries(torch)
+    for w, j, d, c in ((7, 3, 300, None), (50, 1200, d_b, None),
+                       (7, 3, 300, 13), (G_COHORT, 120, d_b, G_CLIENTS)):
+        e = check_bf16_saga(torch, w, j, d, gen, c)
+        key = "saga_correct bf16" if c is None else "saga_correct clients bf16"
+        errs[key] = max(errs[key], e)
+        log(f"kernel check K1 bf16 table ({c or w}, {j}, {d})"
+            f"{f', {w} client rows' if c else ''}: msg, avg and table bitwise the "
+            "plain version's bf16 ops, only the drawn rows changed: ok")
+    ragged = ((0, 100), (100, 220), (220, 280))
+    for w, d, trim, bounds in ((7, 300, 2, ragged), (8, 300, 3, ragged),
+                               (70, d_b, 20, bounds_b), (455, d_b, 100, bounds_b),
+                               (129, 1000, 40, ((0, 1000),))):
+        e = check_bf16_flat(torch, w, d, trim, bounds, gen)
+        for name, v in e.items():
+            errs[f"{name} bf16"] = max(errs[f"{name} bf16"], v)
+        log(f"kernel check bf16 messages ({w}, {d}), trim {trim}: K2, K3, K4, K5 "
+            "and K6 the float32 kernels' bits on z.float(); max|err| against the "
+            + ", ".join(f"{k} {v:.3g}" for k, v in e.items()) + " (rtol 1e-5): ok")
+    mask_d = workload_d_graph(torch)[1]
+    for (r, s_, d), trims, mask in (((7, 7, 300), (0, 1, 2), None),
+                                    ((70, 70, d_b), (0, 12), mask_d),
+                                    ((4, 451, 1000), (0, 1, 12, 17, None), None)):
+        e7, e7s, e2, e2m, e3 = check_bf16_masked(torch, r, s_, d, trims, mask, gen)
+        errs["masked_neighbor_reduce bf16"] = max(errs["masked_neighbor_reduce bf16"], e7)
+        errs["masked_neighbor_reduce sum bf16"] = max(
+            errs["masked_neighbor_reduce sum bf16"], e7s)
+        errs["partial_sqdist bf16"] = max(errs["partial_sqdist bf16"], e2)
+        errs["partial_sqdist masked bf16"] = max(errs["partial_sqdist masked bf16"], e2m)
+        errs["weighted_sum bf16"] = max(errs["weighted_sum bf16"], e3)
+        log(f"kernel check bf16 exchange ({r}, {s_}, {d}), contiguous and a "
+            f"misaligned column slice, trim {list(trims)}: K7, batched K2 (both "
+            f"routes), K3 the float32 kernels' bits; max|err| K7 {e7:.3g} (trim 0 "
+            f"{e7s:.3g}), K2 {e2:.3g}, masked K2 {e2m:.3g}, K3 {e3:.3g} (rtol 1e-5): ok")
+    log(f"wires kernel checks {time.perf_counter() - t0:.1f} s")
+    return errs
+
+
+def phase_wires_timing(torch):
+    """Each bf16 route's device time beside the float32 route on the same
+    values in the same phase, its bound (the message bytes at 2 B) and its
+    plain version: B's shapes (torch.profiler), K1's client-row route on
+    G's (500, 120, D) table, D's exchange (CUDA events)."""
+    from repro_torch.core.geomed import segment_ids
+    from repro_torch.kernels import robust_stats as rs
+    from repro_torch.kernels import saga_correct as sc
+    from repro_torch.kernels import topology as tp
+    from repro_torch.kernels import weiszfeld as wz
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    bounds_b, d = table1_boundaries(torch)
+    w, j = 50, 1200
+    out, f32 = {}, {}
+    # K1 on a (50, 1,200, D) table in float32 and in bf16 (the same values),
+    # then the client-row route on the same storage viewed as G's (500, 120,
+    # D) table, a fresh draw (and cohort) each call.
+    t32 = 0.01 * torch.randn((w, j, d), generator=gen, device="cuda")
+    t16 = t32.bfloat16()
+    a32 = t32[:, 0].contiguous()
+    a16 = a32.bfloat16()
+    g32 = 0.01 * torch.randn((w, d), generator=gen, device="cuda")
+    g16 = g32.bfloat16()
+    reps = 50
+    draws = iter([torch.randint(0, j, (w,), generator=gen, device="cuda")
+                  for _ in range(10 * (reps + 3))])
+    cohorts = iter([torch.randperm(G_CLIENTS, generator=gen, device="cuda")[:G_COHORT]
+                    for _ in range(10 * (reps + 3))])
+    gidx = iter([torch.randint(0, 120, (G_COHORT,), generator=gen, device="cuda")
+                 for _ in range(10 * (reps + 3))])
+    for dt, tab, avg, g in (("bf16", t16, a16, g16), ("f32", t32, a32, g32)):
+        el = tab.element_size()
+        b, by = bound(6 * w * d * el + w * 8, 4 * w * d)
+        res = dict(
+            ms=device_ms(torch, lambda: sc.saga_correct_call(g, tab, avg, next(draws)), reps),
+            plain_ms=device_ms(torch, lambda: sc.saga_correct_plain(
+                g, tab, avg, next(draws)), reps),
+            bound_ms=b, bound_by=by, library_ms=None)
+        (out if dt == "bf16" else f32)["saga_correct bf16"] = res
+        gt, ga = tab.view(G_CLIENTS, 120, d), avg.repeat(10, 1)
+        b, by = bound(6 * G_COHORT * d * el + G_COHORT * 16, 4 * G_COHORT * d)
+        res = dict(
+            ms=device_ms(torch, lambda: sc.saga_correct_call(
+                g, gt, ga, next(gidx), next(cohorts)), reps),
+            plain_ms=device_ms(torch, lambda: sc.saga_correct_plain(
+                g, gt, ga, next(gidx), next(cohorts)), reps),
+            bound_ms=b, bound_by=by, library_ms=None)
+        (out if dt == "bf16" else f32)["saga_correct clients bf16"] = res
+    del t32, t16
+    torch.cuda.empty_cache()
+    wm = w + 20
+    z32 = 0.01 * torch.randn((wm, d), generator=gen, device="cuda")
+    z16 = z32.bfloat16()
+    z32 = z16.float()                     # the same values in both
+    y = z32.mean(0)
+    a = torch.rand((wm,), generator=gen, device="cuda") + 0.5
+    seg = segment_ids(tuple(bounds_b), d, torch.device("cuda"))
+    nseg = len(bounds_b)
+    for dt, z in (("bf16", z16), ("f32", z32)):
+        el = z.element_size()
+        rows = {
+            "partial_sqdist bf16": (lambda: wz.partial_sqdist_call(z, y),
+                                    lambda: wz.partial_sqdist_plain(z, y),
+                                    wm * d * el + d * 4 + wm * 4, 3 * wm * d),
+            "weighted_sum bf16": (lambda: wz.weighted_sum_call(z, a),
+                                  lambda: wz.weighted_sum_plain(z, a),
+                                  wm * d * el + wm * 4 + d * 4, 2 * wm * d),
+            "coordinate_median bf16": (lambda: rs.coordinate_median_call(z),
+                                       lambda: rs.coordinate_median_plain(z),
+                                       wm * d * el + d * 4, wm * d),
+            "trimmed_mean bf16": (lambda: rs.trimmed_mean_call(z, 20),
+                                  lambda: rs.trimmed_mean_plain(z, 20),
+                                  wm * d * el + d * 4, wm * d),
+            "partial_sqdist_segments bf16": (
+                lambda: wz.partial_sqdist_segments_call(z, y, seg, nseg),
+                lambda: wz.partial_sqdist_segments_plain(z, y, seg, nseg),
+                wm * d * el + 2 * d * 4 + wm * nseg * 4, 3 * wm * d),
+        }
+        for name, (call, plain, nbytes, flops) in rows.items():
+            b, by = bound(nbytes, flops)
+            (out if dt == "bf16" else f32)[name] = dict(
+                ms=device_ms(torch, call, 200), plain_ms=device_ms(torch, plain, 200),
+                bound_ms=b, bound_by=by, library_ms=None)
+    # D's exchange under its mask: K7 trim 12 and 0, the masked K2, K3.
+    _, mask, trim = workload_d_graph(torch)
+    r, s = mask.shape
+    ex16 = (0.01 * torch.randn((r, s, d), generator=gen, device="cuda")).bfloat16()
+    ex32 = ex16.float()
+    nnz = float(mask.sum())
+    yd = tp.masked_neighbor_reduce_call(ex32, mask, 0)
+    ad = torch.rand((r, s), generator=gen, device="cuda") * mask
+    for dt, ex in (("bf16", ex16), ("f32", ex32)):
+        el = ex.element_size()
+        rows = {
+            "masked_neighbor_reduce bf16": (
+                lambda: tp.masked_neighbor_reduce_call(ex, mask, trim),
+                lambda: tp.masked_neighbor_reduce_plain(ex, mask, trim),
+                nnz * d * el + r * s * 4 + r * d * 4, nnz * d * (2 * trim + 1)),
+            "masked_neighbor_reduce sum bf16": (
+                lambda: tp.masked_neighbor_reduce_call(ex, mask, 0),
+                lambda: tp.masked_neighbor_reduce_plain(ex, mask, 0),
+                nnz * d * el + r * s * 4 + r * d * 4, nnz * d),
+            "partial_sqdist masked bf16": (
+                lambda: wz.partial_sqdist_call(ex, yd, mask),
+                lambda: wz.partial_sqdist_plain(ex, yd, mask),
+                nnz * d * el + r * d * 4 + 2 * r * s * 4, 3 * nnz * d),
+            "weighted_sum batched bf16": (
+                lambda: wz.weighted_sum_call(ex, ad),
+                lambda: wz.weighted_sum_plain(ex, ad),
+                float((ad != 0).sum()) * d * el + r * s * 4 + r * d * 4, 2 * nnz * d),
+        }
+        for name, (call, plain, nbytes, flops) in rows.items():
+            b, by = bound(nbytes, flops)
+            (out if dt == "bf16" else f32)[name] = dict(
+                ms=event_ms(torch, call, 20), plain_ms=event_ms(torch, plain, 5),
+                bound_ms=b, bound_by=by, library_ms=None)
+    del ex16, ex32
+    torch.cuda.empty_cache()
+    for name, res in out.items():
+        ref = f32[name]
+        log(f"timing {name} (device time): {res['ms'] * 1e3:.2f} us, bound "
+            f"{res['bound_ms'] * 1e3:.2f} us ({res['bound_by']}), plain "
+            f"{res['plain_ms'] * 1e3:.2f} us; the float32 route on the same values "
+            f"{ref['ms'] * 1e3:.2f} us (bound {ref['bound_ms'] * 1e3:.2f} us), "
+            f"bf16/f32 {res['ms'] / ref['ms']:.3f}")
+    log(f"wires timing {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_wires_runs(torch, card, b_peak_gb):
+    """Workload B under each wire, G1 under sign1 and bfloat16, and D under
+    bfloat16 and sign1, 20 steps each; returns their launch counts by
+    run label."""
+    t0 = time.perf_counter()
+    counts, rows = {}, {}
+    for wire, agg in WIRE_B_RUNS:
+        label = f"B {wire} {agg}"
+        counts[label], st, rows[label] = phase_workload_b(torch, agg, wire=wire)
+        if wire == "sign1":
+            assert tuple(st.ef.shape) == (50, st.vr.table.shape[-1]), st.ef.shape
+            log(f"workload B sign1: residuals {tuple(st.ef.shape)} float32, max "
+                f"|ef| {float(st.ef.abs().max()):.6g}")
+            assert bool(torch.isfinite(st.ef).all()) and float(st.ef.abs().max()) > 0
+        del st
+        torch.cuda.empty_cache()
+    bf = rows["B bfloat16 geomed"]
+    log(f"workload B bfloat16: SAGA table {bf['table_gb']:.2f} GB, peak "
+        f"{bf['peak_gb']:.2f} GB against the float32 wire's {b_peak_gb:.2f} GB")
+    assert abs(bf["table_gb"] - 4.77) < 0.01 and bf["peak_gb"] < b_peak_gb, bf
+    batch, wd = mnist_clients(torch, G_CLIENTS)
+    for wire in ("sign1", "bfloat16"):
+        label = f"G1 {wire}"
+        st, step_fn, _, _, c, summ = nn_run(
+            torch, f"workload {label} straggler", batch, wd,
+            num_clients=G_CLIENTS, cohort_size=G_COHORT, message_dtype=wire,
+            **G_RUNS[0][1])
+        st, busy_us = profile_steps(torch, f"workload {label}", step_fn, st, 3,
+                                    summ["step_ms"] / 1e3)
+        summ.update(busy_us=busy_us, idle=1 - busy_us / (summ["step_ms"] * 1e3),
+                    table_gb=st.vr.table.numel() * st.vr.table.element_size() / 1e9)
+        assert c["saga_correct clients"] == 20 and c["saga_correct workers"] == 0, c
+        if wire == "sign1":
+            # Every client's residual row that a cohort manned has moved; the
+            # others are still 0 (a 500-client table, 20 cohorts of 50).
+            moved = int((st.ef.abs().amax(1) > 0).sum())
+            log(f"workload {label}: residuals {tuple(st.ef.shape)}, {moved} of "
+                f"{G_CLIENTS} client rows moved (the cohorts' rows, in place)")
+            assert tuple(st.ef.shape) == (G_CLIENTS, st.vr.table.shape[-1])
+            assert 0 < moved <= 20 * G_COHORT, moved
+        else:
+            assert c.get("saga_correct clients bf16", 0) == 20, c
+        counts[label], rows[label] = c, summ
+        del st
+        torch.cuda.empty_cache()
+    for wire, gossip, agg in WIRE_D_RUNS:
+        label = f"D {gossip} {agg} {wire}"
+        counts[label], rows[label] = phase_workload_d(torch, gossip, agg, wire=wire)
+    log(f"wires runs ({card}): step ms / device busy us / idle share / Weiszfeld "
+        "iters per step / peak GB / loss / accuracy")
+    for label, r in rows.items():
+        log(f"  {label:<34} {r['step_ms']:9.3f} {r.get('busy_us', math.nan):9.1f} "
+            f"{r.get('idle', math.nan):7.3f} {r['iters']:7.2f} {r['peak_gb']:7.2f} "
+            f"{r['loss']:10.6f} {r['accuracy']:8.4f}")
+    log(f"wires runs {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def phase_wires_claims(torch):
+    """Twins of tests/test_convergence.py's quantized-wire floor (W_h = 12,
+    B = 5, n = 960, 700 steps, geomed, SAGA, sign_flip) and of
+    tests/test_packing.py's bf16-tracks-f32 check (n = 400, 8 workers, B = 2,
+    16 Weiszfeld iterations, 10 steps)."""
+    from repro_torch.data import (ijcnn1_like, logreg_full_loss_and_opt,
+                                  logreg_loss, partition)
+    t0 = time.perf_counter()
+    loss = logreg_loss(0.01)
+    data = ijcnn1_like(SEED, n=960, device="cuda")
+    batch = {"a": data.x, "b": data.y}
+    _, f_star = logreg_full_loss_and_opt(data, iters=4000, lr=0.5)
+    wd = partition(batch, 12, seed=1, device="cuda")
+    gaps = {}
+    for wire in ("float32", "int8", "sign1"):
+        params, _ = federated_run(torch, loss, wd, 700, 7, aggregator="geomed",
+                                  vr="saga", attack="sign_flip", num_byzantine=5,
+                                  message_dtype=wire)
+        gaps[wire] = float(loss(params, batch)) - f_star
+    floor = max(gaps["float32"], 0.03)
+    log(f"quantized wire claim sign_flip: gap float32 {gaps['float32']:.5f}, int8 "
+        f"{gaps['int8']:.5f} (< 2 x {floor:.5f}), sign1 {gaps['sign1']:.5f} (< 4 x "
+        f"{floor:.5f} and < 0.2)")
+    assert gaps["int8"] < 2 * floor and gaps["sign1"] < 4 * floor, gaps
+    assert gaps["sign1"] < 0.2, gaps
+    data = ijcnn1_like(SEED, n=400, device="cuda")
+    wd = partition({"a": data.x, "b": data.y}, 8, seed=1, device="cuda")
+    from repro_torch.core import RobustConfig, make_federated_step
+    from repro_torch.optim import get_optimizer
+    out = {}
+    for wire in ("float32", "bfloat16"):
+        init_fn, step_fn = make_federated_step(
+            loss, wd, RobustConfig(aggregator="geomed", vr="saga",
+                                   attack="sign_flip", num_byzantine=2,
+                                   weiszfeld_iters=16, message_dtype=wire),
+            get_optimizer("sgd", 0.02), device="cuda")
+        st = init_fn({"w": torch.zeros(22, device="cuda")}, 3)
+        st, _, metrics = run_steps(torch, step_fn, st, 10)
+        assert math.isfinite(float(metrics["honest_variance"]))
+        out[wire] = st
+    diff = float((out["bfloat16"].params["w"] - out["float32"].params["w"]).abs().max())
+    log(f"bf16 wire claim: 10 steps, max |w_bf16 - w_f32| {diff:.3g} (< 5e-2), SAGA "
+        f"table {out['bfloat16'].vr.table.dtype}")
+    assert diff < 5e-2 and out["bfloat16"].vr.table.dtype == torch.bfloat16, diff
+    log(f"wires claims {time.perf_counter() - t0:.1f} s")
+
+
+def phase_wires(torch, card, b_peak_gb):
+    """Phase 17: the bf16 routes' checks and times, the runs under each
+    wire, the two claims.  Returns (errors, timing, counts by run)."""
+    t0 = time.perf_counter()
+    errs = phase_wires_kernel_checks(torch)
+    timing = phase_wires_timing(torch)
+    counts = phase_wires_runs(torch, card, b_peak_gb)
+    phase_wires_claims(torch)
+    log(f"wires phase {time.perf_counter() - t0:.1f} s")
+    return errs, timing, counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2142,6 +2641,11 @@ def main() -> int:
     # torch.profiler's kernel records come back incomplete (phase 6's
     # device_ms, which its K1 timing uses, is reliable at this point).
     phase_options(torch, card, errs, counts, timing, summaries["geomed"])
+    # The wires (phase 17), early too: its timing uses torch.profiler.
+    w_errs, w_timing, w_counts = phase_wires(torch, card,
+                                             summaries["geomed"]["peak_gb"])
+    errs.update(w_errs)
+    counts.update(w_counts)
     # The step without the Weiszfeld loop, then every other rule.
     for agg in ("mean", "median", "trimmed_mean", "krum", "geomed_groups",
                 "centered_clip", "geomed_blockwise"):
@@ -2183,6 +2687,13 @@ def main() -> int:
                     launches=counts[KERNEL_PATH[name]][name],
                     max_abs_err=errs[name], **timing[name])
                for name, (src, rep) in KERNEL_SOURCES.items()]
+    for name, (key, path) in BF16_KERNELS.items():
+        src, rep = KERNEL_SOURCES[name.removesuffix(" bf16")]
+        launches = counts[path].get(key, 0)
+        assert launches > 0, f"{name}: no launch on {path}"
+        kernels.append(dict(name=name, route="cuda", source=src, replaces=rep,
+                            launches=launches, max_abs_err=errs[name],
+                            **w_timing[name]))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -41,7 +41,8 @@ def state_from_jax(state: Any, *, seed: int | torch.Generator = 0,
     path -> the port's.  Carries params (per-node (N, ...) leaves on the
     decentralized path), the packed ``SagaState`` table (W_h, J, D) and avg
     (W_h, D) or ``LsvrgState`` snapshot and anchor (W_h, D) -- per client,
-    (C, ...), under partial participation -- the staleness counters, the
+    (C, ...), under partial participation; in bfloat16 on the bf16 wire --
+    the staleness counters, sign1's error-feedback residuals ``ef``, the
     guards' health vector and step; the optimizer must be stateless
     (``sgd``).  The reference's PRNG key has no torch counterpart: the
     port's generator is seeded with ``seed``."""
@@ -54,26 +55,30 @@ def state_from_jax(state: Any, *, seed: int | torch.Generator = 0,
     def tensor(a, dtype=np.float32):
         return torch.as_tensor(np.array(a, dtype), device=dev)
 
+    def buffer(a):
+        """A packed buffer in its own dtype: bfloat16 stays bfloat16."""
+        return _tensor(a).to(dev) if np.asarray(a).dtype.name == "bfloat16" \
+            else tensor(a)
+
     vr = state.vr
     if vr is not None:
         if hasattr(vr, "snapshot") and not isinstance(vr.snapshot, dict):
-            vr = LsvrgState(snapshot=tensor(vr.snapshot),
-                            anchor=tensor(vr.anchor))
+            vr = LsvrgState(snapshot=buffer(vr.snapshot),
+                            anchor=buffer(vr.anchor))
         elif hasattr(vr, "table") and not isinstance(vr.table, dict):
-            vr = SagaState(table=tensor(vr.table), avg=tensor(vr.avg))
+            vr = SagaState(table=buffer(vr.table), avg=buffer(vr.avg))
         else:
             raise ValueError("state_from_jax expects a packed SagaState "
                              "(table (W, J, D), avg (W, D)) or LsvrgState "
                              "(snapshot, anchor (W, D))")
-    if getattr(state, "ef", None) is not None:
-        raise ValueError("state_from_jax: error-feedback residuals come with "
-                         "the wires (ROADMAP.md Queue A item 7d)")
     staleness = getattr(state, "staleness", None)
+    ef = getattr(state, "ef", None)
     health = getattr(state, "health", None)
     return FederatedState(
         params_from_jax(state.params, device=dev), (), vr,
         int(np.asarray(state.step)), generator_for(seed, dev),
         None if staleness is None else tensor(staleness, np.int32),
+        None if ef is None else tensor(ef),
         None if health is None else tensor(health))
 
 

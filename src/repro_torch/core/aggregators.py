@@ -18,7 +18,8 @@ weight 0 removes a row exactly.  Rules, as in the reference's registry:
 The weighted forms of ``median`` and ``trimmed_mean`` sort with the weights
 along each coordinate in plain PyTorch on both devices, as the reference
 computes them outside any kernel; so do Krum's Gram product and its (W, W)
-sort.
+sort.  A bf16 buffer (the bf16 wire) goes to the kernels as it is; the
+torch-side pieces compute in float32, where the reference casts.
 
 Every rule also takes ``diagnostics=False``; True returns ``(aggregate,
 AggDiagnostics)`` (:mod:`repro_torch.telemetry.diagnostics`: each row's
@@ -74,7 +75,7 @@ def median_flat(buf: torch.Tensor, *, row_weights=None,
         out = median_flat(buf, row_weights=row_weights)
         return out, flat_diagnostics(buf, out, row_weights=row_weights)
     if row_weights is None:
-        return ops.coordinate_median(buf.float().contiguous())
+        return ops.coordinate_median(ops.messages(buf).contiguous())
     # Weighted median per coordinate: the smallest value whose cumulative
     # weight reaches half the total mass (dropped rows carry zero mass and
     # can never be selected unless everything is dropped).
@@ -95,7 +96,7 @@ def trimmed_mean_flat(buf: torch.Tensor, *, trim: int,
         out = trimmed_mean_flat(buf, trim=trim, row_weights=row_weights)
         return out, flat_diagnostics(buf, out, row_weights=row_weights)
     if row_weights is None:
-        return ops.trimmed_mean(buf.float().contiguous(), trim=trim)
+        return ops.trimmed_mean(ops.messages(buf).contiguous(), trim=trim)
     # Weight-MASS trimming: per coordinate, drop the trim/W fraction of the
     # total weight mass from each tail and average what remains (unit
     # weights give the unweighted rule; zero-weight rows occupy no mass).
@@ -248,7 +249,7 @@ def centered_clip_flat(buf: torch.Tensor, *, radius: float = 1.0,
     weighted median and weight-normalized means with ``row_weights``)."""
     b32 = buf.float()
     if row_weights is None:
-        v = median_flat(b32)
+        v = median_flat(buf)
     else:
         v = median_flat(b32, row_weights=row_weights)
         wnorm = row_weights.float()

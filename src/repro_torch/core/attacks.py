@@ -101,8 +101,13 @@ def zero_gradient_attack(cfg, honest, generator, noise, spec=None):
 
 
 def alie_attack(cfg, honest, generator, noise, spec=None):
-    stats = (torch.mean(honest, dim=0)
-             + cfg.alie_z * torch.std(honest, dim=0, correction=0))
+    if honest.dtype == torch.bfloat16:
+        # jnp.std is the root of the variance in the buffer's dtype: on the
+        # bf16 wire the variance is rounded to bf16 before the root.
+        std = torch.sqrt(torch.var(honest, dim=0, correction=0))
+    else:
+        std = torch.std(honest, dim=0, correction=0)
+    stats = torch.mean(honest, dim=0) + cfg.alie_z * std
     return _append(honest, _rows(stats, cfg.num_byzantine))
 
 

@@ -11,7 +11,8 @@ optional ``row_weights`` (weight 0 removes a row exactly).
 
 Each iteration runs kernel K2 (``partial_sqdist``), a few (W,)-sized
 PyTorch ops, then kernel K3 (``weighted_sum``) on a CUDA device, or their
-plain versions on the CPU.  The early stop reads the iterate's move on the
+plain versions on the CPU.  A bf16 buffer is read as it is (the kernels'
+bf16 routes); the iterate is float32.  The early stop reads the iterate's move on the
 host after every iteration -- one device-to-host sync per iteration -- so
 the loop runs exactly the iterations the reference's ``while_loop`` runs.
 
@@ -62,9 +63,9 @@ def weiszfeld_flat(buf: torch.Tensor, *, max_iters: int = 64,
     float32 (and a :class:`WeiszfeldInfo` with ``return_info``)."""
     if buf.dim() != 2:
         raise ValueError(f"weiszfeld_flat expects (W, D), got {tuple(buf.shape)}")
-    z = buf.float().contiguous()
+    z = ops.messages(buf).contiguous()     # a bf16 buffer stays bf16
     rw = None if row_weights is None else row_weights.float()
-    y = torch.mean(z, dim=0)
+    y = torch.mean(z, dim=0, dtype=torch.float32)
     tol = _f32_tol(tol)
     delta, it = math.inf, 0
     while it < max_iters and delta > tol:
@@ -106,13 +107,13 @@ def weiszfeld_blockwise_flat(buf: torch.Tensor,
     if buf.dim() != 2:
         raise ValueError(f"weiszfeld_blockwise_flat expects (W, D), got "
                          f"{tuple(buf.shape)}")
-    z = buf.float().contiguous()
+    z = ops.messages(buf).contiguous()
     blocks = tuple((int(a), int(b)) for a, b in boundaries)
     seg = segment_ids(blocks, z.shape[1], z.device)
     rw = None if row_weights is None else row_weights.float()
     y = torch.zeros((z.shape[1],), dtype=torch.float32, device=z.device)
     for a, b in blocks:
-        y[a:b] = torch.mean(z[:, a:b], dim=0)
+        y[a:b] = torch.mean(z[:, a:b], dim=0, dtype=torch.float32)
     tol = _f32_tol(tol)
     delta = [math.inf] * len(blocks)
     iters = [0] * len(blocks)

@@ -1,8 +1,8 @@
 """The Byzantine-robust federated training step, paper Alg. 1 (port of
 ``repro/core/robust_step.py``'s simulated federation).
 
-:func:`make_federated_step` builds ``(init_fn, step_fn)`` for the packed,
-float32-wire simulation.  With the default star
+:func:`make_federated_step` builds ``(init_fn, step_fn)`` for the packed
+simulation.  With the default star
 topology and static schedule it is the master path: W_h honest workers
 each send a (variance-reduced) stochastic gradient, B Byzantine rows are
 injected by an attack model, the master aggregates the packed (W, D)
@@ -33,7 +33,15 @@ options:
   optimizer state and the variance-reduction state -- the drawn rows are
   copied before the correction and written back;
 * diagnostics (``diagnostics``): the rule's AggDiagnostics as ``diag_*``
-  metrics.
+  metrics;
+* the wires (``message_dtype``, :data:`repro_torch.core.packing.WIRE_FORMATS`):
+  ``bfloat16`` packs the messages, the SAGA table and lsvrg's state in
+  bf16, and the kernels read it as it is; ``int8`` and ``sign1`` send the
+  corrected messages through :meth:`PackSpec.transmit` (sign1 with a
+  float32 error-feedback residual per client, ``FederatedState.ef``, whose
+  cohort rows are written back in place under partial participation), and
+  the whole buffer, Byzantine rows included, crosses the wire again after
+  the attack.
 
 With all of them off (the defaults) the step is the program it was.
 """
@@ -60,7 +68,6 @@ Params = dict[str, torch.Tensor]
 # RobustConfig fields the port does not take yet, with the ROADMAP.md Queue A
 # item that ports each; they must keep their defaults.
 _UNPORTED_FIELDS = {"packed": "7g (the per-leaf baseline)",
-                    "message_dtype": "7d (the wires)",
                     "comm": "10 (the distributed runtime)"}
 
 
@@ -114,7 +121,7 @@ class RobustConfig:
                 raise ValueError(
                     f"RobustConfig.{f.name}={getattr(self, f.name)!r} is "
                     "outside the ported slice (packed simulated master and "
-                    "decentralized steps, float32 wire); ROADMAP.md Queue A "
+                    "decentralized steps); ROADMAP.md Queue A "
                     f"item {_UNPORTED_FIELDS[f.name]}")
 
     def reducer(self) -> vr_lib.VarianceReducer:
@@ -166,6 +173,9 @@ class FederatedState(NamedTuple):
     # (num_clients,) int32 rounds since each client last took part, or
     # None under full participation.
     staleness: Optional[torch.Tensor] = None
+    # (num_clients, D) float32 error-feedback residuals on an
+    # error-feedback wire (sign1), else None.
+    ef: Optional[torch.Tensor] = None
     # (4,) float32 round-health vector when cfg.guards, else None.
     health: Optional[torch.Tensor] = None
 
@@ -182,13 +192,55 @@ def per_sample_table(per_sample_grads, params: Params,
     written worker by worker so no second full-size table exists."""
     wh, j = next(iter(data.values())).shape[:2]
     dev = next(iter(data.values())).device
-    table = torch.empty((wh, j, spec.padded_dim), dtype=torch.float32,
+    table = torch.empty((wh, j, spec.padded_dim), dtype=spec.message_dtype,
                         device=dev)
     for w in range(wh):
         grads = per_sample_grads(params, as_batches(
             {k: v[w] for k, v in data.items()}))
         table[w] = spec.pack(grads, batch_ndim=1)
     return table
+
+
+def init_ef(spec: packing.PackSpec, num_clients: int,
+            dev: torch.device) -> Optional[torch.Tensor]:
+    """Zero (num_clients, D) float32 residuals on an error-feedback wire,
+    else None: the first round sends plain quantized messages."""
+    if not spec.wire_format.error_feedback:
+        return None
+    return torch.zeros((num_clients, spec.padded_dim), dtype=torch.float32,
+                       device=dev)
+
+
+def wire_transmit(spec: packing.PackSpec, buf: torch.Tensor,
+                  ef: Optional[torch.Tensor], rows: Optional[torch.Tensor]):
+    """The honest senders' wire step on ``buf`` (W_h, D) -> ``(wire, ef,
+    held)``: the dequantized wire rows (``buf`` itself on a format that is
+    not quantized), the residual state after the round and the residual
+    rows it replaced (None without error feedback).  With ``rows`` (the
+    cohort's client rows) the new residual rows are written into ``ef`` in
+    place; otherwise the new (W_h, D) residual is returned and ``ef`` is
+    left as it was.  :func:`restore_ef` undoes the round."""
+    fmt = spec.wire_format
+    if not fmt.error_feedback:
+        return spec.wire_roundtrip(buf), ef, None
+    held = ef if rows is None else ef[rows]
+    wire, new = spec.transmit(buf, held)
+    if rows is None:
+        return wire, new, held
+    ef[rows] = new
+    return wire, ef, held
+
+
+def restore_ef(ef: Optional[torch.Tensor], held: Optional[torch.Tensor],
+               rows: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The residual state of a rejected round: :func:`wire_transmit`'s
+    ``held`` rows back in place (or the old tensor itself)."""
+    if held is None:
+        return ef
+    if rows is None:
+        return held
+    ef[rows] = held
+    return ef
 
 
 def sample_rows(reducer: vr_lib.VarianceReducer, generator: torch.Generator,
@@ -390,21 +442,24 @@ def make_federated_step(
                      if plan is not None else None)
         health = guards_lib.init_health(dev) if cfg.guards else None
         return FederatedState(params, optimizer.init(params), vr_state, 0,
-                              generator_for(seed, dev), staleness, health)
+                              generator_for(seed, dev), staleness,
+                              init_ef(spec, num_clients, dev), health)
 
     def oracles(params, spec, slots, batches) -> dict:
         """lsvrg's oracles: the slots' packed params, their gradients at
         packed params on this step's batches, and the full local gradients
-        of the slots ``sel`` at the current params."""
+        of the slots ``sel`` at the packed params (on the bf16 wire, the
+        params rounded to bf16, as the reference unpacks them)."""
         if not reducer.uses_oracles:
             return {}
         flat = spec.pack(params, batch_ndim=0)
+        at = spec.unpack(flat, batch_ndim=0)
         return dict(
             params=flat[None].expand(wh, flat.shape[0]),
             grads_at=lambda p: spec.pack(per_worker_grads(
                 spec.unpack(p, batch_ndim=1), batches)),
             full_grads_at=lambda sel: spec.pack(per_sample_grads(
-                params, {k: v[slots[sel]] for k, v in data.items()})))
+                at, {k: v[slots[sel]] for k, v in data.items()})))
 
     @torch.no_grad()
     def step_fn(state: FederatedState, *, sample_idx=None,
@@ -422,9 +477,16 @@ def make_federated_step(
             coin=coin, **oracles(params, spec, slots, batches))
         staleness = (state.staleness if plan is None else
                      participation_lib.tick_staleness(state.staleness, rows))
+        # The honest senders transmit the corrected messages: what the
+        # master, the variance metric and the attackers see is the
+        # dequantized wire.
+        honest, ef, ef_held = wire_transmit(spec, honest, state.ef, rows)
         var = telemetry.honest_variance(honest, wh)
         msgs = attack_lib.apply_attack(attack_cfg, honest, state.generator,
                                        noise=attack_noise, spec=spec)  # (W, D)
+        # The Byzantine rows cross the wire too (the honest rows are a
+        # fixed point of the roundtrip).
+        msgs = spec.wire_roundtrip(msgs)
         rw, slot_stal = slot_weights(cfg, honest_stal, b)
         metrics = {"honest_variance": var, **vr_metrics,
                    **telemetry.staleness_metrics(slot_stal)}
@@ -450,9 +512,9 @@ def make_federated_step(
         new_params = optim_lib.apply_updates(params, updates)
         health = state.health
         if cfg.guards:
-            # A rejected round keeps params, optimizer and VR state (the
-            # drawn rows copied before the correction are written back);
-            # step, generator, staleness and health move on.
+            # A rejected round keeps params, optimizer, VR state and the
+            # residuals (the drawn rows copied before the correction are
+            # written back); step, generator, staleness and health move on.
             accept, health = guards_lib.round_verdict(
                 guards_lib.tree_norm(agg_vec), state.health,
                 decay=cfg.reject_ema, zmax=cfg.reject_zmax,
@@ -460,10 +522,11 @@ def make_federated_step(
             if not bool(accept):
                 new_params, opt_state = params, state.opt_state
                 reducer.restore(vr_state, held, idx, rows)
+                ef = restore_ef(ef, ef_held, rows)
             metrics.update(telemetry.health_metrics(health, accept))
         new_state = FederatedState(new_params, opt_state, vr_state,
                                    state.step + 1, state.generator, staleness,
-                                   health)
+                                   ef, health)
         return new_state, metrics
 
     return init_fn, step_fn

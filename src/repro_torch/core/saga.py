@@ -16,6 +16,9 @@ The port keeps the state packed for the whole run -- table (W, J, D), avg
 of it.  On a CUDA device the update is kernel K1.  Under partial
 participation the state is resident per client, (C, J, D) and (C, D), and
 the round's cohort works on its own rows through K1's client-row route.
+
+The state lives in the wire's buffer dtype: bfloat16 on the bf16 wire
+(half the table), float32 otherwise.
 """
 from __future__ import annotations
 
@@ -41,21 +44,26 @@ class SagaState(NamedTuple):
 def saga_init(per_sample_grads: torch.Tensor) -> SagaState:
     """Initialize from the packed gradients of *all* J samples at x^0
     (Alg. 1 init), shape (W, J, D).  The table IS ``per_sample_grads``: it
-    is not copied."""
+    is not copied.  The mean is accumulated in float32 and rounded once to
+    the table's dtype, as ``jnp.mean`` does for a bf16 table."""
+    avg = torch.mean(per_sample_grads, dim=1, dtype=torch.float32)
     return SagaState(table=per_sample_grads,
-                     avg=torch.mean(per_sample_grads, dim=1))
+                     avg=avg.to(per_sample_grads.dtype))
 
 
 def saga_init_zeros(params: dict[str, torch.Tensor], num_workers: int,
-                    num_samples: int) -> SagaState:
+                    num_samples: int, dtype: torch.dtype | None = None
+                    ) -> SagaState:
     """Cold-start init with a zero packed table (the table warms up over
-    the first epoch); on the device of ``params``."""
+    the first epoch); on the device of ``params``, in ``dtype`` (default
+    float32, the packed buffer's)."""
     spec = packing.pack_spec(params, batch_ndim=0)
     dev = next(iter(params.values())).device
+    dtype = dtype or torch.float32
     return SagaState(
         table=torch.zeros((num_workers, num_samples, spec.padded_dim),
-                          dtype=torch.float32, device=dev),
-        avg=torch.zeros((num_workers, spec.padded_dim), dtype=torch.float32,
+                          dtype=dtype, device=dev),
+        avg=torch.zeros((num_workers, spec.padded_dim), dtype=dtype,
                         device=dev))
 
 

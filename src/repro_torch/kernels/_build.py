@@ -38,6 +38,14 @@ LAUNCHES = {"saga_correct": 0, "partial_sqdist": 0, "weighted_sum": 0,
             "partial_sqdist_segments": 0, "masked_neighbor_reduce": 0,
             "flash_attention": 0}
 
+# The message dtypes the kernels take, and the suffix of each launch
+# function's name for it (``saga_correct_f32``, ``saga_correct_bf16``, ...).
+SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+# Launches of the bf16 routes, per kernel and per "<kernel> <route>" of the
+# kernels that count routes (K1, K2, K7); a launch counts in LAUNCHES too.
+BF16_LAUNCHES: dict[str, int] = {}
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -131,3 +139,18 @@ def stream_of(t) -> int:
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def check_dtype(what: str, t, name: str = "z") -> None:
+    """Raise unless ``t`` is float32 or bfloat16 (the wires' buffers)."""
+    if t.dtype not in SUFFIX:
+        raise TypeError(f"{what}: {name} must be float32 or bfloat16, got "
+                        f"{t.dtype}")
+
+
+def count(name: str, dtype, route: str | None = None) -> None:
+    """Count one launch of kernel ``name`` (and its bf16 route)."""
+    LAUNCHES[name] += 1
+    if dtype == torch.bfloat16:
+        for key in (name,) if route is None else (name, f"{name} {route}"):
+            BF16_LAUNCHES[key] = BF16_LAUNCHES.get(key, 0) + 1

@@ -79,6 +79,12 @@
 // bound by instruction issue and latency (about nine warps per SM at
 // D = 39,760), not by HBM.
 //
+// bfloat16 messages (the bf16 wire, the *_bf16 entry points): every route
+// takes z in bfloat16 and loads it into the same registers (or the same
+// float32 slab) as the float32 kernel, converted exactly; nothing else
+// changes, so the bf16 route gives the bits of the float32 kernel run on
+// z.float(), reading half the bytes.  The output stays float32.
+//
 // NaN on the rank-count routes: every comparison with NaN is false, so a
 // NaN gets rank 0 and the ranks of its column are no longer a permutation;
 // that column's result is then unspecified and may differ from the plain
@@ -132,13 +138,13 @@ __device__ __forceinline__ void sort_network(float (&v)[N]) {
 
 // Column `col` of the (W, D) matrix z into v[0 .. W), +inf in v[W .. N) and
 // in place of each NaN; returns the number of NaN.
-template <int N>
-__device__ __forceinline__ int load_column(const float* __restrict__ z, int W,
+template <int N, typename T>
+__device__ __forceinline__ int load_column(const T* __restrict__ z, int W,
                                            int64_t D, int64_t col, float (&v)[N]) {
   int nan = 0;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    const float x = i < W ? __ldg(z + static_cast<int64_t>(i) * D + col) : INFINITY;
+    const float x = i < W ? ldg_f32(z + static_cast<int64_t>(i) * D + col) : INFINITY;
     const bool is_nan = x != x;
     nan += is_nan;
     v[i] = is_nan ? INFINITY : x;
@@ -149,9 +155,9 @@ __device__ __forceinline__ int load_column(const float* __restrict__ z, int W,
 // The median of each column for W in (N - kNetStep, N]: the values of ranks
 // lo = (W - 1) / 2 and hi = W / 2 of the sorted column, NaN from rank
 // W - #NaN on.
-template <int N>
+template <int N, typename T>
 __global__ void __launch_bounds__(kNetThreads)
-median_network_kernel(const float* __restrict__ z, float* __restrict__ out, int W,
+median_network_kernel(const T* __restrict__ z, float* __restrict__ out, int W,
                       int64_t D) {
   const int64_t col = static_cast<int64_t>(blockIdx.x) * kNetThreads + threadIdx.x;
   if (col >= D) return;
@@ -173,9 +179,9 @@ median_network_kernel(const float* __restrict__ z, float* __restrict__ out, int 
 // The mean of each column's values of rank [trim, W - trim) for W in
 // (N - kNetStep, N], summed in ascending rank order; NaN when a NaN (sorted
 // last) falls in that range, that is when #NaN > trim.
-template <int N>
+template <int N, typename T>
 __global__ void __launch_bounds__(kNetThreads)
-trimmed_network_kernel(const float* __restrict__ z, float* __restrict__ out, int W,
+trimmed_network_kernel(const T* __restrict__ z, float* __restrict__ out, int W,
                        int64_t D, int trim) {
   const int64_t col = static_cast<int64_t>(blockIdx.x) * kNetThreads + threadIdx.x;
   if (col >= D) return;
@@ -191,18 +197,18 @@ trimmed_network_kernel(const float* __restrict__ z, float* __restrict__ out, int
 
 // Launches K4's (kMedian) or K5's network for the smallest multiple of
 // kNetStep >= W.
-template <bool kMedian, int N = kNetStep>
-int launch_network(const float* z, float* out, int W, long long D, int trim,
+template <bool kMedian, typename T, int N = kNetStep>
+int launch_network(const T* z, float* out, int W, long long D, int trim,
                    cudaStream_t s) {
   if constexpr (N < kNetCap) {
-    if (W > N) return launch_network<kMedian, N + kNetStep>(z, out, W, D, trim, s);
+    if (W > N) return launch_network<kMedian, T, N + kNetStep>(z, out, W, D, trim, s);
   }
   const unsigned blocks = static_cast<unsigned>((D + kNetThreads - 1) / kNetThreads);
   if constexpr (kMedian)
-    median_network_kernel<N><<<blocks, kNetThreads, 0, s>>>(z, out, W,
-                                                             static_cast<int64_t>(D));
+    median_network_kernel<N, T><<<blocks, kNetThreads, 0, s>>>(z, out, W,
+                                                                static_cast<int64_t>(D));
   else
-    trimmed_network_kernel<N><<<blocks, kNetThreads, 0, s>>>(
+    trimmed_network_kernel<N, T><<<blocks, kNetThreads, 0, s>>>(
         z, out, W, static_cast<int64_t>(D), trim);
   return static_cast<int>(cudaGetLastError());
 }
@@ -221,12 +227,13 @@ struct SlabColumn {
   const float* v;
   __device__ __forceinline__ float operator[](int i) const { return v[i * kTile]; }
 };
-// ... or of z itself in global memory (rows D floats apart).
+// ... or of z itself in global memory (rows D elements apart).
+template <typename T>
 struct GlobalColumn {
-  const float* v;
+  const T* v;
   int64_t D;
   __device__ __forceinline__ float operator[](int i) const {
-    return __ldg(v + static_cast<int64_t>(i) * D);
+    return ldg_f32(v + static_cast<int64_t>(i) * D);
   }
 };
 
@@ -298,74 +305,85 @@ __device__ __forceinline__ float order_stat(const Col& v, int W, int lo, int hi)
   return acc / static_cast<float>(hi - lo);
 }
 
-template <bool kMedian>
-__global__ void order_stat_kernel(const float* __restrict__ z,
+template <bool kMedian, typename T>
+__global__ void order_stat_kernel(const T* __restrict__ z,
                                   float* __restrict__ out, int W, int64_t D,
                                   int lo, int hi) {
-  extern __shared__ float slab[];   // (W, kTile)
+  extern __shared__ float slab[];   // (W, kTile), float32 for either T
   const int t = threadIdx.x;
   const int64_t col = static_cast<int64_t>(blockIdx.x) * kTile + t;
   if (col >= D) return;   // each thread touches only its own column
   float* v = slab + t;
-  for (int w = 0; w < W; ++w) v[w * kTile] = z[static_cast<int64_t>(w) * D + col];
+  for (int w = 0; w < W; ++w) v[w * kTile] = to_f32(z[static_cast<int64_t>(w) * D + col]);
   out[col] = order_stat<kMedian>(SlabColumn{v}, W, lo, hi);
 }
 
-template <bool kMedian>
-__global__ void order_stat_global_kernel(const float* __restrict__ z,
+template <bool kMedian, typename T>
+__global__ void order_stat_global_kernel(const T* __restrict__ z,
                                          float* __restrict__ out, int W, int64_t D,
                                          int lo, int hi) {
   const int64_t col = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x;
   if (col >= D) return;
-  out[col] = order_stat<kMedian>(GlobalColumn{z + col, D}, W, lo, hi);
+  out[col] = order_stat<kMedian>(GlobalColumn<T>{z + col, D}, W, lo, hi);
 }
 
-template <bool kMedian>
-int launch(const float* z, float* out, int W, long long D, int lo, int hi,
+template <bool kMedian, typename T>
+int launch(const T* z, float* out, int W, long long D, int lo, int hi,
            void* stream) {
   if (D == 0) return static_cast<int>(cudaGetLastError());
   const auto s = static_cast<cudaStream_t>(stream);
   const unsigned blocks = static_cast<unsigned>((D + kTile - 1) / kTile);
   if (W > kMaxSlabRows) {
-    order_stat_global_kernel<kMedian><<<blocks, kTile, 0, s>>>(
+    order_stat_global_kernel<kMedian, T><<<blocks, kTile, 0, s>>>(
         z, out, W, static_cast<int64_t>(D), lo, hi);
     return static_cast<int>(cudaGetLastError());
   }
   const size_t smem = static_cast<size_t>(W) * kTile * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        order_stat_kernel<kMedian>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        order_stat_kernel<kMedian, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  order_stat_kernel<kMedian><<<blocks, kTile, smem, s>>>(
+  order_stat_kernel<kMedian, T><<<blocks, kTile, smem, s>>>(
       z, out, W, static_cast<int64_t>(D), lo, hi);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The network route up to kNetCap workers; past it the rank count of ranks
 // lo and hi (K4) or of the kept range [lo, hi) (K5).
-template <bool kMedian>
-int launch_any(const float* z, float* out, int W, long long D, int trim,
+template <bool kMedian, typename T>
+int launch_any(const T* z, float* out, int W, long long D, int trim,
                void* stream) {
   if (W > kNetCap) {
     const int lo = kMedian ? (W - 1) / 2 : trim, hi = kMedian ? W / 2 : W - trim;
-    return launch<kMedian>(z, out, W, D, lo, hi, stream);
+    return launch<kMedian, T>(z, out, W, D, lo, hi, stream);
   }
   if (D == 0) return static_cast<int>(cudaGetLastError());
-  return launch_network<kMedian>(z, out, W, D, trim, static_cast<cudaStream_t>(stream));
+  return launch_network<kMedian, T>(z, out, W, D, trim, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
-// z: (W, D) float32 contiguous, out: (D,); W >= 1.
+// z: (W, D) float32 (*_f32) or bfloat16 (*_bf16) contiguous, out: (D,)
+// float32; W >= 1.
 REPRO_EXPORT int coordinate_median_f32(const float* z, float* out, int W,
                                        long long D, void* stream) {
-  return launch_any<true>(z, out, W, D, 0, stream);
+  return launch_any<true, float>(z, out, W, D, 0, stream);
 }
 
-// z: (W, D) float32 contiguous, out: (D,); 0 <= trim, 2 * trim < W.
+REPRO_EXPORT int coordinate_median_bf16(const __nv_bfloat16* z, float* out, int W,
+                                        long long D, void* stream) {
+  return launch_any<true, __nv_bfloat16>(z, out, W, D, 0, stream);
+}
+
+// As above; 0 <= trim, 2 * trim < W.
 REPRO_EXPORT int trimmed_mean_f32(const float* z, float* out, int W,
                                   long long D, int trim, void* stream) {
-  return launch_any<false>(z, out, W, D, trim, stream);
+  return launch_any<false, float>(z, out, W, D, trim, stream);
+}
+
+REPRO_EXPORT int trimmed_mean_bf16(const __nv_bfloat16* z, float* out, int W,
+                                   long long D, int trim, void* stream) {
+  return launch_any<false, __nv_bfloat16>(z, out, W, D, trim, stream);
 }

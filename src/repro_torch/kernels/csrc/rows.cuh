@@ -83,20 +83,21 @@ __device__ __forceinline__ int64_t col_of(int64_t d0, int lane, int i) {
   return VEC ? d0 + 4 * lane + i : d0 + lane + 32 * i;
 }
 
-// The 4 coordinates of `lane` in the 128 starting at d0, from row `p`:
-// d0 + 4 lane + i with VEC (one float4 where all 4 lie below D), else
-// d0 + lane + 32 i.  Coordinates past D read 0.  VEC needs p 16-byte
-// aligned and d0 a multiple of 4.
-template <bool VEC>
-__device__ __forceinline__ float4 load_cols(const float* p, int64_t d0, int lane,
+// The 4 coordinates of `lane` in the 128 starting at d0, from row `p`, as
+// float32: d0 + 4 lane + i with VEC (one 4-element load where all 4 lie
+// below D: a float4, or 8 bytes of bfloat16), else d0 + lane + 32 i.
+// Coordinates past D read 0.  VEC needs p aligned to 4 elements and d0 a
+// multiple of 4.  A bfloat16 row converts exactly, so every sum over it is
+// the sum over its float32 upcast.
+template <bool VEC, typename T>
+__device__ __forceinline__ float4 load_cols(const T* p, int64_t d0, int lane,
                                             int64_t D) {
   float x[4];
-  if (VEC && d0 + 4 * lane + 3 < D)
-    return __ldg(reinterpret_cast<const float4*>(p + d0 + 4 * lane));
+  if (VEC && d0 + 4 * lane + 3 < D) return ldg4_f32(p + d0 + 4 * lane);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int64_t d = col_of<VEC>(d0, lane, i);
-    x[i] = d < D ? __ldg(p + d) : 0.f;
+    x[i] = d < D ? ldg_f32(p + d) : 0.f;
   }
   return make_float4(x[0], x[1], x[2], x[3]);
 }
@@ -161,9 +162,9 @@ __host__ __forceinline__ size_t kept_rows_smem(long long S, bool weighted) {
 // must call it.
 // Returns true in warp 0, whose lanes then hold in acc the sums of their 4
 // coordinates (as load_cols lays them out), false elsewhere.  VEC: z and ld
-// allow float4 loads.
-template <bool VEC, bool kWeighted, typename Keep>
-__device__ bool sum_kept_rows(const float* __restrict__ z, const float* __restrict__ v,
+// allow 4-element loads.  z may be float32 or bfloat16 (T).
+template <bool VEC, bool kWeighted, typename T, typename Keep>
+__device__ bool sum_kept_rows(const T* __restrict__ z, const float* __restrict__ v,
                               int S, Keep keep, int64_t ld, int64_t D, float4& acc) {
   extern __shared__ int s_row[];   // a chunk's kept rows, then (kWeighted) their weights
   float* s_wt = kWeighted ? reinterpret_cast<float*>(s_row + min(S, kSumCap)) : nullptr;

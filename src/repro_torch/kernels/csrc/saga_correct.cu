@@ -20,6 +20,15 @@
 // saga_correct_scatter, so the result is bitwise the plain PyTorch version's
 // (IEEE division: no fast-math flags).
 //
+// The bf16 route (saga_correct_bf16: g, table, avg and msg all bfloat16, the
+// bf16 wire's SAGA state) rounds to bfloat16 after every operation, as the
+// reference's jnp engine does (XLA rounds each bf16 op) and as PyTorch's bf16
+// ops do:  delta = bf16(g - T), msg = bf16(delta + avg),
+// avg = bf16(avg + bf16(delta / J)), each operation on the exact float32
+// values of its bf16 operands.  So it is bitwise the plain version on bf16
+// tensors too.  (The reference's Pallas kernel rounds once at the end; its
+// step does not run it.)  It moves half the bytes: 6 * W * D * 2.
+//
 // Bound on the H100: device-memory bytes.  Each call reads g, the old row and
 // avg and writes msg, avg and the new row: 6 * W * D * 4 bytes against 3
 // flops per element.  Design: a 2-D grid over (D-chunk, worker); each block
@@ -39,12 +48,12 @@ constexpr int kThreads = 256;
 constexpr int kItems = 4;
 constexpr int kChunk = kThreads * kItems;
 
-__global__ void saga_correct_kernel(const float* __restrict__ g,
-                                    float* __restrict__ table,
-                                    float* __restrict__ avg,
+template <typename T>
+__global__ void saga_correct_kernel(const T* __restrict__ g, T* __restrict__ table,
+                                    T* __restrict__ avg,
                                     const int64_t* __restrict__ idx,
                                     const int64_t* __restrict__ rows,
-                                    float* __restrict__ msg, int J, int64_t C,
+                                    T* __restrict__ msg, int J, int64_t C,
                                     int64_t D) {
   const int w = blockIdx.y;
   const int64_t row = idx[w];
@@ -56,41 +65,55 @@ __global__ void saga_correct_kernel(const float* __restrict__ g,
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
       const int64_t i = start + static_cast<int64_t>(k) * kThreads;
-      if (i < D) msg[base + i] = nanf("");
+      if (i < D) msg[base + i] = from_f32<T>(nanf(""));
     }
     return;
   }
-  float* trow = table + (client * J + row) * D;
+  T* trow = table + (client * J + row) * D;
   const float j = static_cast<float>(J);
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     const int64_t i = start + static_cast<int64_t>(k) * kThreads;
     if (i < D) {
-      const float gi = g[base + i];
-      const float delta = gi - trow[i];
-      const float a = avg[state + i];
-      msg[base + i] = delta + a;
-      avg[state + i] = a + delta / j;
+      const T gi = g[base + i];
+      // Each operation rounds to T (a no-op for float32).
+      const float delta = to_f32(from_f32<T>(to_f32(gi) - to_f32(trow[i])));
+      const float a = to_f32(avg[state + i]);
+      msg[base + i] = from_f32<T>(delta + a);
+      avg[state + i] = from_f32<T>(a + to_f32(from_f32<T>(delta / j)));
       trow[i] = gi;
     }
   }
+}
+
+template <typename T>
+int launch(const T* g, T* table, T* avg, const int64_t* idx, const int64_t* rows,
+           T* msg, int W, int J, long long C, long long D, void* stream) {
+  if (W == 0 || D == 0) return static_cast<int>(cudaGetLastError());
+  const dim3 grid(static_cast<unsigned>((D + kChunk - 1) / kChunk),
+                  static_cast<unsigned>(W));
+  saga_correct_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      g, table, avg, idx, rows, msg, J, static_cast<int64_t>(C),
+      static_cast<int64_t>(D));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // g, msg: (W, D); table: (C, J, D); avg: (C, D); idx: (W,) int64; rows:
 // (W,) int64 distinct client rows, or null for rows 0..W-1 (then C = W); all
-// float32, contiguous, on one device.  Returns cudaGetLastError() after the
-// launch.
+// float32 (saga_correct_f32) or all bfloat16 (saga_correct_bf16), contiguous,
+// on one device.  Returns cudaGetLastError() after the launch.
 REPRO_EXPORT int saga_correct_f32(const float* g, float* table, float* avg,
                                   const int64_t* idx, const int64_t* rows,
                                   float* msg, int W, int J, long long C,
                                   long long D, void* stream) {
-  if (W == 0 || D == 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid(static_cast<unsigned>((D + kChunk - 1) / kChunk),
-                  static_cast<unsigned>(W));
-  saga_correct_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      g, table, avg, idx, rows, msg, J, static_cast<int64_t>(C),
-      static_cast<int64_t>(D));
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(g, table, avg, idx, rows, msg, W, J, C, D, stream);
+}
+
+REPRO_EXPORT int saga_correct_bf16(const __nv_bfloat16* g, __nv_bfloat16* table,
+                                   __nv_bfloat16* avg, const int64_t* idx,
+                                   const int64_t* rows, __nv_bfloat16* msg, int W,
+                                   int J, long long C, long long D, void* stream) {
+  return launch<__nv_bfloat16>(g, table, avg, idx, rows, msg, W, J, C, D, stream);
 }

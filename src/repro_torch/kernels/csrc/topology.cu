@@ -70,6 +70,13 @@
 // reference's masked engine promises that mask-0 senders do not influence
 // the result (repro/topology/masked.py).
 //
+// bfloat16 exchange (the bf16 wire, masked_neighbor_reduce_bf16): every
+// route loads x in bfloat16, converted exactly to the float32 it works on;
+// the mapping of coordinates to threads and the order of every sum and
+// comparison are the float32 kernel's, so the bf16 route gives the bits of
+// the float32 kernel run on x.float(), at half the bytes of the members'
+// rows.  The mask and the output stay float32.
+//
 // Strides: x[r, s, d] lies at r * rs + s * ss + d, so a column slice of a
 // wider exchange, or one shared message row per sender broadcast to every
 // receiver (rs = 0), is read in place.  The mask and the output are
@@ -110,9 +117,9 @@ __device__ float mask_total(const float* __restrict__ m, int S, float* s_red) {
 
 // ---- "sum": trim = 0 -------------------------------------------------------
 
-template <bool VEC>
+template <bool VEC, typename T>
 __global__ void __launch_bounds__(rows::kSumThreads)
-masked_sum_kernel(const float* __restrict__ x, const float* __restrict__ mask,
+masked_sum_kernel(const T* __restrict__ x, const float* __restrict__ mask,
                   float* __restrict__ out, int R, int S, int64_t D, int64_t rs,
                   int64_t ss) {
   __shared__ float s_red[rows::kSumWarps];
@@ -173,9 +180,9 @@ __device__ __forceinline__ void insert(int (&top)[T], int (&bot)[T], int k) {
   bot[0] = min(bot[0], k);
 }
 
-template <int T>
+template <int T, typename E>
 __global__ void __launch_bounds__(kSelThreads)
-masked_select_kernel(const float* __restrict__ x, const float* __restrict__ mask,
+masked_select_kernel(const E* __restrict__ x, const float* __restrict__ mask,
                      float* __restrict__ out, int R, int S, int64_t D, int64_t rs,
                      int64_t ss) {
   constexpr int kN = pow2_at_least(2 * T);
@@ -206,7 +213,7 @@ masked_select_kernel(const float* __restrict__ x, const float* __restrict__ mask
       int a[kN];
 #pragma unroll
       for (int i = 0; i < kN; ++i)
-        a[i] = i < 2 * T ? order_key(live ? __ldg(x + s_row[i] * ss) : 0.f) : INT_MAX;
+        a[i] = i < 2 * T ? order_key(live ? ldg_f32(x + s_row[i] * ss) : 0.f) : INT_MAX;
       bitonic_sort<kN>(a);
 #pragma unroll
       for (int i = 0; i < T; ++i) {
@@ -219,7 +226,7 @@ masked_select_kernel(const float* __restrict__ x, const float* __restrict__ mask
       float v[kSelUnroll];
 #pragma unroll
       for (int u = 0; u < kSelUnroll; ++u)
-        v[u] = (live && j + u < cnt) ? __ldg(x + s_row[j + u] * ss) : 0.f;
+        v[u] = (live && j + u < cnt) ? ldg_f32(x + s_row[j + u] * ss) : 0.f;
 #pragma unroll
       for (int u = 0; u < kSelUnroll; ++u)
         if (j + u < cnt) {
@@ -240,8 +247,9 @@ masked_select_kernel(const float* __restrict__ x, const float* __restrict__ mask
 
 constexpr int kRankThreads = 128;
 
+template <typename E>
 __global__ void __launch_bounds__(kRankThreads)
-masked_rank_kernel(const float* __restrict__ x, const float* __restrict__ mask,
+masked_rank_kernel(const E* __restrict__ x, const float* __restrict__ mask,
                    float* __restrict__ out, int R, int S, int64_t D, int64_t rs,
                    int64_t ss, int trim) {
   __shared__ float s_red[kRankThreads / 32];
@@ -258,12 +266,12 @@ masked_rank_kernel(const float* __restrict__ x, const float* __restrict__ mask,
   float acc = 0.f;
   for (int i = 0; i < S; ++i) {
     if (!(mask[i] > 0.f)) continue;
-    const float vi = __ldg(x + i * ss);
+    const float vi = ldg_f32(x + i * ss);
     const int ki = order_key(vi);
     int rank = 0;
     for (int j = 0; j < S; ++j) {
       if (!(mask[j] > 0.f)) continue;
-      const int kj = order_key(__ldg(x + j * ss));
+      const int kj = order_key(ldg_f32(x + j * ss));
       rank += (kj < ki) || (kj == ki && j < i);
     }
     if (rank >= trim && rank < members - trim) acc += vi;
@@ -271,45 +279,37 @@ masked_rank_kernel(const float* __restrict__ x, const float* __restrict__ mask,
   out[r * D + col] = acc / fmaxf(n - 2.f * trim, 1.f);
 }
 
-template <int T>
-int launch_select(const float* x, const float* mask, float* out, int R, int S,
+template <int T, typename E>
+int launch_select(const E* x, const float* mask, float* out, int R, int S,
                   int64_t D, int64_t rs, int64_t ss, cudaStream_t s) {
   const dim3 grid = rows::grid_yz(static_cast<unsigned>((D + kSelThreads - 1) / kSelThreads), R);
-  masked_select_kernel<T><<<grid, kSelThreads, 0, s>>>(x, mask, out, R, S, D, rs, ss);
+  masked_select_kernel<T, E><<<grid, kSelThreads, 0, s>>>(x, mask, out, R, S, D, rs, ss);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// x: (R, S, D) float32 at x[r * rs + s * ss + d]; mask: (R, S), out: (R, D)
-// float32 contiguous; 0 <= trim.  Picks the route from trim and writes its
-// code to *route: 0 "sum" (trim 0), 1 "select" (1 <= trim <= 16), 2 "rank"
-// (beyond).
-REPRO_EXPORT int masked_neighbor_reduce_f32(const float* x, const float* mask,
-                                            float* out, int R, int S,
-                                            long long D, long long rs,
-                                            long long ss, int trim, int* route,
-                                            void* stream) {
+template <typename E>
+int masked_neighbor_reduce(const E* x, const float* mask, float* out, int R, int S,
+                           long long D, long long rs, long long ss, int trim,
+                           int* route, void* stream) {
   *route = trim == 0 ? kRouteSum : trim <= kMaxSelectTrim ? kRouteSelect : kRouteRank;
   if (R == 0 || D == 0) return static_cast<int>(cudaGetLastError());
   const auto s = static_cast<cudaStream_t>(stream);
   if (*route == kRouteSum) {
-    const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && ss % 4 == 0 &&
-                     rs % 4 == 0;
+    const bool vec = aligned4(x) && ss % 4 == 0 && rs % 4 == 0;
     const dim3 grid = rows::grid_yz(
         static_cast<unsigned>((D + rows::kSumCols - 1) / rows::kSumCols), R);
     const size_t smem = rows::kept_rows_smem(S, false);
     if (vec)
-      masked_sum_kernel<true><<<grid, rows::kSumThreads, smem, s>>>(x, mask, out, R, S, D, rs, ss);
+      masked_sum_kernel<true, E><<<grid, rows::kSumThreads, smem, s>>>(x, mask, out, R, S, D, rs, ss);
     else
-      masked_sum_kernel<false><<<grid, rows::kSumThreads, smem, s>>>(x, mask, out, R, S, D, rs, ss);
+      masked_sum_kernel<false, E><<<grid, rows::kSumThreads, smem, s>>>(x, mask, out, R, S, D, rs, ss);
     return static_cast<int>(cudaGetLastError());
   }
   if (*route == kRouteSelect) {
     switch (trim) {
 #define REPRO_SELECT(T) \
   case T:               \
-    return launch_select<T>(x, mask, out, R, S, D, rs, ss, s);
+    return launch_select<T, E>(x, mask, out, R, S, D, rs, ss, s);
       REPRO_SELECT(1) REPRO_SELECT(2) REPRO_SELECT(3) REPRO_SELECT(4)
       REPRO_SELECT(5) REPRO_SELECT(6) REPRO_SELECT(7) REPRO_SELECT(8)
       REPRO_SELECT(9) REPRO_SELECT(10) REPRO_SELECT(11) REPRO_SELECT(12)
@@ -319,6 +319,30 @@ REPRO_EXPORT int masked_neighbor_reduce_f32(const float* x, const float* mask,
     *route = kRouteRank;   // a trim with no case above: the rank count serves any
   }
   const dim3 grid = rows::grid_yz(static_cast<unsigned>((D + kRankThreads - 1) / kRankThreads), R);
-  masked_rank_kernel<<<grid, kRankThreads, 0, s>>>(x, mask, out, R, S, D, rs, ss, trim);
+  masked_rank_kernel<E><<<grid, kRankThreads, 0, s>>>(x, mask, out, R, S, D, rs, ss, trim);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x: (R, S, D) float32 (*_f32) or bfloat16 (*_bf16) at x[r * rs + s * ss + d];
+// mask: (R, S), out: (R, D) float32 contiguous; 0 <= trim.  Picks the route
+// from trim and writes its code to *route: 0 "sum" (trim 0), 1 "select"
+// (1 <= trim <= 16), 2 "rank" (beyond).
+REPRO_EXPORT int masked_neighbor_reduce_f32(const float* x, const float* mask,
+                                            float* out, int R, int S,
+                                            long long D, long long rs,
+                                            long long ss, int trim, int* route,
+                                            void* stream) {
+  return masked_neighbor_reduce<float>(x, mask, out, R, S, D, rs, ss, trim, route,
+                                       stream);
+}
+
+REPRO_EXPORT int masked_neighbor_reduce_bf16(const __nv_bfloat16* x,
+                                             const float* mask, float* out, int R,
+                                             int S, long long D, long long rs,
+                                             long long ss, int trim, int* route,
+                                             void* stream) {
+  return masked_neighbor_reduce<__nv_bfloat16>(x, mask, out, R, S, D, rs, ss, trim,
+                                               route, stream);
 }

@@ -39,6 +39,15 @@
 //   with float4 loads), no spills.
 // No atomics: the same inputs give the same bits on every run.
 //
+// bfloat16 messages (the bf16 wire): every kernel here also takes z (the
+// matrix or the exchange) in bfloat16, with y, the weights, the mask and
+// the outputs in float32 (the *_bf16 entry points).  Only the load changes:
+// a bf16 value converts to float32 exactly (a shift), each lane's 4-element
+// load is 8 bytes instead of a float4 (where the base and strides allow it,
+// else the scalar path), and the coordinate-to-thread mapping and the order
+// of every sum are the float32 kernel's.  So the bf16 route gives the bits of
+// the float32 kernel run on z.float(), at half the bytes of z.
+//
 // K3 weighted_sum: out[r, d] = sum_s a[r, s] * z[r, s, d]  (unnormalized).
 // Replaces: repro/kernels/weiszfeld.py, weighted_sum_call (_wsum_kernel).
 // It reads only the rows of nonzero weight, in rows.cuh's sum_kept_rows
@@ -142,7 +151,8 @@ __device__ float block_sum(float v) {
 
 // Grid (nchunks, rows::grid_yz over the R * S rows); row q = r * S + s
 // writes partial[q * nchunks + chunk].
-__global__ void sqdist_partial_kernel(const float* __restrict__ z,
+template <typename T>
+__global__ void sqdist_partial_kernel(const T* __restrict__ z,
                                       const float* __restrict__ y,
                                       float* __restrict__ partial, int R, int S,
                                       int64_t D, int64_t ld, int64_t rs,
@@ -155,7 +165,7 @@ __global__ void sqdist_partial_kernel(const float* __restrict__ z,
     r = q <= 0xffffffffLL ? static_cast<uint32_t>(q) / static_cast<uint32_t>(S) : q / S;
     w = q - r * S;
   }
-  const float* zw = z + r * rs + w * ld;
+  const T* zw = z + r * rs + w * ld;
   y += r * D;
   const int64_t start = static_cast<int64_t>(blockIdx.x) * kChunk + threadIdx.x;
   float acc = 0.f;
@@ -163,7 +173,7 @@ __global__ void sqdist_partial_kernel(const float* __restrict__ z,
   for (int k = 0; k < kItems; ++k) {
     const int64_t i = start + static_cast<int64_t>(k) * kThreads;
     if (i < D) {
-      const float d = zw[i] - y[i];
+      const float d = to_f32(zw[i]) - y[i];
       acc = fmaf(d, d, acc);
     }
   }
@@ -231,11 +241,11 @@ __device__ __forceinline__ void row_totals(float (&v)[kSegRows],
 // workers).  partial: (W, L, nchunks), entry (w, s, c) written only when s
 // lies in chunk c's [lo, hi]; span: (>= groups, nchunks, 2) that [lo, hi]
 // (lo > hi: the chunk holds no segment); arrived: (>= groups,) zeros on
-// entry, zeros again on exit.  VEC: z, y and seg 16-byte aligned and
-// D % 4 == 0.
-template <bool VEC>
+// entry, zeros again on exit.  VEC: z aligned to 4 elements, y and seg
+// 16-byte aligned and D % 4 == 0.
+template <bool VEC, typename T>
 __global__ void __launch_bounds__(kSegThreads)
-sqdist_segments_kernel(const float* __restrict__ z, const float* __restrict__ y,
+sqdist_segments_kernel(const T* __restrict__ z, const float* __restrict__ y,
                        const int* __restrict__ seg, float* __restrict__ partial,
                        int* __restrict__ span, unsigned* __restrict__ arrived,
                        float* __restrict__ out, int W, int64_t D, int L,
@@ -284,18 +294,18 @@ sqdist_segments_kernel(const float* __restrict__ z, const float* __restrict__ y,
 #pragma unroll
   for (int r = 0; r < kSegRows; ++r) {
     float zv[kSegItems];
-    const float* zr = z + (w0 + r) * D;
+    const T* zr = z + (w0 + r) * D;
 #pragma unroll
     for (int v = 0; v < kSegVecs; ++v) {
       const int64_t d0 = seg_coord<VEC>(c0, t, 4 * v);
       if (r < rows_here && VEC && d0 < D) {
-        const float4 a = __ldg(reinterpret_cast<const float4*>(zr + d0));
+        const float4 a = ldg4_f32(zr + d0);
         zv[4 * v] = a.x; zv[4 * v + 1] = a.y; zv[4 * v + 2] = a.z; zv[4 * v + 3] = a.w;
       } else {
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           const int64_t d = seg_coord<VEC>(c0, t, 4 * v + k);
-          zv[4 * v + k] = r < rows_here && d < D ? __ldg(zr + d) : 0.f;
+          zv[4 * v + k] = r < rows_here && d < D ? ldg_f32(zr + d) : 0.f;
         }
       }
     }
@@ -408,10 +418,10 @@ __device__ __forceinline__ float sq4(const float4& z, const float4& y, float acc
 
 // Grid (D-chunks of kSqCols, rows::grid_yz over R);
 // partial[(r * S + s) * nchunks + chunk] for the members s of receiver r
-// only.  VEC: z, ld, rs, y and D allow float4 loads.
-template <bool VEC>
+// only.  VEC: z, ld, rs, y and D allow 4-element loads.
+template <bool VEC, typename T>
 __global__ void __launch_bounds__(kSqThreads)
-sqdist_masked_partial_kernel(const float* __restrict__ z, const float* __restrict__ y,
+sqdist_masked_partial_kernel(const T* __restrict__ z, const float* __restrict__ y,
                              const float* __restrict__ mask,
                              float* __restrict__ partial, int R, int S, int64_t D,
                              int64_t ld, int64_t rs, int nchunks) {
@@ -436,7 +446,7 @@ sqdist_masked_partial_kernel(const float* __restrict__ z, const float* __restric
 #pragma unroll
       for (int u = 0; u < kSqRows; ++u)
         if (j + u * kSqWarps < n) {
-          const float* row = z + s_row[j + u * kSqWarps] * ld;
+          const T* row = z + s_row[j + u * kSqWarps] * ld;
 #pragma unroll
           for (int v = 0; v < kSqVec; ++v)
             zv[u][v] = rows::load_cols<VEC>(row, d0 + 128 * v, lane, D);
@@ -457,11 +467,11 @@ sqdist_masked_partial_kernel(const float* __restrict__ z, const float* __restric
 
 // Grid (D-blocks of rows::kSumCols, rows::grid_yz over R); a: (R, W)
 // contiguous, out: (R, D) contiguous; rows::kept_rows_smem(W, true) bytes
-// of dynamic shared memory.  VEC: z, ld and rs allow float4 loads
-// (16-byte-aligned base, ld and rs multiples of 4).
-template <bool VEC>
+// of dynamic shared memory.  VEC: z, ld and rs allow 4-element loads (base
+// aligned to 4 elements, ld and rs multiples of 4).
+template <bool VEC, typename T>
 __global__ void __launch_bounds__(rows::kSumThreads)
-weighted_sum_kernel(const float* __restrict__ z, const float* __restrict__ a,
+weighted_sum_kernel(const T* __restrict__ z, const float* __restrict__ a,
                     float* __restrict__ out, int R, int W, int64_t D, int64_t ld,
                     int64_t rs) {
   const int64_t r = rows::grid_row();
@@ -473,44 +483,36 @@ weighted_sum_kernel(const float* __restrict__ z, const float* __restrict__ a,
                           threadIdx.x % 32, D, acc);
 }
 
-template <bool VEC>
-int launch_weighted_sum(const float* z, const float* a, float* out, int R, int W,
+template <bool VEC, typename T>
+int launch_weighted_sum(const T* z, const float* a, float* out, int R, int W,
                         int64_t D, int64_t ld, int64_t rs, cudaStream_t s) {
   const dim3 grid = rows::grid_yz(
       static_cast<unsigned>((D + rows::kSumCols - 1) / rows::kSumCols), R);
-  weighted_sum_kernel<VEC><<<grid, rows::kSumThreads, rows::kept_rows_smem(W, true), s>>>(
+  weighted_sum_kernel<VEC, T><<<grid, rows::kSumThreads, rows::kept_rows_smem(W, true), s>>>(
       z, a, out, R, W, D, ld, rs);
   return static_cast<int>(cudaGetLastError());
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-}  // namespace
-
-// Columns of the (W, ncols) float32 scratch buffer partial_sqdist_f32 needs.
-REPRO_EXPORT int partial_sqdist_scratch_cols(long long D) {
-  return static_cast<int>((D + kChunk - 1) / kChunk);
-}
-
-// Columns of the (R * S, ncols) scratch buffer partial_sqdist_masked_f32 needs.
-REPRO_EXPORT int partial_sqdist_masked_scratch_cols(long long D) {
+int scratch_cols(long long D) { return static_cast<int>((D + kChunk - 1) / kChunk); }
+int masked_scratch_cols(long long D) {
   return static_cast<int>((D + kSqCols - 1) / kSqCols);
 }
+int segment_chunks(long long D) {
+  return D > 0 ? static_cast<int>((D + kSegChunk - 1) / kSegChunk) : 1;
+}
 
-// z: (R, W, D) at z[r * rs + w * ld + d], y: (R, D), partial: (R * W,
-// partial_sqdist_scratch_cols(D)), out: (R, W); float32, y, partial and out
-// contiguous.  Launches both passes on `stream`.
-REPRO_EXPORT int partial_sqdist_f32(const float* z, const float* y,
-                                    float* partial, float* out, int R, int W,
-                                    long long D, long long ld, long long rs,
-                                    void* stream) {
+template <typename T>
+int partial_sqdist(const T* z, const float* y, float* partial, float* out, int R,
+                   int W, long long D, long long ld, long long rs, void* stream) {
   if (W == 0 || R == 0) return static_cast<int>(cudaGetLastError());
   const auto s = static_cast<cudaStream_t>(stream);
-  const int nchunks = partial_sqdist_scratch_cols(D);
+  const int nchunks = scratch_cols(D);
   if (nchunks > 0) {
     const dim3 grid = rows::grid_yz(static_cast<unsigned>(nchunks),
                                     static_cast<long long>(R) * W);
-    sqdist_partial_kernel<<<grid, kThreads, 0, s>>>(
+    sqdist_partial_kernel<T><<<grid, kThreads, 0, s>>>(
         z, y, partial, R, W, static_cast<int64_t>(D), static_cast<int64_t>(ld),
         static_cast<int64_t>(rs), nchunks);
     const int rc = static_cast<int>(cudaGetLastError());
@@ -521,27 +523,23 @@ REPRO_EXPORT int partial_sqdist_f32(const float* z, const float* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The masked route: as partial_sqdist_f32 with mask (R, S) float32
-// contiguous; rows of mask <= 0 are not read and their out is 0.  partial:
-// (R * S, partial_sqdist_masked_scratch_cols(D)).
-REPRO_EXPORT int partial_sqdist_masked_f32(const float* z, const float* y,
-                                           const float* mask, float* partial,
-                                           float* out, int R, int S, long long D,
-                                           long long ld, long long rs,
-                                           void* stream) {
+template <typename T>
+int partial_sqdist_masked(const T* z, const float* y, const float* mask,
+                          float* partial, float* out, int R, int S, long long D,
+                          long long ld, long long rs, void* stream) {
   if (S == 0 || R == 0) return static_cast<int>(cudaGetLastError());
   const auto s = static_cast<cudaStream_t>(stream);
-  const int nchunks = partial_sqdist_masked_scratch_cols(D);
+  const int nchunks = masked_scratch_cols(D);
   if (nchunks > 0) {
-    const bool vec = aligned16(z) && aligned16(y) && ld % 4 == 0 && rs % 4 == 0 &&
+    const bool vec = aligned4(z) && aligned16(y) && ld % 4 == 0 && rs % 4 == 0 &&
                      D % 4 == 0;
     const dim3 grid = rows::grid_yz(static_cast<unsigned>(nchunks), R);
     if (vec)
-      sqdist_masked_partial_kernel<true><<<grid, kSqThreads, 0, s>>>(
+      sqdist_masked_partial_kernel<true, T><<<grid, kSqThreads, 0, s>>>(
           z, y, mask, partial, R, S, static_cast<int64_t>(D),
           static_cast<int64_t>(ld), static_cast<int64_t>(rs), nchunks);
     else
-      sqdist_masked_partial_kernel<false><<<grid, kSqThreads, 0, s>>>(
+      sqdist_masked_partial_kernel<false, T><<<grid, kSqThreads, 0, s>>>(
           z, y, mask, partial, R, S, static_cast<int64_t>(D),
           static_cast<int64_t>(ld), static_cast<int64_t>(rs), nchunks);
     const int rc = static_cast<int>(cudaGetLastError());
@@ -552,46 +550,89 @@ REPRO_EXPORT int partial_sqdist_masked_f32(const float* z, const float* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-// z: (R, W, D) at z[r * rs + w * ld + d], a: (R, W), out: (R, D); float32,
-// a and out contiguous; min(W, 2,048) * 8 bytes of shared memory.
-REPRO_EXPORT int weighted_sum_f32(const float* z, const float* a, float* out,
-                                  int R, int W, long long D, long long ld,
-                                  long long rs, void* stream) {
+template <typename T>
+int weighted_sum(const T* z, const float* a, float* out, int R, int W, long long D,
+                 long long ld, long long rs, void* stream) {
   if (D == 0 || R == 0) return static_cast<int>(cudaGetLastError());
   const auto s = static_cast<cudaStream_t>(stream);
-  const bool vec = aligned16(z) && ld % 4 == 0 && rs % 4 == 0;
-  return vec ? launch_weighted_sum<true>(z, a, out, R, W, D, ld, rs, s)
-             : launch_weighted_sum<false>(z, a, out, R, W, D, ld, rs, s);
+  const bool vec = aligned4(z) && ld % 4 == 0 && rs % 4 == 0;
+  return vec ? launch_weighted_sum<true, T>(z, a, out, R, W, D, ld, rs, s)
+             : launch_weighted_sum<false, T>(z, a, out, R, W, D, ld, rs, s);
 }
 
-// Chunks of K6's grid for D coordinates (at least 1, so that every worker's
-// row is written even at D = 0).
-REPRO_EXPORT int partial_sqdist_segments_chunks(long long D) {
-  return D > 0 ? static_cast<int>((D + kSegChunk - 1) / kSegChunk) : 1;
-}
-
-// z: (W, D), y: (D,), seg: (D,) int32, partial: (W, L, nchunks) float32,
-// span: (W, nchunks, 2) int32 (ceil(W / 4) rows used), arrived: (>= W,)
-// uint32 zeros (zeros again when the kernel ends), out: (W, L); nchunks =
-// partial_sqdist_segments_chunks(D); contiguous.  One launch on `stream`.
-REPRO_EXPORT int partial_sqdist_segments_f32(const float* z, const float* y,
-                                             const int* seg, float* partial,
-                                             int* span, unsigned* arrived,
-                                             float* out, int W, long long D,
-                                             int L, void* stream) {
+template <typename T>
+int partial_sqdist_segments(const T* z, const float* y, const int* seg,
+                            float* partial, int* span, unsigned* arrived,
+                            float* out, int W, long long D, int L, void* stream) {
   if (W == 0 || L == 0) return static_cast<int>(cudaGetLastError());
   const auto s = static_cast<cudaStream_t>(stream);
-  const int nchunks = partial_sqdist_segments_chunks(D);
+  const int nchunks = segment_chunks(D);
   const dim3 grid = rows::grid_yz(static_cast<unsigned>(nchunks),
                                   (static_cast<long long>(W) + kSegRows - 1) / kSegRows);
-  const bool vec = aligned16(z) && aligned16(y) && aligned16(seg) && D % 4 == 0;
+  const bool vec = aligned4(z) && aligned16(y) && aligned16(seg) && D % 4 == 0;
   if (vec)
-    sqdist_segments_kernel<true><<<grid, kSegThreads, 0, s>>>(
+    sqdist_segments_kernel<true, T><<<grid, kSegThreads, 0, s>>>(
         z, y, seg, partial, span, arrived, out, W, static_cast<int64_t>(D), L,
         nchunks);
   else
-    sqdist_segments_kernel<false><<<grid, kSegThreads, 0, s>>>(
+    sqdist_segments_kernel<false, T><<<grid, kSegThreads, 0, s>>>(
         z, y, seg, partial, span, arrived, out, W, static_cast<int64_t>(D), L,
         nchunks);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+// Columns of the (W, ncols) float32 scratch buffer partial_sqdist_* needs.
+REPRO_EXPORT int partial_sqdist_scratch_cols(long long D) { return scratch_cols(D); }
+
+// Columns of the (R * S, ncols) scratch buffer partial_sqdist_masked_* needs.
+REPRO_EXPORT int partial_sqdist_masked_scratch_cols(long long D) {
+  return masked_scratch_cols(D);
+}
+
+// Chunks of K6's grid for D coordinates (at least 1, so that every worker's
+// row is written even at D = 0).
+REPRO_EXPORT int partial_sqdist_segments_chunks(long long D) { return segment_chunks(D); }
+
+// Each entry point below comes twice: *_f32 for a float32 z and *_bf16 for a
+// bfloat16 z (the same kernel with the bf16 load); every other argument is
+// float32 (or int32 for seg) in both.
+#define REPRO_WEISZFELD_EXPORTS(SFX, T)                                            \
+  /* z: (R, W, D) at z[r * rs + w * ld + d], y: (R, D), partial: (R * W,      \
+     partial_sqdist_scratch_cols(D)), out: (R, W); y, partial and out         \
+     contiguous.  Launches both passes on `stream`. */                        \
+  REPRO_EXPORT int partial_sqdist_##SFX(const T* z, const float* y, float* partial, \
+                                        float* out, int R, int W, long long D,  \
+                                        long long ld, long long rs, void* stream) { \
+    return partial_sqdist<T>(z, y, partial, out, R, W, D, ld, rs, stream);      \
+  }                                                                             \
+  /* The masked route: mask (R, S) float32 contiguous; rows of mask <= 0 are  \
+     not read and their out is 0.  partial: (R * S,                           \
+     partial_sqdist_masked_scratch_cols(D)). */                               \
+  REPRO_EXPORT int partial_sqdist_masked_##SFX(                                 \
+      const T* z, const float* y, const float* mask, float* partial, float* out, \
+      int R, int S, long long D, long long ld, long long rs, void* stream) {   \
+    return partial_sqdist_masked<T>(z, y, mask, partial, out, R, S, D, ld, rs,  \
+                                    stream);                                    \
+  }                                                                             \
+  /* z: (R, W, D) at z[r * rs + w * ld + d], a: (R, W), out: (R, D); a and out \
+     contiguous; min(W, 2,048) * 8 bytes of shared memory. */                 \
+  REPRO_EXPORT int weighted_sum_##SFX(const T* z, const float* a, float* out,   \
+                                      int R, int W, long long D, long long ld,  \
+                                      long long rs, void* stream) {             \
+    return weighted_sum<T>(z, a, out, R, W, D, ld, rs, stream);                 \
+  }                                                                             \
+  /* z: (W, D), y: (D,), seg: (D,) int32, partial: (W, L, nchunks) float32,   \
+     span: (W, nchunks, 2) int32 (ceil(W / 4) rows used), arrived: (>= W,)    \
+     uint32 zeros (zeros again when the kernel ends), out: (W, L); nchunks =  \
+     partial_sqdist_segments_chunks(D); contiguous.  One launch. */           \
+  REPRO_EXPORT int partial_sqdist_segments_##SFX(                               \
+      const T* z, const float* y, const int* seg, float* partial, int* span,    \
+      unsigned* arrived, float* out, int W, long long D, int L, void* stream) { \
+    return partial_sqdist_segments<T>(z, y, seg, partial, span, arrived, out, W, \
+                                      D, L, stream);                            \
+  }
+
+REPRO_WEISZFELD_EXPORTS(f32, float)
+REPRO_WEISZFELD_EXPORTS(bf16, __nv_bfloat16)

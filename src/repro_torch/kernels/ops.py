@@ -4,6 +4,12 @@ A tensor on the CPU goes to the kernel's plain PyTorch version; a tensor on
 a CUDA device goes to the hand-written kernel, whose wrapper raises if it
 cannot launch.  There is no fallback from the card to the plain version.
 Each kernel wrapper counts its launches (:func:`launch_counts`).
+
+The message operands (z, the exchange, K1's state) may be float32 or
+bfloat16, the bf16 wire's buffers: each kernel has a bf16 route, launched
+for a bf16 tensor as it is (:func:`bf16_launch_counts` counts those
+launches), and each plain version takes bf16 too.  Any other dtype
+(float16 included) raises.
 """
 from __future__ import annotations
 
@@ -23,6 +29,13 @@ def _on_card(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel route for device {t.device}")
+
+
+def messages(buf: torch.Tensor) -> torch.Tensor:
+    """``buf`` in a dtype the kernels take: float32 and bfloat16 (the bf16
+    wire's buffer, which the kernels' bf16 routes read as it is) unchanged,
+    anything else cast to float32.  Strides are kept."""
+    return buf if buf.dtype in _build.SUFFIX else buf.float()
 
 
 def saga_correct(grad: torch.Tensor, table: torch.Tensor, avg: torch.Tensor,
@@ -121,12 +134,19 @@ def launch_counts() -> dict[str, int]:
     return dict(_build.LAUNCHES)
 
 
+def bf16_launch_counts() -> dict[str, int]:
+    """Launches of the bf16 routes since the last reset, per kernel and per
+    ``"<kernel> <route>"`` of K1, K2 and K7; kernels with none are absent."""
+    return dict(_build.BF16_LAUNCHES)
+
+
 def reset_launch_counts() -> None:
-    """Zero every kernel's count, and the per-route counts of K1
-    (``saga_correct.ROUTE_LAUNCHES``), K2 (``weiszfeld.SQDIST_ROUTE_LAUNCHES``),
-    K7 (``topology.ROUTE_LAUNCHES``) and K8
-    (``flash_attention.VARIANT_LAUNCHES``)."""
+    """Zero every kernel's count, the bf16 routes' counts, and the
+    per-route counts of K1 (``saga_correct.ROUTE_LAUNCHES``), K2
+    (``weiszfeld.SQDIST_ROUTE_LAUNCHES``), K7 (``topology.ROUTE_LAUNCHES``)
+    and K8 (``flash_attention.VARIANT_LAUNCHES``)."""
     for counts in (_build.LAUNCHES, sc.ROUTE_LAUNCHES, wz.SQDIST_ROUTE_LAUNCHES,
                    tp.ROUTE_LAUNCHES, fa.VARIANT_LAUNCHES):
         for name in counts:
             counts[name] = 0
+    _build.BF16_LAUNCHES.clear()

@@ -8,8 +8,10 @@
 * :func:`trimmed_mean_call` -- per column, drop the ``trim`` smallest and
   the ``trim`` largest values and average the rest; ``2 * trim < W``.
 
-Both launch the CUDA kernels of ``csrc/robust_stats.cu`` on float32
-inputs, for any W >= 1.  Up to :data:`NETWORK_CAP` workers both sort each
+Both launch the CUDA kernels of ``csrc/robust_stats.cu`` on float32 or
+bfloat16 z (the bf16 wire: the bf16 route loads it as it is and gives the
+bits of the float32 kernel on ``z.float()``), for any W >= 1, and return
+float32.  Up to :data:`NETWORK_CAP` workers both sort each
 column in registers with one sorting network (:func:`median_network_pairs`
 lists its compare-exchanges), NaN sorted last as the plain version sorts
 it: K4 gives the plain version's bits; K5 sums the kept ranks in ascending
@@ -19,8 +21,8 @@ as the plain version does.  Past that cap each column's values are ranked
 by counting (up to 454 workers from a slab in shared memory, past that
 from global memory), and a column holding a NaN gives an unspecified value
 (see the source).  ``*_plain`` are the same functions in plain PyTorch (a
-sort along the worker axis), which the CPU path runs and the card's checks
-compare against.
+sort along the worker axis, in float32 for a bf16 z), which the CPU path
+runs and the card's checks compare against.
 """
 from __future__ import annotations
 
@@ -30,12 +32,12 @@ import torch
 
 from repro_torch.kernels import _build
 
-_SIGNATURES = {
-    "coordinate_median_f32": [ctypes.c_void_p] * 2 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
-    "trimmed_mean_f32": [ctypes.c_void_p] * 2 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
-}
+_SIGNATURES = {}
+for _sfx in _build.SUFFIX.values():
+    _SIGNATURES[f"coordinate_median_{_sfx}"] = [ctypes.c_void_p] * 2 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    _SIGNATURES[f"trimmed_mean_{_sfx}"] = [ctypes.c_void_p] * 2 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
 
 # K4 and K5's network route: W up to NETWORK_CAP, one network per multiple
@@ -91,10 +93,8 @@ def trimmed_network_ops(w: int) -> int:
 
 
 def check_inputs(what: str, z: torch.Tensor) -> None:
-    """z (W, D) float32 with W >= 1.  Raises on anything else."""
-    if z.dtype != torch.float32:
-        raise TypeError(f"{what}: z must be float32, got {z.dtype} (bf16 "
-                        "comes with ROADMAP.md Queue A item 7d)")
+    """z (W, D) float32 or bfloat16 with W >= 1.  Raises on anything else."""
+    _build.check_dtype(what, z)
     if z.dim() != 2 or z.shape[0] == 0:
         raise ValueError(f"{what}: z must be (W, D) with W >= 1, got "
                          f"{tuple(z.shape)}")
@@ -114,7 +114,7 @@ def _check_launchable(what: str, z: torch.Tensor) -> None:
 
 
 def coordinate_median_plain(z: torch.Tensor) -> torch.Tensor:
-    s = torch.sort(z, dim=0).values
+    s = torch.sort(z.float(), dim=0).values
     w = z.shape[0]
     if w % 2:
         return s[w // 2]
@@ -122,27 +122,28 @@ def coordinate_median_plain(z: torch.Tensor) -> torch.Tensor:
 
 
 def trimmed_mean_plain(z: torch.Tensor, trim: int) -> torch.Tensor:
-    s = torch.sort(z, dim=0).values
+    s = torch.sort(z.float(), dim=0).values
     return torch.mean(s[trim:z.shape[0] - trim], dim=0)
 
 
-def _launch(what: str, fn: str, z: torch.Tensor, *extra) -> torch.Tensor:
+def _launch(what: str, z: torch.Tensor, *extra) -> torch.Tensor:
     _check_launchable(what, z)
     w, d = z.shape
     lib = _build.load("robust_stats", _SIGNATURES)
     out = torch.empty((d,), dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
-        rc = getattr(lib, fn)(_build.ptr(z), _build.ptr(out), w, d, *extra,
-                              ctypes.c_void_p(_build.stream_of(z)))
+        rc = getattr(lib, f"{what}_{_build.SUFFIX[z.dtype]}")(
+            _build.ptr(z), _build.ptr(out), w, d, *extra,
+            ctypes.c_void_p(_build.stream_of(z)))
     _build.check(lib, rc, what)
-    _build.LAUNCHES[what] += 1
+    _build.count(what, z.dtype)
     return out
 
 
 def coordinate_median_call(z: torch.Tensor) -> torch.Tensor:
     """z (W, D) -> (D,) float32 per-coordinate median, on the card."""
     check_inputs("coordinate_median", z)
-    return _launch("coordinate_median", "coordinate_median_f32", z)
+    return _launch("coordinate_median", z)
 
 
 def trimmed_mean_call(z: torch.Tensor, trim: int) -> torch.Tensor:
@@ -150,4 +151,4 @@ def trimmed_mean_call(z: torch.Tensor, trim: int) -> torch.Tensor:
     card."""
     check_inputs("trimmed_mean", z)
     check_trim(z, trim)
-    return _launch("trimmed_mean", "trimmed_mean_f32", z, int(trim))
+    return _launch("trimmed_mean", z, int(trim))

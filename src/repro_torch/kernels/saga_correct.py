@@ -15,7 +15,13 @@ takes the worker axis natively -- table (W, J, D), idx (W,) -- and updates
 The client-row route (``rows`` given, (W,) int64) works on state resident
 per client under partial participation: table (C, J, D), avg (C, D), and
 worker w reads and writes ``table[rows[w], idx[w]]`` and ``avg[rows[w]]``
-in place, so the cohort's rows are never gathered into a copy.  The rows
+in place, so the cohort's rows are never gathered into a copy.
+
+On the bf16 wire the state and the messages are bfloat16 (half the
+table's bytes): :func:`saga_correct_call` launches the kernel's bf16 route,
+which rounds after every operation as PyTorch's bf16 ops (and the
+reference's jnp engine) do, so :func:`saga_correct_plain` on bf16 tensors
+is the same function.  The rows
 must be distinct (the participation plan's cohorts are): two workers on one
 client would race.  Nothing checks that on the card, to keep the host out
 of the step.  A row outside [0, C), like an index outside [0, J), gives
@@ -35,9 +41,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-_SIGNATURES = {"saga_correct_f32": [ctypes.c_void_p] * 6 + [
+_SIGNATURES = {f"saga_correct_{sfx}": [ctypes.c_void_p] * 6 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-    ctypes.c_void_p]}
+    ctypes.c_void_p] for sfx in _build.SUFFIX.values()}
 
 ROUTES = ("workers", "clients")   # rows=None, rows given
 # Launches per route (reset with the others by ops.reset_launch_counts).
@@ -47,13 +53,13 @@ ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 def check_inputs(grad: torch.Tensor, table: torch.Tensor, avg: torch.Tensor,
                  idx: torch.Tensor, rows: torch.Tensor | None = None) -> None:
     """Shapes (W, D), (W, J, D), (W, D), (W,) -- or, with (W,) ``rows``,
-    table (C, J, D) and avg (C, D); float32 state, int64 indices, one
-    device.  Raises on anything else."""
+    table (C, J, D) and avg (C, D); grad, table and avg all float32 or all
+    bfloat16, int64 indices, one device.  Raises on anything else."""
     for name, t in (("grad", grad), ("table", table), ("avg", avg)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"saga_correct: {name} must be float32, got "
-                            f"{t.dtype} (bf16 comes with ROADMAP.md Queue A "
-                            "item 7d)")
+        _build.check_dtype("saga_correct", t, name)
+    if not grad.dtype == table.dtype == avg.dtype:
+        raise TypeError(f"saga_correct: grad, table and avg must share a "
+                        f"dtype, got {grad.dtype}, {table.dtype}, {avg.dtype}")
     if idx.dtype != torch.int64:
         raise TypeError(f"saga_correct: idx must be int64, got {idx.dtype}")
     if table.dim() != 3 or grad.dim() != 2:
@@ -84,7 +90,8 @@ def saga_correct_plain(grad: torch.Tensor, table: torch.Tensor,
                        avg: torch.Tensor, idx: torch.Tensor,
                        rows: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version; returns msg (W, D) and updates ``avg`` and
-    ``table`` in place (their rows ``rows`` when given)."""
+    ``table`` in place (their rows ``rows`` when given).  On bf16 tensors
+    each operation rounds to bf16."""
     # A 0-dim device tensor as divisor: PyTorch's CUDA division turns a
     # host-scalar divisor into a reciprocal multiply, which can differ from
     # the kernel's IEEE division by an ulp.
@@ -126,12 +133,13 @@ def saga_correct_call(grad: torch.Tensor, table: torch.Tensor,
     msg = torch.empty_like(grad)
     lib = _build.load("saga_correct", _SIGNATURES)
     with torch.cuda.device(grad.device):
-        rc = lib.saga_correct_f32(
+        rc = getattr(lib, f"saga_correct_{_build.SUFFIX[grad.dtype]}")(
             _build.ptr(grad), _build.ptr(table), _build.ptr(avg),
             _build.ptr(idx), None if rows is None else _build.ptr(rows),
             _build.ptr(msg), w, j, c, d,
             ctypes.c_void_p(_build.stream_of(grad)))
     _build.check(lib, rc, "saga_correct")
-    _build.LAUNCHES["saga_correct"] += 1
-    ROUTE_LAUNCHES["workers" if rows is None else "clients"] += 1
+    route = "workers" if rows is None else "clients"
+    _build.count("saga_correct", grad.dtype, route)
+    ROUTE_LAUNCHES[route] += 1
     return msg

@@ -8,8 +8,10 @@ the mean of the masked senders' values after dropping the ``trim`` largest
 and the ``trim`` smallest, divided by ``max(n_r - 2 * trim, 1)`` with
 ``n_r = sum_s mask[r, s]``.  ``trim = 0`` is the masked mean.
 
-It launches the CUDA kernels of ``csrc/topology.cu`` on float32 inputs,
-for any R, S and D that fit in memory, reading only the members' rows
+It launches the CUDA kernels of ``csrc/topology.cu`` on a float32 or
+bfloat16 exchange (the bf16 wire: the bf16 route loads it as it is and
+gives the bits of the float32 kernel on ``exchange.float()``) and a float32
+mask, for any R, S and D that fit in memory, reading only the members' rows
 (``mask > 0``).  The library picks the kernel from ``trim`` and reports it
 back: "sum" for trim 0 (the fixed-order masked sum), "select" for trims up
 to 16 (the trim largest and smallest kept in registers, then the values
@@ -37,11 +39,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.weiszfeld import batch_strides
 
 _SIGNATURES = {
-    "masked_neighbor_reduce_f32": [ctypes.c_void_p] * 3 + [
+    f"masked_neighbor_reduce_{sfx}": [ctypes.c_void_p] * 3 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-        ctypes.c_void_p],
-}
+        ctypes.c_void_p] for sfx in _build.SUFFIX.values()}
 
 ROUTES = ("sum", "select", "rank")   # the route codes 0, 1, 2 of csrc/topology.cu
 # Launches per route (reset with the others by ops.reset_launch_counts).
@@ -49,12 +50,12 @@ ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 
 def check_inputs(exchange: torch.Tensor, mask: torch.Tensor, trim: int) -> None:
-    """exchange (R, S, D) and mask (R, S), float32 on one device; trim >= 0.
-    Raises on anything else."""
-    if exchange.dtype != torch.float32 or mask.dtype != torch.float32:
-        raise TypeError(f"masked_neighbor_reduce: inputs must be float32, got "
-                        f"{exchange.dtype} and {mask.dtype} (bf16 comes with "
-                        "the bf16 wire, ROADMAP.md Queue A item 7d)")
+    """exchange (R, S, D) float32 or bfloat16 and mask (R, S) float32, on one
+    device; trim >= 0.  Raises on anything else."""
+    _build.check_dtype("masked_neighbor_reduce", exchange, "exchange")
+    if mask.dtype != torch.float32:
+        raise TypeError(f"masked_neighbor_reduce: mask must be float32, got "
+                        f"{mask.dtype}")
     if exchange.dim() != 3 or tuple(mask.shape) != tuple(exchange.shape[:2]):
         raise ValueError(f"masked_neighbor_reduce: exchange "
                          f"{tuple(exchange.shape)} and mask "
@@ -98,11 +99,13 @@ def masked_neighbor_reduce_call(exchange: torch.Tensor, mask: torch.Tensor,
     out = torch.empty((r, d), dtype=torch.float32, device=exchange.device)
     code = ctypes.c_int(-1)
     with torch.cuda.device(exchange.device):
-        rc = lib.masked_neighbor_reduce_f32(
+        rc = getattr(lib, "masked_neighbor_reduce_"
+                     + _build.SUFFIX[exchange.dtype])(
             _build.ptr(exchange), _build.ptr(mask), _build.ptr(out), r, s, d,
             rs, ss, int(trim), ctypes.byref(code),
             ctypes.c_void_p(_build.stream_of(exchange)))
     _build.check(lib, rc, "masked_neighbor_reduce")
-    _build.LAUNCHES["masked_neighbor_reduce"] += 1
-    ROUTE_LAUNCHES[ROUTES[code.value]] += 1
+    route = ROUTES[code.value]
+    _build.count("masked_neighbor_reduce", exchange.dtype, route)
+    ROUTE_LAUNCHES[route] += 1
     return out

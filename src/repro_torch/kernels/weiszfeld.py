@@ -27,9 +27,12 @@ that fit in memory.
   for each group of 4 workers sums their partials in a fixed order, so the
   same bits each run.
 
-All launch the CUDA kernels of ``csrc/weiszfeld.cu`` on float32 inputs;
-``*_plain`` are the same functions in plain PyTorch, which the CPU path
-runs and the card's checks compare against.
+All launch the CUDA kernels of ``csrc/weiszfeld.cu``, with z in float32
+or bfloat16 (the bf16 wire: the kernel's bf16 route loads it as it is and
+gives the bits of the float32 kernel on ``z.float()``) and everything else
+in float32; ``*_plain`` are the same functions in plain PyTorch (on a bf16
+z, the same function of ``z.float()``), which the CPU path runs and the
+card's checks compare against.
 """
 from __future__ import annotations
 
@@ -41,20 +44,23 @@ from repro_torch.kernels import _build
 
 _SIGNATURES = {
     "partial_sqdist_scratch_cols": [ctypes.c_longlong],
-    "partial_sqdist_f32": [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_void_p],
     "partial_sqdist_masked_scratch_cols": [ctypes.c_longlong],
-    "partial_sqdist_masked_f32": [ctypes.c_void_p] * 5 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_void_p],
-    "weighted_sum_f32": [ctypes.c_void_p] * 3 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_void_p],
     "partial_sqdist_segments_chunks": [ctypes.c_longlong],
-    "partial_sqdist_segments_f32": [ctypes.c_void_p] * 7 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
 }
+for _sfx in _build.SUFFIX.values():
+    _SIGNATURES.update({
+        f"partial_sqdist_{_sfx}": [ctypes.c_void_p] * 4 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_void_p],
+        f"partial_sqdist_masked_{_sfx}": [ctypes.c_void_p] * 5 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_void_p],
+        f"weighted_sum_{_sfx}": [ctypes.c_void_p] * 3 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_void_p],
+        f"partial_sqdist_segments_{_sfx}": [ctypes.c_void_p] * 7 + [
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+    })
 
 # K6's arrival counters (one int32 per group of workers; sized by rows, which
 # is more), kept per (device, stream): zeroed once when made or grown, and
@@ -68,13 +74,13 @@ SQDIST_ROUTE_LAUNCHES = dict.fromkeys(SQDIST_ROUTES, 0)
 
 def check_inputs(what: str, z: torch.Tensor, v: torch.Tensor,
                  v_shape: tuple[int, ...], *, batched: bool = False) -> None:
-    """z (W, D) -- or, with ``batched``, also (R, S, D) -- float32 and a
-    float32 tensor of shape ``v_shape`` on the same device.  Raises on
-    anything else."""
-    if z.dtype != torch.float32 or v.dtype != torch.float32:
-        raise TypeError(f"{what}: inputs must be float32, got {z.dtype} and "
-                        f"{v.dtype} (bf16 comes with ROADMAP.md Queue A "
-                        "item 7d)")
+    """z (W, D) -- or, with ``batched``, also (R, S, D) -- float32 or
+    bfloat16, and a float32 tensor of shape ``v_shape`` on the same device.
+    Raises on anything else."""
+    _build.check_dtype(what, z)
+    if v.dtype != torch.float32:
+        raise TypeError(f"{what}: the second input must be float32, got "
+                        f"{v.dtype}")
     if z.dim() not in ((2, 3) if batched else (2,)) \
             or tuple(v.shape) != tuple(v_shape):
         raise ValueError(f"{what}: shapes {tuple(z.shape)} and "
@@ -123,7 +129,7 @@ def _check_launchable(what: str, z: torch.Tensor, *rest: torch.Tensor,
 
 
 def row_stride(z: torch.Tensor) -> int:
-    """The distance in floats between z's rows, when its coordinates are
+    """The distance in elements between z's rows, when its coordinates are
     contiguous within each row (a contiguous matrix or a column slice of
     one); raises otherwise."""
     w, d = z.shape[-2:]
@@ -135,7 +141,7 @@ def row_stride(z: torch.Tensor) -> int:
 
 def batch_strides(z: torch.Tensor) -> tuple[int, int, int]:
     """(R, ld, rs) of a (W, D) or (R, S, D) matrix whose rows are
-    row-major (:func:`row_stride`): receivers ``rs >= 0`` floats apart (0
+    row-major (:func:`row_stride`): receivers ``rs >= 0`` elements apart (0
     for a single matrix, or one broadcast to every receiver)."""
     ld = row_stride(z)
     if z.dim() == 2:
@@ -148,7 +154,7 @@ def batch_strides(z: torch.Tensor) -> tuple[int, int, int]:
 
 def partial_sqdist_plain(z: torch.Tensor, y: torch.Tensor,
                          mask: torch.Tensor | None = None) -> torch.Tensor:
-    d = z - y.unsqueeze(-2)
+    d = z.float() - y.unsqueeze(-2)
     sq = torch.sum(d * d, dim=-1)
     return sq if mask is None else torch.where(mask > 0, sq, 0.0)
 
@@ -157,7 +163,7 @@ def weighted_sum_plain(z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     # A row of weight exactly 0 contributes nothing, even one holding inf or
     # NaN (where 0 * inf would give NaN), as in the kernel, which never reads
     # it.  On finite rows the product's order is unchanged.
-    z = torch.where((a != 0).unsqueeze(-1), z, 0.0)
+    z = torch.where((a != 0).unsqueeze(-1), z.float(), 0.0)
     if z.dim() == 3:
         return torch.bmm(a.unsqueeze(1), z).squeeze(1)
     return a @ z
@@ -166,7 +172,7 @@ def weighted_sum_plain(z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 def partial_sqdist_segments_plain(z: torch.Tensor, y: torch.Tensor,
                                   seg_ids: torch.Tensor,
                                   num_segments: int) -> torch.Tensor:
-    d = z - y[None]
+    d = z.float() - y[None]
     onehot = (seg_ids[None, :] == torch.arange(
         num_segments, device=z.device, dtype=seg_ids.dtype)[:, None])
     return (d * d) @ onehot.to(torch.float32).T
@@ -187,6 +193,7 @@ def partial_sqdist_call(z: torch.Tensor, y: torch.Tensor,
     r, ld, rs = batch_strides(z)
     w, d = z.shape[-2:]
     lib = _build.load("weiszfeld", _SIGNATURES)
+    sfx = _build.SUFFIX[z.dtype]
     out = torch.empty(z.shape[:-1], dtype=torch.float32, device=z.device)
     stream = ctypes.c_void_p(_build.stream_of(z))
     route = "unmasked" if mask is None else "masked"
@@ -194,18 +201,18 @@ def partial_sqdist_call(z: torch.Tensor, y: torch.Tensor,
         if mask is None:
             scratch = torch.empty((r * w, lib.partial_sqdist_scratch_cols(d)),
                                   dtype=torch.float32, device=z.device)
-            rc = lib.partial_sqdist_f32(
+            rc = getattr(lib, f"partial_sqdist_{sfx}")(
                 _build.ptr(z), _build.ptr(y), _build.ptr(scratch),
                 _build.ptr(out), r, w, d, ld, rs, stream)
         else:
             scratch = torch.empty(
                 (r * w, lib.partial_sqdist_masked_scratch_cols(d)),
                 dtype=torch.float32, device=z.device)
-            rc = lib.partial_sqdist_masked_f32(
+            rc = getattr(lib, f"partial_sqdist_masked_{sfx}")(
                 _build.ptr(z), _build.ptr(y), _build.ptr(mask),
                 _build.ptr(scratch), _build.ptr(out), r, w, d, ld, rs, stream)
     _build.check(lib, rc, "partial_sqdist")
-    _build.LAUNCHES["partial_sqdist"] += 1
+    _build.count("partial_sqdist", z.dtype, route)
     SQDIST_ROUTE_LAUNCHES[route] += 1
     return out
 
@@ -221,11 +228,11 @@ def weighted_sum_call(z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     lib = _build.load("weiszfeld", _SIGNATURES)
     out = torch.empty(z.shape[:-2] + (d,), dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
-        rc = lib.weighted_sum_f32(
+        rc = getattr(lib, f"weighted_sum_{_build.SUFFIX[z.dtype]}")(
             _build.ptr(z), _build.ptr(a), _build.ptr(out), r, w, d, ld, rs,
             ctypes.c_void_p(_build.stream_of(z)))
     _build.check(lib, rc, "weighted_sum")
-    _build.LAUNCHES["weighted_sum"] += 1
+    _build.count("weighted_sum", z.dtype)
     return out
 
 
@@ -262,10 +269,10 @@ def partial_sqdist_segments_call(z: torch.Tensor, y: torch.Tensor,
     with torch.cuda.device(z.device):
         stream = _build.stream_of(z)
         arrived = _arrival_counters(z.device, stream, w)
-        rc = lib.partial_sqdist_segments_f32(
+        rc = getattr(lib, f"partial_sqdist_segments_{_build.SUFFIX[z.dtype]}")(
             _build.ptr(z), _build.ptr(y), _build.ptr(seg_ids),
             _build.ptr(partial), _build.ptr(span), _build.ptr(arrived),
             _build.ptr(out), w, d, num_segments, ctypes.c_void_p(stream))
     _build.check(lib, rc, "partial_sqdist_segments")
-    _build.LAUNCHES["partial_sqdist_segments"] += 1
+    _build.count("partial_sqdist_segments", z.dtype)
     return out

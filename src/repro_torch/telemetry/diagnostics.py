@@ -67,7 +67,7 @@ def flat_diagnostics(buf: torch.Tensor, agg: torch.Tensor, *,
     (D,).  Rule-specific fields are keyword overrides; by default the
     weight is the Weiszfeld implicit weight ``rw / max(dist, 1e-8)``,
     normalized."""
-    z = buf.float().contiguous()
+    z = ops.messages(buf).contiguous()
     dist = torch.sqrt(ops.partial_sqdist(z, agg.float().contiguous()))
     if weight is None:
         rw = (torch.ones_like(dist) if row_weights is None
@@ -89,7 +89,7 @@ def masked_diagnostics(exchange: torch.Tensor, out: torch.Tensor,
     (R, S) ``mask``: dead edges (mask 0) get distance and weight exactly 0,
     and their rows are not read."""
     m = mask.float().contiguous()
-    sq = ops.partial_sqdist(exchange.float(), out.float().contiguous(), m)
+    sq = ops.partial_sqdist(ops.messages(exchange), out.float().contiguous(), m)
     live = (m > 0).float()
     dist = torch.sqrt(sq) * live
     inv = m / torch.clamp(torch.sqrt(sq), min=_FLOOR)

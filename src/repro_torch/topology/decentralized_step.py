@@ -29,7 +29,13 @@ per slot), K1 updating the cohort's rows of the resident SAGA table in
 place; staleness weights scale the sender columns of the mask; guards
 quarantine edges per receiver (:func:`repro_torch.core.guards.pairwise_guard_mask`)
 and a rejected round keeps every node's state; diagnostics report the
-masked rules' per-sender summary.
+masked rules' per-sender summary.  On a quantized wire (``message_dtype``
+``int8`` or ``sign1``) the honest senders transmit through
+:func:`repro_torch.core.robust_step.wire_transmit`: the corrected gradients
+in gradient gossip, the half-stepped models in params gossip (sign1's
+residuals then track the param channel).  The per-edge Byzantine payloads
+are not re-quantized, as in the reference: they replace the senders'
+entries wholesale.  On the bf16 wire the exchange is bf16.
 
 The sharded, ``torch.distributed`` form of the reference's
 ``decentralized_aggregate`` is ROADMAP.md Queue A item 10.
@@ -44,10 +50,11 @@ import torch
 from repro_torch.core import attacks as attack_lib
 from repro_torch.core import guards as guards_lib
 from repro_torch.core import participation as participation_lib
-from repro_torch.core.robust_step import (FederatedState, per_sample_table,
-                                          resolve_plan, round_slots,
+from repro_torch.core.robust_step import (FederatedState, init_ef,
+                                          per_sample_table, resolve_plan,
+                                          restore_ef, round_slots,
                                           sample_rows, slot_weights,
-                                          worker_batches)
+                                          wire_transmit, worker_batches)
 from repro_torch.device import DEFAULT_DEVICE, generator_for, resolve_device
 from repro_torch.optim import optimizers as optim_lib
 from repro_torch.telemetry import diagnostics as diag_lib
@@ -73,7 +80,8 @@ def build_exchange(msgs: torch.Tensor, cfg: attack_lib.AttackConfig,
                    generator: Optional[torch.Generator] = None, *,
                    noise: Optional[torch.Tensor] = None,
                    spec=None) -> torch.Tensor:
-    """The per-edge message exchange (R, S, D) float32.
+    """The per-edge message exchange (R, S, D), in ``msgs``' dtype (bf16 on
+    the bf16 wire, float32 otherwise).
 
     ``msgs``: (S, D) honestly computed messages (Byzantine rows are
     ignored); ``mask``: (R, S) neighbour-mask rows of the receivers;
@@ -92,9 +100,10 @@ def build_exchange(msgs: torch.Tensor, cfg: attack_lib.AttackConfig,
     attack_lib.check_attack_name(cfg.name)
     r = mask.shape[0]
     s, d = msgs.shape
-    m32 = msgs.float()
     if cfg.name == "none" or cfg.num_byzantine == 0:
-        return m32[None].expand(r, s, d)
+        return msgs[None].expand(r, s, d)
+    # The payloads are computed in float32 and cast on store.
+    m32 = msgs.float()
     byz_f = is_byz.float()
     hon_w = mask * (1.0 - byz_f)[None, :]                       # (R, S)
     h_cnt = torch.clamp(torch.sum(hon_w, dim=1), min=1.0)       # (R,)
@@ -135,8 +144,9 @@ def build_exchange(msgs: torch.Tensor, cfg: attack_lib.AttackConfig,
                                  f"{tuple(noise.shape)}")
             draws = noise.to(msgs.device, torch.float32)[:, is_byz]
         byz = mean[:, None] + math.sqrt(cfg.gaussian_variance) * draws
-    exchange = m32[None].expand(r, s, d).clone()
-    exchange[:, is_byz] = byz[:, None] if byz.dim() == 2 else byz
+    exchange = msgs[None].expand(r, s, d).clone()
+    exchange[:, is_byz] = (byz[:, None] if byz.dim() == 2 else byz
+                           ).to(msgs.dtype)
     return exchange
 
 
@@ -209,18 +219,21 @@ def make_decentralized_step(
                      if plan is not None else None)
         health = guards_lib.init_health(dev) if cfg.guards else None
         return FederatedState(nodes, optimizer.init(nodes), vr_state, 0,
-                              generator_for(seed, dev), staleness, health)
+                              generator_for(seed, dev), staleness,
+                              init_ef(spec, num_clients, dev), health)
 
     def oracles(honest_params, spec, slots, batches) -> dict:
-        """lsvrg's oracles against each honest node's own params."""
+        """lsvrg's oracles against each honest node's own params (packed:
+        rounded to bf16 on the bf16 wire, as the reference unpacks them)."""
         if not reducer.uses_oracles:
             return {}
+        flat = spec.pack(honest_params)
         return dict(
-            params=spec.pack(honest_params),
+            params=flat,
             grads_at=lambda p: spec.pack(per_node_grads(
                 spec.unpack(p, batch_ndim=1), batches)),
             full_grads_at=lambda sel: spec.pack(per_node_grads(
-                {k: v[sel] for k, v in honest_params.items()},
+                spec.unpack(flat[sel], batch_ndim=1),
                 {k: v[slots[sel]] for k, v in data.items()})))
 
     @torch.no_grad()
@@ -244,6 +257,12 @@ def make_decentralized_step(
         # Staleness weights scale the mask's sender columns.
         sw, slot_stal = slot_weights(cfg, honest_stal, b)
         wmask = mask if sw is None else mask * sw[None, :]
+        # Gradient gossip sends the corrected gradients over the wire;
+        # params gossip sends the half-stepped models instead (below), so
+        # only one channel pays the wire.
+        ef, ef_held = state.ef, None
+        if gossip == "gradient":
+            honest, ef, ef_held = wire_transmit(spec, honest, state.ef, rows)
         var = telemetry.honest_variance(honest, wh)
         # Byzantine node rows carry zeros until the attack replaces them.
         msgs = torch.zeros((n, honest.shape[1]), dtype=honest.dtype,
@@ -281,7 +300,12 @@ def make_decentralized_step(
                 spec.unpack(msgs, batch_ndim=1), state.opt_state,
                 state.params, state.step)
             half = optim_lib.apply_updates(state.params, updates)
-            params, diag = gossip_agg(spec.pack(half))
+            wire = spec.pack(half)                              # (N, D)
+            if spec.quantized:
+                sent, ef, ef_held = wire_transmit(spec, wire[:wh], state.ef,
+                                                  rows)
+                wire = torch.cat([sent, wire[wh:]])
+            params, diag = gossip_agg(wire)
             watch = params
         else:
             agg, diag = gossip_agg(msgs)
@@ -300,12 +324,14 @@ def make_decentralized_step(
             if not bool(accept):
                 params, opt_state = state.params, state.opt_state
                 reducer.restore(vr_state, held, idx, rows)
+                ef = restore_ef(ef, ef_held, rows)
             guard_info.update(telemetry.health_metrics(health, accept))
         consensus = telemetry.honest_variance(
-            spec.pack({k: v[:wh] for k, v in params.items()}), wh)
+            spec.pack({k: v[:wh] for k, v in params.items()},
+                      dtype=torch.float32), wh)
         new_state = FederatedState(params, opt_state, vr_state,
                                    state.step + 1, state.generator, staleness,
-                                   health)
+                                   ef, health)
         metrics = {"honest_variance": var, "consensus_dist": consensus,
                    **vr_metrics, **telemetry.staleness_metrics(slot_stal),
                    **guard_info}

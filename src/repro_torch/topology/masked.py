@@ -28,7 +28,8 @@ Kernels on a CUDA device (their plain versions on the CPU):
 Every kernel takes any number of senders and receivers that fits in memory.
 
 ``median``, ``krum`` and ``centered_clip`` are torch ops, as the
-reference's are jnp.
+reference's are jnp, in float32.  A bf16 exchange (the bf16 wire) goes to
+the kernels as it is.
 
 K7 reduces by 0/1 counts (a sender with mask > 0 counts once).  Staleness
 weights come in as ``row_weights`` (S,), which :func:`masked_aggregate_flat`
@@ -73,7 +74,7 @@ def masked_mean(exchange: torch.Tensor, mask: torch.Tensor, *,
     stochastic matrix) this is one DGD gossip step; without, the uniform
     mean over the masked senders."""
     weights = mask if mixing is None else mixing * mask
-    return _weighted_mean(exchange.float(), weights)
+    return _weighted_mean(ops.messages(exchange), weights)
 
 
 def _masked_sorted(z: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -106,8 +107,8 @@ def masked_trimmed_mean(exchange: torch.Tensor, mask: torch.Tensor, *,
     carries staleness weights) the neighbour count is ``int(sum_s mask[r,
     s])``, the reference's, and the rule runs in torch."""
     if not weighted:
-        return ops.masked_neighbor_reduce(exchange.float(), mask.contiguous(),
-                                          trim=trim)
+        return ops.masked_neighbor_reduce(ops.messages(exchange),
+                                          mask.contiguous(), trim=trim)
     n = torch.sum(mask, dim=1).to(torch.int64)                  # (R,)
     s = _masked_sorted(exchange.float(), mask)
     ranks = torch.arange(s.shape[1], device=s.device)[None, :, None]
@@ -128,7 +129,7 @@ def masked_weiszfeld(exchange: torch.Tensor, mask: torch.Tensor, *,
     ``sqrt(max_r move_r)`` decides the one stop for all receivers (``tol``,
     or ``max_iters``).  Non-neighbours get weight 0, so the restriction is
     exact.  ``exchange`` may be a column slice of a wider buffer."""
-    z = exchange if exchange.dtype == torch.float32 else exchange.float()
+    z = ops.messages(exchange)
     mask = mask.contiguous()
     y = (_weighted_mean(z, mask) if weighted
          else ops.masked_neighbor_reduce(z, mask, trim=0))
@@ -172,7 +173,7 @@ def masked_geomed_blockwise(exchange: torch.Tensor, mask: torch.Tensor, *,
     the packed buffer runs its own lockstep masked Weiszfeld (read in
     place), one block after another; padding aggregates to zero.  With
     ``return_info``, one :class:`WeiszfeldInfo` per block as well."""
-    z = exchange.float()
+    z = ops.messages(exchange)
     solved = [masked_weiszfeld(z[:, :, a:b], mask, max_iters=max_iters,
                                tol=tol, weighted=weighted,
                                return_info=True)

@@ -179,12 +179,17 @@ def test_packing_round_trip_matches_reference(batch_shape):
 
 
 def test_packing_pad_and_unported_wire():
+    """Padding is zero-filled; every wire of the reference builds a spec
+    whose buffer has the format's cast dtype; an unknown name raises."""
     spec = packing.pack_spec({"w": torch.zeros(2, 5)}, pad_to=4)
     buf = spec.pack({"w": torch.ones(2, 5)})
     assert buf.shape == (2, 8) and float(buf[:, 5:].abs().sum()) == 0.0
-    for name in ("bfloat16", "int8", "sign1"):
-        with pytest.raises(ValueError, match="Queue A item 7"):
-            packing.pack_spec({"w": torch.zeros(2)}, wire=name)
+    for name, dtype in (("bfloat16", torch.bfloat16), ("int8", torch.float32),
+                        ("sign1", torch.float32)):
+        wspec = packing.pack_spec({"w": torch.zeros(2)}, wire=name)
+        assert wspec.wire == name and wspec.message_dtype == dtype
+    with pytest.raises(ValueError, match="message_dtype must be one of"):
+        packing.pack_spec({"w": torch.zeros(2)}, wire="fp8")
 
 
 # -- aggregation ---------------------------------------------------------------
@@ -244,8 +249,7 @@ def test_registries_pin_the_reference_names():
         set(jattacks.ATTACK_NAMES)
     assert set(variance.VR_NAMES) | set(variance.UNPORTED) == \
         set(jvariance.VR_NAMES)
-    assert set(packing.WIRE_FORMAT_NAMES) | set(packing._UNPORTED_WIRES) == \
-        set(jpacking.WIRE_FORMAT_NAMES)
+    assert set(packing.WIRE_FORMAT_NAMES) == set(jpacking.WIRE_FORMAT_NAMES)
     with pytest.raises(ValueError, match="krum"):
         aggregators.get_flat_aggregator("nope", None)
     assert attacks.UNPORTED == () and variance.UNPORTED == ()
@@ -368,10 +372,33 @@ def test_robust_config_mirrors_reference_fields():
                    for f in dataclasses.fields(robust_step.RobustConfig)}
     assert port_fields == ref_fields
     robust_step.RobustConfig(num_clients=4, guards=True, diagnostics=True)
-    for field, item in (("packed", False), ("message_dtype", "int8"),
-                        ("comm", "sharded")):
+    for field, item in (("packed", False), ("comm", "sharded")):
         with pytest.raises(ValueError, match="outside the ported slice"):
             robust_step.RobustConfig(**{field: item})
+
+
+def test_state_from_jax_carries_ef_and_bf16_state():
+    """The bf16 wire's table and avg stay bf16 (the same bits), and sign1's
+    error-feedback residuals come across as float32."""
+    import ml_dtypes
+    from repro.core import saga as jsaga
+    rng = np.random.default_rng(10)
+    table = rng.standard_normal((3, 4, 5)).astype(ml_dtypes.bfloat16)
+    avg = table.astype(np.float32).mean(1).astype(ml_dtypes.bfloat16)
+    ef = rng.standard_normal((3, 5)).astype(np.float32)
+    st = jstep.FederatedState(
+        params={"w": rng.standard_normal(5).astype(np.float32)}, opt_state=(),
+        vr=jsaga.SagaState(table=table, avg=avg), step=np.int32(2),
+        key=np.zeros(2, np.uint32), ef=ef)
+    out = convert.state_from_jax(st, device="cpu")
+    assert out.vr.table.dtype == out.vr.avg.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        out.vr.table.view(torch.int16).numpy().view(np.uint16),
+        table.view(np.uint16))
+    np.testing.assert_array_equal(out.vr.avg.float().numpy(),
+                                  avg.astype(np.float32))
+    assert out.ef.dtype == torch.float32
+    np.testing.assert_array_equal(out.ef.numpy(), ef)
 
 
 def test_state_from_jax_carries_params_table_and_step():

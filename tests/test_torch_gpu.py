@@ -40,6 +40,7 @@ from repro_torch.data import ijcnn1_like, logreg_loss, partition
 from repro_torch.kernels import ops
 from repro_torch.kernels import robust_stats as rs
 from repro_torch.kernels import saga_correct as sc
+from repro_torch.kernels import topology as tp
 from repro_torch.kernels import weiszfeld as wz
 from repro_torch.optim import get_optimizer
 
@@ -1135,3 +1136,197 @@ def test_serving_prefill_runs_the_wgmma_route():
         model.decode_step(params, cache, tokens[:, -1:], 37)
         assert fa.VARIANT_LAUNCHES == {"wgmma": 0, "simt": 0}
     assert bool(torch.isfinite(lg).all())
+
+
+# -- the bf16 routes of K1-K7 (the bf16 wire) ------------------------------------
+#
+# K2-K7 only load bfloat16 in place of float32 (the conversion is exact), so
+# each bf16 route is held bitwise against the float32 kernel on the upcast
+# input laid out alike (a slice of the upcast buffer for a slice: both then
+# take the same load path, 4-element or scalar, and sum in the same order),
+# and at rtol 1e-5 against the plain version; K1 rounds after every
+# operation as the plain version's bf16 ops do, so it is held bitwise against
+# the plain version on bf16 tensors.  The shapes are tests/test_kernels.py's
+# sweep (ragged p, odd W), workload B's width and the routes past each cap.
+
+BF16_SHAPES = [(7, 300), (8, 64), (3, 1), (70, 39_760)]
+
+
+def _bf16_inputs(w, p, seed=0):
+    z, y, a, *_ = _inputs(w, p, seed)
+    zb = z.bfloat16()
+    zb[min(1, w - 1)] = zb[0]                      # ties after the rounding
+    return zb, y, a
+
+
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    """The bits of a float32 or bfloat16 tensor, as integers."""
+    return t.contiguous().view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,p", BF16_SHAPES)
+def test_bf16_flat_routes_equal_float32_kernel_on_upcast(w, p):
+    """K2, K3, K4, K5 and K6 on a bf16 z: float32 out, the bits of the
+    float32 kernel on z.float(), and the plain version at rtol 1e-5."""
+    _need_card()
+    zb, y, a = _bf16_inputs(w, p, seed=w + p)
+    zf = zb.float()
+    seg = (torch.arange(p, device="cuda") * 3 // max(p, 1)).to(torch.int32)
+    trim = (w - 1) // 2 if w < 5 else 2
+    pairs = {
+        "partial_sqdist": (lambda z: wz.partial_sqdist_call(z, y),
+                           wz.partial_sqdist_plain(zb, y)),
+        "weighted_sum": (lambda z: wz.weighted_sum_call(z, a),
+                         wz.weighted_sum_plain(zb, a)),
+        "coordinate_median": (rs.coordinate_median_call,
+                              rs.coordinate_median_plain(zb)),
+        "trimmed_mean": (lambda z: rs.trimmed_mean_call(z, trim),
+                         rs.trimmed_mean_plain(zb, trim)),
+        "partial_sqdist_segments": (
+            lambda z: wz.partial_sqdist_segments_call(z, y, seg, 3),
+            wz.partial_sqdist_segments_plain(zb, y, seg, 3)),
+    }
+    ops.reset_launch_counts()
+    for name, (call, plain) in pairs.items():
+        got = call(zb)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32, name
+        assert torch.equal(_raw(got), _raw(call(zf))), name
+        _close(got, plain)
+    assert ops.bf16_launch_counts() == {
+        "partial_sqdist": 1, "partial_sqdist unmasked": 1, "weighted_sum": 1,
+        "coordinate_median": 1, "trimmed_mean": 1, "partial_sqdist_segments": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [129, 455])
+def test_bf16_order_stat_rank_routes(w):
+    """K4 and K5 past the network (the shared-memory rank count at 129, the
+    global one at 455): the float32 kernel's bits on the upcast."""
+    _need_card()
+    zb, *_ = _bf16_inputs(w, 300, seed=w)
+    for call in (rs.coordinate_median_call, lambda z: rs.trimmed_mean_call(z, 7)):
+        assert torch.equal(_raw(call(zb)), _raw(call(zb.float())))
+    _close(rs.trimmed_mean_call(zb, 7), rs.trimmed_mean_plain(zb, 7))
+
+
+@pytest.mark.gpu
+def test_bf16_weighted_sum_and_sqdist_read_column_slices():
+    """A column slice of a bf16 buffer (rows 1,000 + 2 elements apart: the
+    scalar-load path) and a misaligned base: the float32 kernel's bits."""
+    _need_card()
+    zb, y, a = _bf16_inputs(7, 1002)
+    zf = zb.float()
+    for lo, hi in ((2, 302), (1, 1001), (0, 1002), (4, 304)):
+        sl, slf, ys = zb[:, lo:hi], zf[:, lo:hi], y[lo:hi].contiguous()
+        assert torch.equal(_raw(wz.weighted_sum_call(sl, a)),
+                           _raw(wz.weighted_sum_call(slf, a)))
+        assert torch.equal(_raw(wz.partial_sqdist_call(sl, ys)),
+                           _raw(wz.partial_sqdist_call(slf, ys)))
+        _close(wz.weighted_sum_call(sl, a), wz.weighted_sum_plain(sl, a))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,p", BF16_SHAPES)
+def test_bf16_saga_kernel_bitwise_plain(w, p):
+    """K1's bf16 route on both routes: msg, avg and table bitwise the plain
+    version's bf16 ops; an out-of-range index gives a NaN message and
+    leaves the state alone."""
+    _need_card()
+    *_, grad, table, avg, idx = _inputs(w, p, seed=w)
+    grad, table, avg = grad.bfloat16(), table.bfloat16(), avg.bfloat16()
+    tab_k, avg_k = table.clone(), avg.clone()
+    msg_k = sc.saga_correct_call(grad, tab_k, avg_k, idx)
+    msg_p = sc.saga_correct_plain(grad, table, avg, idx)
+    torch.cuda.synchronize()
+    assert msg_k.dtype == torch.bfloat16
+    for got, want in ((msg_k, msg_p), (avg_k, avg), (tab_k, table)):
+        assert torch.equal(_raw(got), _raw(want))
+    idx[0] = J
+    tab0, avg0 = tab_k.clone(), avg_k.clone()
+    msg = sc.saga_correct_call(grad, tab_k, avg_k, idx)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(msg[0].float()).all())
+    assert torch.equal(tab_k[0], tab0[0]) and torch.equal(avg_k[0], avg0[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,j,p,w", [(13, 3, 300, 7), (40, 4, 39_760, 11)])
+def test_bf16_saga_kernel_client_rows_bitwise_plain(c, j, p, w):
+    _need_card()
+    grad, table, avg, idx, rows = _client_inputs(c, j, p, w)
+    grad, table, avg = grad.bfloat16(), table.bfloat16(), avg.bfloat16()
+    tab_k, avg_k = table.clone(), avg.clone()
+    ops.reset_launch_counts()
+    msg_k = sc.saga_correct_call(grad, tab_k, avg_k, idx, rows)
+    msg_p = sc.saga_correct_plain(grad, table, avg, idx, rows)
+    torch.cuda.synchronize()
+    for got, want in ((msg_k, msg_p), (avg_k, avg), (tab_k, table)):
+        assert torch.equal(_raw(got), _raw(want))
+    assert ops.bf16_launch_counts() == {"saga_correct": 1,
+                                        "saga_correct clients": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,s,d,trim", [(7, 7, 300, t) for t in (0, 1, 2)]
+                         + [(3, 40, 129, t) for t in (0, 1, 2, 17)])
+def test_bf16_masked_routes_equal_float32_kernel_on_upcast(r, s, d, trim):
+    """K7 (sum, select, rank), the masked and batched K2 and the batched
+    K3 on a bf16 exchange: the float32 kernel's bits on the upcast, and
+    the plain version at rtol 1e-5; also read as a column slice and as one
+    matrix broadcast to every receiver."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(r * s + trim)
+    ex = torch.randn((r, s, d + 6), generator=g, device="cuda").bfloat16()
+    mask = (torch.rand((r, s), generator=g, device="cuda") < 0.7).float()
+    mask[:, :2 * trim + 1] = 1.0
+    y = torch.randn((r, d), generator=g, device="cuda")
+    exf, one = ex.float(), ex[0, :, :d].contiguous()
+    for x, xf in ((ex[..., :d].contiguous(), exf[..., :d].contiguous()),
+                  (ex[..., 3:3 + d], exf[..., 3:3 + d]),
+                  (one[None].expand(r, s, d), one.float()[None].expand(r, s, d))):
+        got = tp.masked_neighbor_reduce_call(x, mask, trim)
+        assert torch.equal(_raw(got), _raw(tp.masked_neighbor_reduce_call(xf, mask, trim)))
+        _close(got, tp.masked_neighbor_reduce_plain(x, mask, trim))
+        for m in (mask, None):
+            got = wz.partial_sqdist_call(x, y, m)
+            assert torch.equal(_raw(got), _raw(wz.partial_sqdist_call(xf, y, m)))
+            _close(got, wz.partial_sqdist_plain(x, y, m))
+        got = wz.weighted_sum_call(x, mask)
+        assert torch.equal(_raw(got), _raw(wz.weighted_sum_call(xf, mask)))
+        _close(got, wz.weighted_sum_plain(x, mask))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wire", ["bfloat16", "int8", "sign1"])
+@pytest.mark.parametrize("topology", ["star", "ring"])
+def test_wire_steps_on_card_match_cpu(wire, topology):
+    """Five steps of each wire on the card, master and decentralized, track
+    the plain CPU path from the same data, state and draws (atol 2e-2 on the
+    bf16 wire, where one last-bit difference moves a bf16 rounding; rtol 1e-4
+    otherwise), and the bf16 wire runs the kernels' bf16 routes."""
+    _need_card()
+    data = ijcnn1_like(0, n=240, device="cpu")
+    wd = partition({"a": data.x, "b": data.y}, 12, seed=1, device="cpu")
+    cfg = RobustConfig(aggregator="geomed", vr="saga", attack="sign_flip",
+                       num_byzantine=3, topology=topology, message_dtype=wire)
+    draws = np.random.default_rng(3).integers(0, 20, (5, 12))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        init_fn, step_fn = make_federated_step(
+            logreg_loss(0.01), wd, cfg, get_optimizer("sgd", 0.02), device=dev)
+        st = init_fn({"w": torch.zeros(22)}, 0)
+        ops.reset_launch_counts()
+        for idx in draws:
+            st, _ = step_fn(st, sample_idx=idx)
+        out[dev] = (st.params["w"].cpu(), ops.bf16_launch_counts())
+    tol = dict(rtol=0, atol=2e-2) if wire == "bfloat16" else dict(rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], **tol)
+    bf16 = out["cuda"][1]
+    if wire == "bfloat16":
+        assert bf16["saga_correct"] == 5 and bf16["weighted_sum"] >= 5, bf16
+        assert bf16["partial_sqdist"] == bf16["weighted_sum"], bf16
+    else:
+        assert bf16 == {}, bf16
+    assert out["cpu"][1] == {}

@@ -186,16 +186,18 @@ def test_route_counts_reset_and_stay_zero_on_the_cpu():
 @pytest.mark.parametrize("kernel", ["saga_correct", "partial_sqdist",
                                     "weighted_sum"])
 def test_kernels_reject_non_float32(kernel):
+    """float32 and the bf16 wire's bfloat16 are the message dtypes; float16
+    raises."""
     z, y, a = _msgs(3, 8)
     grad, table, avg, idx = _saga_inputs(3, 8)
-    bf = lambda x: _t(x).to(torch.bfloat16)
-    with pytest.raises(TypeError, match="float32"):
+    hf = lambda x: _t(x).to(torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
         if kernel == "saga_correct":
-            ops.saga_correct(bf(grad), bf(table), bf(avg), _t(idx))
+            ops.saga_correct(hf(grad), hf(table), hf(avg), _t(idx))
         elif kernel == "partial_sqdist":
-            ops.partial_sqdist(bf(z), bf(y))
+            ops.partial_sqdist(hf(z), _t(y))
         else:
-            ops.weighted_sum(bf(z), bf(a))
+            ops.weighted_sum(hf(z), _t(a))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

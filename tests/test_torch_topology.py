@@ -668,8 +668,7 @@ def test_decentralized_errors_raise():
                      schedule_period=2)
     with pytest.raises(ValueError, match="gossip"):
         _logreg_step(topology="ring", gossip="both")
-    for field in (dict(packed=False), dict(message_dtype="int8"),
-                  dict(comm="sharded")):
+    for field in (dict(packed=False), dict(comm="sharded")):
         with pytest.raises(ValueError, match="outside the ported slice"):
             RobustConfig(topology="ring", **field)
 
