@@ -2191,6 +2191,23 @@ WIRE_B_RUNS = (("bfloat16", "geomed"), ("bfloat16", "median"),
 WIRE_D_RUNS = (("bfloat16", "gradient", "geomed"),
                ("bfloat16", "gradient", "trimmed_mean"),
                ("sign1", "params", "geomed"))
+# Each wires run's printed mean loss, accuracy and Weiszfeld iterations a
+# step.  Every kernel's bf16 route gives the float32 kernel's bits on the
+# upcast (K1 its plain version's bf16 ops), so these are fixed by the seeds:
+# a kernel change that moves one of them changed the result, not the speed.
+WIRE_RUN_RESULTS = {
+    "B bfloat16 geomed": ("1.966829", "0.8525", "12.40"),
+    "B bfloat16 median": ("1.826405", "0.9598", "0.00"),
+    "B bfloat16 trimmed_mean": ("1.959949", "0.8490", "0.00"),
+    "B bfloat16 geomed_blockwise": ("1.971895", "0.8582", "0.00"),
+    "B int8 geomed": ("1.966960", "0.8520", "12.45"),
+    "B sign1 geomed": ("2.037521", "0.6797", "12.45"),
+    "G1 sign1": ("1.176075", "1.0000", "30.15"),
+    "G1 bfloat16": ("0.347716", "1.0000", "21.55"),
+    "D gradient geomed bfloat16": ("2.024719", "0.7007", "63.50"),
+    "D gradient trimmed_mean bfloat16": ("1.952774", "0.6960", "0.00"),
+    "D params geomed sign1": ("2.302547", "0.1021", "64.00"),
+}
 
 
 def raw_bits(t):
@@ -2502,8 +2519,8 @@ def phase_wires_timing(torch):
 
 def phase_wires_runs(torch, card, b_peak_gb):
     """Workload B under each wire, G1 under sign1 and bfloat16, and D under
-    bfloat16 and sign1, 20 steps each; returns their launch counts by
-    run label."""
+    bfloat16 and sign1, 20 steps each, each printing WIRE_RUN_RESULTS;
+    returns their launch counts and summaries by run label."""
     t0 = time.perf_counter()
     counts, rows = {}, {}
     for wire, agg in WIRE_B_RUNS:
@@ -2554,8 +2571,15 @@ def phase_wires_runs(torch, card, b_peak_gb):
         log(f"  {label:<34} {r['step_ms']:9.3f} {r.get('busy_us', math.nan):9.1f} "
             f"{r.get('idle', math.nan):7.3f} {r['iters']:7.2f} {r['peak_gb']:7.2f} "
             f"{r['loss']:10.6f} {r['accuracy']:8.4f}")
+    assert set(rows) == set(WIRE_RUN_RESULTS), sorted(rows)
+    for label, want in WIRE_RUN_RESULTS.items():
+        r = rows[label]
+        got = (f"{r['loss']:.6f}", f"{r['accuracy']:.4f}", f"{r['iters']:.2f}")
+        assert got == want, f"wires run {label}: (loss, accuracy, iters) {got} != {want}"
+    log(f"wires runs: every loss, accuracy and iteration count as fixed by the seeds "
+        f"({len(rows)} runs): ok")
     log(f"wires runs {time.perf_counter() - t0:.1f} s")
-    return counts
+    return counts, rows
 
 
 def phase_wires_claims(torch):
@@ -2607,14 +2631,15 @@ def phase_wires_claims(torch):
 
 def phase_wires(torch, card, b_peak_gb):
     """Phase 17: the bf16 routes' checks and times, the runs under each
-    wire, the two claims.  Returns (errors, timing, counts by run)."""
+    wire, the two claims.  Returns (errors, timing, counts by run,
+    summaries by run)."""
     t0 = time.perf_counter()
     errs = phase_wires_kernel_checks(torch)
     timing = phase_wires_timing(torch)
-    counts = phase_wires_runs(torch, card, b_peak_gb)
+    counts, rows = phase_wires_runs(torch, card, b_peak_gb)
     phase_wires_claims(torch)
     log(f"wires phase {time.perf_counter() - t0:.1f} s")
-    return errs, timing, counts
+    return errs, timing, counts, rows
 
 
 def main() -> int:
@@ -2642,8 +2667,8 @@ def main() -> int:
     # device_ms, which its K1 timing uses, is reliable at this point).
     phase_options(torch, card, errs, counts, timing, summaries["geomed"])
     # The wires (phase 17), early too: its timing uses torch.profiler.
-    w_errs, w_timing, w_counts = phase_wires(torch, card,
-                                             summaries["geomed"]["peak_gb"])
+    w_errs, w_timing, w_counts, w_rows = phase_wires(torch, card,
+                                                     summaries["geomed"]["peak_gb"])
     errs.update(w_errs)
     counts.update(w_counts)
     # The step without the Weiszfeld loop, then every other rule.
@@ -2674,6 +2699,10 @@ def main() -> int:
         log(f"  {label:<24} {r['step_ms']:9.3f} {r['peak_gb']:7.2f} "
             f"{r['loss']:10.6f} {r['accuracy']:8.4f} {r['iters']:7.2f} "
             f"{r['consensus']:.6g}")
+    b16, b32 = w_rows["D gradient geomed bfloat16"], summaries_d["D gradient geomed"]
+    log(f"workload D gradient geomed device busy ({card}): bfloat16 "
+        f"{b16['busy_us']:.1f} us a step, float32 {b32['busy_us']:.1f} us, "
+        f"bf16/f32 {b16['busy_us'] / b32['busy_us']:.3f} (same process)")
     timing_d = phase_timing_d(torch)
     timing["masked_neighbor_reduce"] = timing_d[f"masked_neighbor_reduce trim {trim_d}"]
     timing["masked_neighbor_reduce sum"] = timing_d["masked_neighbor_reduce trim 0"]

@@ -28,15 +28,32 @@ __device__ __forceinline__ float ldg_f32(const __nv_bfloat16* p) {
       static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p))) << 16);
 }
 
+// The raw words of 4 (8) consecutive bfloat16 elements in one 8-byte
+// (16-byte) load, p aligned to their size; element i is the low half of
+// word i / 2 when i is even, the high half when odd.  A kernel that keeps
+// several loads in flight holds the words and converts them where it uses
+// the values: a conversion right after a load waits for that load before
+// the next one starts.
+__device__ __forceinline__ uint2 ldg4_raw(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const uint2*>(p));
+}
+__device__ __forceinline__ uint4 ldg8_raw(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// The float32 values of 4 bfloat16 elements held as two raw words (exact).
+__device__ __forceinline__ float4 bf16x4_f32(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
 // Four consecutive elements (16 bytes of float32, 8 of bfloat16) in one
 // load; p must be aligned to their size.
 __device__ __forceinline__ float4 ldg4_f32(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 __device__ __forceinline__ float4 ldg4_f32(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+  return bf16x4_f32(ldg4_raw(p));
 }
 
 // float32 -> the element type, rounding to nearest even for bfloat16.

@@ -2,8 +2,9 @@
 // (K3 weighted_sum, the masked route of K2 partial_sqdist, K7
 // masked_neighbor_reduce): compacting a row of weights or mask entries into
 // the ascending list of the rows to read, fixed-order block sums, the loads
-// of a warp's 128 coordinates of one row, and the fixed-order sum of the
-// kept rows that K3 and K7's trim-0 route share.
+// of a warp's 128 coordinates of one row (256 for a bfloat16 row read 16
+// bytes a lane), and the fixed-order sum of the kept rows that K3 and K7's
+// trim-0 route share.
 #pragma once
 
 #include "common.cuh"
@@ -126,12 +127,94 @@ __device__ __forceinline__ void store_cols(float* p, int64_t d0, int lane,
   }
 }
 
+// The 8-column layout of a bfloat16 row: `lane` holds the 8 coordinates
+// d0 + 8 lane + i (i = 0..7) of the 256 from d0, in one 16-byte load, so a
+// warp moves 512 bytes of a row as the float32 4-column layout does.
+// load_cols8 returns the raw words (ldg8_raw), converted where they are
+// added.  Where not all 8 lie below D, one 2-byte load per coordinate below
+// D and 0 (+0.0) past it.  p must be aligned to 8 elements and d0 a
+// multiple of 8.
+__device__ __forceinline__ uint4 load_cols8(const __nv_bfloat16* p, int64_t d0,
+                                            int lane, int64_t D) {
+  const int64_t d = d0 + 8 * lane;
+  if (d + 7 < D) return ldg8_raw(p + d);
+  const unsigned short* h = reinterpret_cast<const unsigned short*>(p) + d;
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned lo = d + 2 * i < D ? __ldg(h + 2 * i) : 0u;
+    const unsigned hi = d + 2 * i + 1 < D ? __ldg(h + 2 * i + 1) : 0u;
+    w[i] = lo | hi << 16;
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Stores the 8 values of `lane` (as load_cols8 lays them out, lo the first
+// 4) below D: two float4 stores where D % 4 == 0 and all 8 lie below D.
+__device__ __forceinline__ void store_cols8(float* p, int64_t d0, int lane,
+                                            int64_t D, const float4& lo,
+                                            const float4& hi) {
+  const int64_t d = d0 + 8 * lane;
+  if ((D & 3) == 0 && d + 7 < D) {
+    *reinterpret_cast<float4*>(p + d) = lo;
+    *reinterpret_cast<float4*>(p + d + 4) = hi;
+    return;
+  }
+  const float y[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    if (d + i < D) p[d + i] = y[i];
+}
+
+// The two column layouts of sum_kept_rows.  A lane loads its kN coordinates
+// of a row as a Raw, turns them into kN / 4 float4s of values where it adds
+// them, and stores its kN sums; a block covers kCols = 32 kN coordinates.
+// Cols4: load_cols/store_cols (float32 rows, and bfloat16 rows whose base
+// or strides do not allow Cols8).
+template <bool VEC>
+struct Cols4 {
+  static constexpr int kN = 4;
+  static constexpr int kCols = 32 * kN;
+  using Raw = float4;
+  template <typename T>
+  __device__ static Raw load(const T* p, int64_t d0, int lane, int64_t D) {
+    return load_cols<VEC>(p, d0, lane, D);
+  }
+  __device__ static void values(const Raw& r, float4 (&v)[1]) { v[0] = r; }
+  __device__ static void store(float* p, int64_t d0, int lane, int64_t D,
+                               const float4 (&v)[1]) {
+    store_cols<VEC>(p, d0, lane, D, v[0]);
+  }
+};
+
+// Cols8: load_cols8/store_cols8 (bfloat16 rows with Cols8::fits).
+struct Cols8 {
+  static constexpr int kN = 8;
+  static constexpr int kCols = 32 * kN;
+  using Raw = uint4;
+  __device__ static Raw load(const __nv_bfloat16* p, int64_t d0, int lane, int64_t D) {
+    return load_cols8(p, d0, lane, D);
+  }
+  __device__ static void values(const Raw& u, float4 (&v)[2]) {
+    v[0] = bf16x4_f32(make_uint2(u.x, u.y));
+    v[1] = bf16x4_f32(make_uint2(u.z, u.w));
+  }
+  __device__ static void store(float* p, int64_t d0, int lane, int64_t D,
+                               const float4 (&v)[2]) {
+    store_cols8(p, d0, lane, D, v[0], v[1]);
+  }
+  // Rows at base z with strides ld and rs (elements) take this layout: z
+  // 16-byte aligned, ld and rs multiples of 8.
+  __host__ static bool fits(const __nv_bfloat16* z, int64_t ld, int64_t rs) {
+    return reinterpret_cast<uintptr_t>(z) % 16 == 0 && ld % 8 == 0 && rs % 8 == 0;
+  }
+};
+
 // ---- Fixed-order sums of the rows a predicate keeps (K3 weighted_sum, K7's
 // trim-0 route) -----------------------------------------------------------------
 
 constexpr int kSumWarps = 8;                 // warps per block, each over a share of the rows
 constexpr int kSumThreads = 32 * kSumWarps;
-constexpr int kSumCols = 32 * 4;             // coordinates per block, 4 a lane
 constexpr int kSumUnroll = 8;                // rows in flight per warp
 constexpr int kSumCap = 2048;                // entries compacted at a time
 
@@ -149,45 +232,55 @@ __host__ __forceinline__ size_t kept_rows_smem(long long S, bool weighted) {
 
 // The block body of a sum over the rows s of z (at z + s * ld) whose entry
 // v[s] (s in [0, S)) passes keep, times v[s] with kWeighted, else once each,
-// over the 128 coordinates from d0 = blockIdx.x * kSumCols.  The kept
-// entries are compacted kSumCap at a time, ascending, into
+// over the Cols::kCols coordinates from d0 = blockIdx.x * Cols::kCols.  The
+// kept entries are compacted kSumCap at a time, ascending, into
 // kept_rows_smem(S, kWeighted) bytes of dynamic shared memory; warp w takes
 // the compacted rows w, w + 8, ... with up to kSumUnroll rows' loads in
 // flight and carries its sum from chunk to chunk; the 8 warps' sums are
-// added in warp order.  The order depends on nothing but v, so every run
-// gives the same bits.  S <= kSumCap (one chunk) takes a straight-line call
-// of the same chunk body, with the same bits: on the H100 it saves about
-// 0.18 us of K3's 5 us at workload B and 3 us of K7's 157 us at D
-// (tools/torch_kernel_times.py).  Every thread of the block (kSumThreads)
-// must call it.
-// Returns true in warp 0, whose lanes then hold in acc the sums of their 4
-// coordinates (as load_cols lays them out), false elsewhere.  VEC: z and ld
-// allow 4-element loads.  z may be float32 or bfloat16 (T).
-template <bool VEC, bool kWeighted, typename T, typename Keep>
+// added in warp order.  The order of each coordinate's sum depends on
+// nothing but v, not on the layout (Cols) or the grid, so every run and
+// every layout gives the same bits: a bfloat16 row on Cols8 gives the bits
+// of its float32 upcast on Cols4.  S <= kSumCap (one chunk) takes a
+// straight-line call of the same chunk body, with the same bits: on the
+// H100 it saves about 0.18 us of K3's 5 us at workload B and 3 us of K7's
+// 157 us at D (tools/torch_kernel_times.py).  Every thread of the block
+// (kSumThreads) must call it.
+// Returns true in warp 0, whose lanes then hold in acc the sums of their
+// Cols::kN coordinates (as Cols lays them out), false elsewhere.  z may be
+// float32 or bfloat16 (T), with a Cols that takes it.
+template <class Cols, bool kWeighted, typename T, typename Keep>
 __device__ bool sum_kept_rows(const T* __restrict__ z, const float* __restrict__ v,
-                              int S, Keep keep, int64_t ld, int64_t D, float4& acc) {
+                              int S, Keep keep, int64_t ld, int64_t D,
+                              float4 (&acc)[Cols::kN / 4]) {
+  constexpr int kV = Cols::kN / 4;
   extern __shared__ int s_row[];   // a chunk's kept rows, then (kWeighted) their weights
   float* s_wt = kWeighted ? reinterpret_cast<float*>(s_row + min(S, kSumCap)) : nullptr;
   __shared__ int warp_n[kSumWarps];
-  __shared__ float4 part[kSumWarps - 1][32];
+  __shared__ float4 part[kSumWarps - 1][kV][32];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int64_t d0 = static_cast<int64_t>(blockIdx.x) * kSumCols;
-  acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int64_t d0 = static_cast<int64_t>(blockIdx.x) * Cols::kCols;
+#pragma unroll
+  for (int h = 0; h < kV; ++h) acc[h] = make_float4(0.f, 0.f, 0.f, 0.f);
   auto chunk = [&](int lo, int hi) {
     const int n = compact<kSumWarps>(v, lo, hi, keep, s_row, s_wt, warp_n);
     for (int j = warp; j < n; j += kSumUnroll * kSumWarps) {
-      float4 x[kSumUnroll];   // up to kSumUnroll rows' loads in flight, then in order
+      typename Cols::Raw x[kSumUnroll];   // up to kSumUnroll rows' loads in flight, then in order
 #pragma unroll
       for (int u = 0; u < kSumUnroll; ++u)
         if (j + u * kSumWarps < n)
-          x[u] = load_cols<VEC>(z + s_row[j + u * kSumWarps] * ld, d0, lane, D);
+          x[u] = Cols::load(z + s_row[j + u * kSumWarps] * ld, d0, lane, D);
 #pragma unroll
       for (int u = 0; u < kSumUnroll; ++u)
         if (j + u * kSumWarps < n) {
-          if (kWeighted)
-            fma4(s_wt[j + u * kSumWarps], x[u], acc);
-          else
-            add4(x[u], acc);
+          float4 val[kV];
+          Cols::values(x[u], val);
+#pragma unroll
+          for (int h = 0; h < kV; ++h) {
+            if (kWeighted)
+              fma4(s_wt[j + u * kSumWarps], val[h], acc[h]);
+            else
+              add4(val[h], acc[h]);
+          }
         }
     }
   };
@@ -195,11 +288,17 @@ __device__ bool sum_kept_rows(const T* __restrict__ z, const float* __restrict__
     chunk(0, S);
   else
     for (int c0 = 0; c0 < S; c0 += kSumCap) chunk(c0, min(S, c0 + kSumCap));
-  if (warp > 0) part[warp - 1][lane] = acc;
+  if (warp > 0) {
+#pragma unroll
+    for (int h = 0; h < kV; ++h) part[warp - 1][h][lane] = acc[h];
+  }
   __syncthreads();
   if (warp != 0) return false;
 #pragma unroll
-  for (int i = 0; i < kSumWarps - 1; ++i) add4(part[i][lane], acc);
+  for (int i = 0; i < kSumWarps - 1; ++i) {
+#pragma unroll
+    for (int h = 0; h < kV; ++h) add4(part[i][h][lane], acc[h]);
+  }
   return true;
 }
 

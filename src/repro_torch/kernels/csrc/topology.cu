@@ -26,7 +26,9 @@
 //
 // * "sum", trim = 0: the fixed-order sum of the members' rows, in the body
 //   K3 runs (rows.cuh's sum_kept_rows: 8 warps over 128 coordinates, 4 a
-//   lane, float4 loads where the base and strides allow; members split
+//   lane, float4 loads where the base and strides allow; 256 coordinates, 8
+//   a lane in one 16-byte load, for a bfloat16 exchange whose base is
+//   16-byte aligned and whose strides are multiples of 8; members split
 //   across the warps, warp w taking members w, w + 8, ...; up to 8 rows'
 //   loads in flight a warp; the 8 partial sums added in warp order),
 //   divided by max(n_r, 1).
@@ -59,7 +61,8 @@
 // Registers and spills of each specialisation (`nvcc -Xptxas -v`, printed by
 // chip_smoke.py's build phase): "select" 32 registers at trim 1-4, 40 at
 // 5-6, 48 at 7-10, 56 at 11-14, 64 at 15-16; "sum" 68 with scalar loads, 64
-// with float4 loads; "rank" 30; none spills.
+// with float4 loads, 80 on bfloat16's 16-byte route (8 bytes spilled, the
+// only spill); "rank" 30.
 //
 // NaN inputs: a member's NaN is not struck out; it is ordered above +inf, so
 // it is dropped when it falls among the trim largest, and a kept NaN (with
@@ -72,16 +75,21 @@
 //
 // bfloat16 exchange (the bf16 wire, masked_neighbor_reduce_bf16): every
 // route loads x in bfloat16, converted exactly to the float32 it works on;
-// the mapping of coordinates to threads and the order of every sum and
-// comparison are the float32 kernel's, so the bf16 route gives the bits of
-// the float32 kernel run on x.float(), at half the bytes of the members'
-// rows.  The mask and the output stay float32.
+// the order of every sum and comparison is the float32 kernel's, so the
+// bf16 route gives the bits of the float32 kernel run on x.float(), at half
+// the bytes of the members' rows.  "select" and "rank" also keep its mapping
+// of coordinates to threads; "sum" reads an aligned exchange 8 coordinates
+// a lane (rows.cuh's Cols8: half the blocks of the 4-a-lane layout, each
+// moving a float32 block's bytes a row, and the raw words held until they
+// are added, so a warp's row loads are all in flight at once), which moves
+// no coordinate's sum.  The mask and the output stay float32.
 //
 // Strides: x[r, s, d] lies at r * rs + s * ss + d, so a column slice of a
 // wider exchange, or one shared message row per sender broadcast to every
 // receiver (rs = 0), is read in place.  The mask and the output are
 // contiguous (R, S) and (R, D).
 #include <climits>
+#include <type_traits>
 
 #include "common.cuh"
 #include "rows.cuh"
@@ -117,7 +125,7 @@ __device__ float mask_total(const float* __restrict__ m, int S, float* s_red) {
 
 // ---- "sum": trim = 0 -------------------------------------------------------
 
-template <bool VEC, typename T>
+template <class Cols, typename T>
 __global__ void __launch_bounds__(rows::kSumThreads)
 masked_sum_kernel(const T* __restrict__ x, const float* __restrict__ mask,
                   float* __restrict__ out, int R, int S, int64_t D, int64_t rs,
@@ -127,13 +135,24 @@ masked_sum_kernel(const T* __restrict__ x, const float* __restrict__ mask,
   if (r >= R) return;   // the whole block
   mask += r * S;
   const float n = mask_total<rows::kSumWarps>(mask, S, s_red);
-  float4 acc;
-  if (!rows::sum_kept_rows<VEC, false>(x + r * rs, mask, S, rows::Positive(), ss, D, acc))
+  float4 acc[Cols::kN / 4];
+  if (!rows::sum_kept_rows<Cols, false>(x + r * rs, mask, S, rows::Positive(), ss, D, acc))
     return;
   const float den = fmaxf(n, 1.f);
-  acc = make_float4(acc.x / den, acc.y / den, acc.z / den, acc.w / den);
-  rows::store_cols<VEC>(out + r * D, static_cast<int64_t>(blockIdx.x) * rows::kSumCols,
-                        threadIdx.x % 32, D, acc);
+#pragma unroll
+  for (int h = 0; h < Cols::kN / 4; ++h)
+    acc[h] = make_float4(acc[h].x / den, acc[h].y / den, acc[h].z / den, acc[h].w / den);
+  Cols::store(out + r * D, static_cast<int64_t>(blockIdx.x) * Cols::kCols,
+              threadIdx.x % 32, D, acc);
+}
+
+template <class Cols, typename E>
+int launch_sum(const E* x, const float* mask, float* out, int R, int S, int64_t D,
+               int64_t rs, int64_t ss, cudaStream_t s) {
+  const dim3 grid = rows::grid_yz(static_cast<unsigned>((D + Cols::kCols - 1) / Cols::kCols), R);
+  masked_sum_kernel<Cols, E><<<grid, rows::kSumThreads, rows::kept_rows_smem(S, false), s>>>(
+      x, mask, out, R, S, D, rs, ss);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- "select": 1 <= trim <= 16 ------------------------------------------------
@@ -295,15 +314,13 @@ int masked_neighbor_reduce(const E* x, const float* mask, float* out, int R, int
   if (R == 0 || D == 0) return static_cast<int>(cudaGetLastError());
   const auto s = static_cast<cudaStream_t>(stream);
   if (*route == kRouteSum) {
-    const bool vec = aligned4(x) && ss % 4 == 0 && rs % 4 == 0;
-    const dim3 grid = rows::grid_yz(
-        static_cast<unsigned>((D + rows::kSumCols - 1) / rows::kSumCols), R);
-    const size_t smem = rows::kept_rows_smem(S, false);
-    if (vec)
-      masked_sum_kernel<true, E><<<grid, rows::kSumThreads, smem, s>>>(x, mask, out, R, S, D, rs, ss);
-    else
-      masked_sum_kernel<false, E><<<grid, rows::kSumThreads, smem, s>>>(x, mask, out, R, S, D, rs, ss);
-    return static_cast<int>(cudaGetLastError());
+    if constexpr (std::is_same<E, __nv_bfloat16>::value) {
+      if (rows::Cols8::fits(x, ss, rs))
+        return launch_sum<rows::Cols8>(x, mask, out, R, S, D, rs, ss, s);
+    }
+    return aligned4(x) && ss % 4 == 0 && rs % 4 == 0
+               ? launch_sum<rows::Cols4<true>>(x, mask, out, R, S, D, rs, ss, s)
+               : launch_sum<rows::Cols4<false>>(x, mask, out, R, S, D, rs, ss, s);
   }
   if (*route == kRouteSelect) {
     switch (trim) {

@@ -24,7 +24,8 @@
 //   as K3 compacts weights, loads y[r, chunk] once into registers, and
 //   streams only the members' rows: float4 loads where the base and strides
 //   allow, rows split across 8 warps (warp w takes members w, w + 8, ...),
-//   two rows (8 float4 loads a lane) in flight per warp.  Each (member,
+//   two rows (8 float4 loads a lane; four rows in bfloat16, below) in
+//   flight per warp.  Each (member,
 //   chunk) partial is one warp's fixed tree; the finish pass sums a member's
 //   partials in the unmasked route's fixed order and writes exactly 0 for a
 //   non-member, whose row is never read.  So the bits depend on nothing but
@@ -36,17 +37,34 @@
 //   senders do not influence the result (repro/topology/masked.py); the
 //   port keeps that promise in its kernels and plain versions alike, where
 //   the reference's own jnp engine lets 0 * inf through.  96 registers (97
-//   with float4 loads), no spills.
+//   with float4 loads; 92 for bfloat16), no spills.
 // No atomics: the same inputs give the same bits on every run.
 //
 // bfloat16 messages (the bf16 wire): every kernel here also takes z (the
 // matrix or the exchange) in bfloat16, with y, the weights, the mask and
-// the outputs in float32 (the *_bf16 entry points).  Only the load changes:
-// a bf16 value converts to float32 exactly (a shift), each lane's 4-element
-// load is 8 bytes instead of a float4 (where the base and strides allow it,
-// else the scalar path), and the coordinate-to-thread mapping and the order
-// of every sum are the float32 kernel's.  So the bf16 route gives the bits of
-// the float32 kernel run on z.float(), at half the bytes of z.
+// the outputs in float32 (the *_bf16 entry points).  A bf16 value converts
+// to float32 exactly (a shift) and the order of every sum is the float32
+// kernel's, so the bf16 route gives the bits of the float32 kernel run on
+// z.float() (laid out alike: a slice of the upcast for a slice), at half
+// the bytes of z.  The unmasked K2 and K6 only change the load: each lane's
+// 4-element load is 8 bytes instead of a float4 (where the base and strides
+// allow it, else the scalar path).  The two routes that stream member rows
+// were redesigned for 2-byte rows, because a conversion right after each
+// load waited for that load, so a warp's row loads ran one after another,
+// and 8-byte loads halved the bytes in flight:
+// * K3 (and K7 "sum", the same body) reads a 16-byte aligned z with strides
+//   that are multiples of 8 elements 8 coordinates a lane, one 16-byte load
+//   of raw words converted where they are added (rows.cuh's Cols8): 256
+//   coordinates a block, half the blocks, each moving a float32 block's
+//   bytes a row.  Each coordinate's sum keeps its order (the rows split
+//   over the warps by the weights alone), so no bit moves.  Other bases and
+//   strides take the 4-element or the scalar path, as before.
+// * The masked K2 with 4-element loads holds each group's raw 8 bytes until
+//   it sums them and keeps 4 member rows in flight a warp instead of 2 (the
+//   same registers and 128 bytes a lane): 2 rounds of loads at workload D's
+//   36 members a receiver instead of 3, in the same blocks.  Each lane keeps
+//   its coordinates and each (member, chunk) partial its fmaf chain and
+//   warp tree, so every partial keeps its bits.
 //
 // K3 weighted_sum: out[r, d] = sum_s a[r, s] * z[r, s, d]  (unnormalized).
 // Replaces: repro/kernels/weiszfeld.py, weighted_sum_call (_wsum_kernel).
@@ -57,7 +75,7 @@
 // prefix count per warp), then covers 128 coordinates, 4
 // consecutive ones a thread (float4 loads where the base and the row stride
 // allow, else 4 scalar loads, so a column slice z[..., a:b] of a wider buffer
-// is read in place).  The compacted rows of each chunk are split across the
+// is read in place; a bfloat16 z 256 coordinates, 8 a thread, below).  The compacted rows of each chunk are split across the
 // warps (warp w takes rows w, w + 8, ...), each warp keeps up to 8 rows'
 // loads in flight and carries its sum from chunk to chunk, and the 8 partial
 // sums are added in warp order in shared memory.  The split depends on
@@ -66,7 +84,8 @@
 // weight exactly 0 adds +-0, so skipping it changes no sum; a zero-weight row
 // holding inf or NaN contributes nothing, here and in the plain version
 // (which zeroes such rows before its product), as the masked engine's
-// promise above asks.  64 registers, no spills.
+// promise above asks.  64 registers, no spills (bfloat16's 16-byte route:
+// 80, 8 bytes spilled).
 //
 // K6 partial_sqdist_segments: out[w, s] = sum over the coordinates d of
 // segment s of (z[w, d] - y[d])^2, for s in [0, L); a coordinate whose
@@ -121,6 +140,7 @@
 // exchange does not fit.
 #include <climits>
 #include <cuda/atomic>
+#include <type_traits>
 
 #include "common.cuh"
 #include "rows.cuh"
@@ -396,14 +416,42 @@ sqdist_segments_kernel(const T* __restrict__ z, const float* __restrict__ y,
   }
 }
 
-// The masked route of K2: 8 warps, 512 coordinates a block (kSqVec float4
-// groups of 128 per lane), two member rows in flight per warp.
+// The masked route of K2: 8 warps, 512 coordinates a block (kSqVec groups
+// of 128 per lane, 4 coordinates a lane each), SqRows::kRows member rows in
+// flight per warp.
 constexpr int kSqWarps = 8;
 constexpr int kSqThreads = 32 * kSqWarps;
 constexpr int kSqVec = 4;
 constexpr int kSqCols = 128 * kSqVec;
-constexpr int kSqRows = 2;
 constexpr int kSqCap = 2048;   // mask entries compacted at a time (8 KB)
+
+// A lane's loads of one member row's group of 4 coordinates, as load_cols
+// lays them out: float4s of float32 (or of a bfloat16 row converted at the
+// load, on the scalar path), two rows in flight per warp.
+template <bool VEC, typename T>
+struct SqRows {
+  static constexpr int kRows = 2;
+  using Raw = float4;
+  __device__ static Raw load(const T* p, int64_t d0, int lane, int64_t D) {
+    return rows::load_cols<VEC>(p, d0, lane, D);
+  }
+  __device__ static float4 value(const Raw& r) { return r; }
+};
+
+// bfloat16 with VEC: the raw 8 bytes of each group (ldg4_raw), converted
+// where they are summed, so that every row's loads are in flight before the
+// first returns; four rows in flight per warp, in the registers float32
+// uses for two (the same 128 bytes a lane).  VEC means D % 4 == 0, so a
+// group lies below D whole or not at all (then +0.0, as load_cols gives).
+template <>
+struct SqRows<true, __nv_bfloat16> {
+  static constexpr int kRows = 4;
+  using Raw = uint2;
+  __device__ static Raw load(const __nv_bfloat16* p, int64_t d0, int lane, int64_t D) {
+    return d0 + 4 * lane < D ? ldg4_raw(p + d0 + 4 * lane) : make_uint2(0u, 0u);
+  }
+  __device__ static float4 value(const Raw& u) { return bf16x4_f32(u); }
+};
 
 __device__ __forceinline__ float sq4(const float4& z, const float4& y, float acc) {
   float d = z.x - y.x;
@@ -425,6 +473,7 @@ sqdist_masked_partial_kernel(const T* __restrict__ z, const float* __restrict__ 
                              const float* __restrict__ mask,
                              float* __restrict__ partial, int R, int S, int64_t D,
                              int64_t ld, int64_t rs, int nchunks) {
+  using Rows = SqRows<VEC, T>;
   __shared__ int s_row[kSqCap];
   __shared__ int warp_n[kSqWarps];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -441,22 +490,21 @@ sqdist_masked_partial_kernel(const T* __restrict__ z, const float* __restrict__ 
   for (int c0 = 0; c0 < S; c0 += kSqCap) {
     const int n = rows::compact<kSqWarps>(mask, c0, min(S, c0 + kSqCap),
                                           rows::Positive(), s_row, nullptr, warp_n);
-    for (int j = warp; j < n; j += kSqRows * kSqWarps) {
-      float4 zv[kSqRows][kSqVec];
+    for (int j = warp; j < n; j += Rows::kRows * kSqWarps) {
+      typename Rows::Raw zv[Rows::kRows][kSqVec];
 #pragma unroll
-      for (int u = 0; u < kSqRows; ++u)
+      for (int u = 0; u < Rows::kRows; ++u)
         if (j + u * kSqWarps < n) {
           const T* row = z + s_row[j + u * kSqWarps] * ld;
 #pragma unroll
-          for (int v = 0; v < kSqVec; ++v)
-            zv[u][v] = rows::load_cols<VEC>(row, d0 + 128 * v, lane, D);
+          for (int v = 0; v < kSqVec; ++v) zv[u][v] = Rows::load(row, d0 + 128 * v, lane, D);
         }
 #pragma unroll
-      for (int u = 0; u < kSqRows; ++u)
+      for (int u = 0; u < Rows::kRows; ++u)
         if (j + u * kSqWarps < n) {   // the same for the whole warp
           float acc = 0.f;
 #pragma unroll
-          for (int v = 0; v < kSqVec; ++v) acc = sq4(zv[u][v], yv[v], acc);
+          for (int v = 0; v < kSqVec; ++v) acc = sq4(Rows::value(zv[u][v]), yv[v], acc);
           acc = rows::warp_total(acc);
           if (lane == 0)
             partial[static_cast<int64_t>(s_row[j + u * kSqWarps]) * nchunks] = acc;
@@ -465,30 +513,31 @@ sqdist_masked_partial_kernel(const T* __restrict__ z, const float* __restrict__ 
   }
 }
 
-// Grid (D-blocks of rows::kSumCols, rows::grid_yz over R); a: (R, W)
+// Grid (D-blocks of Cols::kCols, rows::grid_yz over R); a: (R, W)
 // contiguous, out: (R, D) contiguous; rows::kept_rows_smem(W, true) bytes
-// of dynamic shared memory.  VEC: z, ld and rs allow 4-element loads (base
+// of dynamic shared memory.  Cols: rows::Cols8 where Cols8::fits, else
+// rows::Cols4<VEC>, VEC where z, ld and rs allow 4-element loads (base
 // aligned to 4 elements, ld and rs multiples of 4).
-template <bool VEC, typename T>
+template <class Cols, typename T>
 __global__ void __launch_bounds__(rows::kSumThreads)
 weighted_sum_kernel(const T* __restrict__ z, const float* __restrict__ a,
                     float* __restrict__ out, int R, int W, int64_t D, int64_t ld,
                     int64_t rs) {
   const int64_t r = rows::grid_row();
   if (r >= R) return;   // the whole block
-  float4 acc;
-  if (rows::sum_kept_rows<VEC, true>(z + r * rs, a + r * W, W, rows::NonZero(), ld, D,
-                                     acc))
-    rows::store_cols<VEC>(out + r * D, static_cast<int64_t>(blockIdx.x) * rows::kSumCols,
-                          threadIdx.x % 32, D, acc);
+  float4 acc[Cols::kN / 4];
+  if (rows::sum_kept_rows<Cols, true>(z + r * rs, a + r * W, W, rows::NonZero(), ld, D,
+                                      acc))
+    Cols::store(out + r * D, static_cast<int64_t>(blockIdx.x) * Cols::kCols,
+                threadIdx.x % 32, D, acc);
 }
 
-template <bool VEC, typename T>
+template <class Cols, typename T>
 int launch_weighted_sum(const T* z, const float* a, float* out, int R, int W,
                         int64_t D, int64_t ld, int64_t rs, cudaStream_t s) {
   const dim3 grid = rows::grid_yz(
-      static_cast<unsigned>((D + rows::kSumCols - 1) / rows::kSumCols), R);
-  weighted_sum_kernel<VEC, T><<<grid, rows::kSumThreads, rows::kept_rows_smem(W, true), s>>>(
+      static_cast<unsigned>((D + Cols::kCols - 1) / Cols::kCols), R);
+  weighted_sum_kernel<Cols, T><<<grid, rows::kSumThreads, rows::kept_rows_smem(W, true), s>>>(
       z, a, out, R, W, D, ld, rs);
   return static_cast<int>(cudaGetLastError());
 }
@@ -555,9 +604,13 @@ int weighted_sum(const T* z, const float* a, float* out, int R, int W, long long
                  long long ld, long long rs, void* stream) {
   if (D == 0 || R == 0) return static_cast<int>(cudaGetLastError());
   const auto s = static_cast<cudaStream_t>(stream);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (rows::Cols8::fits(z, ld, rs))
+      return launch_weighted_sum<rows::Cols8, T>(z, a, out, R, W, D, ld, rs, s);
+  }
   const bool vec = aligned4(z) && ld % 4 == 0 && rs % 4 == 0;
-  return vec ? launch_weighted_sum<true, T>(z, a, out, R, W, D, ld, rs, s)
-             : launch_weighted_sum<false, T>(z, a, out, R, W, D, ld, rs, s);
+  return vec ? launch_weighted_sum<rows::Cols4<true>, T>(z, a, out, R, W, D, ld, rs, s)
+             : launch_weighted_sum<rows::Cols4<false>, T>(z, a, out, R, W, D, ld, rs, s);
 }
 
 template <typename T>

@@ -1330,3 +1330,57 @@ def test_wire_steps_on_card_match_cpu(wire, topology):
     else:
         assert bf16 == {}, bf16
     assert out["cpu"][1] == {}
+
+
+# The bf16 routes that stream member rows (K3 and K7 "sum": 8 coordinates a
+# lane in 16-byte loads where the base is 16-byte aligned and the strides are
+# multiples of 8 elements, else the 8-byte or the scalar path; the masked K2:
+# 4 rows in flight on its 8-byte path).  Each case reads x = buf[..., lo:lo +
+# d] of an (r, s, width) bf16 buffer, and the float32 kernels read the same
+# slice of the upcast buffer.  (r, s, d, lo, width, mask density):
+BF16_STREAM_CASES = {
+    "16-byte": (5, 40, 1024, 0, 1024, 0.6),
+    "d%8==4": (5, 40, 300, 0, 300, 0.6),           # rows 600 bytes apart: 8-byte loads
+    "ragged": (5, 40, 1002, 0, 1002, 0.6),         # D % 4 == 2: scalar loads
+    "base-8-byte": (5, 40, 512, 4, 520, 0.6),      # strides fit, the base is 8 bytes off
+    "tail-d%8==4": (5, 40, 300, 0, 304, 0.6),      # 16-byte rows, a lane's last 8 cut at D
+    "tail-odd": (5, 40, 301, 0, 304, 0.6),         # the same, D odd (scalar stores)
+    "members-2500": (2, 2500, 264, 0, 264, 0.9),   # compacted 2,048 at a time
+    "receivers-70000": (70_000, 5, 16, 0, 16, 1.0),  # past the grid's y limit
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(BF16_STREAM_CASES))
+def test_bf16_streaming_routes_equal_float32_kernel_on_upcast(case):
+    """The masked K2, the batched and unbatched K3 and K7 "sum" on a bf16
+    exchange at every load path of their bf16 routes: the float32 kernel's
+    bits on the upcast laid out alike, and the plain version at rtol 1e-5."""
+    _need_card()
+    r, s, d, lo, width, density = BF16_STREAM_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(r + s + d + lo)
+    buf = torch.randn((r, s, width), generator=g, device="cuda").bfloat16()
+    buff = buf.float()
+    x, xf = buf[..., lo:lo + d], buff[..., lo:lo + d]
+    mask = (torch.rand((r, s), generator=g, device="cuda") < density).float()
+    wts = mask * torch.rand((r, s), generator=g, device="cuda")
+    y = torch.randn((r, d), generator=g, device="cuda")
+    pairs = {
+        "K7 sum": (lambda z: tp.masked_neighbor_reduce_call(z, mask, 0),
+                   tp.masked_neighbor_reduce_plain(x, mask, 0)),
+        "masked K2": (lambda z: wz.partial_sqdist_call(z, y, mask),
+                      wz.partial_sqdist_plain(x, y, mask)),
+        "batched K3": (lambda z: wz.weighted_sum_call(z, wts),
+                       wz.weighted_sum_plain(x, wts)),
+        "K3": (lambda z: wz.weighted_sum_call(z[0], wts[0]),
+               wz.weighted_sum_plain(x[0], wts[0])),
+    }
+    ops.reset_launch_counts()
+    for name, (call, plain) in pairs.items():
+        got = call(x)
+        torch.cuda.synchronize()
+        assert torch.equal(_raw(got), _raw(call(xf))), name
+        _close(got, plain)
+    assert ops.bf16_launch_counts() == {
+        "masked_neighbor_reduce": 1, "masked_neighbor_reduce sum": 1,
+        "partial_sqdist": 1, "partial_sqdist masked": 1, "weighted_sum": 2}

@@ -41,6 +41,7 @@ from repro.optim import get_optimizer as j_get_optimizer
 from repro.topology import masked as jmasked
 from repro_torch import convert
 from repro_torch.core import RobustConfig, make_federated_step, packing
+from repro_torch.core.aggregators import AGGREGATOR_NAMES
 from repro_torch.core.geomed import segment_ids
 from repro_torch.data import logreg_loss
 from repro_torch.kernels import ops
@@ -414,18 +415,46 @@ def _tol(wire):
             else dict(rtol=1e-5, atol=1e-5))
 
 
-def _run_pair(cfg, num_rows, wh, *, steps=STEPS, lr=0.05, reject_at=None):
+def _split_losses(rho=0.01):
+    """The logistic loss of ``_logreg`` on three leaves: the weights of the
+    first 12 features as u (3, 4), of the other 10 as v (10,), and a bias
+    c (1,), each under the l2 term (jax, torch)."""
+    def j_loss(params, batch):
+        u, v, c = params["u"], params["v"], params["c"]
+        z = batch["a"][:, :12] @ u.reshape(12) + batch["a"][:, 12:] @ v + c[0]
+        m = -batch["b"] * z
+        reg = jnp.sum(u * u) + jnp.sum(v * v) + jnp.sum(c * c)
+        return jnp.mean(jnp.logaddexp(0.0, m)) + 0.5 * rho * reg
+
+    def t_loss(params, batch):
+        u, v, c = params["u"], params["v"], params["c"]
+        z = batch["a"][:, :12] @ u.reshape(12) + batch["a"][:, 12:] @ v + c[0]
+        m = -batch["b"] * z
+        reg = torch.sum(u * u) + torch.sum(v * v) + torch.sum(c * c)
+        return torch.mean(torch.logaddexp(torch.zeros_like(m), m)) + 0.5 * rho * reg
+
+    return j_loss, t_loss
+
+
+def _run_pair(cfg, num_rows, wh, *, steps=STEPS, lr=0.05, reject_at=None,
+              params=None, losses=None):
     """``steps`` steps of the reference (jitted) and the port (CPU) from
     the reference's init state, the port handed the reference's sample
     draws and lsvrg coins.  ``reject_at``: before that step both states get
     a health vector whose EMA makes the guards reject the round; the port's
-    residuals before it are returned too."""
+    residuals before it are returned too.  ``params`` (numpy leaves) and
+    ``losses`` (jax, torch) replace the logistic model's {"w": zeros(22)}."""
     j_loss, t_loss, wd = _logreg(num_rows)
+    if losses is not None:
+        j_loss, t_loss = losses
     j_init, j_step = j_make_step(j_loss, wd, JConfig(**cfg),
                                  j_get_optimizer("sgd", lr))
     _, t_step = make_federated_step(t_loss, _numpy(wd), RobustConfig(**cfg),
                                     get_optimizer("sgd", lr), device="cpu")
-    j_state = j_init({"w": jnp.zeros(22, jnp.float32)}, jax.random.PRNGKey(5))
+    if params is None:
+        params = {"w": np.zeros(22, np.float32)}
+    j_state = j_init({k: jnp.asarray(v) for k, v in params.items()},
+                     jax.random.PRNGKey(5))
     t_state = convert.state_from_jax(_numpy(j_state), device="cpu")
     j = next(iter(wd.values())).shape[1]
     j_step = jax.jit(j_step)
@@ -449,9 +478,11 @@ def _run_pair(cfg, num_rows, wh, *, steps=STEPS, lr=0.05, reject_at=None):
 
 def _assert_states(t_state, j_state, wire):
     tol = _tol(wire)
-    np.testing.assert_allclose(t_state.params["w"].float().numpy(),
-                               np.asarray(j_state.params["w"], np.float32),
-                               **tol)
+    assert set(t_state.params) == set(j_state.params)
+    for k, leaf in t_state.params.items():
+        np.testing.assert_allclose(leaf.float().numpy(),
+                                   np.asarray(j_state.params[k], np.float32),
+                                   err_msg=k, **tol)
     for leaf_t, leaf_j in zip(t_state.vr, j_state.vr):
         assert str(leaf_t.dtype).removeprefix("torch.") == \
             np.asarray(leaf_j).dtype.name
@@ -476,6 +507,25 @@ def test_master_step_parity_under_each_wire(wire, agg):
     np.testing.assert_allclose(float(t_m["honest_variance"]),
                                float(j_m["honest_variance"]),
                                rtol=2e-2 if wire == "bfloat16" else 1e-4)
+
+
+@pytest.mark.parametrize("wire", ["int8", "sign1"])
+@pytest.mark.parametrize("agg", AGGREGATOR_NAMES)
+def test_master_step_parity_three_leaves_every_rule(wire, agg):
+    """Every rule of the registry under the quantized wires on a model of
+    three leaves (int8/sign1 scales per leaf block, geomed_blockwise's
+    leaves): params, table, avg and the residuals against the reference
+    after five steps, 12 workers + 2 sign_flip rows."""
+    rng = np.random.default_rng(11)
+    params = {"u": 0.1 * rng.standard_normal((3, 4)).astype(np.float32),
+              "v": 0.1 * rng.standard_normal(10).astype(np.float32),
+              "c": np.zeros(1, np.float32)}
+    cfg = dict(aggregator=agg, vr="saga", attack="sign_flip", num_byzantine=2,
+               trim=2, weiszfeld_iters=32, num_groups=3, clip_radius=1.0,
+               message_dtype=wire)
+    j_state, _, t_state, _, _ = _run_pair(cfg, 12, 12, params=params,
+                                          losses=_split_losses())
+    _assert_states(t_state, j_state, wire)
 
 
 @pytest.mark.parametrize("wire,case", [("sign1", "participation"),

@@ -11,10 +11,13 @@ Imports ``repro_torch`` from ``SRC_DIR`` (default: this checkout's
   K3 ``weighted_sum``, K4 ``coordinate_median``, K5 ``trimmed_mean``
   (trim 20) and K6 ``partial_sqdist_segments`` (the Table I network's four
   leaves, ``chip_smoke.table1_boundaries``), 200 launches a window;
+* the same K3 on a bfloat16 copy of the messages (the bf16 wire's route);
 * at workload D's exchange (70, 70, 39,760) under its erdos_renyi(70,
   p=0.5, seed=0) mask: K3 batched with weights 0 off the mask, K2 batched
   unmasked and (where the tree has it) masked, and K7
-  ``masked_neighbor_reduce`` at trim 0 and 12, 20 launches a window.
+  ``masked_neighbor_reduce`` at trim 0 and 12, 20 launches a window; then
+  K3 batched, the masked K2 and K7 at trim 0 and 12 on a bfloat16 copy of
+  the exchange (lines ending in "bf16").
 
 Each kernel is timed in 5 windows with ``chip_smoke.event_ms`` (CUDA events
 around launches queued behind a sleep kernel, so the card runs them back to
@@ -70,6 +73,9 @@ def main() -> int:
     a = torch.rand(70, generator=g, device="cuda")
     emit("K2 at B", lambda: wz.partial_sqdist_call(z, y), 200)
     emit("K3 at B", lambda: wz.weighted_sum_call(z, a), 200)
+    zb = z.bfloat16()
+    emit("K3 at B bf16", lambda: wz.weighted_sum_call(zb, a), 200)
+    del zb
     emit("K4 at B", lambda: rs.coordinate_median_call(z), 200)
     emit("K5 trim 20 at B", lambda: rs.trimmed_mean_call(z, 20), 200)
     bounds, d = table1_boundaries(torch)
@@ -89,6 +95,13 @@ def main() -> int:
              lambda: wz.partial_sqdist_call(ex, yb, mask), 20)
     for trim in (0, 12):
         emit(f"K7 trim {trim} at D",
+             lambda: tp.masked_neighbor_reduce_call(ex, mask, trim), 20)
+    ex = ex.bfloat16()
+    emit("K3 batched at D bf16", lambda: wz.weighted_sum_call(ex, wts), 20)
+    emit("K2 batched masked at D bf16",
+         lambda: wz.partial_sqdist_call(ex, yb, mask), 20)
+    for trim in (0, 12):
+        emit(f"K7 trim {trim} at D bf16",
              lambda: tp.masked_neighbor_reduce_call(ex, mask, trim), 20)
     return 0
 
