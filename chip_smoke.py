@@ -148,12 +148,15 @@ Phases, in order; any failure exits non-zero:
    client rows, only the drawn rows changed; K2-K6 at (7, 300), (8, 300),
    B's (70, 39,760), (455, 39,760) (K4/K5's global rank count) and
    (129, 1,000), and K7, the batched K2 (both routes) and K3 at (7, 7, 300),
-   D's exchange under its mask and S = 451, each contiguous and as a
-   misaligned column slice (the scalar loads): the float32 kernel's bits on
-   the upcast laid out alike, and the plain version within rtol 1e-5.
-   Each bf16 route timed beside the float32 route on the same values in the
-   same phase, its bound (messages at 2 B) and its plain version.  Runs of
-   20 steps: workload B under bfloat16 with geomed, median, trimmed_mean
+   D's exchange under its mask (every trim 0-16) and S = 451, each contiguous and as a
+   misaligned column slice (the scalar loads; K7 "select" two coordinates a
+   thread on the contiguous exchange, one on the slice, asserted): the
+   float32 kernel's bits on the upcast laid out alike, and the plain version
+   within rtol 1e-5.  Each bf16 route timed beside the float32 route on the
+   same values in the same phase, its bound (messages at 2 B) and its plain
+   version; K7 "select" at D in both layouts beside its instruction floor.
+   Runs of 20 steps (D gradient trimmed_mean bfloat16: every K7 launch two
+   coordinates a thread): workload B under bfloat16 with geomed, median, trimmed_mean
    and geomed_blockwise (the SAGA table 4.77 GB, peak below B's float32
    peak, every launch on a bf16 route), under int8 and sign1 with geomed;
    G1 under sign1 (the residual rows move with the cohort) and bfloat16
@@ -302,9 +305,10 @@ def close(got, want, rtol=1e-5):
 def launch_counts():
     """Launches per kernel since the last reset, with K1's per-route counts
     ("saga_correct workers" / "clients"), K2's ("partial_sqdist unmasked" /
-    "masked"), K7's ("masked_neighbor_reduce sum" / "select" / "rank"), and
-    the bf16 routes' ("saga_correct bf16", "saga_correct clients bf16",
-    ...)."""
+    "masked"), K7's ("masked_neighbor_reduce sum" / "select" / "rank", and
+    "select"'s layouts "masked_neighbor_reduce select one" / "select
+    pairs"), and the bf16 routes' ("saga_correct bf16", "saga_correct
+    clients bf16", ...)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import saga_correct as sc
     from repro_torch.kernels import topology as tp
@@ -315,6 +319,8 @@ def launch_counts():
                    for k, v in wz.SQDIST_ROUTE_LAUNCHES.items()})
     counts.update({f"masked_neighbor_reduce {k}": v
                    for k, v in tp.ROUTE_LAUNCHES.items()})
+    counts.update({f"masked_neighbor_reduce select {k}": v
+                   for k, v in tp.SELECT_LAYOUT_LAUNCHES.items()})
     # The bf16 routes' launches, under "<kernel>[ <route>] bf16" (absent when
     # none ran).
     counts.update({f"{k} bf16": v for k, v in ops.bf16_launch_counts().items()})
@@ -943,6 +949,27 @@ def event_ms(torch, fn, reps):
     return total_ms / reps
 
 
+def sm_clock(torch):
+    """(SMs, top SM clock in MHz) of card 0, for the instruction floors:
+    64 min/max results a clock on each SM at the top clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    return sms, mhz
+
+
+def select_floor_ms(torch, mask, trim, d, coords):
+    """K7 "select"'s instruction floor: the integer min/max it runs for each
+    receiver's members (topology.select_minmax_ops), a key word of
+    ``coords`` coordinates (1 in float32, 2 in bf16's pairs layout), over
+    ceil(d / coords) words a receiver, at 64 a clock on each SM."""
+    from repro_torch.kernels import topology as tp
+    sms, mhz = sm_clock(torch)
+    ops = sum(tp.select_minmax_ops(int(n), trim) for n in (mask > 0).sum(1).tolist())
+    return ops * -(-d // coords) / (sms * 64 * mhz * 1e6) * 1e3, ops
+
+
 def bound(nbytes, flops, flops_per_s=FP32_FLOPS_PER_S):
     b, f = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (b, "bytes") if b >= f else (f, "operations")
@@ -1015,10 +1042,7 @@ def phase_timing(torch, state):
     # floor: the float min/max a coordinate that the network needs at W, at
     # 64 results a clock per SM (half the float32 FMA rate) and the card's
     # top SM clock.
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True).stdout.split()[0])
+    sms, mhz = sm_clock(torch)
     for name, n_minmax, what in (
             ("coordinate_median", rs.median_network_ops(wm), "the ranks read"),
             ("trimmed_mean", rs.trimmed_network_ops(wm), "every rank, trim 20")):
@@ -1325,9 +1349,13 @@ def phase_workload_d(torch, gossip, agg, steps=20, wire="float32"):
     assert math.isfinite(f1), f"workload {label}: loss is not finite"
     assert all(bool(torch.isfinite(p).all()) for p in st.params.values())
     assert counts["saga_correct"] == steps, counts
+    bf16 = wire == "bfloat16"
     if agg == "trimmed_mean":
         assert counts["masked_neighbor_reduce"] == steps, counts
         assert counts["masked_neighbor_reduce select"] == steps, counts
+        # The bf16 exchange (contiguous, D even) takes two coordinates a thread.
+        assert counts["masked_neighbor_reduce select pairs"] == (steps if bf16 else 0), counts
+        assert counts["masked_neighbor_reduce select one"] == (0 if bf16 else steps), counts
         assert counts["partial_sqdist"] == counts["weighted_sum"] == 0, counts
     if agg == "geomed":
         # K7 (trim 0) starts each solve at the masked mean.
@@ -1340,7 +1368,6 @@ def phase_workload_d(torch, gossip, agg, steps=20, wire="float32"):
     if agg == "mean":
         assert counts["weighted_sum"] == steps, counts
         assert counts["masked_neighbor_reduce"] == counts["partial_sqdist"] == 0
-    bf16 = wire == "bfloat16"
     for k in ("saga_correct", "partial_sqdist", "weighted_sum",
               "masked_neighbor_reduce"):
         assert counts.get(f"{k} bf16", 0) == (counts[k] if bf16 else 0), counts
@@ -2294,6 +2321,8 @@ def check_bf16_masked(torch, r, s, d, trims, mask, gen, ties=True):
     on a bf16 (r, s, d) exchange, contiguous and as a column slice of a
     wider one (misaligned: the scalar loads): the float32 kernel's bits on
     the upcast laid out alike, and the plain versions within rtol 1e-5.
+    K7 "select" (1 <= trim <= 16) takes two coordinates a thread on the
+    contiguous exchange (d even) and one on the slice (a base 6 bytes off).
     Returns the largest differences (K7 trim > 0, K7 trim 0, K2 unmasked,
     K2 masked, K3)."""
     from repro_torch.kernels import topology as tp
@@ -2309,11 +2338,16 @@ def check_bf16_masked(torch, r, s, d, trims, mask, gen, ties=True):
     y = torch.randn((r, d), generator=gen, device=dev)
     n_min = int(mask.sum(1).min())
     e7 = e7s = e2 = e2m = e3 = 0.0
-    for x, xf in ((wide[..., :d].contiguous(), widef[..., :d].contiguous()),
-                  (wide[..., 3:], widef[..., 3:])):
+    assert d % 2 == 0, d
+    for x, xf, layout in ((wide[..., :d].contiguous(), widef[..., :d].contiguous(), "pairs"),
+                          (wide[..., 3:], widef[..., 3:], "one")):
         for t in trims:
             t = (n_min - 1) // 2 if t is None else t
+            before = dict(tp.SELECT_LAYOUT_LAUNCHES)
             got = tp.masked_neighbor_reduce_call(x, mask, t)
+            ran = {k: v - before[k] for k, v in tp.SELECT_LAYOUT_LAUNCHES.items()}
+            want = {k: int(k == layout and 1 <= t <= 16) for k in tp.SELECT_LAYOUTS}
+            assert ran == want, f"K7 bf16 trim {t}: layouts {ran}, want {want}"
             assert same_bits(got, tp.masked_neighbor_reduce_call(xf, mask, t)), t
             ok, e = close(got, tp.masked_neighbor_reduce_plain(x, mask, t))
             assert ok, f"K7 bf16 trim {t}: {e}"
@@ -2370,7 +2404,7 @@ def phase_wires_kernel_checks(torch):
             + ", ".join(f"{k} {v:.3g}" for k, v in e.items()) + " (rtol 1e-5): ok")
     mask_d = workload_d_graph(torch)[1]
     for (r, s_, d), trims, mask in (((7, 7, 300), (0, 1, 2), None),
-                                    ((70, 70, d_b), (0, 12), mask_d),
+                                    ((70, 70, d_b), range(17), mask_d),
                                     ((4, 451, 1000), (0, 1, 12, 17, None), None)):
         e7, e7s, e2, e2m, e3 = check_bf16_masked(torch, r, s_, d, trims, mask, gen)
         errs["masked_neighbor_reduce bf16"] = max(errs["masked_neighbor_reduce bf16"], e7)
@@ -2380,9 +2414,11 @@ def phase_wires_kernel_checks(torch):
         errs["partial_sqdist masked bf16"] = max(errs["partial_sqdist masked bf16"], e2m)
         errs["weighted_sum bf16"] = max(errs["weighted_sum bf16"], e3)
         log(f"kernel check bf16 exchange ({r}, {s_}, {d}), contiguous and a "
-            f"misaligned column slice, trim {list(trims)}: K7, batched K2 (both "
-            f"routes), K3 the float32 kernels' bits; max|err| K7 {e7:.3g} (trim 0 "
-            f"{e7s:.3g}), K2 {e2:.3g}, masked K2 {e2m:.3g}, K3 {e3:.3g} (rtol 1e-5): ok")
+            f"misaligned column slice, trim {list(trims)}: K7 (\"select\" two "
+            f"coordinates a thread on the contiguous exchange, one on the slice), "
+            f"batched K2 (both routes), K3 the float32 kernels' bits; max|err| K7 "
+            f"{e7:.3g} (trim 0 {e7s:.3g}), K2 {e2:.3g}, masked K2 {e2m:.3g}, K3 "
+            f"{e3:.3g} (rtol 1e-5): ok")
     log(f"wires kernel checks {time.perf_counter() - t0:.1f} s")
     return errs
 
@@ -2391,8 +2427,10 @@ def phase_wires_timing(torch):
     """Each bf16 route's device time beside the float32 route on the same
     values in the same phase, its bound (the message bytes at 2 B) and its
     plain version: B's shapes (torch.profiler), K1's client-row route on
-    G's (500, 120, D) table, D's exchange (CUDA events)."""
+    G's (500, 120, D) table, D's exchange (CUDA events); and K7 "select"'s
+    time in each layout beside its instruction floor."""
     from repro_torch.core.geomed import segment_ids
+    from repro_torch.kernels import ops
     from repro_torch.kernels import robust_stats as rs
     from repro_torch.kernels import saga_correct as sc
     from repro_torch.kernels import topology as tp
@@ -2479,8 +2517,12 @@ def phase_wires_timing(torch):
     nnz = float(mask.sum())
     yd = tp.masked_neighbor_reduce_call(ex32, mask, 0)
     ad = torch.rand((r, s), generator=gen, device="cuda") * mask
+    layouts = {}
     for dt, ex in (("bf16", ex16), ("f32", ex32)):
         el = ex.element_size()
+        ops.reset_launch_counts()
+        tp.masked_neighbor_reduce_call(ex, mask, trim)
+        layouts[dt] = [k for k, v in tp.SELECT_LAYOUT_LAUNCHES.items() if v][0]
         rows = {
             "masked_neighbor_reduce bf16": (
                 lambda: tp.masked_neighbor_reduce_call(ex, mask, trim),
@@ -2513,6 +2555,21 @@ def phase_wires_timing(torch):
             f"{res['plain_ms'] * 1e3:.2f} us; the float32 route on the same values "
             f"{ref['ms'] * 1e3:.2f} us (bound {ref['bound_ms'] * 1e3:.2f} us), "
             f"bf16/f32 {res['ms'] / ref['ms']:.3f}")
+    # K7 "select" is bound by its integer min/max, not bytes: its instruction
+    # floor beside each layout's time.
+    assert layouts == {"bf16": "pairs", "f32": "one"}, layouts
+    sms, mhz = sm_clock(torch)
+    res, ref = out["masked_neighbor_reduce bf16"], f32["masked_neighbor_reduce bf16"]
+    fl16, n_ops = select_floor_ms(torch, mask, trim, d, 2)
+    fl32, _ = select_floor_ms(torch, mask, trim, d, 1)
+    log(f"timing masked_neighbor_reduce select trim {trim} ({r}, {s}, {d}), {int(nnz)} "
+        f"members: bf16 (two coordinates a thread) {res['ms'] * 1e3:.2f} us, "
+        f"{fl16 / res['ms']:.0%} of its instruction floor {fl16 * 1e3:.2f} us; float32 "
+        f"(one a thread) {ref['ms'] * 1e3:.2f} us, {fl32 / ref['ms']:.0%} of "
+        f"{fl32 * 1e3:.2f} us; bytes bounds {res['bound_ms'] * 1e3:.2f} / "
+        f"{ref['bound_ms'] * 1e3:.2f} us (floor: {n_ops} integer min/max a key word "
+        f"over the receivers x {-(-d // 2)} pairs or {d} coordinates / ({sms} SMs x "
+        f"64 a clock x {mhz:.0f} MHz); a packed 16x2 min/max orders a pair)")
     log(f"wires timing {time.perf_counter() - t0:.1f} s")
     return out
 

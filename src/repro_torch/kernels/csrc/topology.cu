@@ -14,6 +14,11 @@
 // needed, once: nnz(mask) * D * 4 bytes (398.3 MB of the 779 MB exchange
 // under workload D's 70-node erdos_renyi(p = 0.5) mask at D = 39,760; with
 // the mask and the (R, D) output, 409.4 MB: 122.21 us at 3.35 TB/s).
+// "select" is bound by its integer min/max instead (below): at D's mask and
+// trim 12, 63,072 a key word over the 70 receivers
+// (topology.select_minmax_ops), 149.9 us in float32 at 64 a clock on each
+// of 132 SMs at 1,980 MHz, and 75.0 us in bfloat16's pairs, where one
+// packed min/max orders two coordinates.
 //
 // Every route starts the same way: a block owns one receiver (the grid's y
 // and z dimensions, rows.cuh's grid_yz, so any R) and a tile of
@@ -46,7 +51,14 @@
 //   added, so rows many orders of magnitude larger than the rest leave no
 //   trace once dropped (the form that sums everything and subtracts the
 //   tails would cancel).  Values are compared as integer keys ordered like
-//   the floats, with NaN above +inf.
+//   the floats, with NaN above +inf.  The compiler folds every
+//   compare-exchange of the first sort that meets a pad slot: at trim 12,
+//   336 min/max for the 24 members on 32 wires, then 48 a later member
+//   (the SASS: 528 VIMNMX, the sort's and 4 unrolled members').  A bfloat16
+//   exchange whose base is 4-byte aligned and whose strides are even takes
+//   two coordinates a thread instead (masked_select_pairs_kernel, below):
+//   16-bit keys, two to a word, ordered by one packed min/max, so half the
+//   min/max, the loads and the blocks for the same coordinates.
 // * "rank", trim > 16: each member's value is ranked against the others,
 //   rank = #{j : key_j < key_i or (key_j == key_i and j < i)} (a permutation
 //   of 0..m-1, so the values of ranks [trim, m - trim) are the sort's), and
@@ -60,9 +72,9 @@
 //
 // Registers and spills of each specialisation (`nvcc -Xptxas -v`, printed by
 // chip_smoke.py's build phase): "select" 32 registers at trim 1-4, 40 at
-// 5-6, 48 at 7-10, 56 at 11-14, 64 at 15-16; "sum" 68 with scalar loads, 64
-// with float4 loads, 80 on bfloat16's 16-byte route (8 bytes spilled, the
-// only spill); "rank" 30.
+// 5-6, 48 at 7-10, 56 at 11-14, 64 at 15-16, and the pairs within 8 of
+// those (56 at trim 12); "sum" 68 with scalar loads, 64 with float4 loads, 80 on
+// bfloat16's 16-byte route (8 bytes spilled, the only spill); "rank" 30.
 //
 // NaN inputs: a member's NaN is not struck out; it is ordered above +inf, so
 // it is dropped when it falls among the trim largest, and a kept NaN (with
@@ -77,8 +89,11 @@
 // route loads x in bfloat16, converted exactly to the float32 it works on;
 // the order of every sum and comparison is the float32 kernel's, so the
 // bf16 route gives the bits of the float32 kernel run on x.float(), at half
-// the bytes of the members' rows.  "select" and "rank" also keep its mapping
-// of coordinates to threads; "sum" reads an aligned exchange 8 coordinates
+// the bytes of the members' rows.  "rank" also keeps its mapping of
+// coordinates to threads, and so does "select" on an exchange whose base or
+// strides rule out its pairs (whose keys order as the float32 keys of the
+// upcast values, so they keep and drop the same values and sum each
+// coordinate's in the same order); "sum" reads an aligned exchange 8 coordinates
 // a lane (rows.cuh's Cols8: half the blocks of the 4-a-lane layout, each
 // moving a float32 block's bytes a row, and the raw words held until they
 // are added, so a warp's row loads are all in flight at once), which moves
@@ -103,6 +118,11 @@ constexpr int kMaxSelectTrim = 16;
 constexpr int kRouteSum = 0;
 constexpr int kRouteSelect = 1;
 constexpr int kRouteRank = 2;
+
+// Layouts of "select", as masked_neighbor_reduce_f32 reports them
+// (topology.SELECT_LAYOUTS); the other routes report kLayoutOne.
+constexpr int kLayoutOne = 0;
+constexpr int kLayoutPairs = 1;
 
 // Integer keys ordered as the floats are, NaN above +inf (and -0 below +0,
 // which no sum can tell apart).
@@ -262,6 +282,177 @@ masked_select_kernel(const E* __restrict__ x, const float* __restrict__ mask,
   if (live) out[r * D + col] = acc / fmaxf(n - 2.f * T, 1.f);
 }
 
+// ---- "select", two bfloat16 coordinates a thread ------------------------------
+//
+// A bfloat16 value's key fits 16 bits, so a thread orders two adjacent
+// coordinates at once: their keys are the two signed 16-bit halves of one
+// word (the low half the even coordinate), read as one 4-byte load a member
+// row, and Hopper's packed min.s16x2/max.s16x2 (VIMNMX.S16x2, one
+// instruction) orders both.  The 16-bit key of the raw bits b is b for
+// b >= 0 and b ^ 0x7fff for b < 0, and 0x7fff for every NaN: the order of
+// order_key on the upcast value (that key is this one times 2^16, plus
+// 0xffff for a negative value), ties and -0 < +0 included, NaN above +inf.
+// The network, the inserts and the medians are masked_select_kernel's, on
+// words, so the same values are kept, each unpacked to its float32 value
+// and added to its own coordinate's sum in member order: the float32
+// kernel's bits.  pairs_fit decides before the launch; the last pair of an
+// odd D reads its low half alone (a 2-byte load).  The word network and
+// inserts below are kept apart from the float32 kernel's: written as one
+// template over both key widths, they moved that kernel's SASS (and time).
+
+constexpr unsigned kPairBottom = 0x80008000u, kPairTop = 0x7fff7fffu;   // pads
+
+__device__ __forceinline__ unsigned pair_min(unsigned a, unsigned b) {
+  unsigned d;
+  asm("min.s16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ unsigned pair_max(unsigned a, unsigned b) {
+  unsigned d;
+  asm("max.s16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// The keys of a word of two raw bfloat16 values.
+__device__ __forceinline__ unsigned pair_keys(unsigned w) {
+  // A NaN half (|b| > 0x7f80: bit 15 of |b| + 0x7f) becomes 0x7fff first.
+  const unsigned nan = (((w & 0x7fff7fffu) + 0x007f007fu) >> 15) & 0x00010001u;
+  w = (w & ~(nan * 0xffffu)) | (nan * 0x7fffu);
+  return w ^ (((w >> 15) & 0x00010001u) * 0x7fffu);
+}
+
+// Each half's value, exactly as float32, added to its coordinate's sum.
+__device__ __forceinline__ void add_pair(float (&acc)[2], unsigned k) {
+  const unsigned v = k ^ (((k >> 15) & 0x00010001u) * 0x7fffu);
+  acc[0] += __uint_as_float(v << 16);
+  acc[1] += __uint_as_float(v & 0xffff0000u);
+}
+
+// The raw word of the pair at p (4-byte aligned); with !full only its low
+// half, so the last pair of an odd D reads nothing past D.
+__device__ __forceinline__ unsigned load_pair(const __nv_bfloat16* p, bool full) {
+  return full ? __ldg(reinterpret_cast<const unsigned*>(p))
+              : static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+
+// Whether the pairs may read x: a 4-byte aligned base and even strides put
+// every pair's word on a 4-byte boundary.
+bool pairs_fit(const __nv_bfloat16* x, int64_t ss, int64_t rs) {
+  return reinterpret_cast<uintptr_t>(x) % 4 == 0 && ss % 2 == 0 && rs % 2 == 0;
+}
+
+// bitonic_sort on words whose slots from `live` on hold kPairTop.  The
+// compiler cannot fold an asm min/max with a constant pad, so the pads are
+// tracked at compile time instead: a compare-exchange with a pad is a move,
+// one of two pads nothing; the same keys end in the same slots.
+template <int N>
+__device__ __forceinline__ void bitonic_sort_pairs(unsigned (&a)[N], int live) {
+  bool pad[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) pad[i] = i >= live;
+#pragma unroll
+  for (int k = 2; k <= N; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const int l = i ^ j;
+        if (l > i && !(pad[i] && pad[l])) {
+          const bool up = (i & k) == 0;
+          if (pad[i] || pad[l]) {   // the key goes to the low slot, the pad up
+            const unsigned v = pad[i] ? a[l] : a[i];
+            a[i] = up ? v : kPairTop;
+            a[l] = up ? kPairTop : v;
+            pad[i] = !up;
+            pad[l] = up;
+          } else {
+            const unsigned lo = pair_min(a[i], a[l]), hi = pair_max(a[i], a[l]);
+            a[i] = up ? lo : hi;
+            a[l] = up ? hi : lo;
+          }
+        }
+      }
+    }
+  }
+}
+
+// insert on words.
+template <int T>
+__device__ __forceinline__ void insert_pairs(unsigned (&top)[T], unsigned (&bot)[T],
+                                             unsigned k) {
+#pragma unroll
+  for (int i = T - 1; i > 0; --i) {
+    top[i] = pair_max(top[i], pair_min(top[i - 1], k));
+    bot[i] = pair_min(bot[i], pair_max(bot[i - 1], k));
+  }
+  top[0] = pair_max(top[0], k);
+  bot[0] = pair_min(bot[0], k);
+}
+
+template <int T>
+__global__ void __launch_bounds__(kSelThreads)
+masked_select_pairs_kernel(const __nv_bfloat16* __restrict__ x,
+                           const float* __restrict__ mask, float* __restrict__ out,
+                           int R, int S, int64_t D, int64_t rs, int64_t ss) {
+  constexpr int kN = pow2_at_least(2 * T);
+  __shared__ int s_row[kCap];
+  __shared__ int warp_n[kSelWarps];
+  __shared__ float s_red[kSelWarps];
+  const int64_t r = rows::grid_row();
+  if (r >= R) return;   // the whole block
+  const int64_t col = 2 * (static_cast<int64_t>(blockIdx.x) * kSelThreads + threadIdx.x);
+  const bool live = col < D;        // threads past D still take part in the barriers
+  const bool full = col + 1 < D;    // both coordinates of the pair live
+  mask += r * S;
+  x += r * rs + (live ? col : 0);
+  const float n = mask_total<kSelWarps>(mask, S, s_red);
+  unsigned top[T], bot[T];
+#pragma unroll
+  for (int i = 0; i < T; ++i) {
+    top[i] = kPairBottom;
+    bot[i] = kPairTop;
+  }
+  float acc[2] = {0.f, 0.f};   // the kept values, each added once
+  int seen = 0;                // members streamed so far (the same in every thread)
+  for (int c0 = 0; c0 < S; c0 += kCap) {
+    const int cnt = rows::compact<kSelWarps>(mask, c0, min(S, c0 + kCap),
+                                             rows::Positive(), s_row, nullptr, warp_n);
+    int j = 0;
+    if (seen == 0 && cnt >= 2 * T) {
+      unsigned a[kN];
+#pragma unroll
+      for (int i = 0; i < kN; ++i)
+        a[i] = i < 2 * T ? pair_keys(live ? load_pair(x + s_row[i] * ss, full) : 0u)
+                         : kPairTop;
+      bitonic_sort_pairs<kN>(a, 2 * T);
+#pragma unroll
+      for (int i = 0; i < T; ++i) {
+        bot[i] = a[i];
+        top[i] = a[2 * T - 1 - i];
+      }
+      j = seen = 2 * T;
+    }
+    for (; j < cnt; j += kSelUnroll) {
+      unsigned v[kSelUnroll];
+#pragma unroll
+      for (int u = 0; u < kSelUnroll; ++u)
+        v[u] = (live && j + u < cnt) ? load_pair(x + s_row[j + u] * ss, full) : 0u;
+#pragma unroll
+      for (int u = 0; u < kSelUnroll; ++u)
+        if (j + u < cnt) {
+          const unsigned k = pair_keys(v[u]);
+          if (seen >= 2 * T) add_pair(acc, pair_max(bot[T - 1], pair_min(k, top[T - 1])));
+          insert_pairs<T>(top, bot, k);
+          ++seen;
+        }
+    }
+  }
+  const float den = fmaxf(n - 2.f * T, 1.f);
+  if (live) out[r * D + col] = acc[0] / den;
+  if (full) out[r * D + col + 1] = acc[1] / den;
+}
+
 // ---- "rank": any trim ---------------------------------------------------------
 
 constexpr int kRankThreads = 128;
@@ -306,11 +497,32 @@ int launch_select(const E* x, const float* mask, float* out, int R, int S,
   return static_cast<int>(cudaGetLastError());
 }
 
+// "select" at trim T: two coordinates a thread for a bfloat16 x that
+// pairs_fit admits (its 4-byte loads are never tried and then dropped),
+// else one; *layout says which ran.
+template <int T, typename E>
+int select_layout(const E* x, const float* mask, float* out, int R, int S, int64_t D,
+                  int64_t rs, int64_t ss, int* layout, cudaStream_t s) {
+  if constexpr (std::is_same<E, __nv_bfloat16>::value) {
+    if (pairs_fit(x, ss, rs)) {
+      *layout = kLayoutPairs;
+      constexpr int64_t kCols = 2 * kSelThreads;
+      const dim3 grid = rows::grid_yz(static_cast<unsigned>((D + kCols - 1) / kCols), R);
+      masked_select_pairs_kernel<T><<<grid, kSelThreads, 0, s>>>(x, mask, out, R, S, D,
+                                                                  rs, ss);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+  *layout = kLayoutOne;
+  return launch_select<T, E>(x, mask, out, R, S, D, rs, ss, s);
+}
+
 template <typename E>
 int masked_neighbor_reduce(const E* x, const float* mask, float* out, int R, int S,
                            long long D, long long rs, long long ss, int trim,
-                           int* route, void* stream) {
+                           int* route, int* layout, void* stream) {
   *route = trim == 0 ? kRouteSum : trim <= kMaxSelectTrim ? kRouteSelect : kRouteRank;
+  *layout = kLayoutOne;
   if (R == 0 || D == 0) return static_cast<int>(cudaGetLastError());
   const auto s = static_cast<cudaStream_t>(stream);
   if (*route == kRouteSum) {
@@ -326,7 +538,7 @@ int masked_neighbor_reduce(const E* x, const float* mask, float* out, int R, int
     switch (trim) {
 #define REPRO_SELECT(T) \
   case T:               \
-    return launch_select<T, E>(x, mask, out, R, S, D, rs, ss, s);
+    return select_layout<T, E>(x, mask, out, R, S, D, rs, ss, layout, s);
       REPRO_SELECT(1) REPRO_SELECT(2) REPRO_SELECT(3) REPRO_SELECT(4)
       REPRO_SELECT(5) REPRO_SELECT(6) REPRO_SELECT(7) REPRO_SELECT(8)
       REPRO_SELECT(9) REPRO_SELECT(10) REPRO_SELECT(11) REPRO_SELECT(12)
@@ -345,21 +557,23 @@ int masked_neighbor_reduce(const E* x, const float* mask, float* out, int R, int
 // x: (R, S, D) float32 (*_f32) or bfloat16 (*_bf16) at x[r * rs + s * ss + d];
 // mask: (R, S), out: (R, D) float32 contiguous; 0 <= trim.  Picks the route
 // from trim and writes its code to *route: 0 "sum" (trim 0), 1 "select"
-// (1 <= trim <= 16), 2 "rank" (beyond).
+// (1 <= trim <= 16), 2 "rank" (beyond); and "select"'s layout to *layout: 0
+// one coordinate a thread, 1 two (bfloat16 with a 4-byte aligned base and
+// even strides).
 REPRO_EXPORT int masked_neighbor_reduce_f32(const float* x, const float* mask,
                                             float* out, int R, int S,
                                             long long D, long long rs,
                                             long long ss, int trim, int* route,
-                                            void* stream) {
+                                            int* layout, void* stream) {
   return masked_neighbor_reduce<float>(x, mask, out, R, S, D, rs, ss, trim, route,
-                                       stream);
+                                       layout, stream);
 }
 
 REPRO_EXPORT int masked_neighbor_reduce_bf16(const __nv_bfloat16* x,
                                              const float* mask, float* out, int R,
                                              int S, long long D, long long rs,
                                              long long ss, int trim, int* route,
-                                             void* stream) {
+                                             int* layout, void* stream) {
   return masked_neighbor_reduce<__nv_bfloat16>(x, mask, out, R, S, D, rs, ss, trim,
-                                               route, stream);
+                                               route, layout, stream);
 }

@@ -46,12 +46,12 @@
 // to float32 exactly (a shift) and the order of every sum is the float32
 // kernel's, so the bf16 route gives the bits of the float32 kernel run on
 // z.float() (laid out alike: a slice of the upcast for a slice), at half
-// the bytes of z.  The unmasked K2 and K6 only change the load: each lane's
+// the bytes of z.  The unmasked K2 only changes the load: each lane's
 // 4-element load is 8 bytes instead of a float4 (where the base and strides
-// allow it, else the scalar path).  The two routes that stream member rows
-// were redesigned for 2-byte rows, because a conversion right after each
-// load waited for that load, so a warp's row loads ran one after another,
-// and 8-byte loads halved the bytes in flight:
+// allow it, else the scalar path).  The routes that stream rows were
+// redesigned for 2-byte rows, because a conversion right after each load
+// waited for that load, so a warp's row loads ran one after another, and
+// 8-byte loads halved the bytes in flight:
 // * K3 (and K7 "sum", the same body) reads a 16-byte aligned z with strides
 //   that are multiples of 8 elements 8 coordinates a lane, one 16-byte load
 //   of raw words converted where they are added (rows.cuh's Cols8): 256
@@ -65,6 +65,13 @@
 //   36 members a receiver instead of 3, in the same blocks.  Each lane keeps
 //   its coordinates and each (member, chunk) partial its fmaf chain and
 //   warp tree, so every partial keeps its bits.
+// * K6 with 4-element loads issues the raw 8 bytes of all its 4 rows' groups
+//   (8 loads a thread) before converting any, in the same blocks and lanes,
+//   and squares them in the float32 code (square_row), so each row's sum
+//   keeps its order (64 registers).  It keeps 4 rows a block: 8 would hold
+//   64 squares a thread for the segment sums (about 130 registers, one
+//   block an SM), or recompute them from the raw words in other code than
+//   float32's.
 //
 // K3 weighted_sum: out[r, d] = sum_s a[r, s] * z[r, s, d]  (unnormalized).
 // Replaces: repro/kernels/weiszfeld.py, weighted_sum_call (_wsum_kernel).
@@ -257,6 +264,22 @@ __device__ __forceinline__ void row_totals(float (&v)[kSegRows],
   __syncthreads();
 }
 
+// One row's squares of the thread's coordinates (0 outside every segment)
+// and their sum in item order: the same code on every load path, so the
+// bfloat16 route squares and adds exactly as float32 does.
+__device__ __forceinline__ void square_row(const float (&zv)[kSegItems],
+                                           const float (&yv)[kSegItems],
+                                           const int (&sid)[kSegItems],
+                                           float (&d2)[kSegItems], float& tot) {
+  tot = 0.f;
+#pragma unroll
+  for (int i = 0; i < kSegItems; ++i) {
+    const float e = zv[i] - yv[i];
+    d2[i] = sid[i] >= 0 ? e * e : 0.f;
+    tot += d2[i];
+  }
+}
+
 // Grid (nchunks, rows::grid_yz over the ceil(W / kSegRows) groups of
 // workers).  partial: (W, L, nchunks), entry (w, s, c) written only when s
 // lies in chunk c's [lo, hi]; span: (>= groups, nchunks, 2) that [lo, hi]
@@ -311,30 +334,49 @@ sqdist_segments_kernel(const T* __restrict__ z, const float* __restrict__ y,
   }
   // Each row's squares, and each thread's sum of them in order.
   float d2[kSegRows][kSegItems], tot[kSegRows];
+  if constexpr (VEC && std::is_same<T, __nv_bfloat16>::value) {
+    // bfloat16: every row's raw words in flight at once (no load waits on
+    // another's conversion), converted where they are squared.  VEC means
+    // D % 4 == 0, so a group lies below D whole or not at all (then +0.0).
+    uint2 raw[kSegRows][kSegVecs];
 #pragma unroll
-  for (int r = 0; r < kSegRows; ++r) {
-    float zv[kSegItems];
-    const T* zr = z + (w0 + r) * D;
+    for (int r = 0; r < kSegRows; ++r)
 #pragma unroll
-    for (int v = 0; v < kSegVecs; ++v) {
-      const int64_t d0 = seg_coord<VEC>(c0, t, 4 * v);
-      if (r < rows_here && VEC && d0 < D) {
-        const float4 a = ldg4_f32(zr + d0);
+      for (int v = 0; v < kSegVecs; ++v) {
+        const int64_t d0 = seg_coord<true>(c0, t, 4 * v);
+        raw[r][v] = r < rows_here && d0 < D ? ldg4_raw(z + (w0 + r) * D + d0)
+                                            : make_uint2(0u, 0u);
+      }
+#pragma unroll
+    for (int r = 0; r < kSegRows; ++r) {
+      float zv[kSegItems];
+#pragma unroll
+      for (int v = 0; v < kSegVecs; ++v) {
+        const float4 a = bf16x4_f32(raw[r][v]);
         zv[4 * v] = a.x; zv[4 * v + 1] = a.y; zv[4 * v + 2] = a.z; zv[4 * v + 3] = a.w;
-      } else {
+      }
+      square_row(zv, yv, sid, d2[r], tot[r]);
+    }
+  } else {
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int64_t d = seg_coord<VEC>(c0, t, 4 * v + k);
-          zv[4 * v + k] = r < rows_here && d < D ? ldg_f32(zr + d) : 0.f;
+    for (int r = 0; r < kSegRows; ++r) {
+      float zv[kSegItems];
+      const T* zr = z + (w0 + r) * D;
+#pragma unroll
+      for (int v = 0; v < kSegVecs; ++v) {
+        const int64_t d0 = seg_coord<VEC>(c0, t, 4 * v);
+        if (r < rows_here && VEC && d0 < D) {
+          const float4 a = ldg4_f32(zr + d0);
+          zv[4 * v] = a.x; zv[4 * v + 1] = a.y; zv[4 * v + 2] = a.z; zv[4 * v + 3] = a.w;
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int64_t d = seg_coord<VEC>(c0, t, 4 * v + k);
+            zv[4 * v + k] = r < rows_here && d < D ? ldg_f32(zr + d) : 0.f;
+          }
         }
       }
-    }
-    tot[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kSegItems; ++i) {
-      const float e = zv[i] - yv[i];
-      d2[r][i] = sid[i] >= 0 ? e * e : 0.f;
-      tot[r] += d2[r][i];
+      square_row(zv, yv, sid, d2[r], tot[r]);
     }
   }
   // The chunk's segment range [lo, hi] and each row's sum, to every thread.

@@ -16,7 +16,12 @@ mask, for any R, S and D that fit in memory, reading only the members' rows
 back: "sum" for trim 0 (the fixed-order masked sum), "select" for trims up
 to 16 (the trim largest and smallest kept in registers, then the values
 between them summed), "rank" beyond (each value ranked against the others;
-correct, not fast).  :data:`ROUTE_LAUNCHES` counts each route.  :func:`masked_neighbor_reduce_plain` is the same function in plain
+correct, not fast).  :data:`ROUTE_LAUNCHES` counts each route, and
+:data:`SELECT_LAYOUT_LAUNCHES` each layout of "select": "pairs" (two
+bfloat16 coordinates a thread, their 16-bit keys ordered two at a time) for
+a bfloat16 exchange with a 4-byte aligned base and even strides, "one"
+(one coordinate a thread) for everything else.
+:func:`masked_neighbor_reduce_plain` is the same function in plain
 PyTorch (sort with the non-neighbours ordered after every member, keep
 ranks ``[trim, n - trim)``), which the CPU path runs and the card's checks
 compare against.  Both order a member's NaN above +inf, as torch.sort does,
@@ -42,11 +47,73 @@ _SIGNATURES = {
     f"masked_neighbor_reduce_{sfx}": [ctypes.c_void_p] * 3 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-        ctypes.c_void_p] for sfx in _build.SUFFIX.values()}
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    for sfx in _build.SUFFIX.values()}
 
 ROUTES = ("sum", "select", "rank")   # the route codes 0, 1, 2 of csrc/topology.cu
 # Launches per route (reset with the others by ops.reset_launch_counts).
 ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+# "select"'s layouts, the codes 0, 1 of csrc/topology.cu, and their launches
+# (reset with the others).
+SELECT_LAYOUTS = ("one", "pairs")
+SELECT_LAYOUT_LAUNCHES = dict.fromkeys(SELECT_LAYOUTS, 0)
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 if n <= 1 else 2 * _pow2_at_least((n + 1) // 2)
+
+
+def _sort_minmax_ops(trim: int) -> int:
+    """Integer min/max of "select"'s first sort at ``trim``: the bitonic
+    network on the next power of two of 2 * trim slots, as the kernel runs
+    it (a compare-exchange with a pad slot is a move, one of two pads
+    nothing), counted backwards from the 2 * trim slots it reads (the
+    compiler drops the rest)."""
+    n, live = _pow2_at_least(2 * trim), 2 * trim
+    pad = [i >= live for i in range(n)]
+    events = []                     # ("cx", i, l) or ("move", from, to)
+    k = 2
+    while k <= n:
+        j = k >> 1
+        while j:
+            for i in range(n):
+                l = i ^ j
+                if l > i and not (pad[i] and pad[l]):
+                    up = (i & k) == 0
+                    if pad[i] or pad[l]:
+                        events.append(("move", l if pad[i] else i, i if up else l))
+                        pad[i], pad[l] = not up, up
+                    else:
+                        events.append(("cx", i, l))
+            j >>= 1
+        k <<= 1
+    need, ops = set(range(live)), 0
+    for kind, a, b in reversed(events):
+        if kind == "cx":
+            used = (a in need) + (b in need)
+            ops += used
+            if used:
+                need |= {a, b}
+        else:
+            hit = b in need
+            need -= {a, b}
+            if hit:
+                need.add(a)
+    return ops
+
+
+def select_minmax_ops(members: int, trim: int) -> int:
+    """Integer min/max that "select" runs for one receiver of ``members``
+    members at ``1 <= trim <= 16``, a key word (a coordinate in the "one"
+    layout, a pair in "pairs"), when its first 2,048 senders hold them all:
+    the first 2 * trim sorted at once, then 4 * trim for each later member
+    (the insert into both arrays, 4 * trim - 2, and the median of three, 2);
+    with fewer than 2 * trim, the inserts alone."""
+    if not 1 <= trim <= 16:
+        raise ValueError(f"select serves 1 <= trim <= 16, got {trim}")
+    if members < 2 * trim:
+        return members * (4 * trim - 2)
+    return _sort_minmax_ops(trim) + (members - 2 * trim) * 4 * trim
 
 
 def check_inputs(exchange: torch.Tensor, mask: torch.Tensor, trim: int) -> None:
@@ -97,15 +164,17 @@ def masked_neighbor_reduce_call(exchange: torch.Tensor, mask: torch.Tensor,
     s, d = exchange.shape[1:]
     lib = _build.load("topology", _SIGNATURES)
     out = torch.empty((r, d), dtype=torch.float32, device=exchange.device)
-    code = ctypes.c_int(-1)
+    code, layout = ctypes.c_int(-1), ctypes.c_int(-1)
     with torch.cuda.device(exchange.device):
         rc = getattr(lib, "masked_neighbor_reduce_"
                      + _build.SUFFIX[exchange.dtype])(
             _build.ptr(exchange), _build.ptr(mask), _build.ptr(out), r, s, d,
-            rs, ss, int(trim), ctypes.byref(code),
+            rs, ss, int(trim), ctypes.byref(code), ctypes.byref(layout),
             ctypes.c_void_p(_build.stream_of(exchange)))
     _build.check(lib, rc, "masked_neighbor_reduce")
     route = ROUTES[code.value]
     _build.count("masked_neighbor_reduce", exchange.dtype, route)
     ROUTE_LAUNCHES[route] += 1
+    if route == "select":
+        SELECT_LAYOUT_LAUNCHES[SELECT_LAYOUTS[layout.value]] += 1
     return out

@@ -1384,3 +1384,98 @@ def test_bf16_streaming_routes_equal_float32_kernel_on_upcast(case):
     assert ops.bf16_launch_counts() == {
         "masked_neighbor_reduce": 1, "masked_neighbor_reduce sum": 1,
         "partial_sqdist": 1, "partial_sqdist masked": 1, "weighted_sum": 2}
+
+
+# K7 "select" on a bf16 exchange takes the pairs layout (two coordinates a
+# thread, 16-bit keys ordered two at a time) where the base is 4-byte aligned
+# and the strides are even, else one coordinate a thread; both give the
+# float32 kernel's bits on the upcast laid out alike.  The exchange is x =
+# buf[..., :1001] of a (5, 70, 1002) bf16 buffer: even strides and an odd D,
+# so the last pair has a dead half.  Receiver 0 has 2 * trim - 1 members,
+# receiver 1 exactly 2 * trim, receiver 2 all 70, the rest p = 0.5 (with
+# senders 3 and 4); senders 0 and 1 are copies (ties), senders 5-9 hold +0
+# and -0 at coordinates 40-59, sender 3 a NaN at 0-9, +inf at 10-19 and -inf
+# at 20-29, and sender 4 is 1e30 times larger than the rest from coordinate
+# 30 on: at most one extreme on each side of a coordinate, so trim 1 drops
+# them all.
+
+
+def _select_pairs_exchange(trim: int, s: int = 70, d: int = 1001, seed: int = 0):
+    g = torch.Generator(device="cuda").manual_seed(seed + trim)
+    buf = torch.randn((5, s, d + 1), generator=g, device="cuda")
+    buf[:, 1] = buf[:, 0]
+    buf[:, 5:10, 40:60] = 0.0
+    buf[:, 5:10:2, 40:60] = -0.0
+    buf[:, 3, :10] = float("nan")
+    buf[:, 3, 10:20] = float("inf")
+    buf[:, 3, 20:30] = -float("inf")
+    buf[:, 4, 30:] = 1e30 * (1.0 + buf[:, 4, 30:].abs())
+    mask = (torch.rand((5, s), generator=g, device="cuda") < 0.5).float()
+    mask[:, 3:5] = 1.0
+    mask[0] = 0.0
+    mask[0, :2 * trim - 1] = 1.0
+    mask[1] = 0.0
+    mask[1, :2 * trim] = 1.0
+    mask[2] = 1.0
+    return buf.bfloat16(), mask
+
+
+def _select_layout_case(x, xf, mask, trim, layout):
+    """K7 at trim on bf16 x: the float32 kernel's bits on xf, the plain
+    version at rtol 1e-5, and one launch of `layout`."""
+    ops.reset_launch_counts()
+    got = tp.masked_neighbor_reduce_call(x, mask, trim)
+    torch.cuda.synchronize()
+    assert tp.SELECT_LAYOUT_LAUNCHES == {k: int(k == layout) for k in tp.SELECT_LAYOUTS}
+    assert torch.equal(_raw(got), _raw(tp.masked_neighbor_reduce_call(xf, mask, trim)))
+    assert tp.SELECT_LAYOUT_LAUNCHES == {"one": 1 + int(layout == "one"),
+                                         "pairs": int(layout == "pairs")}
+    _close(got, tp.masked_neighbor_reduce_plain(x, mask, trim))
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trim", range(1, 17))
+def test_bf16_select_pairs_layout_equals_float32_kernel_on_upcast(trim):
+    """The pairs layout at every trim it serves: receivers with fewer than
+    2 * trim, exactly 2 * trim and more members (0 for the first two), ties,
+    +-0, +-inf, a NaN member and a huge row, all dropped or kept as the
+    float32 kernel drops or keeps them."""
+    _need_card()
+    buf, mask = _select_pairs_exchange(trim)
+    got = _select_layout_case(buf[..., :1001], buf.float()[..., :1001], mask, trim,
+                              "pairs")
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got[:2], torch.zeros((2, 1001), device="cuda"))
+    assert float(got[2:].abs().max()) < 10.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trim", [1, 12, 16])
+def test_bf16_select_pairs_layout_past_one_compaction(trim):
+    """2,100 senders: the members are compacted 2,048 senders at a time, and
+    receiver 0's first chunk holds fewer than 2 * trim of them."""
+    _need_card()
+    buf, mask = _select_pairs_exchange(trim, s=2_100, d=257, seed=7)
+    mask[0] = 0.0
+    mask[0, [5, 700, 1500]] = 1.0
+    mask[0, 2_048:] = 1.0
+    _select_layout_case(buf[..., :257], buf.float()[..., :257], mask, trim, "pairs")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trim", [1, 12])
+def test_bf16_select_unaligned_views_take_one_coordinate_a_thread(trim):
+    """A column slice at an odd offset (a base 2 bytes off a 4-byte
+    boundary) and a contiguous exchange of odd width (odd strides) take one
+    coordinate a thread, with the same bits; a broadcast of one aligned
+    matrix (rs = 0) takes the pairs."""
+    _need_card()
+    buf, mask = _select_pairs_exchange(trim, d=1005)
+    bf = buf.float()
+    _select_layout_case(buf[..., 3:3 + 1001], bf[..., 3:3 + 1001], mask, trim, "one")
+    odd = buf[..., :1001].contiguous()
+    _select_layout_case(odd, odd.float(), mask, trim, "one")
+    one = buf[0, :, :1000].contiguous()
+    _select_layout_case(one[None].expand(5, 70, 1000),
+                        one.float()[None].expand(5, 70, 1000), mask, trim, "pairs")

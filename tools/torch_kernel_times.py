@@ -11,7 +11,8 @@ Imports ``repro_torch`` from ``SRC_DIR`` (default: this checkout's
   K3 ``weighted_sum``, K4 ``coordinate_median``, K5 ``trimmed_mean``
   (trim 20) and K6 ``partial_sqdist_segments`` (the Table I network's four
   leaves, ``chip_smoke.table1_boundaries``), 200 launches a window;
-* the same K3 on a bfloat16 copy of the messages (the bf16 wire's route);
+* the same K3 and K6 on a bfloat16 copy of the messages (the bf16 wire's
+  routes);
 * at workload D's exchange (70, 70, 39,760) under its erdos_renyi(70,
   p=0.5, seed=0) mask: K3 batched with weights 0 off the mask, K2 batched
   unmasked and (where the tree has it) masked, and K7
@@ -75,14 +76,15 @@ def main() -> int:
     emit("K3 at B", lambda: wz.weighted_sum_call(z, a), 200)
     zb = z.bfloat16()
     emit("K3 at B bf16", lambda: wz.weighted_sum_call(zb, a), 200)
-    del zb
     emit("K4 at B", lambda: rs.coordinate_median_call(z), 200)
     emit("K5 trim 20 at B", lambda: rs.trimmed_mean_call(z, 20), 200)
     bounds, d = table1_boundaries(torch)
     seg = segment_ids(tuple(bounds), d, torch.device("cuda"))
     emit("K6 at B", lambda: wz.partial_sqdist_segments_call(z, y, seg, len(bounds)),
          200)
-    del z
+    emit("K6 at B bf16",
+         lambda: wz.partial_sqdist_segments_call(zb, y, seg, len(bounds)), 200)
+    del z, zb
     topo = get_topology("erdos_renyi", 70, seed=0, p=0.5)
     mask = torch.as_tensor(topo.neighbor_mask, device="cuda")
     ex = torch.randn((70, 70, 39_760), generator=g, device="cuda")
