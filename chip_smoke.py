@@ -305,11 +305,13 @@ def close(got, want, rtol=1e-5):
 def launch_counts():
     """Launches per kernel since the last reset, with K1's per-route counts
     ("saga_correct workers" / "clients"), K2's ("partial_sqdist unmasked" /
-    "masked"), K7's ("masked_neighbor_reduce sum" / "select" / "rank", and
-    "select"'s layouts "masked_neighbor_reduce select one" / "select
-    pairs"), and the bf16 routes' ("saga_correct bf16", "saga_correct
-    clients bf16", ...)."""
+    "masked", and the unmasked route's layouts "partial_sqdist cluster" /
+    "two-pass"), K4's layouts ("coordinate_median one" / "pairs"), K7's
+    ("masked_neighbor_reduce sum" / "select" / "rank", and "select"'s
+    layouts "masked_neighbor_reduce select one" / "select pairs"), and the
+    bf16 routes' ("saga_correct bf16", "saga_correct clients bf16", ...)."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels import robust_stats as rs
     from repro_torch.kernels import saga_correct as sc
     from repro_torch.kernels import topology as tp
     from repro_torch.kernels import weiszfeld as wz
@@ -317,6 +319,10 @@ def launch_counts():
     counts.update({f"saga_correct {k}": v for k, v in sc.ROUTE_LAUNCHES.items()})
     counts.update({f"partial_sqdist {k}": v
                    for k, v in wz.SQDIST_ROUTE_LAUNCHES.items()})
+    counts.update({f"partial_sqdist {k}": v
+                   for k, v in wz.SQDIST_LAYOUT_LAUNCHES.items()})
+    counts.update({f"coordinate_median {k}": v
+                   for k, v in rs.MEDIAN_LAYOUT_LAUNCHES.items()})
     counts.update({f"masked_neighbor_reduce {k}": v
                    for k, v in tp.ROUTE_LAUNCHES.items()})
     counts.update({f"masked_neighbor_reduce select {k}": v
@@ -886,6 +892,13 @@ def phase_workload_b(torch, agg, steps=20, wire="float32"):
     assert st.vr.table.dtype == (torch.bfloat16 if bf16 else torch.float32)
     for k in RULE_KERNELS[agg]:   # the bf16 wire launches only the bf16 routes
         assert counts.get(f"{k} bf16", 0) == (counts[k] if bf16 else 0), counts
+    # K2 in one launch (its cluster layout) and K4 two columns a thread (its
+    # pairs layout) on every bf16 launch of B's (70, 39,760) messages, never
+    # in float32.
+    assert counts["partial_sqdist cluster"] == (counts["partial_sqdist"] if bf16 else 0)
+    assert counts["coordinate_median pairs"] == (counts["coordinate_median"] if bf16 else 0)
+    if bf16 and agg == "median":
+        assert counts["coordinate_median pairs"] == steps, counts
     summary = dict(step_ms=statistics.median(times) * 1e3, peak_gb=peak / 1e9,
                    loss=f1, accuracy=acc, table_gb=table_gb, busy_us=busy_us,
                    idle=1 - busy_us / (statistics.median(times) * 1e6),
@@ -912,6 +925,22 @@ def device_ms(torch, fn, reps):
         log("torch.profiler recorded no device time; timing with CUDA events")
         return event_ms(torch, fn, reps)
     return total_us / reps / 1e3
+
+
+def kernel_split(torch, fn, reps):
+    """Each kernel's device time per call of ``fn`` (torch.profiler, ``reps``
+    calls after a warm-up), by the kernel's name up to its argument list:
+    {name: us}."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]:
+            e.self_device_time_total / reps for e in device_events(prof)}
 
 
 def event_ms(torch, fn, reps):
@@ -2313,7 +2342,49 @@ def check_bf16_flat(torch, w, d, trim, bounds, gen):
         assert same_bits(got, call(zf)), f"{name} bf16 != float32 kernel on z.float()"
         ok, errs[name] = close(got, plain(zb))
         assert ok, f"{name} bf16 disagrees with its plain version: {errs[name]}"
+    check_bf16_layouts(torch, zb, y, trim)
     return errs
+
+
+def check_bf16_layouts(torch, zb, y, trim):
+    """K2's and K4's bf16 layouts on zb (w, d) and on a view of it that
+    takes the other layout: K2 in one launch ("cluster") where d % 8 == 0,
+    its two passes on a column slice one element in; K4 two columns a
+    thread ("pairs") where w <= 128 and d is even, one a thread on a copy at
+    an odd storage offset.  Each the float32 kernel's bits on the upcast
+    laid out alike; K4 also on columns of +-inf and (on the network route)
+    trim and trim + 1 NaN, with NaN and +-inf where the plain version has
+    them."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import robust_stats as rs
+    from repro_torch.kernels import weiszfeld as wz
+    w, d = zb.shape
+    zs = zb[:, 1:]
+    for x, yy, layout in ((zb, y, "cluster" if d % 8 == 0 else "two-pass"),
+                          (zs, y[1:].contiguous(), "two-pass")):
+        ops.reset_launch_counts()
+        got = wz.partial_sqdist_call(x, yy)
+        assert wz.SQDIST_LAYOUT_LAUNCHES[layout] == 1, (layout, wz.SQDIST_LAYOUT_LAUNCHES)
+        assert same_bits(got, wz.partial_sqdist_call(x.float(), yy)), f"K2 bf16 {layout}"
+    zn = zb.clone()
+    zn[: w // 3 + 1, : d // 16] = float("inf")
+    zn[w // 3 + 1: w // 2 + 1, d // 32: d // 8] = float("-inf")
+    network = w <= rs.NETWORK_CAP
+    if network:
+        zn[:trim, d - 64: d - 32] = float("nan")
+        zn[:trim + 1, d - 32:] = float("nan")
+    odd = torch.empty(w * d + 1, dtype=torch.bfloat16, device=zb.device)[1:].view(w, d)
+    odd.copy_(zn)
+    pairs = network and d % 2 == 0
+    for x, layout in ((zb, "pairs" if pairs else "one"), (zn, "pairs" if pairs else "one"),
+                      (odd, "one")):
+        ops.reset_launch_counts()
+        got = rs.coordinate_median_call(x)
+        torch.cuda.synchronize()
+        assert rs.MEDIAN_LAYOUT_LAUNCHES[layout] == 1, (layout, rs.MEDIAN_LAYOUT_LAUNCHES)
+        assert same_bits(got, rs.coordinate_median_call(x.float())), f"K4 bf16 {layout}"
+        if network:
+            assert same_values(got, rs.coordinate_median_plain(x)), f"K4 bf16 {layout}"
 
 
 def check_bf16_masked(torch, r, s, d, trims, mask, gen, ties=True):
@@ -2400,7 +2471,11 @@ def phase_wires_kernel_checks(torch):
         for name, v in e.items():
             errs[f"{name} bf16"] = max(errs[f"{name} bf16"], v)
         log(f"kernel check bf16 messages ({w}, {d}), trim {trim}: K2, K3, K4, K5 "
-            "and K6 the float32 kernels' bits on z.float(); max|err| against the "
+            "and K6 the float32 kernels' bits on z.float() (K2 "
+            f"{'in one launch' if d % 8 == 0 else 'in two passes'} and on a slice in "
+            f"two, K4 {'two columns' if w <= 128 and d % 2 == 0 else 'one column'} a "
+            "thread and one on an odd offset, with +-inf and NaN columns); max|err| "
+            "against the "
             + ", ".join(f"{k} {v:.3g}" for k, v in e.items()) + " (rtol 1e-5): ok")
     mask_d = workload_d_graph(torch)[1]
     for (r, s_, d), trims, mask in (((7, 7, 300), (0, 1, 2), None),
@@ -2555,10 +2630,30 @@ def phase_wires_timing(torch):
             f"{res['plain_ms'] * 1e3:.2f} us; the float32 route on the same values "
             f"{ref['ms'] * 1e3:.2f} us (bound {ref['bound_ms'] * 1e3:.2f} us), "
             f"bf16/f32 {res['ms'] / ref['ms']:.3f}")
+    # K2's bf16 route in one launch beside the float32 route's two kernels,
+    # each by name (torch.profiler), and K4's two columns a thread beside the
+    # instruction floor of its packed min/max (one a pair) and float32's (one
+    # a coordinate).
+    split = {dt: kernel_split(torch, lambda: wz.partial_sqdist_call(z, y), 200)
+             for dt, z in (("bf16", z16), ("f32", z32))}
+    assert len(split["bf16"]) == 1 and "sqdist_cluster_kernel" in next(iter(split["bf16"])), split
+    log(f"timing partial_sqdist bf16 ({wm}, {d}) by kernel: "
+        + " + ".join(f"{k} {v:.2f} us" for k, v in split["bf16"].items())
+        + " (one launch, the finish in a thread-block cluster); float32 route: "
+        + " + ".join(f"{k} {v:.2f} us" for k, v in split["f32"].items()))
+    sms, mhz = sm_clock(torch)
+    n_minmax = rs.median_network_ops(wm)
+    floor16 = n_minmax * (d // 2) / (sms * 64 * mhz * 1e6) * 1e3
+    res, ref = out["coordinate_median bf16"], f32["coordinate_median bf16"]
+    log(f"timing coordinate_median bf16 pairs ({wm}, {d}): {res['ms'] * 1e3:.2f} us, "
+        f"{floor16 / res['ms']:.0%} of its instruction floor {floor16 * 1e3:.2f} us "
+        f"({n_minmax} packed min/max a pair x {d // 2} pairs / ({sms} SMs x 64 a clock x "
+        f"{mhz:.0f} MHz)) and {res['bound_ms'] / res['ms']:.0%} of its bytes bound "
+        f"{res['bound_ms'] * 1e3:.2f} us; float32 (one column a thread) "
+        f"{ref['ms'] * 1e3:.2f} us, floor {2 * floor16 * 1e3:.2f} us")
     # K7 "select" is bound by its integer min/max, not bytes: its instruction
     # floor beside each layout's time.
     assert layouts == {"bf16": "pairs", "f32": "one"}, layouts
-    sms, mhz = sm_clock(torch)
     res, ref = out["masked_neighbor_reduce bf16"], f32["masked_neighbor_reduce bf16"]
     fl16, n_ops = select_floor_ms(torch, mask, trim, d, 2)
     fl32, _ = select_floor_ms(torch, mask, trim, d, 1)
@@ -2616,6 +2711,7 @@ def phase_wires_runs(torch, card, b_peak_gb):
             assert 0 < moved <= 20 * G_COHORT, moved
         else:
             assert c.get("saga_correct clients bf16", 0) == 20, c
+            assert c["partial_sqdist cluster"] == c["partial_sqdist"] > 0, c
         counts[label], rows[label] = c, summ
         del st
         torch.cuda.empty_cache()

@@ -32,8 +32,8 @@
 //   comparisons of the rank count below (94 registers at N = 72, 160 at
 //   N = 128, no spills).  The selection moves values, so the result is the
 //   plain version's bits (a zero's sign aside where -0 and +0 share a
-//   column: the sort leaves their order open too), and (lo + hi) * 0.5 is
-//   computed with the same two roundings.
+//   column: the sort leaves their order open, while FMNMX puts -0 first),
+//   and (lo + hi) * 0.5 is computed with the same two roundings.
 // * K5 adds the kept ranks [trim, W - trim) in ascending rank order in
 //   float32 and divides by W - 2 trim.  trim is a runtime value, so every
 //   rank may be read and only the compare-exchanges on wires >= N are gone:
@@ -83,7 +83,27 @@
 // takes z in bfloat16 and loads it into the same registers (or the same
 // float32 slab) as the float32 kernel, converted exactly; nothing else
 // changes, so the bf16 route gives the bits of the float32 kernel run on
-// z.float(), reading half the bytes.  The output stays float32.
+// z.float(), reading half the bytes.  The output stays float32.  K4's
+// network route on a bfloat16 z with D even and a 4-byte aligned base takes
+// two columns a thread instead (median_pairs_kernel, the "pairs" layout):
+// one 4-byte load a row reads both columns (a warp reads 128 bytes a row,
+// not 64), each word's two halves are keyed into 16-bit integers that order
+// like the upcast values (median_keys: NaN above +inf, -0 below +0), and the
+// same pruned network runs on words with packed min.s16x2/max.s16x2, one
+// VIMNMX.S16x2 ordering both columns: at W = 70 the float network's 1,163
+// min/max as 1,141 VIMNMX.S16x2 and 11 three-input VIMNMX3.S16x2 (ptxas
+// fuses those pairs), against 1,163 FMNMX for one column in float32; 1,920
+// instructions in all, 80 registers.  Its instruction floor, 1,163 x 19,880
+// pairs / (64 a clock x 132 SMs x 1.98 GHz) = 1.38 us, is below the bytes'
+// 1.71 us; its 622 one-warp blocks put two warps on some of the 528 warp
+// schedulers, so it runs near twice one warp's issue time.  A rank from
+// W - #NaN on keys above +inf, so NaN needs no count.  The
+// selected keys unkey to the exact bf16 values, and (lo + hi) * 0.5 takes
+// float32's two roundings: the float32 kernel's bits, zeros too, because
+// Hopper's FMNMX also orders -0 below +0 (held on the card on every column
+// of +-0 at W = 1..9).  The two halves' ranks are the same, so one network
+// serves both.  Other bf16 views, W past 128 and K5 load one column a
+// thread as above.
 //
 // NaN on the rank-count routes: every comparison with NaN is false, so a
 // NaN gets rank 0 and the ranks of its column are no longer a permutation;
@@ -93,6 +113,7 @@
 #include <cmath>
 
 #include "common.cuh"
+#include "keys.cuh"
 
 namespace {
 
@@ -211,6 +232,123 @@ int launch_network(const T* z, float* out, int W, long long D, int trim,
     trimmed_network_kernel<N, T><<<blocks, kNetThreads, 0, s>>>(
         z, out, W, static_cast<int64_t>(D), trim);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---- K4 bf16: two columns a thread on packed 16-bit keys --------------------
+//
+// The same pruned network as sort_network, on words of two keys (keys.cuh),
+// each compare-exchange one pair_min and one pair_max for both columns.  Kept
+// apart from the float template that K5 and the float32 kernel share, so
+// their SASS does not move.
+
+template <int N, int SP, int SK>
+__device__ __forceinline__ void sort_stage_pairs(unsigned (&v)[N]) {
+  constexpr int P = pow2_at_least(N), p = 1 << SP, k = 1 << SK;
+#pragma unroll
+  for (int j = k % p; j + k < P; j += 2 * k) {
+#pragma unroll
+    for (int i = 0; i < k; ++i) {
+      const int a = i + j, b = a + k;
+      if (b < N && a / (2 * p) == b / (2 * p)) {
+        const unsigned x = v[a], y = v[b];
+        v[a] = pair_min(x, y);
+        v[b] = pair_max(x, y);
+      }
+    }
+  }
+}
+
+template <int N, int SP = 0, int SK = 0>
+__device__ __forceinline__ void sort_network_pairs(unsigned (&v)[N]) {
+  if constexpr ((1 << SP) < pow2_at_least(N)) {
+    sort_stage_pairs<N, SP, SK>(v);
+    if constexpr (SK > 0)
+      sort_network_pairs<N, SP, SK - 1>(v);
+    else
+      sort_network_pairs<N, SP + 1, SP + 1>(v);
+  }
+}
+
+// K4's keys of a word of two raw bfloat16 values: a NaN half first loses
+// its sign bit (a negative NaN becomes a positive one), then each half b
+// keys as b for b >= 0 and b ^ 0x7fff for b < 0 (prmt replicates each half's
+// sign bit over it), the order of keys.cuh's pair_keys for every other
+// value.  So every NaN half keys in (0x7f80, 0x7fff]: above +inf's 0x7f80,
+// at most the pads' kPairTop.  Five instructions a word.
+__device__ __forceinline__ unsigned median_keys(unsigned w) {
+  const unsigned t = (w & 0x7fff7fffu) + 0x007f007fu;   // bit 15 of a half: NaN
+  w &= ~(t & 0x80008000u);
+  unsigned sign;
+  asm("prmt.b32 %0, %1, 0, 0xbb99;" : "=r"(sign) : "r"(w));
+  return w ^ (sign & 0x7fff7fffu);
+}
+
+// The float32 value of a half of a sorted key word (its key in the low 16
+// bits of `half`): NaN for a key above +inf's (a NaN or a pad: ranks from
+// W - #NaN on), else the half's raw bfloat16 value, exactly.
+__device__ __forceinline__ float key_value16(unsigned half) {
+  const unsigned k = half & 0xffffu;
+  return static_cast<short>(k) > 0x7f80 ? NAN : __uint_as_float(pair_values(k) << 16);
+}
+
+// median_network_kernel for columns 2p and 2p + 1, p < P (P = D / 2 words a
+// row): thread p loads word p of each row (4 bytes, W loads in flight as raw
+// words), keys the words (median_keys) and pads them with kPairTop to N.
+// NaN and the pads key above every other value, so ranks below W - #NaN
+// hold a column's other values in the float32 kernel's order (its NaN enter
+// as +inf), and a rank from W - #NaN on keys above +inf and reads NaN.  out
+// must be 8-byte aligned.
+template <int N>
+__global__ void __launch_bounds__(kNetThreads)
+median_pairs_kernel(const __nv_bfloat16* __restrict__ z, float* __restrict__ out,
+                    int W, int64_t P) {
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * kNetThreads + threadIdx.x;
+  if (p >= P) return;
+  // Row i's word through a pointer stepped a row at a time; rows below
+  // N - kNetStep always exist (W > N - kNetStep), so only the bucket's last
+  // kNetStep are tested.
+  const unsigned* row = reinterpret_cast<const unsigned*>(z) + p;
+  unsigned v[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i, row += P)
+    v[i] = i < N - kNetStep || i < W ? __ldg(row) : kPairTop;
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = median_keys(v[i]);
+  sort_network_pairs<N>(v);
+  const int lo = (W - 1) / 2, hi = W / 2;
+  unsigned ka = 0, kb = 0;
+#pragma unroll
+  for (int r = (N - kNetStep) / 2; r <= N / 2; ++r) {   // every lo and hi of the bucket
+    if (r == lo) ka = v[r];
+    if (r == hi) kb = v[r];
+  }
+  const float a0 = key_value16(ka), b0 = key_value16(kb);
+  const float a1 = key_value16(ka >> 16), b1 = key_value16(kb >> 16);
+  reinterpret_cast<float2*>(out)[p] =
+      lo == hi ? make_float2(a0, a1)
+               : make_float2(__fmul_rn(__fadd_rn(a0, b0), 0.5f),
+                             __fmul_rn(__fadd_rn(a1, b1), 0.5f));
+}
+
+// Launches median_pairs_kernel for the smallest multiple of kNetStep >= W.
+template <int N = kNetStep>
+int launch_median_pairs(const __nv_bfloat16* z, float* out, int W, long long D,
+                        cudaStream_t s) {
+  if constexpr (N < kNetCap) {
+    if (W > N) return launch_median_pairs<N + kNetStep>(z, out, W, D, s);
+  }
+  const long long P = D / 2;
+  const unsigned blocks = static_cast<unsigned>((P + kNetThreads - 1) / kNetThreads);
+  median_pairs_kernel<N><<<blocks, kNetThreads, 0, s>>>(z, out, W, static_cast<int64_t>(P));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Whether K4's bf16 route takes two columns a thread: the network route (W
+// <= kNetCap), D even and a 4-byte aligned z, so that every pair's word is
+// aligned (and out 8-byte aligned for its float2 stores).
+bool median_pairs_fit(const __nv_bfloat16* z, const float* out, int W, long long D) {
+  return W <= kNetCap && D > 0 && D % 2 == 0 && reinterpret_cast<uintptr_t>(z) % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(out) % 8 == 0;
 }
 
 // ---- The rank count: K4 and K5 past kNetCap ---------------------------------
@@ -372,8 +510,13 @@ REPRO_EXPORT int coordinate_median_f32(const float* z, float* out, int W,
   return launch_any<true, float>(z, out, W, D, 0, stream);
 }
 
+// The bf16 route reports its layout: 1 for two columns a thread
+// (median_pairs_fit), else 0 (one a thread, as float32).
 REPRO_EXPORT int coordinate_median_bf16(const __nv_bfloat16* z, float* out, int W,
-                                        long long D, void* stream) {
+                                        long long D, int* layout, void* stream) {
+  *layout = median_pairs_fit(z, out, W, D) ? 1 : 0;
+  if (*layout == 1)
+    return launch_median_pairs(z, out, W, D, static_cast<cudaStream_t>(stream));
   return launch_any<true, __nv_bfloat16>(z, out, W, D, 0, stream);
 }
 

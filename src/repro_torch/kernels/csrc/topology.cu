@@ -107,6 +107,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "keys.cuh"
 #include "rows.cuh"
 
 namespace {
@@ -299,32 +300,12 @@ masked_select_kernel(const E* __restrict__ x, const float* __restrict__ mask,
 // odd D reads its low half alone (a 2-byte load).  The word network and
 // inserts below are kept apart from the float32 kernel's: written as one
 // template over both key widths, they moved that kernel's SASS (and time).
-
-constexpr unsigned kPairBottom = 0x80008000u, kPairTop = 0x7fff7fffu;   // pads
-
-__device__ __forceinline__ unsigned pair_min(unsigned a, unsigned b) {
-  unsigned d;
-  asm("min.s16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
-__device__ __forceinline__ unsigned pair_max(unsigned a, unsigned b) {
-  unsigned d;
-  asm("max.s16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
-// The keys of a word of two raw bfloat16 values.
-__device__ __forceinline__ unsigned pair_keys(unsigned w) {
-  // A NaN half (|b| > 0x7f80: bit 15 of |b| + 0x7f) becomes 0x7fff first.
-  const unsigned nan = (((w & 0x7fff7fffu) + 0x007f007fu) >> 15) & 0x00010001u;
-  w = (w & ~(nan * 0xffffu)) | (nan * 0x7fffu);
-  return w ^ (((w >> 15) & 0x00010001u) * 0x7fffu);
-}
+// The keys and the packed min/max are keys.cuh's, which K4's pairs layout
+// shares.
 
 // Each half's value, exactly as float32, added to its coordinate's sum.
 __device__ __forceinline__ void add_pair(float (&acc)[2], unsigned k) {
-  const unsigned v = k ^ (((k >> 15) & 0x00010001u) * 0x7fffu);
+  const unsigned v = pair_values(k);
   acc[0] += __uint_as_float(v << 16);
   acc[1] += __uint_as_float(v & 0xffff0000u);
 }

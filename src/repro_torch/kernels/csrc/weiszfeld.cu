@@ -17,7 +17,8 @@
 // * unmasked: a (D-chunk of 2,048, sender, receiver) grid writes one partial
 //   sum per block into an (R * S, nchunks) scratch buffer, then one block
 //   per (receiver, sender) sums its row.  Both passes reduce in a fixed tree
-//   (warp shuffles, then the warps in order).
+//   (warp shuffles, then the warps in order).  A bfloat16 z takes one
+//   launch with the same sums where its layout allows (below).
 // * masked (an (R, S) mask given; the masked Weiszfeld multiplies the
 //   distance of every sender of mask <= 0 by 0): a block owns one receiver's
 //   chunk of 512 coordinates.  It compacts the receiver's members (mask > 0)
@@ -46,12 +47,35 @@
 // to float32 exactly (a shift) and the order of every sum is the float32
 // kernel's, so the bf16 route gives the bits of the float32 kernel run on
 // z.float() (laid out alike: a slice of the upcast for a slice), at half
-// the bytes of z.  The unmasked K2 only changes the load: each lane's
-// 4-element load is 8 bytes instead of a float4 (where the base and strides
-// allow it, else the scalar path).  The routes that stream rows were
-// redesigned for 2-byte rows, because a conversion right after each load
-// waited for that load, so a warp's row loads ran one after another, and
-// 8-byte loads halved the bytes in flight:
+// the bytes of z.  The routes were redesigned for 2-byte rows, because a
+// conversion right after each load waited for that load, so a warp's row
+// loads ran one after another, and 8-byte loads halved the bytes in flight:
+// * The unmasked K2 takes one of two layouts, decided before the launch by
+//   the base, the strides and D alone (partial_sqdist_cluster_fits):
+//   - "cluster" (z 16-byte aligned, ld and rs multiples of 8, 1 to 8,192
+//     chunks of 2,048): one launch and no scratch (sqdist_cluster_kernel).
+//     A warp computes a whole (row, chunk) partial: lane l stands for the
+//     float32 first pass's threads 8l .. 8l + 7, whose coordinates at step
+//     k are the 8 adjacent c0 + 256k + 8l + j, so one 16-byte load a step
+//     (all 8 of z's and y's 16 float4 loads in flight before any is used)
+//     feeds 8 fmaf chains in the float32 order, and the 256 threads' tree
+//     is replayed in the warp (block_sum8).  A thread-block cluster of C <=
+//     8 blocks of 8 warps covers one row across all of D, block b the
+//     chunks b, b + C, ... (C = 3 at B's 20 chunks: 210 blocks).  Each
+//     partial lands in block 0's shared memory: block 0's own with a store,
+//     the others' with st.async, whose bytes complete a transaction count
+//     on block 0's mbarrier (set before the cluster barrier that every block
+//     passes before its first send).  Block 0 waits on it, then sums the
+//     row in sqdist_finish_kernel's order and tree; the others leave as
+//     soon as they have sent.  No atomics, no counter, no second kernel, no
+//     fence: on the H100 a cluster.sync() (its release is a MEMBAR.ALL.GPU)
+//     cost more than the finish kernel it replaced, and two rows a warp
+//     sharing y's loads (fewer, larger warps) ran slower than one.  128
+//     registers, nchunks * 4 bytes of shared memory in block 0.  Bound: z's
+//     W D 2 bytes with y and out, 5.73 MB at B: 1.71 us at 3.35 TB/s.
+//   - "two-pass" (every other view): the float32 route's two kernels with
+//     each element of z loaded as 2 bytes (sqdist_partial_kernel: 8 scalar
+//     loads a thread, 256 coordinates apart).
 // * K3 (and K7 "sum", the same body) reads a 16-byte aligned z with strides
 //   that are multiples of 8 elements 8 coordinates a lane, one 16-byte load
 //   of raw words converted where they are added (rows.cuh's Cols8): 256
@@ -146,6 +170,7 @@
 // 50 MB L2, so the sweeps may run above the HBM rate; the decentralized
 // exchange does not fit.
 #include <climits>
+#include <cooperative_groups.h>
 #include <cuda/atomic>
 #include <type_traits>
 
@@ -223,6 +248,183 @@ __global__ void sqdist_finish_kernel(const float* __restrict__ partial,
   for (int c = threadIdx.x; c < nchunks; c += kThreads) acc += row[c];
   const float s = block_sum(acc);
   if (threadIdx.x == 0) out[blockIdx.x] = s;
+}
+
+// ---- K2 bf16 unmasked: one launch, the finish pass in a thread-block cluster --
+
+constexpr int kClWarps = 8;                  // warps a block, one chunk at a time each
+constexpr int kClThreads = 32 * kClWarps;
+constexpr int kClMaxBlocks = 8;              // the portable cluster size
+constexpr int kClMaxChunks = 8192;           // block 0 keeps a row's partials: 32 KB
+
+// block_sum over sqdist_partial_kernel's 256 threads, done by one warp whose
+// lane l holds threads 8l .. 8l + 7's values in v[0 .. 7]: thread t = 8l + j
+// sits in warp l / 4 at lane 8 (l % 4) + j, so the float32 kernel's
+// __shfl_down_sync by 16 and 8 lanes are shuffles by 2 and 1 lanes here, by
+// 4, 2 and 1 sums within v, and the warps' sums, added in order from 0.f,
+// are lanes 0, 4, ..., 28's.  Every addition is the float32 kernel's, on the
+// same operands: the same bits, in every lane.  All 32 lanes must call it.
+__device__ __forceinline__ float block_sum8(const float (&v)[kItems]) {
+  float a[kItems];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) a[j] = v[j] + __shfl_down_sync(0xffffffffu, v[j], 2);
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) a[j] += __shfl_down_sync(0xffffffffu, a[j], 1);
+  const float c0 = a[0] + a[4], c1 = a[1] + a[5], c2 = a[2] + a[6], c3 = a[3] + a[7];
+  const float e = (c0 + c2) + (c1 + c3);   // warp l / 4's sum, in lanes l % 4 == 0
+  float total = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) total += __shfl_sync(0xffffffffu, e, 4 * w);
+  return total;
+}
+
+// y[d0 + 8 lane + i] (i = 0..7) as float32, 0 past D: two float4 loads with
+// VY (y 16-byte aligned) where all 8 lie below D (always with FULL).
+template <bool FULL, bool VY>
+__device__ __forceinline__ void load_y8(const float* y, int64_t d0, int lane, int64_t D,
+                                        float (&v)[kItems]) {
+  const int64_t d = d0 + 8 * lane;
+  if (VY && (FULL || d + 7 < D)) {
+    const float4 lo = __ldg(reinterpret_cast<const float4*>(y + d));
+    const float4 hi = __ldg(reinterpret_cast<const float4*>(y + d + 4));
+    v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+    v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) v[i] = FULL || d + i < D ? __ldg(y + d + i) : 0.f;
+}
+
+// The partial of row zr over the chunk of kChunk coordinates from c0, with
+// sqdist_partial_kernel's bits, in every lane.  FULL: the whole chunk lies
+// below D (no test a load).
+template <bool FULL, bool VY>
+__device__ __forceinline__ float chunk_partial(const __nv_bfloat16* zr, const float* yr,
+                                               int64_t c0, int lane, int64_t D) {
+  // Every load in flight (the row's raw words, then y) before any is used.
+  uint4 raw[kItems];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int64_t d0 = c0 + k * kThreads;
+    raw[k] = FULL ? ldg8_raw(zr + d0 + 8 * lane) : rows::load_cols8(zr, d0, lane, D);
+  }
+  float yv[kItems][kItems];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) load_y8<FULL, VY>(yr, c0 + k * kThreads, lane, D, yv[k]);
+  // Lane l runs the fmaf chains of the float32 kernel's threads 8l + j:
+  // coordinate c0 + 8l + j + 256k at step k.  Past D, z and y read +0.0, so
+  // the step adds +0 to a sum of squares (>= +0, +inf or NaN): no bit moves.
+  float acc[kItems] = {};
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const float4 lo = bf16x4_f32(make_uint2(raw[k].x, raw[k].y));
+    const float4 hi = bf16x4_f32(make_uint2(raw[k].z, raw[k].w));
+    const float zv[kItems] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const float d = zv[j] - yv[k][j];
+      acc[j] = fmaf(d, d, acc[j]);
+    }
+  }
+  return block_sum8(acc);
+}
+
+// The shared::cluster address of `p` (this block's shared memory) in the
+// shared memory of the cluster's block `rank`.
+__device__ __forceinline__ unsigned cluster_addr(const void* p, unsigned rank) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+// Grid (C, rows::grid_yz over the R * W rows), cluster (C, 1, 1): the C
+// blocks of a cluster cover one row (row w of receiver r) across all
+// nchunks chunks, block b the chunks b, b + C, ..., warp i of them to warp
+// i % kClWarps.  Each partial goes to slot c of block 0's shared memory
+// (nchunks floats): block 0's own with a store, the others' with st.async,
+// which counts its bytes on block 0's mbarrier.  Block 0 waits there, then
+// sums the row.  z: 16-byte aligned, ld and rs multiples of 8
+// (rows::Cols8::fits).  VY: y 16-byte aligned at every receiver's row.
+template <bool VY>
+__global__ void __launch_bounds__(kClThreads)
+sqdist_cluster_kernel(const __nv_bfloat16* __restrict__ z, const float* __restrict__ y,
+                      float* __restrict__ out, int R, int W, int64_t D, int64_t ld,
+                      int64_t rs, int nchunks) {
+  namespace cg = cooperative_groups;
+  extern __shared__ float s_part[];                  // block 0's: the row's partials
+  __shared__ alignas(8) unsigned long long s_bar;    // block 0's: the others' have landed
+  cg::cluster_group cluster = cg::this_cluster();
+  const int64_t q = rows::grid_row();
+  if (q >= static_cast<int64_t>(R) * W) return;   // the whole cluster
+  // (r, w) from q; no division for a single matrix, a 32-bit one where q fits.
+  int64_t r = 0, w = q;
+  if (R > 1) {
+    r = q <= 0xffffffffLL ? static_cast<uint32_t>(q) / static_cast<uint32_t>(W) : q / W;
+    w = q - r * W;
+  }
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int b = static_cast<int>(cluster.block_rank());
+  const unsigned bar = static_cast<unsigned>(__cvta_generic_to_shared(&s_bar));
+  if (b == 0 && threadIdx.x == 0) {
+    // One arrival (this one) and the bytes of the other blocks' partials.
+    const unsigned bytes = 4u * static_cast<unsigned>(nchunks - (nchunks + C - 1) / C);
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(bar), "r"(bytes) : "memory");
+  }
+  // The cluster barrier's arrival now and its wait after the first chunk:
+  // block 0 has started and set up its mbarrier before any partial is sent.
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const __nv_bfloat16* zr = z + r * rs + w * ld;
+  const float* yr = y + r * D;
+  const unsigned part_a = cluster_addr(s_part, 0), bar_a = cluster_addr(&s_bar, 0);
+  bool waited = false;
+  for (int c = b + C * warp; c < nchunks; c += C * kClWarps) {
+    const int64_t c0 = static_cast<int64_t>(c) * kChunk;
+    const float p = c0 + kChunk <= D ? chunk_partial<true, VY>(zr, yr, c0, lane, D)
+                                     : chunk_partial<false, VY>(zr, yr, c0, lane, D);
+    if (!waited) {   // the same in the whole warp
+      asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+      waited = true;
+    }
+    if (lane == 0) {
+      if (b == 0)
+        s_part[c] = p;
+      else
+        asm volatile(
+            "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
+            :: "r"(part_a + 4u * static_cast<unsigned>(c)), "r"(__float_as_uint(p)),
+               "r"(bar_a) : "memory");
+    }
+  }
+  if (!waited) asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  if (b != 0) return;   // nothing reads this block's shared memory
+  __syncthreads();      // block 0's own partials
+  if (warp != 0) return;
+  for (unsigned done = 0; !done;)   // the others' partials
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(bar) : "memory");
+  // sqdist_finish_kernel's order: thread c (lane c / 8, value c % 8 here)
+  // adds partials c, c + 256, ... from 0.f, then block_sum.
+  float acc[kItems];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int c = 8 * lane + j;
+    acc[j] = c < nchunks ? 0.f + s_part[c] : 0.f;
+  }
+  if (nchunks > kThreads) {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j)
+      for (int c = 8 * lane + j + kThreads; c < nchunks; c += kThreads) acc[j] += s_part[c];
+  }
+  const float s = block_sum8(acc);
+  if (lane == 0) out[q] = s;
 }
 
 // ---- K6: one launch; the last block of each group of workers finishes it --
@@ -614,6 +816,48 @@ int partial_sqdist(const T* z, const float* y, float* partial, float* out, int R
   return static_cast<int>(cudaGetLastError());
 }
 
+// The cluster size for nchunks chunks: one chunk a warp up to kClMaxBlocks
+// blocks, then several a warp.
+int cluster_blocks(long long nchunks) {
+  const long long c = (nchunks + kClWarps - 1) / kClWarps;
+  return static_cast<int>(c < kClMaxBlocks ? c : kClMaxBlocks);
+}
+
+// Whether a bfloat16 z takes sqdist_cluster_kernel: 1 to kClMaxChunks chunks,
+// and z, ld and rs fit its 16-byte loads.
+bool sqdist_cluster_fits(const __nv_bfloat16* z, long long D, long long ld, long long rs) {
+  const long long nchunks = (D + kChunk - 1) / kChunk;
+  return nchunks >= 1 && nchunks <= kClMaxChunks && rows::Cols8::fits(z, ld, rs);
+}
+
+int partial_sqdist_cluster(const __nv_bfloat16* z, const float* y, float* out, int R, int W,
+                           long long D, long long ld, long long rs, void* stream) {
+  if (W == 0 || R == 0) return static_cast<int>(cudaGetLastError());
+  const int nchunks = scratch_cols(D);
+  const int C = cluster_blocks(nchunks);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = rows::grid_yz(static_cast<unsigned>(C), static_cast<long long>(R) * W);
+  cfg.blockDim = dim3(kClThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(nchunks) * sizeof(float);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(C);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const bool vy = aligned16(y) && (R == 1 || D % 4 == 0);
+  const int64_t d = static_cast<int64_t>(D), l = static_cast<int64_t>(ld),
+                s = static_cast<int64_t>(rs);
+  const cudaError_t e =
+      vy ? cudaLaunchKernelEx(&cfg, sqdist_cluster_kernel<true>, z, y, out, R, W, d, l, s,
+                              nchunks)
+         : cudaLaunchKernelEx(&cfg, sqdist_cluster_kernel<false>, z, y, out, R, W, d, l, s,
+                              nchunks);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
 template <typename T>
 int partial_sqdist_masked(const T* z, const float* y, const float* mask,
                           float* partial, float* out, int R, int S, long long D,
@@ -684,6 +928,25 @@ REPRO_EXPORT int partial_sqdist_scratch_cols(long long D) { return scratch_cols(
 // Columns of the (R * S, ncols) scratch buffer partial_sqdist_masked_* needs.
 REPRO_EXPORT int partial_sqdist_masked_scratch_cols(long long D) {
   return masked_scratch_cols(D);
+}
+
+// K2's layout for a bfloat16 z (R, W, D) at z[r * rs + w * ld + d]: 1 where
+// partial_sqdist_cluster_bf16 takes it (one launch, no scratch), else 0
+// (partial_sqdist_bf16's two passes).  Decided by the base, the strides and
+// D alone.
+REPRO_EXPORT int partial_sqdist_cluster_fits(const __nv_bfloat16* z, long long D,
+                                             long long ld, long long rs) {
+  return sqdist_cluster_fits(z, D, ld, rs) ? 1 : 0;
+}
+
+// The unmasked K2 on a bfloat16 z that partial_sqdist_cluster_fits admits:
+// y (R, D), out (R, W), both contiguous float32; one kernel launch on
+// `stream` (a cluster of up to 8 blocks for each pair of rows), no scratch.
+// The bits of partial_sqdist_f32 on z.float().
+REPRO_EXPORT int partial_sqdist_cluster_bf16(const __nv_bfloat16* z, const float* y,
+                                             float* out, int R, int W, long long D,
+                                             long long ld, long long rs, void* stream) {
+  return partial_sqdist_cluster(z, y, out, R, W, D, ld, rs, stream);
 }
 
 // Chunks of K6's grid for D coordinates (at least 1, so that every worker's

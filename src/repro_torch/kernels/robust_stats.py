@@ -14,7 +14,13 @@ bits of the float32 kernel on ``z.float()``), for any W >= 1, and return
 float32.  Up to :data:`NETWORK_CAP` workers both sort each
 column in registers with one sorting network (:func:`median_network_pairs`
 lists its compare-exchanges), NaN sorted last as the plain version sorts
-it: K4 gives the plain version's bits; K5 sums the kept ranks in ascending
+it.  K4 on a bfloat16 z with D even and a 4-byte aligned base orders two
+columns a thread: one 4-byte load a row, 16-bit keys two to a word (b, or
+b ^ 0x7fff for b < 0, every NaN above +inf: the order of the upcast values,
+-0 below +0, as Hopper's float min/max orders them too) and the same network
+on packed 16-bit min/max, one instruction for both columns (:data:`MEDIAN_LAYOUT_LAUNCHES` counts "pairs" and "one";
+its instruction floor is half the float32 route's).  K4 gives the plain
+version's bits; K5 sums the kept ranks in ascending
 rank order (rtol 1e-5 against the plain version, the same bits on every
 launch) and gives NaN exactly when a column holds more than ``trim`` NaN,
 as the plain version does.  Past that cap each column's values are ranked
@@ -32,12 +38,25 @@ import torch
 
 from repro_torch.kernels import _build
 
-_SIGNATURES = {}
+_SIGNATURES = {
+    "coordinate_median_f32": [ctypes.c_void_p] * 2 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
+    # The bf16 route reports its layout (the codes 0, 1 of MEDIAN_LAYOUTS).
+    "coordinate_median_bf16": [ctypes.c_void_p] * 2 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_void_p],
+}
 for _sfx in _build.SUFFIX.values():
-    _SIGNATURES[f"coordinate_median_{_sfx}"] = [ctypes.c_void_p] * 2 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
     _SIGNATURES[f"trimmed_mean_{_sfx}"] = [ctypes.c_void_p] * 2 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+
+# K4's layouts and their launches (reset with the others by
+# ops.reset_launch_counts): "pairs" (a bfloat16 z on the network route with D
+# even and a 4-byte aligned base: two columns a thread, their 16-bit keys
+# ordered two at a time) and "one" (one column a thread: every float32 z,
+# every other bfloat16 z, and past the network route).
+MEDIAN_LAYOUTS = ("one", "pairs")
+MEDIAN_LAYOUT_LAUNCHES = dict.fromkeys(MEDIAN_LAYOUTS, 0)
 
 
 # K4 and K5's network route: W up to NETWORK_CAP, one network per multiple
@@ -143,7 +162,11 @@ def _launch(what: str, z: torch.Tensor, *extra) -> torch.Tensor:
 def coordinate_median_call(z: torch.Tensor) -> torch.Tensor:
     """z (W, D) -> (D,) float32 per-coordinate median, on the card."""
     check_inputs("coordinate_median", z)
-    return _launch("coordinate_median", z)
+    layout = ctypes.c_int(0)
+    out = _launch("coordinate_median", z,
+                  *((ctypes.byref(layout),) if z.dtype == torch.bfloat16 else ()))
+    MEDIAN_LAYOUT_LAUNCHES[MEDIAN_LAYOUTS[layout.value]] += 1
+    return out
 
 
 def trimmed_mean_call(z: torch.Tensor, trim: int) -> torch.Tensor:

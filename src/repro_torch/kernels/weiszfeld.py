@@ -3,11 +3,16 @@
 
 * :func:`partial_sqdist_call` -- per-worker squared distance
   ``||z_w - y||^2`` of a (W, D) message matrix to a (D,) iterate -> (W,).
-  Two passes on the card (per-block partial sums, then one fixed-order
-  reduction per worker), so the result is the same bits on every run.
-  With a ``mask`` of z's leading shape it takes its masked route: the rows
-  of ``mask <= 0`` are not read and their distance is exactly 0
-  (:data:`SQDIST_ROUTE_LAUNCHES` counts each route).
+  Partial sums per chunk of 2,048 coordinates, then one fixed-order
+  reduction per worker, so the result is the same bits on every run: in
+  two passes (two kernels and a scratch buffer), or, for a bfloat16 z whose
+  base is 16-byte aligned and whose strides are multiples of 8 elements, in
+  one launch with no scratch: each row's chunks spread over a thread-block
+  cluster, whose other blocks send their partials into its first block's
+  shared memory, and the first block sums them in the two passes' order
+  (:data:`SQDIST_LAYOUT_LAUNCHES` counts "cluster" and "two-pass").  With a ``mask`` of z's leading shape it takes
+  its masked route: the rows of ``mask <= 0`` are not read and their
+  distance is exactly 0 (:data:`SQDIST_ROUTE_LAUNCHES` counts each route).
 * :func:`weighted_sum_call`   -- unnormalized ``sum_w a_w z_w`` -> (D,).
   It reads only the rows whose weight is not 0 (a zero-weight row holding
   inf or NaN contributes nothing, in the plain version too: mask-0 senders
@@ -46,6 +51,10 @@ _SIGNATURES = {
     "partial_sqdist_scratch_cols": [ctypes.c_longlong],
     "partial_sqdist_masked_scratch_cols": [ctypes.c_longlong],
     "partial_sqdist_segments_chunks": [ctypes.c_longlong],
+    "partial_sqdist_cluster_fits": [ctypes.c_void_p] + [ctypes.c_longlong] * 3,
+    "partial_sqdist_cluster_bf16": [ctypes.c_void_p] * 3 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_void_p],
 }
 for _sfx in _build.SUFFIX.values():
     _SIGNATURES.update({
@@ -70,6 +79,11 @@ _ARRIVALS: dict[tuple[int, int], torch.Tensor] = {}
 SQDIST_ROUTES = ("unmasked", "masked")
 # K2 launches per route (reset with the others by ops.reset_launch_counts).
 SQDIST_ROUTE_LAUNCHES = dict.fromkeys(SQDIST_ROUTES, 0)
+# The unmasked route's layouts and their launches (reset with the others):
+# "cluster" (a bfloat16 z the one-launch kernel takes) and "two-pass" (every
+# float32 z and every other bfloat16 view).
+SQDIST_LAYOUTS = ("cluster", "two-pass")
+SQDIST_LAYOUT_LAUNCHES = dict.fromkeys(SQDIST_LAYOUTS, 0)
 
 
 def check_inputs(what: str, z: torch.Tensor, v: torch.Tensor,
@@ -197,8 +211,16 @@ def partial_sqdist_call(z: torch.Tensor, y: torch.Tensor,
     out = torch.empty(z.shape[:-1], dtype=torch.float32, device=z.device)
     stream = ctypes.c_void_p(_build.stream_of(z))
     route = "unmasked" if mask is None else "masked"
+    layout = None
     with torch.cuda.device(z.device):
-        if mask is None:
+        if mask is None and z.dtype == torch.bfloat16 \
+                and lib.partial_sqdist_cluster_fits(_build.ptr(z), d, ld, rs):
+            layout = "cluster"
+            rc = lib.partial_sqdist_cluster_bf16(
+                _build.ptr(z), _build.ptr(y), _build.ptr(out), r, w, d, ld, rs,
+                stream)
+        elif mask is None:
+            layout = "two-pass"
             scratch = torch.empty((r * w, lib.partial_sqdist_scratch_cols(d)),
                                   dtype=torch.float32, device=z.device)
             rc = getattr(lib, f"partial_sqdist_{sfx}")(
@@ -214,6 +236,8 @@ def partial_sqdist_call(z: torch.Tensor, y: torch.Tensor,
     _build.check(lib, rc, "partial_sqdist")
     _build.count("partial_sqdist", z.dtype, route)
     SQDIST_ROUTE_LAUNCHES[route] += 1
+    if layout is not None:
+        SQDIST_LAYOUT_LAUNCHES[layout] += 1
     return out
 
 

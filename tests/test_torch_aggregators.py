@@ -23,6 +23,8 @@ from repro_torch.core import aggregators, attacks, geomed, packing
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import robust_stats as rs
 from repro_torch.kernels import weiszfeld as wz
+from torch_network import network_median as _network_median
+from torch_network import network_sort as _network_sort
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 NEW_RULES = ("median", "trimmed_mean", "krum", "geomed_groups",
@@ -207,32 +209,6 @@ def test_coordinate_median_plain_vs_reference(w, p):
         jnp.asarray(z), interpret=True)))
     np.testing.assert_array_equal(got, np.asarray(jref.coordinate_median(z)))
     np.testing.assert_allclose(ref.coordinate_median(_t(z)).numpy(), got, **TOL)
-
-
-def _network_sort(z: torch.Tensor, n: int,
-                  pairs: list[tuple[int, int]]) -> list[torch.Tensor]:
-    """The network of K4 and K5 emulated in torch, as the kernels run it on
-    each column of ``z`` (W <= n rows): each NaN enters as +inf, the column
-    is padded with +inf to ``n`` wires and ``pairs`` sort it with float
-    min/max.  Returns the ``n`` sorted wires."""
-    v = list(torch.where(torch.isnan(z), torch.inf, z)) + [
-        torch.full_like(z[0], torch.inf)] * (n - z.shape[0])
-    for a, b in pairs:
-        v[a], v[b] = torch.minimum(v[a], v[b]), torch.maximum(v[a], v[b])
-    return v
-
-
-def _network_median(z: torch.Tensor) -> torch.Tensor:
-    """K4's network route: the sorted wires of :func:`_network_sort`, a
-    rank of W - #NaN or more reading NaN."""
-    w = z.shape[0]
-    v = _network_sort(z, *rs.median_network_pairs(w))
-    count = torch.isnan(z).sum(0)
-
-    def rank(r):
-        return torch.where(r >= w - count, torch.nan, v[r])
-    lo, hi = (w - 1) // 2, w // 2
-    return rank(lo) if lo == hi else (rank(lo) + rank(hi)) * 0.5
 
 
 @pytest.mark.parametrize("w", [1, 2, 3, 7, 8, 69, 70, 71, 127, 128])

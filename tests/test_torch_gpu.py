@@ -1479,3 +1479,169 @@ def test_bf16_select_unaligned_views_take_one_coordinate_a_thread(trim):
     one = buf[0, :, :1000].contiguous()
     _select_layout_case(one[None].expand(5, 70, 1000),
                         one.float()[None].expand(5, 70, 1000), mask, trim, "pairs")
+
+
+# K2's unbatched bf16 route in one launch ("cluster": a 16-byte aligned z
+# whose strides are multiples of 8 elements, so a contiguous z needs D % 8 ==
+# 0) and K4's bf16 pairs layout (two columns a thread on 16-bit keys, D even
+# and a 4-byte aligned base).  Both give the float32 kernel's bits on the
+# upcast laid out alike; every other view takes the other layout, with the
+# same bits.  D = 65,537 and 65,544 pass 32 chunks of 2,048 (the second on
+# the cluster route), 600,000 passes 256.
+
+SQDIST_CLUSTER_D = [1, 300, 2_047, 2_048, 2_049, 39_760, 65_537, 65_544, 600_000]
+
+
+def _sqdist_layout_case(x, xf, y, layout):
+    """K2 on bf16 x: one launch of `layout`, the float32 kernel's bits on
+    xf, the plain version at rtol 1e-5."""
+    ops.reset_launch_counts()
+    got = wz.partial_sqdist_call(x, y)
+    torch.cuda.synchronize()
+    assert wz.SQDIST_LAYOUT_LAUNCHES == {k: int(k == layout) for k in wz.SQDIST_LAYOUTS}
+    assert ops.bf16_launch_counts() == {"partial_sqdist": 1, "partial_sqdist unmasked": 1}
+    assert torch.equal(_raw(got), _raw(wz.partial_sqdist_call(xf, y)))
+    _close(got, wz.partial_sqdist_plain(x, y))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", SQDIST_CLUSTER_D)
+@pytest.mark.parametrize("w", [1, 7, 70, 300])
+def test_bf16_sqdist_layouts_equal_float32_kernel_on_upcast(w, d):
+    """Every W and D of the sweep, with ties: the cluster layout where
+    D % 8 == 0, the two passes otherwise."""
+    _need_card()
+    zb, y, _ = _bf16_inputs(w, d, seed=w + d)
+    _sqdist_layout_case(zb, zb.float(), y, "cluster" if d % 8 == 0 else "two-pass")
+
+
+@pytest.mark.gpu
+def test_bf16_sqdist_cluster_batched_broadcast_and_many_rows():
+    """A batched (5, 70, 39,760) exchange, one matrix broadcast to every
+    receiver (rs = 0), and 70,000 rows (past one grid dimension): the
+    cluster layout and the float32 kernel's bits."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(23)
+    ex = torch.randn((5, 70, 39_760), generator=g, device="cuda").bfloat16()
+    y = torch.randn((5, 39_760), generator=g, device="cuda")
+    _sqdist_layout_case(ex, ex.float(), y, "cluster")
+    one = ex[0]
+    _sqdist_layout_case(one[None].expand(5, 70, 39_760),
+                        one.float()[None].expand(5, 70, 39_760), y, "cluster")
+    many = torch.randn((70_000, 16), generator=g, device="cuda").bfloat16()
+    _sqdist_layout_case(many, many.float(), torch.randn(16, device="cuda"), "cluster")
+    bad = ex[0].clone()   # rows holding +-inf and NaN: the float32 kernel's bits
+    bad[3, :100] = float("inf")
+    bad[4, 7] = -float("inf")
+    bad[5, 39_000] = float("nan")
+    ops.reset_launch_counts()
+    got = wz.partial_sqdist_call(bad, y[0])
+    assert wz.SQDIST_LAYOUT_LAUNCHES["cluster"] == 1
+    assert torch.equal(_raw(got), _raw(wz.partial_sqdist_call(bad.float(), y[0])))
+    assert bool(torch.isinf(got[3:5]).all()) and bool(torch.isnan(got[5]))
+
+
+@pytest.mark.gpu
+def test_bf16_sqdist_column_slices_take_their_layout():
+    """The column slices of test_bf16_weighted_sum_and_sqdist_read_column_slices
+    (rows 1,002 elements apart) take the two passes; slices of a 1,024-wide
+    buffer at a 16-byte aligned offset take the cluster, one 8 bytes off the
+    two passes; all with the float32 kernel's bits on the upcast slice."""
+    _need_card()
+    zb, y, _ = _bf16_inputs(7, 1002)
+    zf = zb.float()
+    for lo, hi in ((2, 302), (1, 1001), (0, 1002), (4, 304)):
+        _sqdist_layout_case(zb[:, lo:hi], zf[:, lo:hi], y[lo:hi].contiguous(), "two-pass")
+    wide, yw, _ = _bf16_inputs(7, 1024, seed=3)
+    for lo, hi, layout in ((0, 512, "cluster"), (8, 520, "cluster"), (4, 516, "two-pass")):
+        _sqdist_layout_case(wide[:, lo:hi], wide.float()[:, lo:hi], yw[lo:hi].contiguous(),
+                            layout)
+
+
+@pytest.mark.gpu
+def test_bf16_sqdist_cluster_is_one_kernel_launch():
+    """A call of the cluster layout launches exactly one kernel (one
+    runtime launch a call, no memset or copy: the profiler's runtime
+    records), and the card runs nothing but that kernel (its device
+    records, which for this cudaLaunchKernelEx launch now and then miss
+    one: they are not counted)."""
+    _need_card()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    zb, y, _ = _bf16_inputs(70, 39_760, seed=5)
+    wz.partial_sqdist_call(zb, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            wz.partial_sqdist_call(zb, y)
+        torch.cuda.synchronize()
+    events = prof.events()
+    runtime = [e.name for e in events if e.device_type == DeviceType.CPU
+               and e.name.startswith("cuda") and ("Launch" in e.name or "Mem" in e.name)]
+    kernels = [e.name for e in events if e.device_type == DeviceType.CUDA]
+    assert len(runtime) == 5 and all("LaunchKernel" in n for n in runtime), runtime
+    assert kernels and all("sqdist_cluster_kernel" in n for n in kernels), kernels
+
+
+def _median_layout_case(zb, layout):
+    """K4 on bf16 zb: one launch of `layout`, the float32 kernel's bits on
+    the upcast (zeros' signs included) and the plain version's values."""
+    ops.reset_launch_counts()
+    got = rs.coordinate_median_call(zb)
+    torch.cuda.synchronize()
+    assert rs.MEDIAN_LAYOUT_LAUNCHES == {k: int(k == layout) for k in rs.MEDIAN_LAYOUTS}
+    assert torch.equal(_raw(got), _raw(rs.coordinate_median_call(zb.float())))
+    torch.testing.assert_close(got, rs.coordinate_median_plain(zb), rtol=0, atol=0,
+                               equal_nan=True)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [300, 301])
+def test_bf16_median_layouts_at_every_network_width(d):
+    """Every W from 1 to 128 at an even D (pairs) and an odd one (one a
+    thread): columns with trim and trim + 1 NaN, NaN at the median ranks,
+    +-inf, ties and both zeros."""
+    _need_card()
+    for w in range(1, rs.NETWORK_CAP + 1):
+        zb, *_ = _bf16_inputs(w, d, seed=w)
+        zb[:, :40] = torch.round(2 * zb[:, :40].float()).bfloat16()
+        zb[: w // 3 + 1, 40:50] = float("inf")
+        zb[w // 3 + 1: w // 2 + 1, 45:60] = float("-inf")
+        trim = (w - 1) // 4
+        zb[:trim, 60:70] = float("nan")
+        zb[:trim + 1, 70:80] = -float("nan")
+        zb[: (w + 1) // 2, 80:90] = float("nan")
+        zb[:, 90:110] = 0.0
+        zb[::2, 90:110] = -0.0
+        got = _median_layout_case(zb, "pairs" if d % 2 == 0 else "one")
+        assert bool(torch.isnan(got[80:90]).all()), w
+
+
+@pytest.mark.gpu
+def test_bf16_median_pairs_zero_signs_are_the_float32_kernels():
+    """Every column of +0 and -0 at W = 1..9 (all 2^W of them): the pairs
+    layout's result is the float32 kernel's bit for bit, and both order -0
+    below +0 (Hopper's FMNMX does as the 16-bit keys do): the median is -0
+    exactly when both middle ranks hold -0."""
+    _need_card()
+    for w in range(1, 10):
+        cols = torch.arange(1 << w, device="cuda")
+        neg = ((cols[None, :] >> torch.arange(w, device="cuda")[:, None]) & 1).bool()
+        zb = torch.where(neg, -0.0, 0.0).bfloat16()
+        got = _median_layout_case(zb, "pairs")
+        lo, hi = (w - 1) // 2, w // 2
+        n_neg = neg.sum(0)
+        assert torch.equal(torch.signbit(got), (lo < n_neg) & (hi < n_neg)), w
+
+
+@pytest.mark.gpu
+def test_bf16_median_odd_offset_takes_one_column_a_thread():
+    """A contiguous z at an odd storage offset (a base 2 bytes off a 4-byte
+    boundary) takes one column a thread, with the same bits; the same
+    values at an aligned base take the pairs."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    buf = torch.randn((70 * 300 + 1,), generator=g, device="cuda").bfloat16()
+    _median_layout_case(buf[1:].view(70, 300), "one")
+    _median_layout_case(buf[1:].view(70, 300).clone(), "pairs")

@@ -11,8 +11,9 @@ Imports ``repro_torch`` from ``SRC_DIR`` (default: this checkout's
   K3 ``weighted_sum``, K4 ``coordinate_median``, K5 ``trimmed_mean``
   (trim 20) and K6 ``partial_sqdist_segments`` (the Table I network's four
   leaves, ``chip_smoke.table1_boundaries``), 200 launches a window;
-* the same K3 and K6 on a bfloat16 copy of the messages (the bf16 wire's
-  routes);
+* K2, K3, K4, K5 and K6 on a bfloat16 copy of the messages (the bf16
+  wire's routes; lines ending in "bf16", each right after its float32
+  line);
 * at workload D's exchange (70, 70, 39,760) under its erdos_renyi(70,
   p=0.5, seed=0) mask: K3 batched with weights 0 off the mask, K2 batched
   unmasked and (where the tree has it) masked, and K7
@@ -23,7 +24,10 @@ Imports ``repro_torch`` from ``SRC_DIR`` (default: this checkout's
 Each kernel is timed in 5 windows with ``chip_smoke.event_ms`` (CUDA events
 around launches queued behind a sleep kernel, so the card runs them back to
 back); prints the card's name and power limit, then one JSON line per
-kernel with the median and every window's time per launch (us).  Run two
+kernel with the median and every window's time per launch (us).  The lines
+at B's shapes also give each launched kernel's own device time per call
+(``"kernels"``, torch.profiler over 200 calls: ``chip_smoke.kernel_split``),
+so a route of two kernels shows both.  Run two
 trees in turns in one call (parent, change, change, parent) and compare
 within it.  Imports nothing of JAX.
 """
@@ -50,7 +54,7 @@ def main() -> int:
         print("torch_kernel_times: needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from chip_smoke import event_ms, table1_boundaries
+    from chip_smoke import event_ms, kernel_split, table1_boundaries
     sys.path.insert(0, os.path.abspath(args.src))
     from repro_torch.core.geomed import segment_ids
     from repro_torch.kernels import robust_stats as rs
@@ -62,22 +66,27 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     print(f"card: {card}; repro_torch from {args.src}", flush=True)
 
-    def emit(name, fn, reps):
+    def emit(name, fn, reps, split=False):
         us = [event_ms(torch, fn, reps) * 1e3 for _ in range(WINDOWS)]
-        print(json.dumps({"label": args.label, "kernel": name,
-                          "median_us": statistics.median(us), "us": us}),
-              flush=True)
+        line = {"label": args.label, "kernel": name,
+                "median_us": statistics.median(us), "us": us}
+        if split:
+            line["kernels"] = {k: round(v, 3) for k, v in kernel_split(torch, fn, reps).items()}
+        print(json.dumps(line), flush=True)
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     z = torch.randn((70, 39_760), generator=g, device="cuda")
     y = z.mean(0)
     a = torch.rand(70, generator=g, device="cuda")
-    emit("K2 at B", lambda: wz.partial_sqdist_call(z, y), 200)
-    emit("K3 at B", lambda: wz.weighted_sum_call(z, a), 200)
     zb = z.bfloat16()
+    emit("K2 at B", lambda: wz.partial_sqdist_call(z, y), 200, split=True)
+    emit("K2 at B bf16", lambda: wz.partial_sqdist_call(zb, y), 200, split=True)
+    emit("K3 at B", lambda: wz.weighted_sum_call(z, a), 200)
     emit("K3 at B bf16", lambda: wz.weighted_sum_call(zb, a), 200)
-    emit("K4 at B", lambda: rs.coordinate_median_call(z), 200)
-    emit("K5 trim 20 at B", lambda: rs.trimmed_mean_call(z, 20), 200)
+    emit("K4 at B", lambda: rs.coordinate_median_call(z), 200, split=True)
+    emit("K4 at B bf16", lambda: rs.coordinate_median_call(zb), 200, split=True)
+    emit("K5 trim 20 at B", lambda: rs.trimmed_mean_call(z, 20), 200, split=True)
+    emit("K5 trim 20 at B bf16", lambda: rs.trimmed_mean_call(zb, 20), 200, split=True)
     bounds, d = table1_boundaries(torch)
     seg = segment_ids(tuple(bounds), d, torch.device("cuda"))
     emit("K6 at B", lambda: wz.partial_sqdist_segments_call(z, y, seg, len(bounds)),
