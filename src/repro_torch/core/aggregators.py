@@ -26,6 +26,15 @@ AggDiagnostics)`` (:mod:`repro_torch.telemetry.diagnostics`: each row's
 distance to the aggregate by kernel K2, the rule's implicit weights, Krum's
 scores and choice, the clip fraction, the Weiszfeld residual, iterations
 and convergence).  False runs the program it ran before.
+
+The pytree API (:func:`get_aggregator`) takes a dict of (W, *shape) leaves
+and returns (*shape) leaves: by default a pack -> flat rule -> unpack shim
+(``_REGISTRY``); with ``perleaf=True`` the reference's pre-packing per-leaf
+rules (``_PERLEAF_REGISTRY``, the ``RobustConfig(packed=False)`` baseline),
+which launch each kernel once per leaf: median K4 and trimmed_mean K5 on
+each leaf's (W, d_l) matrix, the Weiszfeld rules K2 on every leaf then K3
+on every leaf each iteration (:func:`weiszfeld_pytree`), Krum's Gram over
+the leaves concatenated.
 """
 from __future__ import annotations
 
@@ -35,11 +44,14 @@ from typing import Callable
 import torch
 
 from repro_torch.core import packing
-from repro_torch.core.geomed import weiszfeld_blockwise_flat, weiszfeld_flat
+from repro_torch.core.geomed import (weiszfeld_blockwise_flat, weiszfeld_flat,
+                                     weiszfeld_pytree)
 from repro_torch.kernels import ops
 from repro_torch.telemetry.diagnostics import flat_diagnostics
 
 FlatAggregator = Callable[..., torch.Tensor]  # (W, D)[, row_weights] -> (D,)
+Tree = dict[str, torch.Tensor]
+Aggregator = Callable[[Tree], Tree]  # leaves (W, *shape) -> leaves (*shape)
 
 # Guards weight-sum divisions when every row is dropped (all weights 0).
 _WEIGHT_FLOOR = 1e-8
@@ -328,10 +340,135 @@ _FLAT_REGISTRY: dict[str, Callable[[packing.PackSpec, dict], FlatAggregator]] = 
         diagnostics=o.get("diagnostics", False)),
 }
 
+# ---- The pytree API: dicts of (W, *shape) leaves -> dicts of (*shape) ----
+
+
+def _via_flat(stacked: Tree, *, name: str, opts: dict) -> Tree:
+    spec = packing.pack_spec(stacked)
+    out = get_flat_aggregator(name, spec, **opts)(spec.pack(stacked))
+    return spec.unpack(out, batch_ndim=0)
+
+
+def _leaf_rows(z: torch.Tensor) -> torch.Tensor:
+    """A (W, *shape) leaf as its contiguous (W, d_l) matrix."""
+    return ops.messages(z).reshape(z.shape[0], -1).contiguous()
+
+
+def _per_leaf(stacked: Tree, fn) -> Tree:
+    """``fn`` on each leaf's (W, d_l) matrix, back to (*shape) in its dtype."""
+    return {k: fn(_leaf_rows(z)).reshape(z.shape[1:]).to(z.dtype)
+            for k, z in stacked.items()}
+
+
+def mean_agg_perleaf(stacked: Tree) -> Tree:
+    return _per_leaf(stacked, lambda z: torch.mean(z.float(), dim=0))
+
+
+def median_agg_perleaf(stacked: Tree) -> Tree:
+    return _per_leaf(stacked, ops.coordinate_median)
+
+
+def trimmed_mean_agg_perleaf(stacked: Tree, *, trim: int) -> Tree:
+    def leaf(z):
+        if 2 * trim >= z.shape[0]:
+            raise ValueError(f"trim={trim} too large for W={z.shape[0]}")
+        return ops.trimmed_mean(z, trim=trim)
+    return _per_leaf(stacked, leaf)
+
+
+def geomed_agg_perleaf(stacked: Tree, *, max_iters: int = 64,
+                       tol: float = 1e-6) -> Tree:
+    return weiszfeld_pytree(stacked, max_iters=max_iters, tol=tol)
+
+
+def geomed_groups_agg_perleaf(stacked: Tree, *, num_groups: int,
+                              max_iters: int = 64, tol: float = 1e-6) -> Tree:
+    grouped = {k: group_means(z, num_groups) for k, z in stacked.items()}
+    return weiszfeld_pytree(grouped, max_iters=max_iters, tol=tol)
+
+
+def krum_agg_perleaf(stacked: Tree, *, num_byzantine: int) -> Tree:
+    flat = torch.cat([stacked[k].reshape(stacked[k].shape[0], -1).float()
+                      for k in sorted(stacked)], dim=-1)
+    best = torch.argmin(krum_scores(flat_sq_dists(flat), num_byzantine))
+    return {k: z[best] for k, z in stacked.items()}
+
+
+def centered_clip_agg_perleaf(stacked: Tree, *, radius: float = 1.0,
+                              iters: int = 3) -> Tree:
+    names = sorted(stacked)
+    z32 = {k: stacked[k].float() for k in names}
+    v = median_agg_perleaf(z32)
+    for _ in range(iters):
+        diffs = {k: z32[k] - v[k][None] for k in names}
+        sq = None
+        for k in names:
+            part = torch.sum(diffs[k].reshape(diffs[k].shape[0], -1) ** 2, dim=-1)
+            sq = part if sq is None else sq + part
+        scale = torch.clamp(radius / torch.clamp(torch.sqrt(sq), min=1e-12),
+                            max=1.0)
+        v = {k: v[k] + torch.mean(
+            diffs[k] * scale.reshape((-1,) + (1,) * (diffs[k].dim() - 1)), dim=0)
+            for k in names}
+    return {k: v[k].to(stacked[k].dtype) for k in names}
+
+
+def geomed_blockwise_agg_perleaf(stacked: Tree, *, max_iters: int = 64,
+                                 tol: float = 1e-6) -> Tree:
+    return {k: weiszfeld_pytree({k: z}, max_iters=max_iters, tol=tol)[k]
+            for k, z in stacked.items()}
+
+
+def _shim(name: str) -> Callable[[dict], Aggregator]:
+    return lambda opts: functools.partial(_via_flat, name=name, opts=opts)
+
+
+_REGISTRY: dict[str, Callable[[dict], Aggregator]] = {
+    name: _shim(name) for name in _FLAT_REGISTRY}
+
+_PERLEAF_REGISTRY: dict[str, Callable[[dict], Aggregator]] = {
+    "mean": lambda o: mean_agg_perleaf,
+    "median": lambda o: median_agg_perleaf,
+    "geomed": lambda o: functools.partial(
+        geomed_agg_perleaf, max_iters=o.get("max_iters", 64),
+        tol=o.get("tol", 1e-6)),
+    "geomed_groups": lambda o: functools.partial(
+        geomed_groups_agg_perleaf, num_groups=o["num_groups"],
+        max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6)),
+    "trimmed_mean": lambda o: functools.partial(
+        trimmed_mean_agg_perleaf, trim=o.get("trim", 1)),
+    "krum": lambda o: functools.partial(
+        krum_agg_perleaf, num_byzantine=o.get("num_byzantine", 0)),
+    "centered_clip": lambda o: functools.partial(
+        centered_clip_agg_perleaf, radius=o.get("clip_radius", 1.0)),
+    "geomed_blockwise": lambda o: functools.partial(
+        geomed_blockwise_agg_perleaf, max_iters=o.get("max_iters", 64),
+        tol=o.get("tol", 1e-6)),
+}
+
+assert set(_REGISTRY) == set(_FLAT_REGISTRY) == set(_PERLEAF_REGISTRY), (
+    "aggregator registries out of sync: every rule needs a pytree shim, a "
+    "flat engine entry, and a per-leaf baseline")
+
 AGGREGATOR_NAMES = tuple(_FLAT_REGISTRY)
 
 # The reference's rules that the port does not carry yet.
 UNPORTED: tuple[str, ...] = ()
+
+
+def get_aggregator(name: str, *, perleaf: bool = False, **opts) -> Aggregator:
+    """Build a pytree aggregator by name: leaves (W, *shape) -> leaves
+    (*shape).  Options as :func:`get_flat_aggregator` (no diagnostics);
+    ``perleaf=True`` selects the per-leaf baseline instead of the packed
+    engine's shim."""
+    registry = _PERLEAF_REGISTRY if perleaf else _REGISTRY
+    try:
+        build = registry[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown aggregator {name!r}; known: "
+            f"{', '.join(sorted(registry))}") from None
+    return build(opts)
 
 
 def get_flat_aggregator(name: str, spec: packing.PackSpec | None,

@@ -42,6 +42,8 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.core import packing
+
 
 @dataclasses.dataclass(frozen=True)
 class AttackConfig:
@@ -270,8 +272,17 @@ def apply_attack(cfg: AttackConfig, honest: torch.Tensor,
                  spec=None) -> torch.Tensor:
     """Return the full (W_h + B, D) message set seen by the master.
     ``spec`` is the buffer's PackSpec: the fault attacks keep its padding
-    at 0 and hash ``bitflip`` per leaf segment."""
+    at 0 and hash ``bitflip`` per leaf segment.  ``honest`` may also be a
+    dict of per-leaf (W_h, *shape) messages (the per-leaf baseline): it is
+    packed, attacked with its PackSpec and unpacked to (W_h + B, *shape)
+    leaves, which is the reference's per-leaf attack (every attack is
+    coordinate-separable, and the packed ``gaussian`` and ``bitflip`` draw
+    and hash per leaf); ``noise`` is then packed (B, D) too."""
     check_attack_name(cfg.name)
     if cfg.num_byzantine == 0:
         return honest
+    if isinstance(honest, dict):
+        spec = packing.pack_spec(honest)
+        out = _ATTACKS[cfg.name](cfg, spec.pack(honest), generator, noise, spec)
+        return spec.unpack(out)
     return _ATTACKS[cfg.name](cfg, honest, generator, noise, spec)

@@ -1,5 +1,5 @@
 """Geometric median via the Weiszfeld algorithm, paper eq. (6) (port of
-``repro/core/geomed.py``'s flat engine).
+``repro/core/geomed.py``'s flat engine and its pytree form).
 
     y^{t+1} = sum_w a_w z_w / d_w  /  max(sum_w a_w / d_w, 1e-8),
     d_w = max(||z_w - y^t||, 1e-8)
@@ -15,6 +15,9 @@ plain versions on the CPU.  A bf16 buffer is read as it is (the kernels'
 bf16 routes); the iterate is float32.  The early stop reads the iterate's move on the
 host after every iteration -- one device-to-host sync per iteration -- so
 the loop runs exactly the iterations the reference's ``while_loop`` runs.
+:func:`weiszfeld_pytree` runs the same loop on a dict of per-leaf (W,
+*shape) messages: each iteration adds the leaves' K2 distances in leaf
+order and runs K3 on each leaf.
 
 :func:`weiszfeld_blockwise_flat` solves one geometric median per block of
 coordinates (a pytree leaf of the packed buffer, ``geomed_blockwise``).
@@ -63,24 +66,57 @@ def weiszfeld_flat(buf: torch.Tensor, *, max_iters: int = 64,
     float32 (and a :class:`WeiszfeldInfo` with ``return_info``)."""
     if buf.dim() != 2:
         raise ValueError(f"weiszfeld_flat expects (W, D), got {tuple(buf.shape)}")
-    z = ops.messages(buf).contiguous()     # a bf16 buffer stays bf16
+    ys, info = _weiszfeld_leaves([buf], max_iters=max_iters, tol=tol,
+                                 row_weights=row_weights)
+    return (ys[0], info) if return_info else ys[0]
+
+
+def _weiszfeld_leaves(leaves: Sequence[torch.Tensor], *, max_iters: int,
+                      tol: float, row_weights: torch.Tensor | None):
+    """The Weiszfeld loop over the (W, d_l) blocks of one message matrix:
+    each iteration adds the blocks' K2 distances in block order and runs K3
+    on each block.  -> ([(d_l,) float32 iterates], WeiszfeldInfo)."""
+    zs = [ops.messages(z).contiguous() for z in leaves]   # bf16 stays bf16
     rw = None if row_weights is None else row_weights.float()
-    y = torch.mean(z, dim=0, dtype=torch.float32)
+    ys = [torch.mean(z, dim=0, dtype=torch.float32) for z in zs]
     tol = _f32_tol(tol)
     delta, it = math.inf, 0
     while it < max_iters and delta > tol:
-        inv = 1.0 / torch.clamp(torch.sqrt(ops.partial_sqdist(z, y)),
-                                min=_DIST_FLOOR)
+        sq = None
+        for z, y in zip(zs, ys):
+            part = ops.partial_sqdist(z, y)
+            sq = part if sq is None else sq + part
+        inv = 1.0 / torch.clamp(torch.sqrt(sq), min=_DIST_FLOOR)
         if rw is not None:
             inv = inv * rw
         wsum = torch.clamp(torch.sum(inv), min=_DIST_FLOOR)
-        y_new = ops.weighted_sum(z, inv) / wsum
-        delta = float(torch.sqrt(torch.sum((y_new - y) ** 2)))
-        y, it = y_new, it + 1
-    if return_info:
-        return y, WeiszfeldInfo(residual=delta, iters=it,
-                                converged=delta <= tol)
-    return y
+        move = None
+        for i, (z, y) in enumerate(zip(zs, ys)):
+            ys[i] = ops.weighted_sum(z, inv) / wsum
+            part = torch.sum((ys[i] - y) ** 2)
+            move = part if move is None else move + part
+        delta = float(torch.sqrt(move))
+        it += 1
+    return ys, WeiszfeldInfo(residual=delta, iters=it, converged=delta <= tol)
+
+
+def weiszfeld_pytree(stacked: dict[str, torch.Tensor], *, max_iters: int = 64,
+                     tol: float = 1e-6,
+                     row_weights: torch.Tensor | None = None,
+                     return_info: bool = False):
+    """Geometric median of W messages given as a dict of (W, *shape) leaves
+    (the per-leaf baseline's layout) -> a dict of (*shape) leaves in the
+    leaves' dtypes (and a :class:`WeiszfeldInfo` with ``return_info``).
+    Distances are over the whole message, all leaves, in sorted-name
+    order; the iterate is float32 until the end."""
+    names = sorted(stacked)
+    w = stacked[names[0]].shape[0]
+    ys, info = _weiszfeld_leaves([stacked[k].reshape(w, -1) for k in names],
+                                 max_iters=max_iters, tol=tol,
+                                 row_weights=row_weights)
+    out = {k: y.reshape(stacked[k].shape[1:]).to(stacked[k].dtype)
+           for k, y in zip(names, ys)}
+    return (out, info) if return_info else out
 
 
 @functools.lru_cache(maxsize=64)

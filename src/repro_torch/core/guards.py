@@ -40,10 +40,17 @@ def init_health(device: str | torch.device = "cpu") -> torch.Tensor:
     return torch.zeros((HEALTH_WIDTH,), dtype=torch.float32, device=device)
 
 
-def _row_stats(z: torch.Tensor, lead: int):
+def _row_stats(z, lead: int):
     """Per-row (non-finite count, squared norm of the finite coordinates)
     over the trailing axes of ``z``, whose first ``lead`` axes index the
-    rows."""
+    rows; ``z`` may be a dict of such leaves, added in sorted-name order
+    (the reference's leaf order)."""
+    if isinstance(z, dict):
+        stats = [_row_stats(z[k], lead) for k in sorted(z)]
+        bad, sq = stats[0]
+        for b, s in stats[1:]:
+            bad, sq = bad + b, sq + s
+        return bad, sq
     zf = z.float().reshape(tuple(z.shape[:lead]) + (-1,))
     finite = torch.isfinite(zf)
     bad = torch.sum((~finite).float(), dim=-1)
@@ -81,11 +88,12 @@ def guard_mask(msgs: torch.Tensor, *, multiplier: float = 10.0,
     return mask.float()
 
 
-def pairwise_guard_mask(exchange: torch.Tensor, mask: torch.Tensor, *,
+def pairwise_guard_mask(exchange, mask: torch.Tensor, *,
                         multiplier: float = 10.0) -> torch.Tensor:
-    """(R, S) float32 mask for an (R, S, D) per-edge exchange under the
-    (R, S) neighbour mask: each receiver judges its own in-edges, with the
-    median norm of its unmasked finite senders."""
+    """(R, S) float32 mask for an (R, S, D) per-edge exchange (or a dict of
+    (R, S, *shape) leaves) under the (R, S) neighbour mask: each receiver
+    judges its own in-edges, with the median norm of its unmasked finite
+    senders."""
     bad, sq = _row_stats(exchange, 2)
     finite_rs = bad == 0
     out = finite_rs
@@ -97,9 +105,12 @@ def pairwise_guard_mask(exchange: torch.Tensor, mask: torch.Tensor, *,
     return out.float()
 
 
-def sanitize_rows(msgs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def sanitize_rows(msgs, mask: torch.Tensor):
     """Zero the rows (entries of the leading axes) that ``mask``
-    quarantines; an all-ones mask returns the same values."""
+    quarantines, in a tensor or in each leaf of a dict; an all-ones mask
+    returns the same values."""
+    if isinstance(msgs, dict):
+        return {k: sanitize_rows(v, mask) for k, v in msgs.items()}
     m = mask.reshape(tuple(mask.shape) + (1,) * (msgs.dim() - mask.dim()))
     return torch.where(m > 0, msgs, torch.zeros_like(msgs))
 

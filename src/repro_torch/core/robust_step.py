@@ -1,8 +1,11 @@
 """The Byzantine-robust federated training step, paper Alg. 1 (port of
 ``repro/core/robust_step.py``'s simulated federation).
 
-:func:`make_federated_step` builds ``(init_fn, step_fn)`` for the packed
-simulation.  With the default star
+:func:`make_federated_step` builds ``(init_fn, step_fn)`` for the
+simulation: the packed step, or with ``packed=False`` the per-leaf
+baseline (messages, VR state and aggregation as dicts of per-leaf tensors,
+each kernel launched once per leaf); the two share one step body, and
+:class:`PackedLayout` or :class:`LeafLayout` holds the messages.  With the default star
 topology and static schedule it is the master path: W_h honest workers
 each send a (variance-reduced) stochastic gradient, B Byzantine rows are
 injected by an attack model, the master aggregates the packed (W, D)
@@ -67,8 +70,7 @@ Params = dict[str, torch.Tensor]
 
 # RobustConfig fields the port does not take yet, with the ROADMAP.md Queue A
 # item that ports each; they must keep their defaults.
-_UNPORTED_FIELDS = {"packed": "7g (the per-leaf baseline)",
-                    "comm": "10 (the distributed runtime)"}
+_UNPORTED_FIELDS = {"comm": "10 (the distributed runtime)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,13 +122,35 @@ class RobustConfig:
             if f.name in _UNPORTED_FIELDS and getattr(self, f.name) != f.default:
                 raise ValueError(
                     f"RobustConfig.{f.name}={getattr(self, f.name)!r} is "
-                    "outside the ported slice (packed simulated master and "
+                    "outside the ported slice (simulated master and "
                     "decentralized steps); ROADMAP.md Queue A "
                     f"item {_UNPORTED_FIELDS[f.name]}")
 
-    def reducer(self) -> vr_lib.VarianceReducer:
-        """The variance reducer named by ``self.vr``."""
-        return vr_lib.get_reducer(self)
+    def reducer(self):
+        """The variance reducer named by ``self.vr``, on the per-leaf
+        layout (:class:`~repro_torch.core.variance.PerLeafReducer`) when
+        ``not self.packed``."""
+        return vr_lib.get_reducer(self, perleaf=not self.packed)
+
+    def aggregator_fn(self, *, perleaf: Optional[bool] = None
+                      ) -> agg_lib.Aggregator:
+        """Pytree aggregator for this config; ``perleaf`` defaults to ``not
+        self.packed`` (the packed engine's shim against the per-leaf
+        baseline)."""
+        return agg_lib.get_aggregator(
+            self.aggregator,
+            perleaf=(not self.packed) if perleaf is None else perleaf,
+            max_iters=self.weiszfeld_iters, tol=self.weiszfeld_tol,
+            num_groups=self.num_groups, trim=self.trim,
+            num_byzantine=self.num_byzantine, clip_radius=self.clip_radius)
+
+    def check_wire(self) -> None:
+        """A quantized wire needs the packed path, as in the reference."""
+        if packing.resolve_wire_format(self.message_dtype).quantized \
+                and not self.packed:
+            raise ValueError(
+                f"message_dtype={self.message_dtype!r} is a quantized wire "
+                "format and needs the packed path (cfg.packed=True)")
 
     def attack_config(self) -> attack_lib.AttackConfig:
         attack_lib.check_attack_name(self.attack)
@@ -201,6 +225,41 @@ def per_sample_table(per_sample_grads, params: Params,
     return table
 
 
+def perleaf_table(per_sample_grads, params: Params,
+                  data: dict[str, torch.Tensor]) -> Params:
+    """Alg. 1 init on the per-leaf layout: table[k][w, j] = f'_{w,j}(x^0),
+    leaves (W_h, J, *shape), written worker by worker."""
+    wh, j = next(iter(data.values())).shape[:2]
+    dev = next(iter(data.values())).device
+    table = {k: torch.empty((wh, j) + tuple(p.shape), dtype=torch.float32,
+                            device=dev) for k, p in params.items()}
+    for w in range(wh):
+        grads = per_sample_grads(params, as_batches(
+            {k: v[w] for k, v in data.items()}))
+        for k, g in grads.items():
+            table[k][w] = g
+    return table
+
+
+def init_vr(cfg: RobustConfig, reducer, per_sample_grads, params: Params,
+            data: dict[str, torch.Tensor], spec: packing.PackSpec,
+            num_workers: int):
+    """The reducer's initial state at ``params``, packed by ``spec`` or, with
+    ``cfg.packed`` False, on the per-leaf layout; ``data`` holds one shard a
+    state row."""
+    if cfg.packed:
+        return reducer.init_sim(
+            params, per_sample_grads_fn=lambda: per_sample_table(
+                per_sample_grads, params, data, spec),
+            full_grads_fn=lambda: spec.pack(per_sample_grads(params, data)),
+            num_workers=num_workers, spec=spec)
+    return reducer.init_sim(
+        params, per_sample_grads_fn=lambda: perleaf_table(
+            per_sample_grads, params, data),
+        full_grads_fn=lambda: per_sample_grads(params, data),
+        num_workers=num_workers)
+
+
 def init_ef(spec: packing.PackSpec, num_clients: int,
             dev: torch.device) -> Optional[torch.Tensor]:
     """Zero (num_clients, D) float32 residuals on an error-feedback wire,
@@ -241,6 +300,60 @@ def restore_ef(ef: Optional[torch.Tensor], held: Optional[torch.Tensor],
         return held
     ef[rows] = held
     return ef
+
+
+class PackedLayout(NamedTuple):
+    """Messages on the packed path: one (W, D) buffer in the wire's dtype,
+    laid out by ``spec``, which crosses the wire."""
+    spec: packing.PackSpec
+
+    def pack(self, tree: Params, batch_ndim: int = 1) -> torch.Tensor:
+        return self.spec.pack(tree, batch_ndim=batch_ndim)
+
+    def unpack(self, buf: torch.Tensor, batch_ndim: int = 1) -> Params:
+        return self.spec.unpack(buf, batch_ndim=batch_ndim)
+
+    def flat(self, buf: torch.Tensor) -> torch.Tensor:
+        return buf
+
+    def transmit(self, buf, ef, rows):
+        return wire_transmit(self.spec, buf, ef, rows)
+
+
+class LeafLayout(NamedTuple):
+    """Messages on the per-leaf baseline (``cfg.packed=False``): dicts of
+    per-leaf tensors, float32 on every wire that is not quantized (the
+    reference packs nothing there, so a bf16 wire casts nothing).  ``spec``
+    is their float32 packing, for the packed views that metrics, guards
+    and the flat-engine detours read."""
+    spec: packing.PackSpec
+
+    def pack(self, tree: Params, batch_ndim: int = 1) -> Params:
+        return tree
+
+    def unpack(self, tree: Params, batch_ndim: int = 1) -> Params:
+        return tree
+
+    def flat(self, tree: Params) -> torch.Tensor:
+        return self.spec.pack(tree)
+
+    def transmit(self, tree, ef, rows):
+        return tree, ef, None
+
+
+def message_layout(cfg: RobustConfig, tree: Params):
+    """The layout of this config's messages, whose per-worker gradients
+    ``tree`` has leaves (W, ...)."""
+    if cfg.packed:
+        return PackedLayout(cfg.message_spec(tree, batch_ndim=1))
+    return LeafLayout(packing.pack_spec(tree))
+
+
+def expand_rows(x, n: int):
+    """``x`` (a tensor, or a dict of them) repeated as ``n`` rows, a view."""
+    if isinstance(x, dict):
+        return {k: expand_rows(v, n) for k, v in x.items()}
+    return x[None].expand((n,) + tuple(x.shape))
 
 
 def sample_rows(reducer: vr_lib.VarianceReducer, generator: torch.Generator,
@@ -400,6 +513,7 @@ def make_federated_step(
     reference's.
     """
     dev = resolve_device(device)
+    cfg.check_wire()
     plan = resolve_plan(cfg, worker_data)
     wh = (plan.cohort_size if plan is not None
           else next(iter(worker_data.values())).shape[0])
@@ -418,6 +532,8 @@ def make_federated_step(
     # The rule is built from the messages' PackSpec, which the first step
     # reads from its gradients (a state may come from elsewhere than init_fn).
     flat_fns: dict[packing.PackSpec, agg_lib.FlatAggregator] = {}
+    # The per-leaf baseline's rule (each kernel once per leaf).
+    perleaf_fn = None if cfg.packed else cfg.aggregator_fn(perleaf=True)
     grad_fn = torch.func.grad(loss_fn)
     # One gradient per worker batch: a sample is a batch of one, as in the
     # reference's per-worker grad of sample_batch(data_w, idx[None]); a
@@ -433,11 +549,8 @@ def make_federated_step(
         params = {k: torch.as_tensor(v, device=dev) for k, v in params.items()}
         spec = cfg.message_spec(params, batch_ndim=0)
         with torch.no_grad():
-            vr_state = reducer.init_sim(
-                params, per_sample_grads_fn=lambda: per_sample_table(
-                    per_sample_grads, params, data, spec),
-                full_grads_fn=lambda: spec.pack(per_sample_grads(params, data)),
-                num_workers=num_clients, spec=spec)
+            vr_state = init_vr(cfg, reducer, per_sample_grads, params, data,
+                               spec, num_clients)
         staleness = (participation_lib.init_staleness(num_clients, dev)
                      if plan is not None else None)
         health = guards_lib.init_health(dev) if cfg.guards else None
@@ -445,21 +558,58 @@ def make_federated_step(
                               generator_for(seed, dev), staleness,
                               init_ef(spec, num_clients, dev), health)
 
-    def oracles(params, spec, slots, batches) -> dict:
-        """lsvrg's oracles: the slots' packed params, their gradients at
-        packed params on this step's batches, and the full local gradients
-        of the slots ``sel`` at the packed params (on the bf16 wire, the
-        params rounded to bf16, as the reference unpacks them)."""
+    def oracles(params, lay, slots, batches) -> dict:
+        """lsvrg's oracles in the messages' layout ``lay``: the slots'
+        params, their gradients at those params on this step's batches, and
+        the full local gradients of the slots ``sel`` (packed: at the packed
+        params, on the bf16 wire rounded to bf16, as the reference unpacks
+        them)."""
         if not reducer.uses_oracles:
             return {}
-        flat = spec.pack(params, batch_ndim=0)
-        at = spec.unpack(flat, batch_ndim=0)
+        flat = lay.pack(params, batch_ndim=0)
+        at = lay.unpack(flat, batch_ndim=0)
         return dict(
-            params=flat[None].expand(wh, flat.shape[0]),
-            grads_at=lambda p: spec.pack(per_worker_grads(
-                spec.unpack(p, batch_ndim=1), batches)),
-            full_grads_at=lambda sel: spec.pack(per_sample_grads(
+            params=expand_rows(flat, wh),
+            grads_at=lambda p: lay.pack(per_worker_grads(
+                lay.unpack(p), batches)),
+            full_grads_at=lambda sel: lay.pack(per_sample_grads(
                 at, {k: v[slots[sel]] for k, v in data.items()})))
+
+    def aggregate(lay, msgs, rw, metrics):
+        """The rule on the round's messages -> (aggregate leaves, what the
+        guards' verdict reads: the packed vector, or the per-leaf
+        aggregate).  Guards build their mask on the packed view.  The
+        per-leaf baseline runs its rule leaf by leaf on a clean round
+        without staleness weights or diagnostics; those are flat-engine
+        features, so otherwise its messages detour through pack -> flat
+        rule -> unpack, as in the reference."""
+        spec = lay.spec
+        buf = msgs if cfg.packed else None
+        gmask = None
+        if cfg.guards:
+            buf = lay.flat(msgs)
+            gmask = guards_lib.guard_mask(
+                buf, multiplier=cfg.guard_multiplier, base_weights=rw)
+            metrics["quarantined_rows"] = torch.sum(1.0 - gmask)
+        if (not cfg.packed and rw is None and not cfg.diagnostics
+                and (gmask is None or bool(guards_lib.all_valid(gmask)))):
+            agg = perleaf_fn(msgs)
+            return agg, agg
+        if buf is None:
+            buf = lay.flat(msgs)
+        if spec not in flat_fns:
+            flat_fns[spec] = cfg.flat_aggregator_fn(spec)
+        flat_fn = flat_fns[spec]
+        if gmask is not None:
+            out = guards_lib.guarded_flat_call(flat_fn, buf, gmask,
+                                               row_weights=rw)
+        else:
+            out = flat_fn(buf) if rw is None else flat_fn(buf, row_weights=rw)
+        if cfg.diagnostics:
+            out, diag = out
+            metrics.update(diag_lib.diagnostics_metrics(diag))
+        agg = spec.unpack(out, batch_ndim=0)
+        return agg, (out if cfg.packed else agg)
 
     @torch.no_grad()
     def step_fn(state: FederatedState, *, sample_idx=None,
@@ -469,44 +619,30 @@ def make_federated_step(
         idx = sample_rows(reducer, state.generator, sample_idx, wh, j, dev)
         batches = worker_batches(data, slots, idx)
         honest_tree = per_sample_grads(params, batches)
-        spec = cfg.message_spec(honest_tree, batch_ndim=1)
-        honest = spec.pack(honest_tree)                       # (W_h, D)
+        lay = message_layout(cfg, honest_tree)
+        honest = lay.pack(honest_tree)             # (W_h, D), or leaves
         held = reducer.hold(state.vr, idx, rows) if cfg.guards else None
         honest, vr_state, vr_metrics = reducer.correct(
             state.vr, honest, idx, rows=rows, generator=state.generator,
-            coin=coin, **oracles(params, spec, slots, batches))
+            coin=coin, **oracles(params, lay, slots, batches))
         staleness = (state.staleness if plan is None else
                      participation_lib.tick_staleness(state.staleness, rows))
         # The honest senders transmit the corrected messages: what the
         # master, the variance metric and the attackers see is the
         # dequantized wire.
-        honest, ef, ef_held = wire_transmit(spec, honest, state.ef, rows)
-        var = telemetry.honest_variance(honest, wh)
+        honest, ef, ef_held = lay.transmit(honest, state.ef, rows)
+        var = telemetry.honest_variance(lay.flat(honest), wh)
+        # (W, D), or (W, ...) leaves; ``attack_noise`` is packed (B, D).
         msgs = attack_lib.apply_attack(attack_cfg, honest, state.generator,
-                                       noise=attack_noise, spec=spec)  # (W, D)
-        # The Byzantine rows cross the wire too (the honest rows are a
-        # fixed point of the roundtrip).
-        msgs = spec.wire_roundtrip(msgs)
+                                       noise=attack_noise, spec=lay.spec)
+        if cfg.packed:
+            # The Byzantine rows cross the wire too (the honest rows are a
+            # fixed point of the roundtrip).
+            msgs = lay.spec.wire_roundtrip(msgs)
         rw, slot_stal = slot_weights(cfg, honest_stal, b)
         metrics = {"honest_variance": var, **vr_metrics,
                    **telemetry.staleness_metrics(slot_stal)}
-        if spec not in flat_fns:
-            flat_fns[spec] = cfg.flat_aggregator_fn(spec)
-        flat_fn = flat_fns[spec]
-        if cfg.guards:
-            gmask = guards_lib.guard_mask(
-                msgs, multiplier=cfg.guard_multiplier, base_weights=rw)
-            out = guards_lib.guarded_flat_call(flat_fn, msgs, gmask,
-                                               row_weights=rw)
-            metrics["quarantined_rows"] = torch.sum(1.0 - gmask)
-        else:
-            out = flat_fn(msgs) if rw is None else flat_fn(msgs, row_weights=rw)
-        if cfg.diagnostics:
-            agg_vec, diag = out
-            metrics.update(diag_lib.diagnostics_metrics(diag))
-        else:
-            agg_vec = out
-        agg = spec.unpack(agg_vec, batch_ndim=0)
+        agg, watch = aggregate(lay, msgs, rw, metrics)
         updates, opt_state = optimizer.update(agg, state.opt_state, params,
                                               state.step)
         new_params = optim_lib.apply_updates(params, updates)
@@ -516,7 +652,7 @@ def make_federated_step(
             # residuals (the drawn rows copied before the correction are
             # written back); step, generator, staleness and health move on.
             accept, health = guards_lib.round_verdict(
-                guards_lib.tree_norm(agg_vec), state.health,
+                guards_lib.tree_norm(watch), state.health,
                 decay=cfg.reject_ema, zmax=cfg.reject_zmax,
                 warmup=cfg.reject_warmup)
             if not bool(accept):
@@ -528,5 +664,4 @@ def make_federated_step(
                                    state.step + 1, state.generator, staleness,
                                    ef, health)
         return new_state, metrics
-
     return init_fn, step_fn

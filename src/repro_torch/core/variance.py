@@ -194,6 +194,91 @@ class LooplessSvrgReducer(VarianceReducer):
             participation_lib.scatter_rows(state, rows, held)
 
 
+class PerLeafReducer:
+    """A reducer on the per-leaf layout (``RobustConfig(packed=False)``, the
+    reference's ``pack_fn=None`` branch): gradients and messages are dicts
+    of per-leaf (W, *shape) tensors, and the state is a dict of the flat
+    reducer's state, one per leaf, on that leaf's (W, d_l) (and SAGA's
+    (W, J, d_l)) tensors.  :meth:`correct` runs the flat reducer leaf by
+    leaf, so SAGA runs K1 on each leaf (its client-row route under partial
+    participation) and lsvrg one coin a worker for all leaves.  lsvrg's
+    oracles come whole-model, as dicts: ``params`` (W, *shape) leaves,
+    ``grads_at(tree)`` and ``full_grads_at(sel)`` -> dicts; each is
+    evaluated once a step and handed to the leaves."""
+
+    def __init__(self, flat: VarianceReducer):
+        self.flat = flat
+        self.name = flat.name
+        self.cfg = flat.cfg
+        self.uses_oracles = flat.uses_oracles
+
+    def index_shape(self, num_workers: int) -> tuple[int, ...]:
+        return self.flat.index_shape(num_workers)
+
+    def draw_indices(self, generator, num_workers, num_samples):
+        return self.flat.draw_indices(generator, num_workers, num_samples)
+
+    def init_sim(self, params, *, per_sample_grads_fn, num_workers,
+                 full_grads_fn=None, spec=None):
+        """``per_sample_grads_fn()`` -> leaves (W, J, *shape) and
+        ``full_grads_fn()`` -> leaves (W, *shape), as dicts."""
+        if self.name == "saga":
+            return {k: saga_lib.saga_init(t.reshape(t.shape[:2] + (-1,)))
+                    for k, t in per_sample_grads_fn().items()}
+        if self.name == "lsvrg":
+            anchor = full_grads_fn()
+            return {k: LsvrgState(
+                snapshot=p.reshape(1, -1).expand(num_workers, -1).clone(),
+                anchor=anchor[k].reshape(num_workers, -1))
+                for k, p in params.items()}
+        return None
+
+    def correct(self, state, grads: dict, sample_idx: torch.Tensor, *,
+                rows=None, params=None, grads_at=None, full_grads_at=None,
+                generator=None, coin=None) -> CorrectOut:
+        if state is None:
+            return grads, state, {}
+        w = sample_idx.shape[0]
+        leaf_oracles = lambda k: {}   # noqa: E731
+        if self.uses_oracles:
+            if coin is None:    # the flat reducer's draw, once for all leaves
+                coin = torch.rand((w,), generator=generator,
+                                  device=sample_idx.device) < self.cfg.lsvrg_p
+            at_snap = grads_at({
+                k: (state[k].snapshot if rows is None
+                    else state[k].snapshot[rows]).reshape(g.shape)
+                for k, g in grads.items()})
+            fresh = {}
+
+            def full(k, sel):
+                if not fresh:   # one whole-model pass serves every leaf
+                    fresh.update(full_grads_at(sel))
+                return fresh[k].reshape(sel.shape[0], -1)
+
+            def leaf_oracles(k):
+                return dict(params=params[k].reshape(w, -1),
+                            grads_at=lambda p: at_snap[k].reshape(w, -1),
+                            full_grads_at=lambda sel: full(k, sel))
+        msgs, metrics = {}, {}
+        for k, g in grads.items():
+            m, state[k], metrics = self.flat.correct(
+                state[k], g.reshape(w, -1), sample_idx, rows=rows,
+                generator=generator, coin=coin, **leaf_oracles(k))
+            msgs[k] = m.reshape(g.shape)
+        return msgs, state, metrics
+
+    def hold(self, state, sample_idx, rows=None):
+        if state is None:
+            return None
+        return {k: self.flat.hold(s, sample_idx, rows) for k, s in state.items()}
+
+    def restore(self, state, held, sample_idx, rows=None) -> None:
+        if state is None:
+            return
+        for k, s in state.items():
+            self.flat.restore(s, held[k], sample_idx, rows)
+
+
 _REDUCERS: dict[str, type[VarianceReducer]] = {
     "sgd": VarianceReducer,
     "minibatch": MinibatchReducer,
@@ -207,8 +292,11 @@ VR_NAMES = tuple(_REDUCERS)
 UNPORTED: tuple[str, ...] = ()
 
 
-def get_reducer(cfg) -> VarianceReducer:
-    """Build the variance reducer named by ``cfg.vr``."""
+def get_reducer(cfg, *, perleaf: bool = False):
+    """Build the variance reducer named by ``cfg.vr``; ``perleaf`` wraps it
+    in :class:`PerLeafReducer`."""
+    if perleaf:
+        return PerLeafReducer(get_reducer(cfg))
     try:
         cls = _REDUCERS[cfg.vr]
     except KeyError:

@@ -2,8 +2,8 @@ from repro_torch.data.federated import partition
 from repro_torch.data.synthetic import (Dataset, covtype_like, ijcnn1_like,
                                         logreg_dataset,
                                         logreg_full_loss_and_opt, logreg_loss,
-                                        mnist_like)
+                                        mnist_like, token_stream)
 
 __all__ = ["Dataset", "covtype_like", "ijcnn1_like", "logreg_dataset",
            "logreg_full_loss_and_opt", "logreg_loss", "mnist_like",
-           "partition"]
+           "partition", "token_stream"]

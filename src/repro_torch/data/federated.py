@@ -23,6 +23,8 @@ def partition(data: dict[str, torch.Tensor], num_workers: int, *,
       * ``iid``        -- random shuffle, even contiguous split.
       * ``replicated`` -- every worker holds the same J samples (delta^2=0,
                           paper Fig. 5).
+      * ``sorted``     -- sorted by the last name's values (the labels), a
+                          stable sort: maximal heterogeneity (beyond-paper).
     """
     dev = resolve_device(device)
     names = sorted(data)
@@ -36,12 +38,12 @@ def partition(data: dict[str, torch.Tensor], num_workers: int, *,
         return {k: l[idx].unsqueeze(0).expand(
                     (num_workers,) + (-1,) * l.dim()).contiguous()
                 for k, l in zip(names, leaves)}
-    if mode != "iid":
-        raise ValueError(
-            f"partition mode {mode!r} is not ported yet (ROADMAP.md Queue A "
-            "item 1); ported modes: iid, replicated")
-
-    order = rng.permutation(n)
+    if mode == "iid":
+        order = rng.permutation(n)
+    elif mode == "sorted":
+        order = np.argsort(leaves[-1].cpu().numpy(), kind="stable")
+    else:
+        raise ValueError(f"unknown partition mode {mode!r}")
     j = samples_per_worker or (n // num_workers)
     if num_workers * j > n:
         raise ValueError(f"need {num_workers * j} samples, have {n}")

@@ -10,6 +10,8 @@ in (``convert.params_from_jax`` / ``torch.as_tensor``).
   from a planted logistic model (IJCNN1-like: p=22; COVTYPE-like: p=54).
 * :func:`mnist_like`     -- 10-class Gaussian-blob images (p=784) for the
   one-hidden-layer network of Table I.
+* :func:`token_stream`   -- one language-model batch of random tokens and
+  their next-token labels.
 * :func:`logreg_loss` / :func:`logreg_full_loss_and_opt` -- the paper's
   l2-regularized logistic loss and its full-batch optimum f(x*).
 """
@@ -66,6 +68,20 @@ def mnist_like(seed: int | torch.Generator, n: int = 2_000,
     noise = 0.3 * torch.randn((n, p), generator=g, device=dev)
     x = torch.clamp(centers[y] + noise, 0.0, 1.0)
     return Dataset(x=x, y=y)
+
+
+def token_stream(batch: int, seq_len: int, vocab: int, *,
+                 generator: int | torch.Generator = 0,
+                 device: str | torch.device = DEFAULT_DEVICE
+                 ) -> dict[str, torch.Tensor]:
+    """One LM training batch: ``tokens`` (batch, seq_len) drawn uniformly
+    from [0, vocab) and ``labels``, the same stream shifted by one (the next
+    token); int64, torch's index dtype (the reference's are int32)."""
+    dev = resolve_device(device)
+    g = generator_for(generator, dev)
+    toks = torch.randint(0, vocab, (batch, seq_len + 1), generator=g,
+                         device=dev)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
 def logreg_loss(rho: float = 0.01):

@@ -102,8 +102,13 @@
 // float32's two roundings: the float32 kernel's bits, zeros too, because
 // Hopper's FMNMX also orders -0 below +0 (held on the card on every column
 // of +-0 at W = 1..9).  The two halves' ranks are the same, so one network
-// serves both.  Other bf16 views, W past 128 and K5 load one column a
-// thread as above.
+// serves both.  K5 takes the same views two columns a thread
+// (trimmed_pairs_kernel, its own "pairs" layout): the same loads and keys,
+// the unpruned network on words (1,500 packed min/max for two columns at W
+// = 70, where float32 runs 1,500 FMNMX for one; instruction floor 1,500 x
+// 19,880 / (64 x 132 x 1.98 GHz) = 1.78 us, just above the bytes), and the
+// kept ranks unkeyed and summed per column as the float32 kernel sums them.
+// Other bf16 views and W past 128 load one column a thread as above.
 //
 // NaN on the rank-count routes: every comparison with NaN is false, so a
 // NaN gets rank 0 and the ranks of its column are no longer a permutation;
@@ -283,6 +288,16 @@ __device__ __forceinline__ unsigned median_keys(unsigned w) {
   return w ^ (sign & 0x7fff7fffu);
 }
 
+// The raw bfloat16 bits of both halves of a median_keys word, in two
+// instructions (the sign spread by prmt, as in median_keys): the keys'
+// inverse for every value, and for a NaN key (a cleared sign bit) a
+// positive NaN.
+__device__ __forceinline__ unsigned pair_raw(unsigned k) {
+  unsigned sign;
+  asm("prmt.b32 %0, %1, 0, 0xbb99;" : "=r"(sign) : "r"(k));
+  return k ^ (sign & 0x7fff7fffu);
+}
+
 // The float32 value of a half of a sorted key word (its key in the low 16
 // bits of `half`): NaN for a key above +inf's (a NaN or a pad: ranks from
 // W - #NaN on), else the half's raw bfloat16 value, exactly.
@@ -349,6 +364,69 @@ int launch_median_pairs(const __nv_bfloat16* z, float* out, int W, long long D,
 bool median_pairs_fit(const __nv_bfloat16* z, const float* out, int W, long long D) {
   return W <= kNetCap && D > 0 && D % 2 == 0 && reinterpret_cast<uintptr_t>(z) % 4 == 0 &&
          reinterpret_cast<uintptr_t>(out) % 8 == 0;
+}
+
+// ---- K5 bf16: two columns a thread on packed 16-bit keys --------------------
+//
+// trimmed_network_kernel for columns 2p and 2p + 1, p < P, on median_pairs
+// keys: the loads and keys of median_pairs_kernel, the unpruned network
+// (trim is a runtime value, so every rank may be read: 750 compare-exchanges
+// at N = 72, one pair_min and one pair_max each for both columns), then each
+// half's kept ranks [trim, W - trim) unkeyed (both halves of a word in two
+// instructions, pair_raw) and added in ascending rank order in float32 from
+// +0, and divided by W - 2 trim: the float32 kernel's arithmetic on the same
+// values.  No NaN count: NaN keys lie above +inf, so a NaN falls in the kept
+// range exactly when #NaN > trim, that is when the highest kept key is a
+// NaN's, and the column then gets NAN as in the float32 kernel (the adds
+// alone would give Hopper's arithmetic NaN word 0x7fffffff, not NAN's
+// 0x7fc00000).  A NaN from +inf - inf among the kept values comes from the
+// same adds in both kernels.  out must be 8-byte aligned.
+template <int N>
+__global__ void __launch_bounds__(kNetThreads)
+trimmed_pairs_kernel(const __nv_bfloat16* __restrict__ z, float* __restrict__ out,
+                     int W, int64_t P, int trim) {
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * kNetThreads + threadIdx.x;
+  if (p >= P) return;
+  const unsigned* row = reinterpret_cast<const unsigned*>(z) + p;
+  unsigned v[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i, row += P)
+    v[i] = i < N - kNetStep || i < W ? __ldg(row) : kPairTop;
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = median_keys(v[i]);
+  sort_network_pairs<N>(v);
+  float acc0 = 0.f, acc1 = 0.f;
+  unsigned top = 0;   // the word of the highest kept rank
+#pragma unroll
+  for (int r = 0; r < N; ++r)   // a predicate per wire: v[] stays in registers
+    if (r >= trim && r < W - trim) {
+      const unsigned raw = pair_raw(v[r]);
+      acc0 += __uint_as_float(raw << 16);
+      acc1 += __uint_as_float(raw & 0xffff0000u);
+      top = v[r];
+    }
+  // A column holds more than trim NaN exactly when its highest kept key is a
+  // NaN's; the float32 kernel then writes NAN (the sum's adds would give
+  // another NaN word).
+  const float kept = static_cast<float>(W - 2 * trim);
+  const bool nan0 = static_cast<short>(top & 0xffffu) > 0x7f80;
+  const bool nan1 = static_cast<short>(top >> 16) > 0x7f80;
+  reinterpret_cast<float2*>(out)[p] =
+      make_float2(nan0 ? NAN : acc0 / kept, nan1 ? NAN : acc1 / kept);
+}
+
+// Launches trimmed_pairs_kernel for the smallest multiple of kNetStep >= W.
+template <int N = kNetStep>
+int launch_trimmed_pairs(const __nv_bfloat16* z, float* out, int W, long long D,
+                         int trim, cudaStream_t s) {
+  if constexpr (N < kNetCap) {
+    if (W > N) return launch_trimmed_pairs<N + kNetStep>(z, out, W, D, trim, s);
+  }
+  const long long P = D / 2;
+  const unsigned blocks = static_cast<unsigned>((P + kNetThreads - 1) / kNetThreads);
+  trimmed_pairs_kernel<N><<<blocks, kNetThreads, 0, s>>>(z, out, W,
+                                                          static_cast<int64_t>(P), trim);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- The rank count: K4 and K5 past kNetCap ---------------------------------
@@ -526,7 +604,12 @@ REPRO_EXPORT int trimmed_mean_f32(const float* z, float* out, int W,
   return launch_any<false, float>(z, out, W, D, trim, stream);
 }
 
+// The bf16 route reports its layout as coordinate_median_bf16 does (the
+// same views take two columns a thread).
 REPRO_EXPORT int trimmed_mean_bf16(const __nv_bfloat16* z, float* out, int W,
-                                   long long D, int trim, void* stream) {
+                                   long long D, int trim, int* layout, void* stream) {
+  *layout = median_pairs_fit(z, out, W, D) ? 1 : 0;
+  if (*layout == 1)
+    return launch_trimmed_pairs(z, out, W, D, trim, static_cast<cudaStream_t>(stream));
   return launch_any<false, __nv_bfloat16>(z, out, W, D, trim, stream);
 }

@@ -144,12 +144,14 @@ def reset_launch_counts() -> None:
     """Zero every kernel's count, the bf16 routes' counts, and the
     per-route counts of K1 (``saga_correct.ROUTE_LAUNCHES``), K2
     (``weiszfeld.SQDIST_ROUTE_LAUNCHES`` and
-    ``weiszfeld.SQDIST_LAYOUT_LAUNCHES``), K4
-    (``robust_stats.MEDIAN_LAYOUT_LAUNCHES``), K7
+    ``weiszfeld.SQDIST_LAYOUT_LAUNCHES``), K4 and K5
+    (``robust_stats.MEDIAN_LAYOUT_LAUNCHES`` and
+    ``robust_stats.TRIMMED_LAYOUT_LAUNCHES``), K7
     (``topology.ROUTE_LAUNCHES`` and ``topology.SELECT_LAYOUT_LAUNCHES``) and
     K8 (``flash_attention.VARIANT_LAUNCHES``)."""
     for counts in (_build.LAUNCHES, sc.ROUTE_LAUNCHES, wz.SQDIST_ROUTE_LAUNCHES,
                    wz.SQDIST_LAYOUT_LAUNCHES, rs.MEDIAN_LAYOUT_LAUNCHES,
+                   rs.TRIMMED_LAYOUT_LAUNCHES,
                    tp.ROUTE_LAUNCHES, tp.SELECT_LAYOUT_LAUNCHES,
                    fa.VARIANT_LAUNCHES):
         for name in counts:

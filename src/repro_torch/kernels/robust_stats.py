@@ -19,7 +19,9 @@ columns a thread: one 4-byte load a row, 16-bit keys two to a word (b, or
 b ^ 0x7fff for b < 0, every NaN above +inf: the order of the upcast values,
 -0 below +0, as Hopper's float min/max orders them too) and the same network
 on packed 16-bit min/max, one instruction for both columns (:data:`MEDIAN_LAYOUT_LAUNCHES` counts "pairs" and "one";
-its instruction floor is half the float32 route's).  K4 gives the plain
+its instruction floor is half the float32 route's); K5 takes the same views
+two columns a thread on the same keys, its kept ranks unkeyed and summed
+per column (:data:`TRIMMED_LAYOUT_LAUNCHES`).  K4 gives the plain
 version's bits; K5 sums the kept ranks in ascending
 rank order (rtol 1e-5 against the plain version, the same bits on every
 launch) and gives NaN exactly when a column holds more than ``trim`` NaN,
@@ -46,17 +48,20 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int),
         ctypes.c_void_p],
 }
-for _sfx in _build.SUFFIX.values():
-    _SIGNATURES[f"trimmed_mean_{_sfx}"] = [ctypes.c_void_p] * 2 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+_SIGNATURES["trimmed_mean_f32"] = [ctypes.c_void_p] * 2 + [
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+_SIGNATURES["trimmed_mean_bf16"] = [ctypes.c_void_p] * 2 + [
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+    ctypes.c_void_p]
 
-# K4's layouts and their launches (reset with the others by
+# K4's and K5's layouts and their launches (reset with the others by
 # ops.reset_launch_counts): "pairs" (a bfloat16 z on the network route with D
 # even and a 4-byte aligned base: two columns a thread, their 16-bit keys
 # ordered two at a time) and "one" (one column a thread: every float32 z,
 # every other bfloat16 z, and past the network route).
 MEDIAN_LAYOUTS = ("one", "pairs")
 MEDIAN_LAYOUT_LAUNCHES = dict.fromkeys(MEDIAN_LAYOUTS, 0)
+TRIMMED_LAYOUT_LAUNCHES = dict.fromkeys(MEDIAN_LAYOUTS, 0)
 
 
 # K4 and K5's network route: W up to NETWORK_CAP, one network per multiple
@@ -159,14 +164,19 @@ def _launch(what: str, z: torch.Tensor, *extra) -> torch.Tensor:
     return out
 
 
+def _launch_counted(what: str, z: torch.Tensor, counts: dict, *extra) -> torch.Tensor:
+    """_launch, with the bf16 route's layout reported into ``counts``."""
+    layout = ctypes.c_int(0)
+    out = _launch(what, z, *extra,
+                  *((ctypes.byref(layout),) if z.dtype == torch.bfloat16 else ()))
+    counts[MEDIAN_LAYOUTS[layout.value]] += 1
+    return out
+
+
 def coordinate_median_call(z: torch.Tensor) -> torch.Tensor:
     """z (W, D) -> (D,) float32 per-coordinate median, on the card."""
     check_inputs("coordinate_median", z)
-    layout = ctypes.c_int(0)
-    out = _launch("coordinate_median", z,
-                  *((ctypes.byref(layout),) if z.dtype == torch.bfloat16 else ()))
-    MEDIAN_LAYOUT_LAUNCHES[MEDIAN_LAYOUTS[layout.value]] += 1
-    return out
+    return _launch_counted("coordinate_median", z, MEDIAN_LAYOUT_LAUNCHES)
 
 
 def trimmed_mean_call(z: torch.Tensor, trim: int) -> torch.Tensor:
@@ -174,4 +184,4 @@ def trimmed_mean_call(z: torch.Tensor, trim: int) -> torch.Tensor:
     card."""
     check_inputs("trimmed_mean", z)
     check_trim(z, trim)
-    return _launch("trimmed_mean", z, int(trim))
+    return _launch_counted("trimmed_mean", z, TRIMMED_LAYOUT_LAUNCHES, int(trim))

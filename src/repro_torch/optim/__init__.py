@@ -1,5 +1,9 @@
-from repro_torch.optim.optimizers import (Optimizer, apply_updates,
-                                         constant_schedule, get_optimizer, sgd)
+from repro_torch.optim.optimizers import (OPTIMIZER_NAMES, AdamState,
+                                         Optimizer, adam, adamw,
+                                         apply_updates, constant_schedule,
+                                         cosine_schedule, get_optimizer,
+                                         momentum, sgd)
 
-__all__ = ["Optimizer", "apply_updates", "constant_schedule",
-           "get_optimizer", "sgd"]
+__all__ = ["OPTIMIZER_NAMES", "AdamState", "Optimizer", "adam", "adamw",
+           "apply_updates", "constant_schedule", "cosine_schedule",
+           "get_optimizer", "momentum", "sgd"]

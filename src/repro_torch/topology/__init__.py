@@ -13,6 +13,7 @@ from repro_torch.topology.graphs import (
 )
 from repro_torch.topology.masked import (
     MASKED_AGGREGATOR_NAMES,
+    masked_aggregate,
     masked_aggregate_flat,
     masked_centered_clip,
     masked_geomed_blockwise,

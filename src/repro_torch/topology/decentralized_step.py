@@ -35,7 +35,13 @@ masked rules' per-sender summary.  On a quantized wire (``message_dtype``
 in gradient gossip, the half-stepped models in params gossip (sign1's
 residuals then track the param channel).  The per-edge Byzantine payloads
 are not re-quantized, as in the reference: they replace the senders'
-entries wholesale.  On the bf16 wire the exchange is bf16.
+entries wholesale.  On the bf16 wire the exchange is bf16.  With
+``packed=False`` the step is the per-leaf baseline: messages, VR state,
+the per-edge exchange and the masked rule on dicts of per-leaf tensors
+(:func:`build_exchange` on a dict,
+:func:`repro_torch.topology.masked.masked_aggregate` with ``perleaf=True``),
+each kernel once per leaf; one step body serves both layouts
+(:func:`repro_torch.core.robust_step.message_layout`).
 
 The sharded, ``torch.distributed`` form of the reference's
 ``decentralized_aggregate`` is ROADMAP.md Queue A item 10.
@@ -51,15 +57,15 @@ from repro_torch.core import attacks as attack_lib
 from repro_torch.core import guards as guards_lib
 from repro_torch.core import participation as participation_lib
 from repro_torch.core.robust_step import (FederatedState, init_ef,
-                                          per_sample_table, resolve_plan,
-                                          restore_ef, round_slots,
-                                          sample_rows, slot_weights,
-                                          wire_transmit, worker_batches)
+                                          init_vr, message_layout,
+                                          resolve_plan, restore_ef,
+                                          round_slots, sample_rows,
+                                          slot_weights, worker_batches)
 from repro_torch.device import DEFAULT_DEVICE, generator_for, resolve_device
 from repro_torch.optim import optimizers as optim_lib
 from repro_torch.telemetry import diagnostics as diag_lib
 from repro_torch.telemetry import metrics as telemetry
-from repro_torch.topology.masked import masked_aggregate_flat
+from repro_torch.topology.masked import masked_aggregate
 from repro_torch.topology.schedule import as_schedule, validate_schedule
 
 Params = dict[str, torch.Tensor]
@@ -75,11 +81,11 @@ def _check_gossip(cfg) -> str:
     return gossip
 
 
-def build_exchange(msgs: torch.Tensor, cfg: attack_lib.AttackConfig,
+def build_exchange(msgs, cfg: attack_lib.AttackConfig,
                    mask: torch.Tensor, is_byz: torch.Tensor,
                    generator: Optional[torch.Generator] = None, *,
                    noise: Optional[torch.Tensor] = None,
-                   spec=None) -> torch.Tensor:
+                   spec=None):
     """The per-edge message exchange (R, S, D), in ``msgs``' dtype (bf16 on
     the bf16 wire, float32 otherwise).
 
@@ -96,13 +102,58 @@ def build_exchange(msgs: torch.Tensor, cfg: attack_lib.AttackConfig,
     ``dropout`` sends zeros, ``nan`` and ``inf_overflow`` fill r's mean
     (padding of ``spec`` kept at 0), and ``bitflip`` corrupts it at
     coordinates hashed per sender id (:func:`attacks.bitflip_edges`).
+
+    ``msgs`` may also be a dict of per-leaf (S, *shape) messages (the
+    per-leaf baseline), whose float32 packing is ``spec``: each leaf's
+    exchange (R, S, *shape) is a tensor of its own, its Byzantine entries
+    cut at the leaf's boundaries from the payloads computed once on the
+    packed rows (every per-edge attack is coordinate-separable), so
+    ``gaussian``'s draws and ``bitflip``'s hash are the packed exchange's.
     """
     attack_lib.check_attack_name(cfg.name)
     r = mask.shape[0]
+    attacked = cfg.name != "none" and cfg.num_byzantine > 0
+    if isinstance(msgs, dict):
+        byz = (_edge_payloads(spec.pack(msgs), cfg, mask, is_byz, generator,
+                              noise, spec) if attacked else None)
+        out = {}
+        for k, (a, b), shape in zip(spec.names, spec.boundaries, spec.shapes):
+            rows = msgs[k].reshape(msgs[k].shape[0], -1)
+            ex = (_broadcast(rows, r) if byz is None
+                  else _with_payloads(rows, byz[..., a:b], is_byz))
+            out[k] = ex.reshape(tuple(ex.shape[:2]) + shape)
+        return out
+    if not attacked:
+        return _broadcast(msgs, r)
+    return _with_payloads(msgs, _edge_payloads(msgs, cfg, mask, is_byz,
+                                               generator, noise, spec), is_byz)
+
+
+def _broadcast(msgs: torch.Tensor, r: int) -> torch.Tensor:
+    """The (S, d) rows as every one of ``r`` receivers' view, (R, S, d)."""
+    return msgs[None].expand((r,) + tuple(msgs.shape))
+
+
+def _with_payloads(msgs: torch.Tensor, byz: torch.Tensor,
+                   is_byz: torch.Tensor) -> torch.Tensor:
+    """The (R, S, d) exchange of the (S, d) rows with the Byzantine
+    senders' entries replaced by ``byz`` ((R, d) per receiver, or (R, B, d)
+    per edge), cast on store."""
+    exchange = _broadcast(msgs, byz.shape[0]).clone()
+    exchange[:, is_byz] = (byz[:, None] if byz.dim() == 2 else byz
+                           ).to(msgs.dtype)
+    return exchange
+
+
+def _edge_payloads(msgs: torch.Tensor, cfg: attack_lib.AttackConfig,
+                   mask: torch.Tensor, is_byz: torch.Tensor,
+                   generator: Optional[torch.Generator],
+                   noise: Optional[torch.Tensor], spec) -> torch.Tensor:
+    """The Byzantine payloads of :func:`build_exchange` for the (S, D)
+    rows: (R, D) float32 per receiver, or (R, B, D) per edge
+    (``gaussian``).  The payloads are computed in float32."""
+    r = mask.shape[0]
     s, d = msgs.shape
-    if cfg.name == "none" or cfg.num_byzantine == 0:
-        return msgs[None].expand(r, s, d)
-    # The payloads are computed in float32 and cast on store.
     m32 = msgs.float()
     byz_f = is_byz.float()
     hon_w = mask * (1.0 - byz_f)[None, :]                       # (R, S)
@@ -111,43 +162,39 @@ def build_exchange(msgs: torch.Tensor, cfg: attack_lib.AttackConfig,
     mean = (hon_w @ m32) / h_cnt[:, None]                       # (R, D)
     nb = int(is_byz.sum())
     if cfg.name == "sign_flip":
-        byz = cfg.sign_flip_magnitude * mean
-    elif cfg.name == "zero_gradient":
+        return cfg.sign_flip_magnitude * mean
+    if cfg.name == "zero_gradient":
         # Each receiver's masked neighbourhood mean becomes exactly zero.
-        byz = -(h_cnt / b_cnt)[:, None] * mean
-    elif cfg.name == "ipm":
-        byz = -cfg.ipm_eps * mean
-    elif cfg.name == "alie":
+        return -(h_cnt / b_cnt)[:, None] * mean
+    if cfg.name == "ipm":
+        return -cfg.ipm_eps * mean
+    if cfg.name == "alie":
         sq = (hon_w @ (m32 * m32)) / h_cnt[:, None]
-        byz = mean + cfg.alie_z * torch.sqrt(torch.clamp(sq - mean * mean,
-                                                         min=0.0))
-    elif cfg.name == "straggler":
-        byz = (1.0 + 0.25 * cfg.straggler_k) * mean
-    elif cfg.name == "dropout":
-        byz = torch.zeros_like(mean)
-    elif cfg.name == "nan":
-        byz = attack_lib._fault_fill(attack_lib._nan_fill, mean, spec)
-    elif cfg.name == "inf_overflow":
-        byz = attack_lib._fault_fill(attack_lib._overflow_fill, mean, spec)
-    elif cfg.name == "bitflip":
+        return mean + cfg.alie_z * torch.sqrt(torch.clamp(sq - mean * mean,
+                                                          min=0.0))
+    if cfg.name == "straggler":
+        return (1.0 + 0.25 * cfg.straggler_k) * mean
+    if cfg.name == "dropout":
+        return torch.zeros_like(mean)
+    if cfg.name == "nan":
+        return attack_lib._fault_fill(attack_lib._nan_fill, mean, spec)
+    if cfg.name == "inf_overflow":
+        return attack_lib._fault_fill(attack_lib._overflow_fill, mean, spec)
+    if cfg.name == "bitflip":
         # Only the Byzantine senders' payloads: the hash is per sender id.
-        byz = attack_lib.bitflip_edges(
+        return attack_lib.bitflip_edges(
             mean, torch.arange(s, device=msgs.device)[is_byz],
             prob=cfg.bitflip_prob, seed=cfg.bitflip_seed, spec=spec)
-    else:   # gaussian: per-edge draws around each receiver's mean
-        if noise is None:
-            draws = torch.randn((r, nb, d), generator=generator,
-                                device=msgs.device)
-        else:
-            if tuple(noise.shape) != (r, s, d):
-                raise ValueError(f"gaussian: noise must be {(r, s, d)}, got "
-                                 f"{tuple(noise.shape)}")
-            draws = noise.to(msgs.device, torch.float32)[:, is_byz]
-        byz = mean[:, None] + math.sqrt(cfg.gaussian_variance) * draws
-    exchange = msgs[None].expand(r, s, d).clone()
-    exchange[:, is_byz] = (byz[:, None] if byz.dim() == 2 else byz
-                           ).to(msgs.dtype)
-    return exchange
+    # gaussian: per-edge draws around each receiver's mean
+    if noise is None:
+        draws = torch.randn((r, nb, d), generator=generator,
+                            device=msgs.device)
+    else:
+        if tuple(noise.shape) != (r, s, d):
+            raise ValueError(f"gaussian: noise must be {(r, s, d)}, got "
+                             f"{tuple(noise.shape)}")
+        draws = noise.to(msgs.device, torch.float32)[:, is_byz]
+    return mean[:, None] + math.sqrt(cfg.gaussian_variance) * draws
 
 
 def make_decentralized_step(
@@ -178,6 +225,7 @@ def make_decentralized_step(
     """
     sched = as_schedule(topology)
     dev = resolve_device(device)
+    cfg.check_wire()
     plan = resolve_plan(cfg, worker_data)
     data = {k: torch.as_tensor(v, device=dev) for k, v in worker_data.items()}
     num_clients, j = next(iter(data.values())).shape[:2]
@@ -210,11 +258,8 @@ def make_decentralized_step(
                  for k, p in params.items()}
         spec = cfg.message_spec(params, batch_ndim=0)
         with torch.no_grad():
-            vr_state = reducer.init_sim(
-                params, per_sample_grads_fn=lambda: per_sample_table(
-                    per_sample_grads, params, data, spec),
-                full_grads_fn=lambda: spec.pack(per_sample_grads(params, data)),
-                num_workers=num_clients, spec=spec)
+            vr_state = init_vr(cfg, reducer, per_sample_grads, params, data,
+                               spec, num_clients)
         staleness = (participation_lib.init_staleness(num_clients, dev)
                      if plan is not None else None)
         health = guards_lib.init_health(dev) if cfg.guards else None
@@ -222,18 +267,20 @@ def make_decentralized_step(
                               generator_for(seed, dev), staleness,
                               init_ef(spec, num_clients, dev), health)
 
-    def oracles(honest_params, spec, slots, batches) -> dict:
-        """lsvrg's oracles against each honest node's own params (packed:
-        rounded to bf16 on the bf16 wire, as the reference unpacks them)."""
+    def oracles(honest_params, lay, slots, batches) -> dict:
+        """lsvrg's oracles against each honest node's own params, in the
+        messages' layout ``lay`` (packed: rounded to bf16 on the bf16 wire,
+        as the reference unpacks them)."""
         if not reducer.uses_oracles:
             return {}
-        flat = spec.pack(honest_params)
+        flat = lay.pack(honest_params)
+        at = lay.unpack(flat)
         return dict(
             params=flat,
-            grads_at=lambda p: spec.pack(per_node_grads(
-                spec.unpack(p, batch_ndim=1), batches)),
-            full_grads_at=lambda sel: spec.pack(per_node_grads(
-                spec.unpack(flat[sel], batch_ndim=1),
+            grads_at=lambda p: lay.pack(per_node_grads(lay.unpack(p),
+                                                       batches)),
+            full_grads_at=lambda sel: lay.pack(per_node_grads(
+                {k: v[sel] for k, v in at.items()},
                 {k: v[slots[sel]] for k, v in data.items()})))
 
     @torch.no_grad()
@@ -246,12 +293,13 @@ def make_decentralized_step(
         honest_params = {k: v[:wh] for k, v in state.params.items()}
         batches = worker_batches(data, slots, idx)
         honest_tree = per_node_grads(honest_params, batches)
-        spec = cfg.message_spec(honest_tree, batch_ndim=1)
-        honest = spec.pack(honest_tree)                         # (W_h, D)
+        lay = message_layout(cfg, honest_tree)
+        spec = lay.spec
+        honest = lay.pack(honest_tree)               # (W_h, D), or leaves
         held = reducer.hold(state.vr, idx, rows) if cfg.guards else None
         honest, vr_state, vr_metrics = reducer.correct(
             state.vr, honest, idx, rows=rows, generator=state.generator,
-            coin=coin, **oracles(honest_params, spec, slots, batches))
+            coin=coin, **oracles(honest_params, lay, slots, batches))
         staleness = (state.staleness if plan is None else
                      participation_lib.tick_staleness(state.staleness, rows))
         # Staleness weights scale the mask's sender columns.
@@ -262,15 +310,14 @@ def make_decentralized_step(
         # only one channel pays the wire.
         ef, ef_held = state.ef, None
         if gossip == "gradient":
-            honest, ef, ef_held = wire_transmit(spec, honest, state.ef, rows)
-        var = telemetry.honest_variance(honest, wh)
+            honest, ef, ef_held = lay.transmit(honest, state.ef, rows)
+        var = telemetry.honest_variance(lay.flat(honest), wh)
         # Byzantine node rows carry zeros until the attack replaces them.
-        msgs = torch.zeros((n, honest.shape[1]), dtype=honest.dtype,
-                           device=dev)
-        msgs[:wh] = honest
+        msgs = _zero_rows_to(honest, n)
         guard_info = {}
 
-        def gossip_agg(wire: torch.Tensor):
+        def gossip_agg(wire):
+            # (R, S, D), or (R, S, *shape) leaves.
             exchange = build_exchange(wire, attack_cfg, wmask, is_byz,
                                       state.generator, noise=attack_noise,
                                       spec=spec)
@@ -286,24 +333,23 @@ def make_decentralized_step(
                     gm = mask * emask
                 guard_info["quarantined_edges"] = torch.sum(
                     (wmask > 0) * (1.0 - emask))
-            # The rule scales gm's sender columns by the staleness weights.
-            out = masked_aggregate_flat(cfg.aggregator, exchange, gm,
-                                        spec=spec, mixing=mixing * gm,
-                                        row_weights=sw,
-                                        diagnostics=cfg.diagnostics,
-                                        **opts)                 # (N, D)
+            # The rule scales gm's sender columns by the staleness weights;
+            # the per-leaf baseline runs it leaf by leaf (diagnostics
+            # through the flat engine).
+            out = masked_aggregate(cfg.aggregator, exchange, gm,
+                                   perleaf=not cfg.packed, spec=spec,
+                                   mixing=mixing * gm, row_weights=sw,
+                                   diagnostics=cfg.diagnostics, **opts)
             out, diag = out if cfg.diagnostics else (out, None)
-            return spec.unpack(out, batch_ndim=1), diag
+            return lay.unpack(out), diag
 
         if gossip == "params":
             updates, opt_state = optimizer.update(
-                spec.unpack(msgs, batch_ndim=1), state.opt_state,
-                state.params, state.step)
+                lay.unpack(msgs), state.opt_state, state.params, state.step)
             half = optim_lib.apply_updates(state.params, updates)
-            wire = spec.pack(half)                              # (N, D)
+            wire = lay.pack(half)                               # (N, D)
             if spec.quantized:
-                sent, ef, ef_held = wire_transmit(spec, wire[:wh], state.ef,
-                                                  rows)
+                sent, ef, ef_held = lay.transmit(wire[:wh], state.ef, rows)
                 wire = torch.cat([sent, wire[wh:]])
             params, diag = gossip_agg(wire)
             watch = params
@@ -341,3 +387,14 @@ def make_decentralized_step(
         return new_state, metrics
 
     return init_fn, step_fn
+
+
+def _zero_rows_to(x, n: int):
+    """``x`` (W_h, ...) (a tensor, or a dict of them) with zero rows
+    appended up to ``n``."""
+    if isinstance(x, dict):
+        return {k: _zero_rows_to(v, n) for k, v in x.items()}
+    out = torch.zeros((n,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    out[:x.shape[0]] = x
+    return out

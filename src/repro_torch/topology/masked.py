@@ -39,6 +39,12 @@ the trimmed mean takes the reference's torch form (its neighbour count
 (K3) instead of K7's count mean, as the reference's step uses K7 only when
 ``row_weights is None``.
 
+:func:`masked_aggregate` takes an exchange given as a dict of (R, S,
+*shape) leaves: through the flat engine, or with ``perleaf=True`` leaf by
+leaf, as the reference's pre-packing rules (the ``packed=False`` baseline:
+each kernel once per leaf, the Weiszfeld rules' distances added over the
+leaves, Krum's over the leaves concatenated).
+
 ``diagnostics=True`` returns ``(out, AggDiagnostics)`` with (R, S)
 receiver-by-sender fields (:func:`repro_torch.telemetry.masked_diagnostics`;
 the distances by the masked, receiver-batched K2).
@@ -129,22 +135,37 @@ def masked_weiszfeld(exchange: torch.Tensor, mask: torch.Tensor, *,
     ``sqrt(max_r move_r)`` decides the one stop for all receivers (``tol``,
     or ``max_iters``).  Non-neighbours get weight 0, so the restriction is
     exact.  ``exchange`` may be a column slice of a wider buffer."""
-    z = ops.messages(exchange)
+    ys, info = _masked_weiszfeld_leaves([exchange], mask, max_iters=max_iters,
+                                        tol=tol, weighted=weighted)
+    return (ys[0], info) if return_info else ys[0]
+
+
+def _masked_weiszfeld_leaves(leaves, mask: torch.Tensor, *, max_iters: int,
+                             tol: float, weighted: bool):
+    """The masked Weiszfeld loop over the (R, S, d_l) blocks of one
+    exchange: each block starts from its masked mean, each iteration adds
+    the blocks' masked K2 distances in block order and runs K3 on each
+    block.  -> ([(R, d_l) float32 iterates], WeiszfeldInfo)."""
+    zs = [ops.messages(z) for z in leaves]
     mask = mask.contiguous()
-    y = (_weighted_mean(z, mask) if weighted
-         else ops.masked_neighbor_reduce(z, mask, trim=0))
+    ys = [_weighted_mean(z, mask) if weighted
+          else ops.masked_neighbor_reduce(z, mask, trim=0) for z in zs]
     tol = _f32_tol(tol)
     delta, it = math.inf, 0
     while it < max_iters and delta > tol:
-        sq = ops.partial_sqdist(z, y, mask)                     # (R, S)
+        sq = None
+        for z, y in zip(zs, ys):
+            part = ops.partial_sqdist(z, y, mask)               # (R, S)
+            sq = part if sq is None else sq + part
         inv = mask / torch.clamp(torch.sqrt(sq), min=_DIST_FLOOR)
-        y_new = _weighted_mean(z, inv)
-        delta = float(torch.sqrt(torch.max(torch.sum((y_new - y) ** 2, dim=1))))
-        y, it = y_new, it + 1
-    if return_info:
-        return y, WeiszfeldInfo(residual=delta, iters=it,
-                                converged=delta <= tol)
-    return y
+        move = None
+        for i, (z, y) in enumerate(zip(zs, ys)):
+            ys[i] = _weighted_mean(z, inv)
+            part = torch.sum((ys[i] - y) ** 2, dim=1)
+            move = part if move is None else move + part
+        delta = float(torch.sqrt(torch.max(move)))
+        it += 1
+    return ys, WeiszfeldInfo(residual=delta, iters=it, converged=delta <= tol)
 
 
 def masked_geomed_groups(exchange: torch.Tensor, mask: torch.Tensor, *,
@@ -153,16 +174,23 @@ def masked_geomed_groups(exchange: torch.Tensor, mask: torch.Tensor, *,
     """Geomed of masked group means: senders keep their global contiguous
     group ids ``(s * G) // S``, each receiver averages the members inside
     its neighbourhood, and groups with no member there drop out."""
+    grouped, gmask = _masked_group_means(exchange, mask, num_groups)
+    return masked_weiszfeld(grouped, gmask, max_iters=max_iters, tol=tol)
+
+
+def _masked_group_means(exchange: torch.Tensor, mask: torch.Tensor,
+                        num_groups: int):
+    """Each receiver's means of its members of the global contiguous sender
+    groups -> ((R, G, D) float32, the (R, G) mask of non-empty groups)."""
     s_tot = mask.shape[1]
     gids = (torch.arange(s_tot, device=mask.device) * num_groups) // s_tot
     onehot = (gids[None, :] == torch.arange(
         num_groups, device=mask.device)[:, None]).float()       # (G, S)
     counts = mask @ onehot.T                                    # (R, G)
-    gmask = (counts > 0).float()
     w = mask[:, None, :] * onehot[None]                         # (R, G, S)
     grouped = torch.bmm(w, exchange.float()) / torch.clamp(
         counts, min=1.0)[:, :, None]                            # (R, G, D)
-    return masked_weiszfeld(grouped, gmask, max_iters=max_iters, tol=tol)
+    return grouped, (counts > 0).float()
 
 
 def masked_geomed_blockwise(exchange: torch.Tensor, mask: torch.Tensor, *,
@@ -217,17 +245,29 @@ def masked_centered_clip(exchange: torch.Tensor, mask: torch.Tensor, *,
                          radius: float = 1.0, iters: int = 3) -> torch.Tensor:
     """Centered clipping per neighbourhood: iterate from the masked median,
     each sender's influence clipped to ``radius`` by its residual norm."""
-    z = exchange.float()
-    v = masked_median(z, mask)
+    return _masked_centered_clip_leaves([exchange], mask, radius=radius,
+                                        iters=iters)[0]
+
+
+def _masked_centered_clip_leaves(leaves, mask: torch.Tensor, *, radius: float,
+                                 iters: int) -> list[torch.Tensor]:
+    """Centered clipping on the (R, S, d_l) blocks of one exchange, each
+    sender's residual norm taken over all blocks (added in block order)."""
+    zs = [z.float() for z in leaves]
+    vs = [masked_median(z, mask) for z in zs]
     denom = torch.clamp(torch.sum(mask, dim=1), min=_DIST_FLOOR)
     for _ in range(iters):
-        diffs = z - v[:, None]
-        sq = torch.sum(diffs * diffs, dim=-1)
+        diffs = [z - v[:, None] for z, v in zip(zs, vs)]
+        sq = None
+        for dl in diffs:
+            part = torch.sum(dl * dl, dim=-1)
+            sq = part if sq is None else sq + part
         scale = torch.clamp(radius / torch.clamp(torch.sqrt(sq), min=1e-12),
                             max=1.0)
         w = mask * scale
-        v = v + torch.sum(w[:, :, None] * diffs, dim=1) / denom[:, None]
-    return v
+        vs = [v + torch.sum(w[:, :, None] * dl, dim=1) / denom[:, None]
+              for v, dl in zip(vs, diffs)]
+    return vs
 
 
 # name -> masked rule (exchange, mask, spec, opts); the reference's names,
@@ -255,6 +295,88 @@ _MASKED: dict[str, Any] = {
 MASKED_AGGREGATOR_NAMES = tuple(_MASKED)
 
 
+# ---- The per-leaf rules: dicts of (R, S, *shape) leaves -> (R, *shape) ----
+
+
+def _leaf_rows3(z: torch.Tensor) -> torch.Tensor:
+    """An (R, S, *shape) leaf as its (R, S, d_l) exchange: a view of a
+    contiguous leaf, or of a leaf broadcast over the receivers."""
+    return ops.messages(z).reshape(z.shape[0], z.shape[1], -1)
+
+
+def _per_leaf(exchange: dict, fn) -> dict:
+    """``fn`` on each leaf's (R, S, d_l) exchange, back to (R, *shape)."""
+    return {k: fn(_leaf_rows3(z)).reshape(z.shape[:1] + z.shape[2:]).to(z.dtype)
+            for k, z in exchange.items()}
+
+
+def _from_leaves(exchange: dict, ys) -> dict:
+    """(R, d_l) results in sorted-name order -> (R, *shape) leaves."""
+    return {k: y.reshape(exchange[k].shape[:1] + exchange[k].shape[2:]
+                         ).to(exchange[k].dtype)
+            for k, y in zip(sorted(exchange), ys)}
+
+
+def _sorted_rows3(exchange: dict) -> list[torch.Tensor]:
+    return [_leaf_rows3(exchange[k]) for k in sorted(exchange)]
+
+
+def _krum_perleaf(ex, m, o):
+    flat = torch.cat([z.float() for z in _sorted_rows3(ex)], dim=-1)
+    _, _, best = masked_krum(flat, m, num_byzantine=o.get("num_byzantine", 0),
+                             return_scores=True)
+    rows = torch.arange(m.shape[0], device=m.device)
+    return {k: z[rows, best] for k, z in ex.items()}
+
+
+def _geomed_groups_perleaf(ex, m, o):
+    parts = [_masked_group_means(z, m, o["num_groups"]) for z in _sorted_rows3(ex)]
+    ys, _ = _masked_weiszfeld_leaves(
+        [g for g, _ in parts], parts[0][1], max_iters=o.get("max_iters", 64),
+        tol=o.get("tol", 1e-6), weighted=False)
+    return _from_leaves(ex, ys)
+
+
+# name -> per-leaf masked rule (exchange dict, mask, opts): the reference's
+# leaf-by-leaf dispatch, each kernel launched once per leaf.
+_MASKED_PERLEAF: dict[str, Any] = {
+    "mean": lambda ex, m, o: _per_leaf(
+        ex, lambda z: masked_mean(z, m, mixing=o.get("mixing"))),
+    "median": lambda ex, m, o: _per_leaf(ex, lambda z: masked_median(z, m)),
+    "trimmed_mean": lambda ex, m, o: _per_leaf(
+        ex, lambda z: masked_trimmed_mean(z, m, trim=o.get("trim", 1),
+                                          weighted=o["weighted"])),
+    "geomed": lambda ex, m, o: _from_leaves(ex, _masked_weiszfeld_leaves(
+        _sorted_rows3(ex), m, max_iters=o.get("max_iters", 64),
+        tol=o.get("tol", 1e-6), weighted=o["weighted"])[0]),
+    "geomed_groups": _geomed_groups_perleaf,
+    "geomed_blockwise": lambda ex, m, o: _per_leaf(ex, lambda z: masked_weiszfeld(
+        z, m, max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6),
+        weighted=o["weighted"])),
+    "krum": _krum_perleaf,
+    "centered_clip": lambda ex, m, o: _from_leaves(
+        ex, _masked_centered_clip_leaves(_sorted_rows3(ex), m,
+                                         radius=o.get("clip_radius", 1.0),
+                                         iters=3)),
+}
+
+assert set(_MASKED_PERLEAF) == set(_MASKED)
+
+
+def _weigh(mask: torch.Tensor, row_weights: Optional[torch.Tensor],
+           opts: dict) -> torch.Tensor:
+    """The mask (and ``opts["mixing"]``) with its sender columns scaled by
+    ``row_weights``; sets ``opts["weighted"]``."""
+    mask = mask.float()
+    if row_weights is not None:
+        cols = row_weights.float()[None, :]
+        mask = mask * cols
+        if opts.get("mixing") is not None:
+            opts["mixing"] = opts["mixing"] * cols
+    opts["weighted"] = row_weights is not None
+    return mask
+
+
 def masked_aggregate_flat(name: str, buf: torch.Tensor, mask: torch.Tensor,
                           *, spec: Optional[packing.PackSpec] = None,
                           row_weights: Optional[torch.Tensor] = None,
@@ -276,13 +398,7 @@ def masked_aggregate_flat(name: str, buf: torch.Tensor, mask: torch.Tensor,
         raise ValueError(
             "masked_aggregate_flat('geomed_blockwise') needs spec= for the "
             "block boundaries")
-    mask = mask.float()
-    if row_weights is not None:
-        cols = row_weights.float()[None, :]
-        mask = mask * cols
-        if opts.get("mixing") is not None:
-            opts["mixing"] = opts["mixing"] * cols
-    opts["weighted"] = row_weights is not None
+    mask = _weigh(mask, row_weights, opts)
     if not diagnostics:
         return _MASKED[name](buf, mask, spec, opts)
     extras = {}
@@ -316,3 +432,36 @@ def masked_aggregate_flat(name: str, buf: torch.Tensor, mask: torch.Tensor,
                              / torch.clamp(torch.sum(live), min=1.0))
     return out, diag
 
+
+
+def masked_aggregate(name: str, exchange, mask: torch.Tensor, *,
+                     perleaf: bool = False, diagnostics: bool = False,
+                     row_weights: Optional[torch.Tensor] = None,
+                     spec: Optional[packing.PackSpec] = None, **opts):
+    """Masked aggregation of a dict of (R, S, *shape) leaves -> (R, *shape)
+    leaves (a tensor exchange, laid out by ``spec``, goes to
+    :func:`masked_aggregate_flat`).  By default a pack -> flat rule ->
+    unpack shim; ``perleaf=True`` is the per-leaf baseline
+    (``_MASKED_PERLEAF``: K7, the masked K2 and K3 on each leaf).
+    Diagnostics are a flat-engine feature: they route a per-leaf call
+    through the packed engine, as the reference does.  Options and
+    ``row_weights`` as :func:`masked_aggregate_flat`."""
+    if name not in _MASKED:
+        raise ValueError(
+            f"unknown masked aggregator {name!r}; known: "
+            f"{', '.join(sorted(_MASKED))}")
+    if isinstance(exchange, torch.Tensor):
+        return masked_aggregate_flat(name, exchange, mask, spec=spec,
+                                     row_weights=row_weights,
+                                     diagnostics=diagnostics, **opts)
+    if perleaf and not diagnostics:
+        return _MASKED_PERLEAF[name](exchange, _weigh(mask, row_weights, opts),
+                                     opts)
+    spec = packing.pack_spec(exchange, batch_ndim=2)
+    out = masked_aggregate_flat(name, spec.pack(exchange, batch_ndim=2), mask,
+                                spec=spec, row_weights=row_weights,
+                                diagnostics=diagnostics, **opts)
+    if diagnostics:
+        out, diag = out
+        return spec.unpack(out, batch_ndim=1), diag
+    return spec.unpack(out, batch_ndim=1)

@@ -63,8 +63,10 @@ def test_partition_matches_reference(mode, spw):
 
 
 def test_partition_unported_mode_raises():
-    with pytest.raises(ValueError, match="Queue A item 1"):
-        federated.partition({"a": np.zeros((8, 2))}, 2, mode="sorted",
+    """Every mode of the reference is ported; an unknown one raises as the
+    reference's does."""
+    with pytest.raises(ValueError, match="unknown partition mode"):
+        federated.partition({"a": np.zeros((8, 2))}, 2, mode="dirichlet",
                             device="cpu")
 
 
@@ -152,8 +154,8 @@ def test_sgd_update_matches_reference():
     np.testing.assert_array_equal(
         optimizers.apply_updates({"w": _t(p["w"])}, tu)["w"].numpy(),
         np.asarray(joptim.apply_updates(p, ju)["w"]))
-    with pytest.raises(ValueError, match="Queue A item 1"):
-        optimizers.get_optimizer("adam", 0.1)
+    with pytest.raises(ValueError, match="unknown optimizer 'nope'"):
+        optimizers.get_optimizer("nope", 0.1)
 
 
 # -- packing -----------------------------------------------------------------
@@ -250,8 +252,19 @@ def test_registries_pin_the_reference_names():
     assert set(variance.VR_NAMES) | set(variance.UNPORTED) == \
         set(jvariance.VR_NAMES)
     assert set(packing.WIRE_FORMAT_NAMES) == set(jpacking.WIRE_FORMAT_NAMES)
+    # The pytree shims and the per-leaf baseline carry the same names.
+    assert set(aggregators._REGISTRY) == set(jagg._REGISTRY)
+    assert set(aggregators._PERLEAF_REGISTRY) == set(jagg._PERLEAF_REGISTRY)
+    # The reference's get_optimizer takes exactly these names.
+    for name in optimizers.OPTIMIZER_NAMES:
+        joptim.get_optimizer(name, 0.1)
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        joptim.get_optimizer("lamb", 0.1)
+    assert set(optimizers.OPTIMIZER_NAMES) == {"sgd", "momentum", "adam", "adamw"}
     with pytest.raises(ValueError, match="krum"):
         aggregators.get_flat_aggregator("nope", None)
+    with pytest.raises(ValueError, match="krum"):
+        aggregators.get_aggregator("nope", perleaf=True)
     assert attacks.UNPORTED == () and variance.UNPORTED == ()
     with pytest.raises(ValueError, match="bitflip"):
         attacks.check_attack_name("nope")
@@ -372,9 +385,9 @@ def test_robust_config_mirrors_reference_fields():
                    for f in dataclasses.fields(robust_step.RobustConfig)}
     assert port_fields == ref_fields
     robust_step.RobustConfig(num_clients=4, guards=True, diagnostics=True)
-    for field, item in (("packed", False), ("comm", "sharded")):
-        with pytest.raises(ValueError, match="outside the ported slice"):
-            robust_step.RobustConfig(**{field: item})
+    robust_step.RobustConfig(packed=False)
+    with pytest.raises(ValueError, match="outside the ported slice"):
+        robust_step.RobustConfig(comm="sharded")
 
 
 def test_state_from_jax_carries_ef_and_bf16_state():

@@ -1645,3 +1645,56 @@ def test_bf16_median_odd_offset_takes_one_column_a_thread():
     buf = torch.randn((70 * 300 + 1,), generator=g, device="cuda").bfloat16()
     _median_layout_case(buf[1:].view(70, 300), "one")
     _median_layout_case(buf[1:].view(70, 300).clone(), "pairs")
+
+
+def _trimmed_layout_case(zb, trim, layout):
+    """K5 on bf16 zb: one launch of `layout`, the float32 kernel's bits on
+    the upcast (NaN words included: both write NAN where a column holds
+    more than trim NaN) and the plain
+    version at rtol 1e-5."""
+    ops.reset_launch_counts()
+    got = rs.trimmed_mean_call(zb, trim)
+    torch.cuda.synchronize()
+    assert rs.TRIMMED_LAYOUT_LAUNCHES == {k: int(k == layout) for k in rs.MEDIAN_LAYOUTS}
+    assert torch.equal(_raw(got), _raw(rs.trimmed_mean_call(zb.float(), trim)))
+    want = rs.trimmed_mean_plain(zb, trim)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    fin = torch.isfinite(want)
+    _close(got[fin], want[fin])
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [300, 301])
+def test_bf16_trimmed_layouts_at_every_network_width(d):
+    """Every W from 1 to 128, trims 0, 1, (W - 1) // 2 and 20 where valid,
+    at an even D (pairs) and an odd one (one a thread): columns with trim
+    and trim + 1 NaN of both signs, +-inf, ties and both zeros."""
+    _need_card()
+    for w in range(1, rs.NETWORK_CAP + 1):
+        for trim in sorted({t for t in (0, 1, (w - 1) // 2, 20) if 2 * t < w}):
+            zb, *_ = _bf16_inputs(w, d, seed=w)
+            zb[:, :40] = torch.round(2 * zb[:, :40].float()).bfloat16()
+            zb[: w // 3 + 1, 40:50] = float("inf")
+            zb[w // 3 + 1: w // 2 + 1, 45:60] = float("-inf")
+            zb[:trim, 60:70] = float("nan")
+            zb[:trim + 1, 70:80] = -float("nan")
+            zb[:, 90:110] = 0.0
+            zb[::2, 90:110] = -0.0
+            got = _trimmed_layout_case(zb, trim, "pairs" if d % 2 == 0 else "one")
+            assert bool(torch.isnan(got[70:80]).all()), (w, trim)
+
+
+@pytest.mark.gpu
+def test_bf16_trimmed_odd_offset_takes_one_column_a_thread():
+    """A contiguous z at an odd storage offset takes one column a thread,
+    the same values at an aligned base the pairs; both with the float32
+    kernel's bits.  Past 128 workers the rank count runs ("one")."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(10)
+    buf = torch.randn((70 * 300 + 1,), generator=g, device="cuda").bfloat16()
+    _trimmed_layout_case(buf[1:].view(70, 300), 20, "one")
+    _trimmed_layout_case(buf[1:].view(70, 300).clone(), 20, "pairs")
+    ops.reset_launch_counts()
+    rs.trimmed_mean_call(torch.randn((129, 300), generator=g, device="cuda").bfloat16(), 3)
+    assert rs.TRIMMED_LAYOUT_LAUNCHES == {"one": 1, "pairs": 0}

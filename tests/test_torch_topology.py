@@ -668,9 +668,10 @@ def test_decentralized_errors_raise():
                      schedule_period=2)
     with pytest.raises(ValueError, match="gossip"):
         _logreg_step(topology="ring", gossip="both")
-    for field in (dict(packed=False), dict(comm="sharded")):
-        with pytest.raises(ValueError, match="outside the ported slice"):
-            RobustConfig(topology="ring", **field)
+    with pytest.raises(ValueError, match="outside the ported slice"):
+        RobustConfig(topology="ring", comm="sharded")
+    with pytest.raises(ValueError, match="needs the packed path"):
+        _logreg_step(topology="ring", packed=False, message_dtype="int8")
 
 
 def test_decentralized_entry_point_defaults_to_the_card():

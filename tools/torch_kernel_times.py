@@ -10,7 +10,9 @@ Imports ``repro_torch`` from ``SRC_DIR`` (default: this checkout's
 * at workload B's shapes, messages (70, 39,760): K2 ``partial_sqdist``,
   K3 ``weighted_sum``, K4 ``coordinate_median``, K5 ``trimmed_mean``
   (trim 20) and K6 ``partial_sqdist_segments`` (the Table I network's four
-  leaves, ``chip_smoke.table1_boundaries``), 200 launches a window;
+  leaves, ``chip_smoke.table1_boundaries``), 200 launches a window; K5's
+  bf16 line also names the layout it ran (``"layout"``, where the tree
+  reports one);
 * K2, K3, K4, K5 and K6 on a bfloat16 copy of the messages (the bf16
   wire's routes; lines ending in "bf16", each right after its float32
   line);
@@ -66,12 +68,17 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     print(f"card: {card}; repro_torch from {args.src}", flush=True)
 
-    def emit(name, fn, reps, split=False):
+    def emit(name, fn, reps, split=False, layouts=None):
         us = [event_ms(torch, fn, reps) * 1e3 for _ in range(WINDOWS)]
         line = {"label": args.label, "kernel": name,
                 "median_us": statistics.median(us), "us": us}
         if split:
             line["kernels"] = {k: round(v, 3) for k, v in kernel_split(torch, fn, reps).items()}
+        if layouts is not None:   # the layout one more call takes
+            for k in layouts:
+                layouts[k] = 0
+            fn()
+            line["layout"] = [k for k, v in layouts.items() if v]
         print(json.dumps(line), flush=True)
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -86,7 +93,8 @@ def main() -> int:
     emit("K4 at B", lambda: rs.coordinate_median_call(z), 200, split=True)
     emit("K4 at B bf16", lambda: rs.coordinate_median_call(zb), 200, split=True)
     emit("K5 trim 20 at B", lambda: rs.trimmed_mean_call(z, 20), 200, split=True)
-    emit("K5 trim 20 at B bf16", lambda: rs.trimmed_mean_call(zb, 20), 200, split=True)
+    emit("K5 trim 20 at B bf16", lambda: rs.trimmed_mean_call(zb, 20), 200, split=True,
+         layouts=getattr(rs, "TRIMMED_LAYOUT_LAUNCHES", None))
     bounds, d = table1_boundaries(torch)
     seg = segment_ids(tuple(bounds), d, torch.device("cuda"))
     emit("K6 at B", lambda: wz.partial_sqdist_segments_call(z, y, seg, len(bounds)),
