@@ -166,7 +166,28 @@ Phases, in order; any failure exits non-zero:
    0.03), sign1 < 4 x max(f32, 0.03) and < 0.2) and of
    tests/test_packing.py's bf16-tracks-f32 check (10 steps within 5e-2, a
    bf16 table).
-18. One JSON line with the kernels (K1-K8, and K1's client-row route, the
+18. The master's collectives across ranks (run right after the kernel
+   checks): K2-K6 against their plain versions at the shapes the
+   distributed paths give them (the gather path's (W, D_shard) stacks, the
+   sharded path's (W, ceil(D / W)) slices, K6 on every worker's slice with
+   its leaf ids, absent blocks exactly 0, a slice ending in padding); then
+   8 ranks on the one card (``gloo``, CUDA tensors staged through the
+   host), meshes (4, 2) ("data", "model") and (2, 4, 1) ("pod", "data",
+   "model"), workers' messages of the Table I network's leaves (D =
+   39,760) drawn from the seed, worker 0 Byzantine under sign_flip through
+   ``distributed_attack``: every rule on both comm paths and, on (4, 2),
+   geomed on the int8, sign1 and bfloat16 wires, each within rtol 1e-5 of
+   the single-process flat rule on the stacked buffer (krum bitwise), each
+   rule's kernels launched on every rank (counts printed).  Times here are
+   gloo's staging on one card, not an interconnect's.
+19. Resume and rollback at workload A's size: 5 straight steps against 3, a
+   checkpoint, a restore and 2 more, equal on every leaf and the
+   generator's state, for the master step (SAGA geomed, sign_flip) and the
+   decentralized step on workload D's erdos_renyi(70, 0.5) graph; then the
+   rollback sequence (guards, a poisoned health vector, RunHealth with
+   patience 2, restore_last_good, the descent equal to the straight run).
+   The checkpoint's size and the save and restore times are printed.
+20. One JSON line with the kernels (K1-K8, and K1's client-row route, the
    masked route of K2 and the trim-0 kernel of K7 as entries of their
    own, then each bf16 route: "<entry> bf16"), then the result line.
 
@@ -3096,6 +3117,296 @@ def phase_twins():
     log(f"twins {time.perf_counter() - t0:.1f} s")
 
 
+# -- The master's collectives across ranks (phase 19) -------------------------
+
+# The Table I network's gradient leaves (D = 39,760), the two meshes, and
+# each rule's kernels on a rank's buffer.
+DIST_LEAVES = {"b1": (50,), "b2": (10,), "w1": (784, 50), "w2": (50, 10)}
+DIST_MESHES = (((4, 2), ("data", "model")), ((2, 4, 1), ("pod", "data", "model")))
+DIST_KERNELS = {"geomed": ("partial_sqdist", "weighted_sum"),
+                "geomed_groups": ("partial_sqdist", "weighted_sum"),
+                "median": ("coordinate_median",),
+                "centered_clip": ("coordinate_median",),
+                "trimmed_mean": ("trimmed_mean",),
+                "geomed_blockwise": ("partial_sqdist_segments", "weighted_sum"),
+                "mean": (), "krum": ()}
+DIST_WIRES = ("int8", "sign1", "bfloat16")
+DIST_TIMEOUT = 300.0
+
+
+def dist_cases(mesh_shape):
+    """(rule, comm, wire) of every case on a mesh: every rule on both comm
+    paths, and on the (4, 2) mesh geomed on each wire."""
+    cases = [(name, comm, "float32") for name in FIG6_RULES
+             for comm in ("gather", "sharded")]
+    if len(mesh_shape) == 2:
+        cases += [("geomed", comm, wire) for wire in DIST_WIRES
+                  for comm in ("gather", "sharded")]
+    return cases
+
+
+def dist_shard(leaf, model, model_size):
+    """A message leaf's shard of model rank ``model``: its last axis split
+    ``model_size`` ways."""
+    n = leaf.shape[-1] // model_size
+    return leaf[..., model * n:(model + 1) * n]
+
+
+def dist_rank(mesh, cases):
+    """One rank of the distributed phase, on cuda:0: its worker's message
+    (N(0, 1) draws from the seed, worker 0 Byzantine under sign_flip through
+    ``distributed_attack``), then each case through
+    ``distributed_aggregate`` or ``sharded_aggregate``, held against the
+    single-process flat rule on the stacked (W, D) buffer on the card.
+    Returns, per case, its largest error, whether it passed, the
+    milliseconds of the call and the kernels it launched."""
+    import torch
+    from repro_torch.core import packing
+    from repro_torch.core.attacks import AttackConfig, apply_attack
+    from repro_torch.core.robust_step import (RobustConfig,
+                                              distributed_aggregate,
+                                              distributed_attack,
+                                              sharded_aggregate)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch import mesh as mesh_lib
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wnames = mesh_lib.worker_axes(mesh)
+    wa, ma = mesh.axes(*wnames), mesh.axes("model")
+    w, m_size, wid, mid = wa.size, ma.size, wa.index, ma.index
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = {k: torch.randn((w,) + s, generator=gen, device="cuda")
+            for k, s in sorted(DIST_LEAVES.items())}
+    local = {k: dist_shard(v[wid], mid, m_size).contiguous()
+             for k, v in rows.items()}
+    attacked = distributed_attack(
+        local, RobustConfig(attack="sign_flip", num_byzantine=1), mesh=mesh,
+        worker_axes=wnames)
+    # The stacked buffer: every rank's attacked shard, gathered.
+    everyone = mesh.axes(*mesh.axis_names)
+    stack = {}
+    for k, v in attacked.items():
+        parts = coll.all_gather(v, everyone).reshape((w, m_size) + tuple(v.shape))
+        stack[k] = torch.cat([parts[:, j] for j in range(m_size)], dim=-1)
+    spec = packing.pack_spec(stack)
+    honest = spec.pack({k: v[1:] for k, v in rows.items()})
+    want_byz = apply_attack(AttackConfig(name="sign_flip", num_byzantine=1),
+                            honest, spec=spec)[-1]
+    ok_att, err_att = close(spec.pack(stack)[0], want_byz)
+    out = {"attack": dict(ok=ok_att, err=err_att)}
+    for name, comm, wire in cases:
+        cfg = RobustConfig(aggregator=name, num_byzantine=1,
+                           message_dtype=wire)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if comm == "gather":
+            got = distributed_aggregate(attacked, cfg, mesh=mesh,
+                                        worker_axes=wnames)
+        else:
+            got = sharded_aggregate(attacked, cfg, mesh=mesh,
+                                    worker_axes=wnames, num_workers=w)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = ops.launch_counts()
+        # The single-process rule on what the receivers see: the quantized
+        # wires' roundtrip, the bf16 buffer on the gather path (the sharded
+        # path sends float32 on that wire, as the reference's).
+        if wire == "bfloat16" and comm == "sharded":
+            wspec = spec
+        else:
+            wspec = cfg.message_spec(stack)
+        buf = wspec.wire_roundtrip(wspec.pack(stack))
+        if wspec.quantized:
+            wspec = spec
+        want = wspec.unpack(cfg.flat_aggregator_fn(wspec)(buf), batch_ndim=0)
+        ok, err = True, 0.0
+        for k, v in got.items():
+            ref = dist_shard(want[k].float(), mid, m_size)
+            if name == "krum":
+                ok = ok and torch.equal(v, ref)
+            else:
+                good, e = close(v.float(), ref)
+                ok, err = ok and good, max(err, e)
+        out[(name, comm, wire)] = dict(ok=ok, err=err, ms=ms,
+                                       launches=launches)
+    return out
+
+
+def check_slice_kernels(torch):
+    """K2-K6 against their plain versions at the shapes the distributed
+    paths give them: the gather path's (W, D_shard) stacks and the sharded
+    path's (W, ceil(D / W)) slices, K6 on each worker's slice with its
+    leaf ids (slices that start inside a leaf, miss a leaf, or end in the
+    padding block)."""
+    from repro_torch.core import packing
+    from repro_torch.core.robust_step import _local_leaf_ids
+    from repro_torch.kernels import weiszfeld as wz
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    errs = {}
+    sizes = packing.pack_spec({k: torch.empty(s) for k, s in
+                               DIST_LEAVES.items()}, batch_ndim=0).sizes
+    # The two meshes' (workers, model ranks), and 6 workers on whole
+    # messages: 39,760 = 6 x 6,627 - 2, so the last slice ends in padding.
+    for w, m_size in [(math.prod(s[:-1]), s[-1]) for s, _ in DIST_MESHES] + [(6, 1)]:
+        leaf = [s // m_size for s in sizes]
+        d = sum(leaf)
+        chunk = -(-d // w)
+        for rows, cols in ((w, d), (w, chunk)):
+            e2, e3 = check_weiszfeld(torch, rows, cols, gen)
+            e4, e5 = check_order_stats(torch, rows, cols, 1, gen)
+            errs[f"{(rows, cols)}"] = (e2, e3, e4, e5)
+        y = torch.randn((chunk,), generator=gen, device="cuda")
+        for wid in range(w):
+            seg = _local_leaf_ids(leaf, w * chunk - d, w, wid,
+                                  torch.device("cuda"))
+            z = torch.randn((w, chunk), generator=gen, device="cuda")
+            got = wz.partial_sqdist_segments_call(z, y, seg, len(leaf) + 1)
+            want = wz.partial_sqdist_segments_plain(z, y, seg, len(leaf) + 1)
+            ok, err = close(got, want)
+            absent = [s for s in range(len(leaf) + 1)
+                      if not bool((seg == s).any())]
+            assert ok, f"K6 on worker {wid}'s slice {(w, chunk)}: {err}"
+            assert all(bool((got[:, s] == 0).all()) for s in absent), \
+                f"K6: a block absent from worker {wid}'s slice is not 0"
+            errs[f"K6 {(w, chunk)} worker {wid}"] = err
+    log(f"kernels at the distributed paths' shapes against their plain "
+        f"versions (rtol 1e-5; K6's absent blocks exactly 0): {errs}")
+
+
+def phase_distributed(torch, card):
+    """Phase 19: 8 ranks on the one card (gloo, CUDA tensors), meshes (4, 2)
+    and (2, 4, 1) at the Table I network's width; every case within rtol
+    1e-5 of the single-process rule (krum bitwise), each rule's kernels
+    launched on every rank."""
+    from repro_torch.launch import mesh as mesh_lib
+    check_slice_kernels(torch)
+    for shape, axes in DIST_MESHES:
+        cases = dist_cases(shape)
+        t0 = time.perf_counter()
+        ranks = mesh_lib.spawn_mesh(dist_rank, shape, axes, args=(cases,),
+                                    timeout=DIST_TIMEOUT)
+        wall = time.perf_counter() - t0
+        att = [r["attack"] for r in ranks]
+        assert all(a["ok"] for a in att), f"distributed_attack: {att}"
+        log(f"distributed mesh {shape} {axes} ({card}; gloo staging each "
+            f"collective through the host, 8 processes on one card, not an "
+            f"interconnect): world {wall:.1f} s, sign_flip row max err "
+            f"{max(a['err'] for a in att):.3g}")
+        for case in cases:
+            res = [r[case] for r in ranks]
+            name, comm, wire = case
+            counts = {k: [r["launches"][k] for r in res]
+                      for k in DIST_KERNELS[name]}
+            log(f"  {name:<17} {comm:<8} {wire:<9} max err "
+                f"{max(r['err'] for r in res):.3g}, ms (rank 0) "
+                f"{res[0]['ms']:.1f}, launches per rank {counts}")
+            assert all(r["ok"] for r in res), f"{shape} {case}: {res}"
+            for k, per_rank in counts.items():
+                assert all(n > 0 for n in per_rank), \
+                    f"{shape} {case}: {k} not launched on every rank"
+
+
+# -- Resume and rollback (phase 20) -------------------------------------------
+
+
+def same_state(torch, a, b) -> bool:
+    """Every leaf of two FederatedStates equal (the generator's state
+    too)."""
+    from repro_torch.checkpoint.checkpoint import _leaves
+    for (ka, x), (kb, y) in zip(_leaves(a._asdict()), _leaves(b._asdict()),
+                                strict=True):
+        if ka != kb:
+            return False
+        if isinstance(x, torch.Generator):
+            x, y = x.get_state(), y.get_state()
+        if isinstance(x, torch.Tensor):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                log(f"  leaf {ka} differs")
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def phase_resume(torch, card):
+    """Phase 20: 5 straight steps against 3, a checkpoint, a restore and 2
+    more, then the rollback sequence, at workload A's size on the card:
+    the master step (SAGA geomed, sign_flip, 50 + 20 workers) and the
+    decentralized step on workload D's erdos_renyi(70, 0.5) graph."""
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import FederatedState, RobustConfig, make_federated_step
+    from repro_torch.data import ijcnn1_like, logreg_loss, partition
+    from repro_torch.launch.health import RunHealth
+    from repro_torch.optim import get_optimizer
+    data = ijcnn1_like(SEED, n=49_990, device="cuda")
+    wd = partition({"a": data.x, "b": data.y}, 50, seed=1,
+                   samples_per_worker=999, device="cuda")
+    topo, _, _ = workload_d_graph(torch)
+
+    def problem(step, **kw):
+        cfg = RobustConfig(aggregator="geomed", vr="saga", attack="sign_flip",
+                           num_byzantine=20, **kw)
+        init_fn, step_fn = make_federated_step(
+            logreg_loss(0.01), wd, cfg, get_optimizer("momentum", 0.02),
+            topology=None if step == "master" else topo, device="cuda")
+        return (lambda: init_fn({"w": torch.zeros(22, device="cuda")}, SEED)), step_fn
+
+    def run(step_fn, st, n, monitor=None):
+        for _ in range(n):
+            st, m = step_fn(st)
+            if monitor is not None:
+                monitor.observe({"round_accepted": float(m["round_accepted"])})
+        return st
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for step in ("master", "decentralized"):
+            init, step_fn = problem(step)
+            straight = run(step_fn, init(), 5)
+            ckpt = CheckpointManager(os.path.join(tmp, step))
+            st3 = run(step_fn, init(), 3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = ckpt.save_train_state(3, st3._asdict())
+            t_save = time.perf_counter() - t0
+            like = init()._asdict()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gstep, restored = ckpt.restore_latest(like)
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+            assert gstep == 3
+            resumed = run(step_fn, FederatedState(**restored), 2)
+            assert same_state(torch, straight, resumed), f"{step}: resume differs"
+            log(f"resume {step} ({card}): 5 straight steps equal 3 + checkpoint "
+                f"+ restore + 2 on every leaf (generator included); checkpoint "
+                f"{os.path.getsize(path) / 1e6:.2f} MB, save {t_save * 1e3:.1f} ms, "
+                f"restore {t_restore * 1e3:.1f} ms (host clock, warm file cache)")
+
+            init, step_fn = problem(step, guards=True)
+            straight = run(step_fn, init(), 5)
+            monitor = RunHealth(patience=2)
+            st3 = run(step_fn, init(), 3, monitor)
+            assert monitor.healthy, f"{step}: a warm-up round was rejected"
+            ckpt = CheckpointManager(os.path.join(tmp, step + "-rollback"))
+            ckpt.save_train_state(3, st3._asdict())
+            ckpt.mark_good(3)
+            w3 = st3.params["w"].clone()
+            bad = run(step_fn, st3._replace(health=torch.tensor(
+                [1e-8, 1e-16, 0.0, 10.0], device="cuda")), 2, monitor)
+            assert torch.equal(bad.params["w"], w3) and monitor.rollback_pending
+            gstep, restored = ckpt.restore_last_good(init()._asdict())
+            monitor.on_rollback()
+            resumed = run(step_fn, FederatedState(**restored), 2, monitor)
+            assert gstep == 3 and monitor.healthy
+            assert same_state(torch, straight, resumed), f"{step}: rollback differs"
+            log(f"rollback {step} ({card}): two rejected rounds arm RunHealth "
+                f"(patience 2), restore_last_good(3), and the descent equals "
+                f"the straight guarded run on every leaf")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3109,6 +3420,8 @@ def main() -> int:
     card = phase_card(torch)
     phase_build()
     errs = phase_kernel_checks(torch)
+    phase_distributed(torch, card)
+    phase_resume(torch, card)
     phase_workload_a(torch)
     phase_workload_f(torch)
     counts, summaries = {}, {}

@@ -27,6 +27,13 @@ distance to the aggregate by kernel K2, the rule's implicit weights, Krum's
 scores and choice, the clip fraction, the Weiszfeld residual, iterations
 and convergence).  False runs the program it ran before.
 
+Across ranks (:mod:`repro_torch.launch.collectives`) the rules take the
+reference's ``axis_names`` -- the mesh axes the coordinates of the rows
+are sharded over, whose per-row partials (Weiszfeld and clip distances,
+Krum's Gram product, the diagnostics' distances) are summed over them --
+and the Weiszfeld rules ``sync_axes`` as well (:mod:`repro_torch.core.geomed`).
+Empty axes run the single-process program.
+
 The pytree API (:func:`get_aggregator`) takes a dict of (W, *shape) leaves
 and returns (*shape) leaves: by default a pack -> flat rule -> unpack shim
 (``_REGISTRY``); with ``perleaf=True`` the reference's pre-packing per-leaf
@@ -47,6 +54,7 @@ from repro_torch.core import packing
 from repro_torch.core.geomed import (weiszfeld_blockwise_flat, weiszfeld_flat,
                                      weiszfeld_pytree)
 from repro_torch.kernels import ops
+from repro_torch.launch.collectives import psum
 from repro_torch.telemetry.diagnostics import flat_diagnostics
 
 FlatAggregator = Callable[..., torch.Tensor]  # (W, D)[, row_weights] -> (D,)
@@ -65,7 +73,7 @@ def _sorted_with_weights(buf: torch.Tensor, row_weights: torch.Tensor):
     return vals, row_weights.float()[order]
 
 
-def mean_flat(buf: torch.Tensor, *, row_weights=None,
+def mean_flat(buf: torch.Tensor, *, row_weights=None, axis_names=(),
               diagnostics: bool = False) -> torch.Tensor:
     if row_weights is None:
         out = torch.mean(buf.float(), dim=0)
@@ -78,14 +86,16 @@ def mean_flat(buf: torch.Tensor, *, row_weights=None,
     # The mean's implicit weight is the (normalized) row weights.
     rw = (torch.ones((buf.shape[0],), device=buf.device)
           if row_weights is None else row_weights.float())
-    return out, flat_diagnostics(buf, out, row_weights=row_weights, weight=rw)
+    return out, flat_diagnostics(buf, out, row_weights=row_weights,
+                                 axis_names=axis_names, weight=rw)
 
 
-def median_flat(buf: torch.Tensor, *, row_weights=None,
+def median_flat(buf: torch.Tensor, *, row_weights=None, axis_names=(),
                 diagnostics: bool = False) -> torch.Tensor:
     if diagnostics:
         out = median_flat(buf, row_weights=row_weights)
-        return out, flat_diagnostics(buf, out, row_weights=row_weights)
+        return out, flat_diagnostics(buf, out, row_weights=row_weights,
+                                     axis_names=axis_names)
     if row_weights is None:
         return ops.coordinate_median(ops.messages(buf).contiguous())
     # Weighted median per coordinate: the smallest value whose cumulative
@@ -99,14 +109,15 @@ def median_flat(buf: torch.Tensor, *, row_weights=None,
 
 
 def trimmed_mean_flat(buf: torch.Tensor, *, trim: int,
-                      row_weights=None, diagnostics: bool = False
-                      ) -> torch.Tensor:
+                      row_weights=None, axis_names=(),
+                      diagnostics: bool = False) -> torch.Tensor:
     w = buf.shape[0]
     if 2 * trim >= w:
         raise ValueError(f"trim={trim} too large for W={w}")
     if diagnostics:
         out = trimmed_mean_flat(buf, trim=trim, row_weights=row_weights)
-        return out, flat_diagnostics(buf, out, row_weights=row_weights)
+        return out, flat_diagnostics(buf, out, row_weights=row_weights,
+                                     axis_names=axis_names)
     if row_weights is None:
         return ops.trimmed_mean(ops.messages(buf).contiguous(), trim=trim)
     # Weight-MASS trimming: per coordinate, drop the trim/W fraction of the
@@ -124,17 +135,21 @@ def trimmed_mean_flat(buf: torch.Tensor, *, trim: int,
 
 
 def geomed_flat(buf: torch.Tensor, *, max_iters: int = 64, tol: float = 1e-6,
-                row_weights=None, diagnostics: bool = False) -> torch.Tensor:
+                axis_names=(), sync_axes=(), row_weights=None,
+                diagnostics: bool = False) -> torch.Tensor:
+    axes = dict(axis_names=axis_names, sync_axes=sync_axes)
     if diagnostics:
         out, info = weiszfeld_flat(buf, max_iters=max_iters, tol=tol,
-                                   row_weights=row_weights, return_info=True)
+                                   row_weights=row_weights, return_info=True,
+                                   **axes)
         # The inverse-distance weight at the fixed point IS each message's
         # implicit Weiszfeld weight.
         return out, flat_diagnostics(buf, out, row_weights=row_weights,
+                                     axis_names=axis_names,
                                      residual=info.residual, iters=info.iters,
                                      converged=info.converged)
     return weiszfeld_flat(buf, max_iters=max_iters, tol=tol,
-                          row_weights=row_weights)
+                          row_weights=row_weights, **axes)
 
 
 def _group_onehot(w: int, num_groups: int, device) -> torch.Tensor:
@@ -159,8 +174,10 @@ def group_means(z: torch.Tensor, num_groups: int) -> torch.Tensor:
 
 def geomed_groups_flat(buf: torch.Tensor, *, num_groups: int,
                        max_iters: int = 64, tol: float = 1e-6,
+                       axis_names=(), sync_axes=(),
                        row_weights=None, diagnostics: bool = False
                        ) -> torch.Tensor:
+    axes = dict(axis_names=axis_names, sync_axes=sync_axes)
     if diagnostics:
         # The solve runs on the group means; each worker's distance and
         # weight are taken against the final aggregate.  The weighted form
@@ -169,18 +186,18 @@ def geomed_groups_flat(buf: torch.Tensor, *, num_groups: int,
         if row_weights is None:
             grouped = group_means(buf.float(), num_groups)
             out, winfo = weiszfeld_flat(grouped, max_iters=max_iters, tol=tol,
-                                        return_info=True)
+                                        return_info=True, **axes)
             info = dict(residual=winfo.residual, iters=winfo.iters,
                         converged=winfo.converged)
         else:
             out = geomed_groups_flat(buf, num_groups=num_groups,
                                      max_iters=max_iters, tol=tol,
-                                     row_weights=row_weights)
+                                     row_weights=row_weights, **axes)
         return out, flat_diagnostics(buf, out, row_weights=row_weights,
-                                     **info)
+                                     axis_names=axis_names, **info)
     if row_weights is None:
         grouped = group_means(buf.float(), num_groups)              # (G, D)
-        return weiszfeld_flat(grouped, max_iters=max_iters, tol=tol)
+        return weiszfeld_flat(grouped, max_iters=max_iters, tol=tol, **axes)
     # Weighted group means; each group enters the outer Weiszfeld with its
     # total member mass (a group of all-dropped rows has mass 0).
     wts = row_weights.float()
@@ -189,15 +206,25 @@ def geomed_groups_flat(buf: torch.Tensor, *, num_groups: int,
     mass = onehot @ wts
     grouped = sums / torch.clamp(mass, min=_WEIGHT_FLOOR)[:, None]
     return weiszfeld_flat(grouped, max_iters=max_iters, tol=tol,
-                          row_weights=mass)
+                          row_weights=mass, **axes)
 
 
-def flat_sq_dists(flat: torch.Tensor) -> torch.Tensor:
+def flat_sq_dists(flat: torch.Tensor, axis_names=()) -> torch.Tensor:
     """(W, W) pairwise squared distances of packed (W, D) messages, by the
-    Gram product (a float32 matmul: TF32 must stay off for it)."""
+    Gram product (a float32 matmul: TF32 must stay off for it).  When the
+    rows are coordinate shards the partial Grams are summed over
+    ``axis_names`` (squared distances are separable over any partition of
+    the coordinates; the reference's ``_partial_gram_sq_dists``)."""
     flat = flat.float()
     sq = torch.sum(flat ** 2, dim=-1)
     d2 = sq[:, None] + sq[None, :] - 2.0 * (flat @ flat.T)
+    if axis_names:
+        # A ring all-reduce sums each entry in an order of its own, so the
+        # sum may lose the exact symmetry of the local partials; restoring
+        # it keeps Krum's exact ties (the closest pair's scores) resolved
+        # to the lower row, as on one process.
+        d2 = psum(d2, axis_names)
+        d2 = 0.5 * (d2 + d2.T)
     return torch.clamp(d2, min=0.0)
 
 
@@ -212,17 +239,18 @@ def krum_scores(d2: torch.Tensor, num_byzantine: int) -> torch.Tensor:
     return torch.sum(torch.sort(d2, dim=1).values[:, :n_near], dim=1)
 
 
-def krum_flat(buf: torch.Tensor, *, num_byzantine: int,
+def krum_flat(buf: torch.Tensor, *, num_byzantine: int, axis_names=(),
               row_weights=None, diagnostics: bool = False) -> torch.Tensor:
     """Krum [14] on the packed buffer: score = sum of squared distances to
     the W-B-2 nearest other messages; output the winning row."""
     if row_weights is None:
-        scores = krum_scores(flat_sq_dists(buf), num_byzantine)
+        scores = krum_scores(flat_sq_dists(buf, axis_names), num_byzantine)
         best = torch.argmin(scores)
         out = buf.float()[best]
         if diagnostics:
             # Winner takes all: the implicit weight is a one-hot.
-            return out, _krum_diagnostics(buf, out, None, scores, best)
+            return out, _krum_diagnostics(buf, out, None, scores, best,
+                                          axis_names)
         return out
     # Weighted Krum: dropped rows (weight 0) are neither neighbours nor
     # candidates, the neighbour count shrinks to the live rows, and live
@@ -231,7 +259,7 @@ def krum_flat(buf: torch.Tensor, *, num_byzantine: int,
     big = torch.tensor(1e30, dtype=torch.float32, device=buf.device)
     wts = row_weights.float()
     alive = wts > 0.0
-    d2 = flat_sq_dists(buf) + torch.diag(big.expand(w))
+    d2 = flat_sq_dists(buf, axis_names) + torch.diag(big.expand(w))
     d2 = torch.where(alive[None, :], d2, big)
     ds = torch.sort(d2, dim=1).values
     m = torch.sum(alive.to(torch.int32))
@@ -243,18 +271,20 @@ def krum_flat(buf: torch.Tensor, *, num_byzantine: int,
     best = torch.argmin(scores)
     out = buf.float()[best]
     if diagnostics:
-        return out, _krum_diagnostics(buf, out, row_weights, scores, best)
+        return out, _krum_diagnostics(buf, out, row_weights, scores, best,
+                                      axis_names)
     return out
 
 
-def _krum_diagnostics(buf, out, row_weights, scores, best):
+def _krum_diagnostics(buf, out, row_weights, scores, best, axis_names):
     onehot = (torch.arange(buf.shape[0], device=buf.device) == best).float()
-    return flat_diagnostics(buf, out, row_weights=row_weights, weight=onehot,
+    return flat_diagnostics(buf, out, row_weights=row_weights,
+                            axis_names=axis_names, weight=onehot,
                             score=scores, selected=best)
 
 
 def centered_clip_flat(buf: torch.Tensor, *, radius: float = 1.0,
-                       iters: int = 3, row_weights=None,
+                       iters: int = 3, axis_names=(), row_weights=None,
                        diagnostics: bool = False) -> torch.Tensor:
     """Centered clipping (Karimireddy et al. 2021): v <- v + mean_w
     clip(m_w - v, radius), iterated from the coordinate median (the
@@ -268,7 +298,7 @@ def centered_clip_flat(buf: torch.Tensor, *, radius: float = 1.0,
         wnorm = wnorm / torch.clamp(torch.sum(wnorm), min=_WEIGHT_FLOOR)
     for _ in range(iters):
         diffs = b32 - v[None]
-        sq = torch.sum(diffs * diffs, dim=-1)
+        sq = psum(torch.sum(diffs * diffs, dim=-1), axis_names)
         scale = torch.clamp(radius / torch.clamp(torch.sqrt(sq), min=1e-12),
                             max=1.0)
         if row_weights is None:
@@ -287,57 +317,68 @@ def centered_clip_flat(buf: torch.Tensor, *, radius: float = 1.0,
         clip_frac = (torch.sum(live * (scale < 1.0))
                      / torch.clamp(torch.sum(live), min=1.0))
         return v, flat_diagnostics(buf, v, row_weights=row_weights,
+                                   axis_names=axis_names,
                                    weight=base * scale, clip_frac=clip_frac)
     return v
 
 
 def geomed_blockwise_flat(buf: torch.Tensor, *, spec: packing.PackSpec,
                           max_iters: int = 64, tol: float = 1e-6,
+                          axis_names=(), sync_axes=(),
                           row_weights=None, diagnostics: bool = False
                           ) -> torch.Tensor:
     """Per-leaf geometric median on the packed buffer: each leaf's
     coordinate slice stops on its own (the reference's independent per-leaf
     loops); padding coordinates aggregate to zero."""
+    axes = dict(axis_names=axis_names, sync_axes=sync_axes)
     if diagnostics:
         out, infos = weiszfeld_blockwise_flat(
             buf, spec.boundaries, max_iters=max_iters, tol=tol,
-            row_weights=row_weights, return_info=True)
+            row_weights=row_weights, return_info=True, **axes)
         # The worst block: largest residual and iteration count.
         return out, flat_diagnostics(
-            buf, out, row_weights=row_weights,
+            buf, out, row_weights=row_weights, axis_names=axis_names,
             residual=max(i.residual for i in infos),
             iters=max(i.iters for i in infos),
             converged=all(i.converged for i in infos))
     return weiszfeld_blockwise_flat(buf, spec.boundaries, max_iters=max_iters,
-                                    tol=tol, row_weights=row_weights)
+                                    tol=tol, row_weights=row_weights, **axes)
 
 
 # name -> builder(spec, opts) -> FlatAggregator; the reference's names.
+def _axes(o: dict, sync: bool = False) -> dict:
+    """The collective axes among the options ``o``."""
+    out = dict(axis_names=o.get("axis_names", ()))
+    if sync:
+        out["sync_axes"] = o.get("sync_axes", ())
+    return out
+
+
 _FLAT_REGISTRY: dict[str, Callable[[packing.PackSpec, dict], FlatAggregator]] = {
     "mean": lambda spec, o: functools.partial(
-        mean_flat, diagnostics=o.get("diagnostics", False)),
+        mean_flat, diagnostics=o.get("diagnostics", False), **_axes(o)),
     "median": lambda spec, o: functools.partial(
-        median_flat, diagnostics=o.get("diagnostics", False)),
+        median_flat, diagnostics=o.get("diagnostics", False), **_axes(o)),
     "trimmed_mean": lambda spec, o: functools.partial(
         trimmed_mean_flat, trim=o.get("trim", 1),
-        diagnostics=o.get("diagnostics", False)),
+        diagnostics=o.get("diagnostics", False), **_axes(o)),
     "geomed": lambda spec, o: functools.partial(
         geomed_flat, max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6),
-        diagnostics=o.get("diagnostics", False)),
+        diagnostics=o.get("diagnostics", False), **_axes(o, sync=True)),
     "geomed_groups": lambda spec, o: functools.partial(
         geomed_groups_flat, num_groups=o["num_groups"],
         max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6),
-        diagnostics=o.get("diagnostics", False)),
+        diagnostics=o.get("diagnostics", False), **_axes(o, sync=True)),
     "krum": lambda spec, o: functools.partial(
         krum_flat, num_byzantine=o.get("num_byzantine", 0),
-        diagnostics=o.get("diagnostics", False)),
+        diagnostics=o.get("diagnostics", False), **_axes(o)),
     "centered_clip": lambda spec, o: functools.partial(
         centered_clip_flat, radius=o.get("clip_radius", 1.0),
-        diagnostics=o.get("diagnostics", False)),
+        diagnostics=o.get("diagnostics", False), **_axes(o)),
     "geomed_blockwise": lambda spec, o: functools.partial(
         geomed_blockwise_flat, spec=spec,
         max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6),
-        diagnostics=o.get("diagnostics", False)),
+        diagnostics=o.get("diagnostics", False), **_axes(o, sync=True)),
 }
 
 # ---- The pytree API: dicts of (W, *shape) leaves -> dicts of (*shape) ----
@@ -377,25 +418,34 @@ def trimmed_mean_agg_perleaf(stacked: Tree, *, trim: int) -> Tree:
 
 
 def geomed_agg_perleaf(stacked: Tree, *, max_iters: int = 64,
-                       tol: float = 1e-6) -> Tree:
-    return weiszfeld_pytree(stacked, max_iters=max_iters, tol=tol)
+                       tol: float = 1e-6, axis_names=(),
+                       sync_axes=()) -> Tree:
+    return weiszfeld_pytree(stacked, max_iters=max_iters, tol=tol,
+                            axis_names=axis_names, sync_axes=sync_axes)
 
 
 def geomed_groups_agg_perleaf(stacked: Tree, *, num_groups: int,
-                              max_iters: int = 64, tol: float = 1e-6) -> Tree:
+                              max_iters: int = 64, tol: float = 1e-6,
+                              axis_names=(), sync_axes=()) -> Tree:
     grouped = {k: group_means(z, num_groups) for k, z in stacked.items()}
-    return weiszfeld_pytree(grouped, max_iters=max_iters, tol=tol)
+    return weiszfeld_pytree(grouped, max_iters=max_iters, tol=tol,
+                            axis_names=axis_names, sync_axes=sync_axes)
 
 
-def krum_agg_perleaf(stacked: Tree, *, num_byzantine: int) -> Tree:
+def krum_agg_perleaf(stacked: Tree, *, num_byzantine: int,
+                     axis_names=()) -> Tree:
+    """Krum over the leaves concatenated in sorted-name order; with
+    ``axis_names`` (model-sharded leaves) the reference's
+    ``_distributed_krum``."""
     flat = torch.cat([stacked[k].reshape(stacked[k].shape[0], -1).float()
                       for k in sorted(stacked)], dim=-1)
-    best = torch.argmin(krum_scores(flat_sq_dists(flat), num_byzantine))
+    best = torch.argmin(krum_scores(flat_sq_dists(flat, axis_names),
+                                    num_byzantine))
     return {k: z[best] for k, z in stacked.items()}
 
 
 def centered_clip_agg_perleaf(stacked: Tree, *, radius: float = 1.0,
-                              iters: int = 3) -> Tree:
+                              iters: int = 3, axis_names=()) -> Tree:
     names = sorted(stacked)
     z32 = {k: stacked[k].float() for k in names}
     v = median_agg_perleaf(z32)
@@ -405,6 +455,7 @@ def centered_clip_agg_perleaf(stacked: Tree, *, radius: float = 1.0,
         for k in names:
             part = torch.sum(diffs[k].reshape(diffs[k].shape[0], -1) ** 2, dim=-1)
             sq = part if sq is None else sq + part
+        sq = psum(sq, axis_names)
         scale = torch.clamp(radius / torch.clamp(torch.sqrt(sq), min=1e-12),
                             max=1.0)
         v = {k: v[k] + torch.mean(
@@ -414,8 +465,11 @@ def centered_clip_agg_perleaf(stacked: Tree, *, radius: float = 1.0,
 
 
 def geomed_blockwise_agg_perleaf(stacked: Tree, *, max_iters: int = 64,
-                                 tol: float = 1e-6) -> Tree:
-    return {k: weiszfeld_pytree({k: z}, max_iters=max_iters, tol=tol)[k]
+                                 tol: float = 1e-6, axis_names=(),
+                                 sync_axes=()) -> Tree:
+    return {k: weiszfeld_pytree({k: z}, max_iters=max_iters, tol=tol,
+                                axis_names=axis_names,
+                                sync_axes=sync_axes)[k]
             for k, z in stacked.items()}
 
 
@@ -431,19 +485,22 @@ _PERLEAF_REGISTRY: dict[str, Callable[[dict], Aggregator]] = {
     "median": lambda o: median_agg_perleaf,
     "geomed": lambda o: functools.partial(
         geomed_agg_perleaf, max_iters=o.get("max_iters", 64),
-        tol=o.get("tol", 1e-6)),
+        tol=o.get("tol", 1e-6), **_axes(o, sync=True)),
     "geomed_groups": lambda o: functools.partial(
         geomed_groups_agg_perleaf, num_groups=o["num_groups"],
-        max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6)),
+        max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6),
+        **_axes(o, sync=True)),
     "trimmed_mean": lambda o: functools.partial(
         trimmed_mean_agg_perleaf, trim=o.get("trim", 1)),
     "krum": lambda o: functools.partial(
-        krum_agg_perleaf, num_byzantine=o.get("num_byzantine", 0)),
+        krum_agg_perleaf, num_byzantine=o.get("num_byzantine", 0),
+        **_axes(o)),
     "centered_clip": lambda o: functools.partial(
-        centered_clip_agg_perleaf, radius=o.get("clip_radius", 1.0)),
+        centered_clip_agg_perleaf, radius=o.get("clip_radius", 1.0),
+        **_axes(o)),
     "geomed_blockwise": lambda o: functools.partial(
         geomed_blockwise_agg_perleaf, max_iters=o.get("max_iters", 64),
-        tol=o.get("tol", 1e-6)),
+        tol=o.get("tol", 1e-6), **_axes(o, sync=True)),
 }
 
 assert set(_REGISTRY) == set(_FLAT_REGISTRY) == set(_PERLEAF_REGISTRY), (
@@ -478,9 +535,10 @@ def get_flat_aggregator(name: str, spec: packing.PackSpec | None,
     ``spec`` is the buffer's :class:`~repro_torch.core.packing.PackSpec`
     (``geomed_blockwise`` reads its leaf boundaries; the other rules take
     ``None`` as well).  Options: ``max_iters``, ``tol`` (Weiszfeld rules),
-    ``num_groups``, ``trim``, ``num_byzantine``, ``clip_radius``, and
+    ``num_groups``, ``trim``, ``num_byzantine``, ``clip_radius``,
     ``diagnostics`` (True: the rule returns ``(aggregate,
-    AggDiagnostics)``)."""
+    AggDiagnostics)``), and ``axis_names``/``sync_axes`` for rows that are
+    coordinate shards across ranks."""
     try:
         build = _FLAT_REGISTRY[name]
     except KeyError:

@@ -27,6 +27,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.launch.collectives import psum
+
 # Rows with norms at or below this floor are never magnitude-quarantined.
 _NORM_FLOOR = 1e-12
 
@@ -40,22 +42,23 @@ def init_health(device: str | torch.device = "cpu") -> torch.Tensor:
     return torch.zeros((HEALTH_WIDTH,), dtype=torch.float32, device=device)
 
 
-def _row_stats(z, lead: int):
+def _row_stats(z, lead: int, axis_names=()):
     """Per-row (non-finite count, squared norm of the finite coordinates)
     over the trailing axes of ``z``, whose first ``lead`` axes index the
     rows; ``z`` may be a dict of such leaves, added in sorted-name order
-    (the reference's leaf order)."""
+    (the reference's leaf order).  With ``axis_names`` (coordinates sharded
+    across ranks) both are summed over them."""
     if isinstance(z, dict):
         stats = [_row_stats(z[k], lead) for k in sorted(z)]
         bad, sq = stats[0]
         for b, s in stats[1:]:
             bad, sq = bad + b, sq + s
-        return bad, sq
-    zf = z.float().reshape(tuple(z.shape[:lead]) + (-1,))
-    finite = torch.isfinite(zf)
-    bad = torch.sum((~finite).float(), dim=-1)
-    sq = torch.sum(torch.where(finite, zf, 0.0) ** 2, dim=-1)
-    return bad, sq
+    else:
+        zf = z.float().reshape(tuple(z.shape[:lead]) + (-1,))
+        finite = torch.isfinite(zf)
+        bad = torch.sum((~finite).float(), dim=-1)
+        sq = torch.sum(torch.where(finite, zf, 0.0) ** 2, dim=-1)
+    return psum(bad, axis_names), psum(sq, axis_names)
 
 
 def _masked_median(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -69,12 +72,15 @@ def _masked_median(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 
 def guard_mask(msgs: torch.Tensor, *, multiplier: float = 10.0,
-               base_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+               base_weights: Optional[torch.Tensor] = None,
+               axis_names=()) -> torch.Tensor:
     """(W,) float32 mask in {0, 1} for a (W, D) message buffer: 0 for a row
     with a non-finite coordinate, or with a norm above ``multiplier`` x the
     median norm of the finite rows of positive ``base_weights``
-    (``multiplier <= 0`` turns the magnitude gate off)."""
-    bad, sq = _row_stats(msgs, 1)
+    (``multiplier <= 0`` turns the magnitude gate off).  ``axis_names``:
+    the mesh axes the coordinates are sharded over (the row statistics are
+    summed over them, so every rank gets the same mask)."""
+    bad, sq = _row_stats(msgs, 1, axis_names)
     finite_row = bad == 0
     mask = finite_row
     if multiplier > 0:

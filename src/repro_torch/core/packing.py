@@ -31,6 +31,8 @@ from typing import Any, Sequence
 
 import torch
 
+from repro_torch.launch.collectives import pmax, psum
+
 Params = dict[str, torch.Tensor]
 
 
@@ -177,7 +179,7 @@ class PackSpec:
                 for name, (a, b), shape, dtype in zip(
                     self.names, self.boundaries, self.shapes, self.dtypes)}
 
-    def encode(self, buf: torch.Tensor
+    def encode(self, buf: torch.Tensor, *, axis_names=()
                ) -> tuple[torch.Tensor, torch.Tensor]:
         """Quantize a ``(*batch, padded_dim)`` buffer -> (codes int8 of the
         same shape, scales float32 ``(*batch, num_leaves)``), one scale per
@@ -185,7 +187,11 @@ class PackSpec:
         ``round(v / scale)`` (half to even) clipped to +-127 (an all-zero
         block has scale 0 and codes 0; a NaN code is 0, as XLA converts
         it).  ``sign1``: scale ``mean |v|``, codes +1 where ``v >= 0``,
-        else -1 (NaN included).  Padding encodes to 0."""
+        else -1 (NaN included).  Padding encodes to 0.  ``axis_names``:
+        the mesh axes a leaf's coordinates are sharded over, whose block
+        statistics are then reduced over them (the amax maxed, sign1's sum
+        and count summed), so the scales are the whole leaf's and the codes
+        those of the single-process encode."""
         fmt = self.wire_format
         if not fmt.quantized:
             raise ValueError(f"wire format {fmt.name!r} is not quantized")
@@ -201,13 +207,23 @@ class PackSpec:
         for a, b in self.boundaries:
             v = v32[..., a:b]
             if fmt.name == "int8":
-                amax = torch.amax(torch.abs(v), dim=-1)
+                amax = pmax(torch.amax(torch.abs(v), dim=-1), axis_names)
                 scale = div(amax, 127.0)
                 safe = torch.where(amax > 0.0, scale, 1.0)
                 q = torch.clamp(torch.round(v / safe[..., None]), -127.0, 127.0)
                 codes = torch.nan_to_num(q, nan=0.0).to(torch.int8)
             else:   # sign1: codes are exactly +-1, never 0
-                scale = div(torch.sum(torch.abs(v), dim=-1), float(max(b - a, 1)))
+                if axis_names:
+                    # Summing the local counts as well keeps the mean right
+                    # for a leaf sharded over the axes and for one
+                    # replicated on them alike.
+                    cnt = psum(torch.full(batch, float(b - a),
+                                          device=buf.device), axis_names)
+                    scale = (psum(torch.sum(torch.abs(v), dim=-1), axis_names)
+                             / torch.clamp(cnt, min=1.0))
+                else:
+                    scale = div(torch.sum(torch.abs(v), dim=-1),
+                                float(max(b - a, 1)))
                 codes = torch.where(v >= 0.0, 1, -1).to(torch.int8)
             code_parts.append(codes)
             scales.append(scale)

@@ -47,31 +47,36 @@ options:
   the attack.
 
 With all of them off (the defaults) the step is the program it was.
+
+:func:`distributed_aggregate` (``comm="gather"``) and
+:func:`sharded_aggregate` (``comm="sharded"``) are the master's
+aggregation across ranks over a :class:`repro_torch.launch.mesh.Mesh`, one
+worker per index of its worker axes, and :func:`distributed_attack` its
+Byzantine workers; the simulation ignores ``comm``, as the reference's
+does.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 from repro_torch.core import aggregators as agg_lib
 from repro_torch.core import attacks as attack_lib
+from repro_torch.core import geomed as geomed_lib
 from repro_torch.core import guards as guards_lib
 from repro_torch.core import packing
 from repro_torch.core import participation as participation_lib
 from repro_torch.core import variance as vr_lib
 from repro_torch.device import DEFAULT_DEVICE, generator_for, resolve_device
+from repro_torch.launch import collectives as coll
 from repro_torch.optim import optimizers as optim_lib
 from repro_torch.telemetry import diagnostics as diag_lib
 from repro_torch.telemetry import metrics as telemetry
 
 Params = dict[str, torch.Tensor]
-
-# RobustConfig fields the port does not take yet, with the ROADMAP.md Queue A
-# item that ports each; they must keep their defaults.
-_UNPORTED_FIELDS = {"comm": "10 (the distributed runtime)"}
-
 
 @dataclasses.dataclass(frozen=True)
 class RobustConfig:
@@ -117,23 +122,14 @@ class RobustConfig:
     bitflip_prob: float = 0.02
     bitflip_seed: int = 0
 
-    def __post_init__(self):
-        for f in dataclasses.fields(self):
-            if f.name in _UNPORTED_FIELDS and getattr(self, f.name) != f.default:
-                raise ValueError(
-                    f"RobustConfig.{f.name}={getattr(self, f.name)!r} is "
-                    "outside the ported slice (simulated master and "
-                    "decentralized steps); ROADMAP.md Queue A "
-                    f"item {_UNPORTED_FIELDS[f.name]}")
-
     def reducer(self):
         """The variance reducer named by ``self.vr``, on the per-leaf
         layout (:class:`~repro_torch.core.variance.PerLeafReducer`) when
         ``not self.packed``."""
         return vr_lib.get_reducer(self, perleaf=not self.packed)
 
-    def aggregator_fn(self, *, perleaf: Optional[bool] = None
-                      ) -> agg_lib.Aggregator:
+    def aggregator_fn(self, *, perleaf: Optional[bool] = None,
+                      axis_names=(), sync_axes=()) -> agg_lib.Aggregator:
         """Pytree aggregator for this config; ``perleaf`` defaults to ``not
         self.packed`` (the packed engine's shim against the per-leaf
         baseline)."""
@@ -142,7 +138,8 @@ class RobustConfig:
             perleaf=(not self.packed) if perleaf is None else perleaf,
             max_iters=self.weiszfeld_iters, tol=self.weiszfeld_tol,
             num_groups=self.num_groups, trim=self.trim,
-            num_byzantine=self.num_byzantine, clip_radius=self.clip_radius)
+            num_byzantine=self.num_byzantine, clip_radius=self.clip_radius,
+            axis_names=axis_names, sync_axes=sync_axes)
 
     def check_wire(self) -> None:
         """A quantized wire needs the packed path, as in the reference."""
@@ -168,17 +165,22 @@ class RobustConfig:
         return packing.pack_spec(tree, batch_ndim=batch_ndim,
                                  wire=self.message_dtype)
 
-    def flat_aggregator_fn(self, spec: packing.PackSpec
+    def flat_aggregator_fn(self, spec: packing.PackSpec, *, axis_names=(),
+                           sync_axes=(), diagnostics: Optional[bool] = None
                            ) -> agg_lib.FlatAggregator:
         """Flat aggregator ``(W, D) -> (D,) f32`` for this config's messages
-        laid out by ``spec``; with ``self.diagnostics`` it returns
-        ``(aggregate, AggDiagnostics)``."""
+        laid out by ``spec``; with diagnostics (default
+        ``self.diagnostics``) it returns ``(aggregate, AggDiagnostics)``.
+        ``axis_names``/``sync_axes``: the collective axes of rows that are
+        coordinate shards across ranks."""
         return agg_lib.get_flat_aggregator(
             self.aggregator, spec,
             max_iters=self.weiszfeld_iters, tol=self.weiszfeld_tol,
             num_groups=self.num_groups, trim=self.trim,
             num_byzantine=self.num_byzantine, clip_radius=self.clip_radius,
-            diagnostics=self.diagnostics)
+            diagnostics=(self.diagnostics if diagnostics is None
+                         else diagnostics),
+            axis_names=axis_names, sync_axes=sync_axes)
 
 
 class FederatedState(NamedTuple):
@@ -665,3 +667,279 @@ def make_federated_step(
                                    ef, health)
         return new_state, metrics
     return init_fn, step_fn
+
+
+# ---------------------------------------------------------------------------
+# The master's aggregation across ranks (torch.distributed).  One worker per
+# index of the mesh's worker axes; each worker's message leaves are its local
+# shards over the model axes.  ``mesh`` is a repro_torch.launch.mesh.Mesh.
+# ---------------------------------------------------------------------------
+
+# Both comm paths cover the whole registry, as in the reference.
+GATHER_AGGREGATORS = agg_lib.AGGREGATOR_NAMES
+SHARDED_AGGREGATORS = agg_lib.AGGREGATOR_NAMES
+
+
+def _flatten_concat(tree: Params):
+    """``tree`` as one float32 vector, its inverse (leaf dtypes restored)
+    and the leaves' flat sizes (the blocks of sharded geomed_blockwise)."""
+    spec = packing.pack_spec(tree, batch_ndim=0)
+    return (spec.pack(tree, batch_ndim=0),
+            lambda vec: spec.unpack(vec, batch_ndim=0), list(spec.sizes))
+
+
+def _local_leaf_ids(leaf_sizes, pad: int, num_workers: int, worker: int,
+                    device) -> torch.Tensor:
+    """(chunk,) int32 leaf of each coordinate of worker ``worker``'s slice
+    of the padded vector: the first leaf whose cumulative bound exceeds the
+    coordinate; padding lies past every bound, in the dummy leaf
+    ``len(leaf_sizes)``."""
+    chunk = (sum(leaf_sizes) + pad) // num_workers
+    coords = worker * chunk + torch.arange(chunk, dtype=torch.int64,
+                                           device=device)
+    bounds = torch.tensor(leaf_sizes, dtype=torch.int64,
+                          device=device).cumsum(0)
+    return torch.searchsorted(bounds, coords, right=True).to(torch.int32)
+
+
+def distributed_aggregate(grads: Params, cfg: RobustConfig, *, mesh,
+                          worker_axes=("data",), model_axes=("model",),
+                          row_weights: Optional[torch.Tensor] = None,
+                          diagnostics: Optional[bool] = None):
+    """The paper's ``gather`` master across ranks: every worker's message
+    (its model shard) is all-gathered over the worker axes and every rank
+    runs the rule on the (W, D_shard) stack, the rows' distance partials
+    summed over the model axes.
+
+    ``cfg.packed`` (default): the shard is packed into one buffer, so the
+    gather is one collective; an int8 or sign1 wire gathers the codes and
+    the scales (whole-leaf scales: the block statistics are reduced over
+    the model axes) and decodes them on the receiver; the bf16 wire's
+    buffer is bf16 and the kernels read it as it is.  ``row_weights``: (W,)
+    staleness weights, the same on every rank.  ``cfg.guards`` masks rows
+    (the mask is the same on every rank) and ``diagnostics`` (default
+    ``cfg.diagnostics``) returns ``(tree, AggDiagnostics)``.  The per-leaf
+    baseline (``packed=False``) gathers each leaf and runs the per-leaf
+    rule; it refuses the options above, as the reference does."""
+    wa, ma = mesh.axes(*worker_axes), mesh.axes(*model_axes)
+    diag_on = cfg.diagnostics if diagnostics is None else diagnostics
+    if cfg.packed:
+        spec = cfg.message_spec(grads, batch_ndim=0)
+        buf = spec.pack(grads, batch_ndim=0)                  # (D_shard,)
+        if spec.quantized:
+            codes, scales = spec.encode(buf, axis_names=ma)
+            stacked = spec.decode(coll.all_gather(codes, wa),
+                                  coll.all_gather(scales, wa))
+        else:
+            stacked = coll.all_gather(buf, wa)
+        flat_fn = cfg.flat_aggregator_fn(spec, axis_names=ma, sync_axes=wa,
+                                         diagnostics=diag_on)
+        if cfg.guards:
+            # After the gather the worker axes hold the same rows, so the
+            # row statistics are summed over the model axes only.
+            gmask = guards_lib.guard_mask(
+                stacked, multiplier=cfg.guard_multiplier,
+                base_weights=row_weights, axis_names=ma)
+            out = guards_lib.guarded_flat_call(flat_fn, stacked, gmask,
+                                               row_weights=row_weights)
+        elif row_weights is None:
+            out = flat_fn(stacked)
+        else:
+            out = flat_fn(stacked, row_weights=row_weights)
+        if diag_on:
+            vec, diag = out
+            return spec.unpack(vec, batch_ndim=0), diag
+        return spec.unpack(out, batch_ndim=0)
+    for what, on in (("staleness row_weights", row_weights is not None),
+                     ("fault-containment guards", cfg.guards),
+                     ("aggregation diagnostics", diag_on)):
+        if on:
+            raise ValueError(f"{what} need the packed gather path "
+                             "(cfg.packed=True); the per-leaf baseline has "
+                             "no flat buffer")
+    cfg.check_wire()
+    stacked = {k: coll.all_gather(g, wa) for k, g in grads.items()}
+    return cfg.aggregator_fn(perleaf=True, axis_names=ma,
+                             sync_axes=wa)(stacked)
+
+
+def sharded_aggregate(grads: Params, cfg: RobustConfig, *, mesh,
+                      worker_axes=("data",), model_axes=("model",),
+                      num_workers: int,
+                      row_weights: Optional[torch.Tensor] = None,
+                      diagnostics: Optional[bool] = None):
+    """The ``sharded`` master: the flat message is re-sharded by coordinate
+    with an all_to_all over the worker axes, so each rank holds a distinct
+    ceil(D / W) slice of all W messages; the rule runs on the slices with
+    the rows' partials summed over the worker and model axes (Weiszfeld's
+    and the clip's distances, Krum's (W, W) Gram product, geomed_blockwise's
+    (W, L) block distances, the guards' and the diagnostics' row
+    statistics); the slices of the aggregate are all-gathered back.
+
+    An int8 or sign1 wire sends the codes through the all_to_all, gathers
+    the (W, L) scales and decodes the slice per coordinate
+    (:func:`~repro_torch.core.packing.dequantize_slice`); the flat vector
+    is float32 on every other wire, the bf16 one included, as in the
+    reference.  ``row_weights``, guards (the reference's two results of
+    the rule, one read on the host as in :func:`guarded_flat_call`) and
+    ``diagnostics`` as in :func:`distributed_aggregate`."""
+    wa = mesh.axes(*worker_axes)
+    comm = mesh.axes(*worker_axes, *model_axes)
+    diag_on = cfg.diagnostics if diagnostics is None else diagnostics
+    w = num_workers
+    flat, unflatten, leaf_sizes = _flatten_concat(grads)
+    p = flat.shape[0]
+    pad = (-p) % w
+    wid = coll.axis_index(wa)
+
+    def leaf_ids():
+        return _local_leaf_ids(leaf_sizes, pad, w, wid, flat.device)
+
+    wire_fmt = packing.resolve_wire_format(cfg.message_dtype)
+    if wire_fmt.quantized:
+        wspec = packing.pack_spec(grads, batch_ndim=0, wire=wire_fmt)
+        codes, scales = wspec.encode(flat, axis_names=mesh.axes(*model_axes))
+        codes = torch.nn.functional.pad(codes, (0, pad)).reshape(w, -1)
+        z_local = packing.dequantize_slice(
+            coll.all_to_all(codes, wa), coll.all_gather(scales, wa),
+            leaf_ids())
+    else:
+        # Row r of ``chunks``: this worker's slice for worker r; after the
+        # all_to_all, row r is worker r's slice of this rank's coordinates.
+        chunks = torch.nn.functional.pad(flat, (0, pad)).reshape(w, -1)
+        z_local = coll.all_to_all(chunks, wa)
+    rw = row_weights
+    gmask = None
+    if cfg.guards:
+        gmask = guards_lib.guard_mask(
+            z_local, multiplier=cfg.guard_multiplier, base_weights=rw,
+            axis_names=comm)
+    opts = dict(max_iters=cfg.weiszfeld_iters, tol=cfg.weiszfeld_tol)
+    name = cfg.aggregator
+    if name not in SHARDED_AGGREGATORS:
+        raise ValueError(f"unknown aggregator {name!r} for comm='sharded'; "
+                         f"supported: {SHARDED_AGGREGATORS}")
+
+    def blockwise(z, rw_, info=False):
+        # Every coordinate knows its leaf, so per-leaf norms survive the
+        # re-sharding: one (W, L + 1) sum over the axes an iteration (the
+        # extra block holds the padding).
+        return geomed_lib.weiszfeld_blockwise_sharded(
+            z, leaf_ids(), len(leaf_sizes) + 1, axis_names=comm,
+            row_weights=rw_, return_info=info, **opts)
+
+    if diag_on:
+        # Every rule through its flat engine with the struct; with guards
+        # the mask folds into the weights.
+        if gmask is not None:
+            z_local = guards_lib.sanitize_rows(z_local, gmask)
+            rw = gmask if rw is None else rw * gmask
+        if name == "geomed_blockwise":
+            slice_agg, info = blockwise(z_local, rw, info=True)
+            diag = diag_lib.flat_diagnostics(
+                z_local, slice_agg, row_weights=rw, axis_names=comm,
+                residual=info.residual, iters=info.iters,
+                converged=info.converged)
+        else:
+            fn = cfg.flat_aggregator_fn(None, axis_names=comm,
+                                        diagnostics=True)
+            slice_agg, diag = fn(z_local, row_weights=rw)
+        full = coll.all_gather(slice_agg, wa).reshape(-1)
+        return unflatten(full[:p]), diag
+
+    def run(z, rw_):
+        if name == "mean" and rw_ is None:
+            return torch.mean(z.float(), dim=0)
+        if name == "krum" and rw_ is None:
+            # The Gram partials of the slices sum to the whole rows'
+            # distances, so every rank picks the same row.
+            scores = agg_lib.krum_scores(
+                agg_lib.flat_sq_dists(z, comm), cfg.num_byzantine)
+            return z[torch.argmin(scores)].float()
+        if name == "geomed_blockwise":
+            return blockwise(z, rw_)
+        fn = cfg.flat_aggregator_fn(None, axis_names=comm, diagnostics=False)
+        return fn(z) if rw_ is None else fn(z, row_weights=rw_)
+
+    if gmask is None:
+        slice_agg = run(z_local, rw)
+    elif rw is not None:
+        slice_agg = run(guards_lib.sanitize_rows(z_local, gmask), rw * gmask)
+    elif bool(guards_lib.all_valid(gmask)):
+        # The mask is the same on every rank, so all take this branch.
+        slice_agg = run(z_local, None)
+    else:
+        slice_agg = run(guards_lib.sanitize_rows(z_local, gmask), gmask)
+    full = coll.all_gather(slice_agg, wa).reshape(-1)
+    return unflatten(full[:p])
+
+
+def distributed_attack(msg: Params, cfg: RobustConfig, *, mesh,
+                       worker_axes=("data",),
+                       generator: Optional[torch.Generator] = None,
+                       noise: Optional[Params] = None) -> Params:
+    """Byzantine behaviour across ranks: the workers of index <
+    ``num_byzantine`` over the worker axes replace their message (their
+    model shards) by the attack's.  The honest statistics come from masked
+    sums over the worker axes (the attackers are omniscient and collude,
+    as in the paper).  ``gaussian`` draws its noise from ``generator`` (one
+    per rank), or takes standard-normal draws ``noise`` shaped like
+    ``msg``; ``bitflip`` hashes the rank's relative Byzantine index and the
+    coordinates of its local shard of each leaf."""
+    if cfg.attack == "none" or cfg.num_byzantine == 0:
+        return msg
+    attack_lib.check_attack_name(cfg.attack)
+    wa = mesh.axes(*worker_axes)
+    wid, w = coll.axis_index(wa), coll.axis_size(wa)
+    b = cfg.num_byzantine
+    wh = w - b
+    honest_w = 0.0 if wid < b else 1.0
+
+    def honest_mean_of(x):
+        return coll.psum(honest_w * x.float(), wa) / wh
+
+    # Every rank takes part in the sums; the honest ranks then keep their
+    # messages.
+    mean = {k: honest_mean_of(v) for k, v in msg.items()}
+    name = cfg.attack
+    if name == "alie":
+        sq_mean = {k: honest_mean_of(v * v) for k, v in msg.items()}
+    if wid >= b:
+        return msg
+    if name == "sign_flip":
+        byz = {k: cfg.sign_flip_magnitude * m for k, m in mean.items()}
+    elif name == "zero_gradient":
+        byz = {k: -(wh / b) * m for k, m in mean.items()}
+    elif name == "ipm":
+        byz = {k: -cfg.ipm_eps * m for k, m in mean.items()}
+    elif name == "straggler":
+        byz = {k: (1.0 + 0.25 * cfg.straggler_k) * m for k, m in mean.items()}
+    elif name == "dropout":
+        byz = {k: torch.zeros_like(m) for k, m in mean.items()}
+    elif name == "gaussian":
+        std = math.sqrt(cfg.gaussian_variance)
+        if noise is None:
+            if generator is None:
+                raise ValueError("gaussian attack needs a per-rank generator "
+                                 "or the noise")
+            noise = {k: torch.randn(m.shape, generator=generator,
+                                    device=m.device)
+                     for k, m in sorted(mean.items())}
+        byz = {k: m + std * noise[k].to(m.device) for k, m in mean.items()}
+    elif name == "alie":
+        byz = {k: m + cfg.alie_z * torch.sqrt(torch.clamp(
+            sq_mean[k] - m * m, min=0.0)) for k, m in mean.items()}
+    elif name == "nan":
+        byz = {k: torch.full_like(m, torch.nan) for k, m in mean.items()}
+    elif name == "inf_overflow":
+        byz = {k: torch.where(m < 0, -attack_lib.OVERFLOW_MAGNITUDE,
+                              attack_lib.OVERFLOW_MAGNITUDE).to(m.dtype)
+               for k, m in mean.items()}
+    else:   # bitflip: the hash per leaf, over the leaf's local coordinates
+        spec = packing.pack_spec(mean, batch_ndim=0)
+        flipped = attack_lib.bitflip_rows(
+            spec.pack(mean, batch_ndim=0),
+            torch.tensor([wid], device=next(iter(mean.values())).device),
+            prob=cfg.bitflip_prob, seed=cfg.bitflip_seed, spec=spec)
+        byz = spec.unpack(flipped[0], batch_ndim=0)
+    return {k: byz[k].to(v.dtype) for k, v in msg.items()}

@@ -7,7 +7,7 @@ families raise ``NotImplementedError`` naming the ROADMAP.md entry that
 ports them; the training ``loss`` and the reference's sharding and dry-run
 interpretations of the parameter tree (``param_specs``,
 ``param_structs``, ``cache_specs``, ``cache_structs``) come with the
-training slice and the distributed runtime (Queue A 10 and 11).
+training slice and the distributed runtime (Queue A 10b and 11).
 """
 from __future__ import annotations
 

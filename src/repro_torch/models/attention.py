@@ -35,7 +35,7 @@ _UNPORTED = {
     "cross_kv": _CROSS,
     "cross": _CROSS,
     "seq_shard_axis": "the sequence-sharded decode (ROADMAP.md Queue A 11, "
-                      "with the distributed runtime of Queue A 10)",
+                      "with the distributed runtime of Queue A 10b)",
 }
 
 

@@ -6,7 +6,7 @@ for the one interpretation serving needs: :func:`init_maker` returns a
 maker that draws an initialized :class:`torch.nn.Parameter` with the
 reference's distributions from a :class:`torch.Generator`.  The
 reference's ``spec_maker``/``struct_maker`` (sharding and the dry-run)
-wait for the distributed runtime (ROADMAP.md Queue A 10), and
+wait for the distributed runtime (ROADMAP.md Queue A 10b), and
 ``chunked_xent`` for the training loss (Queue A 11).
 
 Also here: RMSNorm/LayerNorm, RoPE and the activations, float32 inside and

@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.launch.collectives import psum
 
 # The Weiszfeld distance floor: guards the inverse-distance weights.
 _FLOOR = 1e-8
@@ -60,15 +61,19 @@ def _scalars(dev, shape, *, selected=None, clip_frac=None, residual=None,
 
 def flat_diagnostics(buf: torch.Tensor, agg: torch.Tensor, *,
                      row_weights: Optional[torch.Tensor] = None,
+                     axis_names=(),
                      weight=None, score=None, selected=None, clip_frac=None,
                      residual=None, iters=None,
                      converged=None) -> AggDiagnostics:
     """:class:`AggDiagnostics` of a flat (W, D) round with aggregate ``agg``
     (D,).  Rule-specific fields are keyword overrides; by default the
     weight is the Weiszfeld implicit weight ``rw / max(dist, 1e-8)``,
-    normalized."""
+    normalized.  ``axis_names``: the mesh axes the coordinates are sharded
+    over; the rows' squared distances are summed over them, so every rank
+    holds the same struct."""
     z = ops.messages(buf).contiguous()
-    dist = torch.sqrt(ops.partial_sqdist(z, agg.float().contiguous()))
+    dist = torch.sqrt(psum(ops.partial_sqdist(z, agg.float().contiguous()),
+                           axis_names))
     if weight is None:
         rw = (torch.ones_like(dist) if row_weights is None
               else row_weights.float())

@@ -43,8 +43,10 @@ the per-edge exchange and the masked rule on dicts of per-leaf tensors
 each kernel once per leaf; one step body serves both layouts
 (:func:`repro_torch.core.robust_step.message_layout`).
 
-The sharded, ``torch.distributed`` form of the reference's
-``decentralized_aggregate`` is ROADMAP.md Queue A item 10.
+The ``torch.distributed`` form of the reference's
+``decentralized_aggregate`` (each rank one node, K7 on the sharded path) is
+ROADMAP.md Queue A item 10b; the master's is
+:func:`repro_torch.core.robust_step.distributed_aggregate`.
 """
 from __future__ import annotations
 

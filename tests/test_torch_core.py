@@ -386,8 +386,9 @@ def test_robust_config_mirrors_reference_fields():
     assert port_fields == ref_fields
     robust_step.RobustConfig(num_clients=4, guards=True, diagnostics=True)
     robust_step.RobustConfig(packed=False)
-    with pytest.raises(ValueError, match="outside the ported slice"):
-        robust_step.RobustConfig(comm="sharded")
+    # comm names the distributed path; the simulation ignores it, as the
+    # reference's does.
+    assert robust_step.RobustConfig(comm="sharded").comm == "sharded"
 
 
 def test_state_from_jax_carries_ef_and_bf16_state():

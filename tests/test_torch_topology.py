@@ -668,8 +668,9 @@ def test_decentralized_errors_raise():
                      schedule_period=2)
     with pytest.raises(ValueError, match="gossip"):
         _logreg_step(topology="ring", gossip="both")
-    with pytest.raises(ValueError, match="outside the ported slice"):
-        RobustConfig(topology="ring", comm="sharded")
+    # comm names the distributed path; the simulated decentralized step
+    # ignores it, as the reference's does.
+    assert RobustConfig(topology="ring", comm="sharded").comm == "sharded"
     with pytest.raises(ValueError, match="needs the packed path"):
         _logreg_step(topology="ring", packed=False, message_dtype="int8")
 
