@@ -187,7 +187,16 @@ Phases, in order; any failure exits non-zero:
    rollback sequence (guards, a poisoned health vector, RunHealth with
    patience 2, restore_last_good, the descent equal to the straight run).
    The checkpoint's size and the save and restore times are printed.
-20. One JSON line with the kernels (K1-K8, and K1's client-row route, the
+20. The per-leaf baseline (``RobustConfig(packed=False)``): the per-leaf
+   rules against the packed ones on workload B's step-0 messages, then
+   workload B and D gradient gossip per leaf with geomed and trimmed_mean,
+   20 steps each, loss and accuracy within 1e-3 of the packed run's, one
+   launch a leaf where the packed run launches one.
+21. The port's twins of the two examples (attack_gallery,
+   decentralized_gossip_demo; 100 steps each): the gallery's robust rules
+   end below mean, the demo's complete graph keeps consensus and the ring
+   does not.
+22. One JSON line with the kernels (K1-K8, and K1's client-row route, the
    masked route of K2 and the trim-0 kernel of K7 as entries of their
    own, then each bf16 route: "<entry> bf16"), then the result line.
 
@@ -2935,7 +2944,7 @@ def phase_wires(torch, card, b_peak_gb):
     return errs, timing, counts, rows
 
 
-# ---- Phase 18: the per-leaf baseline (RobustConfig(packed=False)) -------------
+# ---- Phase 20: the per-leaf baseline (RobustConfig(packed=False)) -------------
 
 # The rules whose per-leaf runs (B, and D gradient gossip) are held against
 # the packed runs of the same process.
@@ -3025,7 +3034,7 @@ def phase_perleaf_aggregation(torch):
 
 
 def phase_perleaf(torch, card, counts, summaries, summaries_d):
-    """Phase 18: the per-leaf checks at full width, then workload B and D
+    """Phase 20: the per-leaf checks at full width, then workload B and D
     gradient gossip per leaf with PERLEAF_RUNS, 20 steps each: loss and
     accuracy within 1e-3 of the packed run's, four launches (one a leaf)
     where the packed run launches one, and the step time beside the packed
@@ -3076,7 +3085,7 @@ def phase_perleaf(torch, card, counts, summaries, summaries_d):
     log(f"per-leaf phase {time.perf_counter() - t0:.1f} s")
 
 
-# ---- Phase 19: the port's twins of the two examples ---------------------------
+# ---- Phase 21: the port's twins of the two examples ---------------------------
 
 # Steps of each twin, cut from 500 (the gallery) and 300 (the demo) so both
 # run in well under 90 s.  At these steps the reference's own examples
@@ -3117,7 +3126,7 @@ def phase_twins():
     log(f"twins {time.perf_counter() - t0:.1f} s")
 
 
-# -- The master's collectives across ranks (phase 19) -------------------------
+# ---- Phase 18: the master's collectives across ranks ---------------------------
 
 # The Table I network's gradient leaves (D = 39,760), the two meshes, and
 # each rule's kernels on a rank's buffer.
@@ -3157,7 +3166,8 @@ def dist_rank(mesh, cases):
     (N(0, 1) draws from the seed, worker 0 Byzantine under sign_flip through
     ``distributed_attack``), then each case through
     ``distributed_aggregate`` or ``sharded_aggregate``, held against the
-    single-process flat rule on the stacked (W, D) buffer on the card.
+    single-process flat rule on the (W, D) stack that the rank builds from
+    the draws without a collective, on the card.
     Returns, per case, its largest error, whether it passed, the
     milliseconds of the call and the kernels it launched."""
     import torch
@@ -3168,7 +3178,7 @@ def dist_rank(mesh, cases):
                                               distributed_attack,
                                               sharded_aggregate)
     from repro_torch.kernels import ops
-    from repro_torch.launch import collectives as coll
+    from repro_torch import collectives as coll
     from repro_torch.launch import mesh as mesh_lib
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3183,17 +3193,27 @@ def dist_rank(mesh, cases):
     attacked = distributed_attack(
         local, RobustConfig(attack="sign_flip", num_byzantine=1), mesh=mesh,
         worker_axes=wnames)
-    # The stacked buffer: every rank's attacked shard, gathered.
+    # The reference stack, from this rank's own copy of every worker's draws
+    # and no collective: the honest rows as drawn, row 0 the attack's.
+    spec = packing.pack_spec(rows)
+    honest = spec.pack({k: v[1:] for k, v in rows.items()})
+    byz = spec.unpack(apply_attack(AttackConfig(name="sign_flip",
+                                                num_byzantine=1),
+                                   honest, spec=spec)[-1], batch_ndim=0)
+    stack = {k: torch.cat([byz[k][None], v[1:]]) for k, v in rows.items()}
+    # What the ranks hold, gathered, against it: the honest rows bitwise,
+    # the Byzantine row within rtol 1e-5 (its honest mean is a sum over the
+    # ranks, in another order).  Once checked, the held Byzantine row takes
+    # row 0's place, so that the wires quantize the same bits on both sides.
     everyone = mesh.axes(*mesh.axis_names)
-    stack = {}
+    ok_att, err_att = True, 0.0
     for k, v in attacked.items():
         parts = coll.all_gather(v, everyone).reshape((w, m_size) + tuple(v.shape))
-        stack[k] = torch.cat([parts[:, j] for j in range(m_size)], dim=-1)
-    spec = packing.pack_spec(stack)
-    honest = spec.pack({k: v[1:] for k, v in rows.items()})
-    want_byz = apply_attack(AttackConfig(name="sign_flip", num_byzantine=1),
-                            honest, spec=spec)[-1]
-    ok_att, err_att = close(spec.pack(stack)[0], want_byz)
+        held = torch.cat([parts[:, j] for j in range(m_size)], dim=-1)
+        good, e = close(held[0], stack[k][0])
+        ok_att = ok_att and good and torch.equal(held[1:], stack[k][1:])
+        err_att = max(err_att, e)
+        stack[k] = torch.cat([held[:1], stack[k][1:]])
     out = {"attack": dict(ok=ok_att, err=err_att)}
     for name, comm, wire in cases:
         cfg = RobustConfig(aggregator=name, num_byzantine=1,
@@ -3276,7 +3296,7 @@ def check_slice_kernels(torch):
 
 
 def phase_distributed(torch, card):
-    """Phase 19: 8 ranks on the one card (gloo, CUDA tensors), meshes (4, 2)
+    """Phase 18: 8 ranks on the one card (gloo, CUDA tensors), meshes (4, 2)
     and (2, 4, 1) at the Table I network's width; every case within rtol
     1e-5 of the single-process rule (krum bitwise), each rule's kernels
     launched on every rank."""
@@ -3308,7 +3328,7 @@ def phase_distributed(torch, card):
                     f"{shape} {case}: {k} not launched on every rank"
 
 
-# -- Resume and rollback (phase 20) -------------------------------------------
+# ---- Phase 19: resume and rollback ---------------------------------------------
 
 
 def same_state(torch, a, b) -> bool:
@@ -3331,7 +3351,7 @@ def same_state(torch, a, b) -> bool:
 
 
 def phase_resume(torch, card):
-    """Phase 20: 5 straight steps against 3, a checkpoint, a restore and 2
+    """Phase 19: 5 straight steps against 3, a checkpoint, a restore and 2
     more, then the rollback sequence, at workload A's size on the card:
     the master step (SAGA geomed, sign_flip, 50 + 20 workers) and the
     decentralized step on workload D's erdos_renyi(70, 0.5) graph."""

@@ -27,7 +27,7 @@ distance to the aggregate by kernel K2, the rule's implicit weights, Krum's
 scores and choice, the clip fraction, the Weiszfeld residual, iterations
 and convergence).  False runs the program it ran before.
 
-Across ranks (:mod:`repro_torch.launch.collectives`) the rules take the
+Across ranks (:mod:`repro_torch.collectives`) the rules take the
 reference's ``axis_names`` -- the mesh axes the coordinates of the rows
 are sharded over, whose per-row partials (Weiszfeld and clip distances,
 Krum's Gram product, the diagnostics' distances) are summed over them --
@@ -54,7 +54,7 @@ from repro_torch.core import packing
 from repro_torch.core.geomed import (weiszfeld_blockwise_flat, weiszfeld_flat,
                                      weiszfeld_pytree)
 from repro_torch.kernels import ops
-from repro_torch.launch.collectives import psum
+from repro_torch.collectives import psum
 from repro_torch.telemetry.diagnostics import flat_diagnostics
 
 FlatAggregator = Callable[..., torch.Tensor]  # (W, D)[, row_weights] -> (D,)

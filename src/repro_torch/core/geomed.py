@@ -30,7 +30,7 @@ freezes every block whose move reached ``tol`` or that has run
 more, so each block runs exactly the iterations of its own loop in the
 reference.
 
-Across ranks (:mod:`repro_torch.launch.collectives`), ``axis_names`` are
+Across ranks (:mod:`repro_torch.collectives`), ``axis_names`` are
 the mesh axes the coordinates are sharded over: each iteration sums the
 rows' distance partials and the iterate's move over them.  ``sync_axes``
 are axes over which the (already equal) move is maxed, so that every rank
@@ -51,7 +51,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.launch.collectives import pmax, psum
+from repro_torch.collectives import pmax, psum
 
 # Distance floor; plays the role of Weiszfeld smoothing so the iteration is
 # well defined when y coincides with one of the points.

@@ -27,7 +27,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.launch.collectives import psum
+from repro_torch.collectives import psum
 
 # Rows with norms at or below this floor are never magnitude-quarantined.
 _NORM_FLOOR = 1e-12

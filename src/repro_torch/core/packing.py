@@ -31,7 +31,7 @@ from typing import Any, Sequence
 
 import torch
 
-from repro_torch.launch.collectives import pmax, psum
+from repro_torch.collectives import pmax, psum
 
 Params = dict[str, torch.Tensor]
 

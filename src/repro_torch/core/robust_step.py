@@ -71,7 +71,7 @@ from repro_torch.core import packing
 from repro_torch.core import participation as participation_lib
 from repro_torch.core import variance as vr_lib
 from repro_torch.device import DEFAULT_DEVICE, generator_for, resolve_device
-from repro_torch.launch import collectives as coll
+from repro_torch import collectives as coll
 from repro_torch.optim import optimizers as optim_lib
 from repro_torch.telemetry import diagnostics as diag_lib
 from repro_torch.telemetry import metrics as telemetry
@@ -780,9 +780,12 @@ def sharded_aggregate(grads: Params, cfg: RobustConfig, *, mesh,
     the (W, L) scales and decodes the slice per coordinate
     (:func:`~repro_torch.core.packing.dequantize_slice`); the flat vector
     is float32 on every other wire, the bf16 one included, as in the
-    reference.  ``row_weights``, guards (the reference's two results of
-    the rule, one read on the host as in :func:`guarded_flat_call`) and
-    ``diagnostics`` as in :func:`distributed_aggregate`."""
+    reference.  ``row_weights``, guards (through
+    :func:`~repro_torch.core.guards.guarded_flat_call`) and ``diagnostics``
+    as in :func:`distributed_aggregate`."""
+    if cfg.aggregator not in SHARDED_AGGREGATORS:
+        raise ValueError(f"unknown aggregator {cfg.aggregator!r} for "
+                         f"comm='sharded'; supported: {SHARDED_AGGREGATORS}")
     wa = mesh.axes(*worker_axes)
     comm = mesh.axes(*worker_axes, *model_axes)
     diag_on = cfg.diagnostics if diagnostics is None else diagnostics
@@ -814,19 +817,16 @@ def sharded_aggregate(grads: Params, cfg: RobustConfig, *, mesh,
         gmask = guards_lib.guard_mask(
             z_local, multiplier=cfg.guard_multiplier, base_weights=rw,
             axis_names=comm)
-    opts = dict(max_iters=cfg.weiszfeld_iters, tol=cfg.weiszfeld_tol)
     name = cfg.aggregator
-    if name not in SHARDED_AGGREGATORS:
-        raise ValueError(f"unknown aggregator {name!r} for comm='sharded'; "
-                         f"supported: {SHARDED_AGGREGATORS}")
 
-    def blockwise(z, rw_, info=False):
+    def blockwise(z, row_weights=None, info=False):
         # Every coordinate knows its leaf, so per-leaf norms survive the
         # re-sharding: one (W, L + 1) sum over the axes an iteration (the
         # extra block holds the padding).
         return geomed_lib.weiszfeld_blockwise_sharded(
             z, leaf_ids(), len(leaf_sizes) + 1, axis_names=comm,
-            row_weights=rw_, return_info=info, **opts)
+            row_weights=row_weights, return_info=info,
+            max_iters=cfg.weiszfeld_iters, tol=cfg.weiszfeld_tol)
 
     if diag_on:
         # Every rule through its flat engine with the struct; with guards
@@ -847,29 +847,16 @@ def sharded_aggregate(grads: Params, cfg: RobustConfig, *, mesh,
         full = coll.all_gather(slice_agg, wa).reshape(-1)
         return unflatten(full[:p]), diag
 
-    def run(z, rw_):
-        if name == "mean" and rw_ is None:
-            return torch.mean(z.float(), dim=0)
-        if name == "krum" and rw_ is None:
-            # The Gram partials of the slices sum to the whole rows'
-            # distances, so every rank picks the same row.
-            scores = agg_lib.krum_scores(
-                agg_lib.flat_sq_dists(z, comm), cfg.num_byzantine)
-            return z[torch.argmin(scores)].float()
-        if name == "geomed_blockwise":
-            return blockwise(z, rw_)
-        fn = cfg.flat_aggregator_fn(None, axis_names=comm, diagnostics=False)
-        return fn(z) if rw_ is None else fn(z, row_weights=rw_)
-
-    if gmask is None:
-        slice_agg = run(z_local, rw)
-    elif rw is not None:
-        slice_agg = run(guards_lib.sanitize_rows(z_local, gmask), rw * gmask)
-    elif bool(guards_lib.all_valid(gmask)):
-        # The mask is the same on every rank, so all take this branch.
-        slice_agg = run(z_local, None)
+    fn = (blockwise if name == "geomed_blockwise" else
+          cfg.flat_aggregator_fn(None, axis_names=comm, diagnostics=False))
+    if gmask is not None:
+        # The mask is the same on every rank, so all take the same branch.
+        slice_agg = guards_lib.guarded_flat_call(fn, z_local, gmask,
+                                                 row_weights=rw)
+    elif rw is None:
+        slice_agg = fn(z_local)
     else:
-        slice_agg = run(guards_lib.sanitize_rows(z_local, gmask), gmask)
+        slice_agg = fn(z_local, row_weights=rw)
     full = coll.all_gather(slice_agg, wa).reshape(-1)
     return unflatten(full[:p])
 

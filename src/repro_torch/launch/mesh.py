@@ -18,7 +18,7 @@ The empty handle (or ``()``) means no collective at all, so an engine
 called without one runs the single-process program it ran before.
 
 The collectives over those handles are in
-:mod:`repro_torch.launch.collectives`.
+:mod:`repro_torch.collectives`.
 
 :func:`spawn_mesh` runs a function on every rank of a local world: one
 process a rank, a ``gloo`` process group with an explicit address, a time
@@ -29,8 +29,10 @@ from __future__ import annotations
 import itertools
 import math
 import multiprocessing as mp
+import os
 import queue as queue_lib
-import socket
+import shutil
+import tempfile
 import time
 import traceback
 from datetime import timedelta
@@ -39,7 +41,7 @@ from typing import Any, Callable, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.collectives import Axes
+from repro_torch.collectives import Axes
 
 WORKER_AXIS_NAMES = ("pod", "data")
 
@@ -116,13 +118,6 @@ def num_workers(mesh: Mesh) -> int:
 # -- local worlds -------------------------------------------------------------
 
 
-def free_address() -> str:
-    """``tcp://localhost:<port>`` at a port free when asked."""
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return f"tcp://localhost:{s.getsockname()[1]}"
-
-
 def _rank_main(rank: int, world: int, address: str, shape, axes, timeout,
                fn, args, results) -> None:
     # The boundary of a rank: whatever fn raises goes back to the parent
@@ -151,11 +146,16 @@ def spawn_mesh(fn: Callable, shape: Sequence[int], axes: Sequence[str], *,
     (a module-level function) and its results picklable.  A rank that
     raises, dies, or leaves the world unfinished after ``timeout`` seconds
     fails it: every process is ended and RuntimeError names the rank.
-    ``address``: the rendezvous (default :func:`free_address`)."""
+    ``address``: the rendezvous (default: a file in a new temporary
+    directory, removed when the world ends; a file needs no port, so no
+    other process can take it between choosing and binding)."""
     world = math.prod(shape)
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    address = address or free_address()
+    store_dir = None
+    if address is None:
+        store_dir = tempfile.mkdtemp(prefix="mesh_")
+        address = "file://" + os.path.join(store_dir, "rendezvous")
     procs = [ctx.Process(target=_rank_main,
                          args=(r, world, address, tuple(shape), tuple(axes),
                                timeout, fn, args, results), daemon=True)
@@ -191,4 +191,6 @@ def spawn_mesh(fn: Callable, shape: Sequence[int], axes: Sequence[str], *,
             if p.is_alive():
                 p.kill()
                 p.join()
+        if store_dir is not None:
+            shutil.rmtree(store_dir, ignore_errors=True)
     return [out[r] for r in range(world)]

@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.launch.collectives import psum
+from repro_torch.collectives import psum
 
 # The Weiszfeld distance floor: guards the inverse-distance weights.
 _FLOOR = 1e-8

@@ -71,10 +71,11 @@ def _rank_shards(world, shape):
 def _reference(num_workers: int, name: str, cfg_items: tuple, variant: str):
     """The reference's single-process result on :func:`C.messages`:
     (leaves, AggDiagnostics or None).  ``variant``: "plain", "weighted",
-    "nan" (guards), "roundtrip" (a quantized wire), "bf16" (the bf16
-    wire's buffer)."""
-    msgs = C.nan_rows(C.messages(num_workers)) if variant == "nan" \
-        else C.messages(num_workers)
+    "guards" (a clean round), "nan" and "nan-weighted" (guards with a NaN
+    row, the latter on row weights), "roundtrip" (a quantized wire),
+    "bf16" (the bf16 wire's buffer)."""
+    msgs = C.nan_rows(C.messages(num_workers)) \
+        if variant.startswith("nan") else C.messages(num_workers)
     msgs = {k: jnp.asarray(v) for k, v in msgs.items()}
     cfg = JConfig(aggregator=name, **C.RULE_KW, **dict(cfg_items))
     if not cfg.packed:
@@ -87,9 +88,12 @@ def _reference(num_workers: int, name: str, cfg_items: tuple, variant: str):
             else jpacking.pack_spec(msgs))
     buf = spec.pack(msgs)
     fn = cfg.flat_aggregator_fn(spec)
-    if variant == "nan":
+    if variant in ("guards", "nan", "nan-weighted"):
+        rw = (jnp.asarray(C.ROW_WEIGHTS, jnp.float32)
+              if variant == "nan-weighted" else None)
         out = jguards.guarded_flat_call(
-            fn, buf, jguards.guard_mask(buf, multiplier=cfg.guard_multiplier))
+            fn, buf, jguards.guard_mask(buf, multiplier=cfg.guard_multiplier,
+                                        base_weights=rw), row_weights=rw)
     elif variant == "weighted":
         out = fn(buf, row_weights=jnp.asarray(C.ROW_WEIGHTS, jnp.float32))
     else:
@@ -102,7 +106,9 @@ def _case_reference(case, num_workers):
     cfg = dict(case.get("cfg", {}))
     wire = cfg.get("message_dtype", "float32")
     if case.get("nan"):
-        variant = "nan"
+        variant = "nan" if case.get("row_weights") is None else "nan-weighted"
+    elif cfg.get("guards"):
+        variant = "guards"
     elif case.get("row_weights") is not None:
         variant = "weighted"
     elif wire in ("int8", "sign1"):

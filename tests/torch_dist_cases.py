@@ -94,6 +94,11 @@ def grid_cases() -> dict[str, dict]:
             cases[f"guards-{comm}-{name}"] = dict(
                 kind="rule", comm=comm, name=name, cfg=dict(guards=True),
                 nan=True)
+            cases[f"guards-clean-{comm}-{name}"] = dict(
+                kind="rule", comm=comm, name=name, cfg=dict(guards=True))
+            cases[f"guards-weighted-{comm}-{name}"] = dict(
+                kind="rule", comm=comm, name=name, cfg=dict(guards=True),
+                nan=True, row_weights=ROW_WEIGHTS)
         for wire in ("int8", "sign1", "bfloat16"):
             for name in ("geomed", "trimmed_mean"):
                 cases[f"wire-{comm}-{wire}-{name}"] = dict(
