@@ -197,8 +197,37 @@ Phases, in order; any failure exits non-zero:
    end below mean, the demo's complete graph keeps consensus and the ring
    does not.
 22. One JSON line with the kernels (K1-K8, and K1's client-row route, the
-   masked route of K2 and the trim-0 kernel of K7 as entries of their
-   own, then each bf16 route: "<entry> bf16"), then the result line.
+   masked route of K2, the trim-0 kernel of K7 and K8 in training
+   ("flash_attention train": its forward with the plain backward, phase 24)
+   as entries of their own, then each bf16 route: "<entry> bf16"), then
+   the result line.
+23. The decentralized aggregation across ranks (run right after phase 18):
+   K7 and the masked K2 and K3 against their plain versions at the shapes
+   its two paths give them, then 8 ranks on the one card (``gloo``), mesh
+   (8, 1) ("data", "model"), one node a rank on an 8-node ring, 2 x 4 torus
+   and erdos_renyi(8, p=0.5, seed 0), the Table I network's leaves (D =
+   39,760) drawn from the seed, node 0 attacking every edge by sign_flip:
+   every masked rule on both comm paths through ``decentralized_aggregate``,
+   each rank's output within rtol 1e-5 of its node's row of the
+   single-process masked rule (and 1e-6 of the largest message coordinate
+   where a mixing mean cancels to rounding noise; krum bitwise), each rule's kernels launched
+   on every rank and K7 once on every rank for the sharded trimmed mean;
+   ms a case and the masked K2's launches a rank printed.  Workload D's 70
+   nodes would need 70 ranks on the one card, so the phase runs 8.
+24. The training loss (run right after phase 15): qwen2-7b at full width,
+   at full depth where the reckoning printed first fits the card (bf16
+   parameters and gradients, remat'd activations at 1 x 2,048 tokens):
+   one ``Model.loss`` forward and backward (K8 by route asserted: one
+   wgmma launch a layer in the forward and one in the remat recompute),
+   forward + backward ms (median of 3) and peak memory, then one SGD step
+   after which the loss on the same batch falls (its learning rate from
+   1e-3 / rms(g), halved until the loss falls, at most 12 times; each try
+   logged); at 2 layers of full width the K8-route gradients
+   against the plain route's (K8 swapped for its plain version), every
+   leaf within 2e-2 of its largest gradient in bf16 (wgmma) and 1e-4 in
+   float32 (SIMT); K8's forward with the plain backward at workload E's
+   per-layer shape beside autograd of the plain version and
+   scaled_dot_product_attention's forward and backward (timed only).
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -241,6 +270,8 @@ KERNEL_SOURCES = {
                                    "src/repro/kernels/topology.py:78"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:99"),
+    "flash_attention train": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                              "src/repro/kernels/flash_attention.py:99"),
 }
 # Rule -> the kernels its step must launch on the card.
 RULE_KERNELS = {
@@ -263,7 +294,8 @@ KERNEL_PATH = {"saga_correct": "geomed", "saga_correct clients": "G1",
                "masked_neighbor_reduce": "D gradient trimmed_mean",
                "partial_sqdist masked": "D gradient geomed",
                "masked_neighbor_reduce sum": "D gradient geomed",
-               "flash_attention": "E serve"}
+               "flash_attention": "E serve",
+               "flash_attention train": "training"}
 # Workload D's runs: (gossip, rule).
 D_RUNS = (("gradient", "geomed"), ("gradient", "trimmed_mean"),
           ("gradient", "mean"), ("params", "geomed"))
@@ -3328,6 +3360,149 @@ def phase_distributed(torch, card):
                     f"{shape} {case}: {k} not launched on every rank"
 
 
+# ---- Phase 23: the decentralized aggregation across ranks ----------------------
+
+# One node a rank: 8 gloo ranks on the card, each a node of an 8-node graph
+# (workload D's 70 nodes would need 70 processes on the one card).
+DEC_MESH = ((8, 1), ("data", "model"))
+DEC_GRAPHS = ("ring", "torus2d", "erdos_renyi")
+# Rule -> the kernels a rank launches on each comm path (the sharded
+# geomed_blockwise runs its segment sums in torch).
+DEC_KERNELS = {
+    "geomed": ("masked_neighbor_reduce", "partial_sqdist", "weighted_sum"),
+    "geomed_groups": ("masked_neighbor_reduce", "partial_sqdist",
+                      "weighted_sum"),
+    "geomed_blockwise": ("masked_neighbor_reduce", "partial_sqdist",
+                         "weighted_sum"),
+    "trimmed_mean": ("masked_neighbor_reduce",), "mean": ("weighted_sum",),
+    "median": (), "krum": (), "centered_clip": ()}
+
+
+def dec_topology(graph, n):
+    from repro_torch.topology import erdos_renyi, ring, torus2d
+    return {"ring": ring, "torus2d": torus2d,
+            "erdos_renyi": lambda m: erdos_renyi(m, p=0.5, seed=0)}[graph](n)
+
+
+def dec_rank(mesh, cases):
+    """One rank (one node) of the decentralized phase, on cuda:0: every
+    node's message drawn from the seed (the Table I network's leaves),
+    node 0 attacking every edge by sign_flip; each (graph, rule, comm)
+    through ``decentralized_aggregate``, held against the rank's node's row
+    of the single-process masked rule on the (N, N, D) exchange it builds
+    on the card without a collective.  Returns, per case, its largest
+    error, whether it passed, the milliseconds of the call and its
+    launches (counted around the call only)."""
+    import torch
+    from repro_torch.core import packing
+    from repro_torch.core.robust_step import RobustConfig
+    from repro_torch.topology import (build_exchange, decentralized_aggregate,
+                                      masked_aggregate_flat)
+    from repro_torch.topology.decentralized_step import _agg_opts
+    from repro_torch.kernels import ops
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wa = mesh.axes("data")
+    n, wid = wa.size, wa.index
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    rows = {k: torch.randn((n,) + s, generator=gen, device="cuda")
+            for k, s in sorted(DIST_LEAVES.items())}
+    local = {k: v[wid].contiguous() for k, v in rows.items()}
+    spec = packing.pack_spec(rows)
+    stack = spec.pack(rows)
+    msg_max = float(stack.abs().max())
+    is_byz = torch.arange(n, device="cuda") < 1
+    out = {}
+    for graph, name, comm in cases:
+        topo = dec_topology(graph, n)
+        cfg = RobustConfig(aggregator=name, attack="sign_flip",
+                           num_byzantine=1, trim=1)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = decentralized_aggregate(local, cfg, topo, mesh=mesh, comm=comm,
+                                      worker_axes=("data",), num_workers=n)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = launch_counts()
+        mask = torch.as_tensor(topo.neighbor_mask, dtype=torch.float32,
+                               device="cuda")
+        mixing = torch.as_tensor(topo.mixing, dtype=torch.float32,
+                                 device="cuda")
+        ex = build_exchange(stack, cfg.attack_config(), mask, is_byz,
+                            spec=spec)
+        want = spec.unpack(masked_aggregate_flat(
+            name, ex, mask, spec=spec, **_agg_opts(cfg, mixing * mask))[wid],
+            batch_ndim=0)
+        ok, err = True, 0.0
+        for k, v in got.items():
+            if name == "krum":
+                ok = ok and torch.equal(v, want[k])
+                continue
+            # rtol 1e-5, and 1e-6 of the largest message coordinate where
+            # an aggregate cancels to rounding noise (a mixing mean in
+            # which node 0's -3 x mean meets exactly three honest rows).
+            diff = (v - want[k]).abs()
+            good = bool((diff <= 1e-5 * (want[k].abs() + want[k].abs().max())
+                         + 1e-6 * msg_max).all())
+            ok, err = ok and good, max(err, float(diff.max()))
+        out[(graph, name, comm)] = dict(ok=ok, err=err, ms=ms,
+                                        launches=launches)
+    return out
+
+
+def phase_decentralized_ranks(torch, card):
+    """Phase 23: the masked kernels at the shapes the decentralized paths
+    give them (a rank's receiver row (1, 8, 39,760) on the gather path,
+    every receiver's slice (8, 8, 4,970) on the sharded one), then every
+    masked rule x both comm paths on each graph, one node a gloo rank on
+    the card, within rtol 1e-5 of the single-process rule (krum bitwise);
+    K7 launched on every rank for the sharded trimmed mean."""
+    from repro_torch.launch import mesh as mesh_lib
+    shape, axes = DEC_MESH
+    n = shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    d = sum(math.prod(s) for s in DIST_LEAVES.values())
+    errs = {}
+    for graph in DEC_GRAPHS:
+        mask = torch.as_tensor(dec_topology(graph, n).neighbor_mask,
+                               dtype=torch.float32, device="cuda")
+        for rows, cols in ((mask[:1], d), (mask, -(-d // n))):
+            errs[f"{graph} {(rows.shape[0], n, cols)}"] = check_masked(
+                torch, rows.shape[0], n, cols, True, (0, 1), rows, gen)
+    log(f"masked kernels at the decentralized paths' shapes against their "
+        f"plain versions (rtol 1e-5; K7 trim 0/1, K2 unmasked, masked, K3): {errs}")
+    cases = [(graph, name, comm) for graph in DEC_GRAPHS for name in FIG6_RULES
+             for comm in ("gather", "sharded")]
+    t0 = time.perf_counter()
+    ranks = mesh_lib.spawn_mesh(dec_rank, shape, axes, args=(cases,),
+                                timeout=DIST_TIMEOUT)
+    log(f"decentralized aggregation across ranks {shape} {axes} ({card}; one "
+        f"node a rank, node 0 sign_flip per edge, D = {d:,}; gloo staging each "
+        f"collective through the host, 8 processes on one card, not an "
+        f"interconnect): world {time.perf_counter() - t0:.1f} s")
+    for case in cases:
+        res = [r[case] for r in ranks]
+        graph, name, comm = case
+        kernels = DEC_KERNELS[name]
+        if name == "geomed_blockwise" and comm == "sharded":
+            kernels = ()
+        counts = {k: [r["launches"][k] for r in res] for k in kernels}
+        k2 = [r["launches"]["partial_sqdist masked"] for r in res]
+        log(f"  {graph:<11} {name:<17} {comm:<8} max err "
+            f"{max(r['err'] for r in res):.3g}, ms (rank 0) {res[0]['ms']:.1f}, "
+            f"masked K2 launches a rank {k2}")
+        assert all(r["ok"] for r in res), f"decentralized {case}: {res}"
+        for k, per_rank in counts.items():
+            assert all(c > 0 for c in per_rank), \
+                f"decentralized {case}: {k} not launched on every rank"
+        if name == "trimmed_mean" and comm == "sharded":
+            sel = [r["launches"]["masked_neighbor_reduce select"] for r in res]
+            assert sel == [1] * n, f"sharded trimmed_mean: K7 select a rank {sel}"
+            log(f"  sharded trimmed_mean on {graph}: K7 'select' once on every "
+                f"rank {sel}")
+
+
 # ---- Phase 19: resume and rollback ---------------------------------------------
 
 
@@ -3427,6 +3602,235 @@ def phase_resume(torch, card):
                 f"the straight guarded run on every leaf")
 
 
+# ---- Phase 24: the training loss at full width --------------------------------
+
+# The training phase: qwen2-7b, one sequence of 2,048 tokens, the loss's
+# chunk; the SGD step's learning rate starts at TRAIN_STEP_RMS / rms(g)
+# (each parameter moved by TRAIN_STEP_RMS x g / rms(g)) and is halved up to
+# TRAIN_HALVINGS times until the loss on the batch falls.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_CHUNK, TRAIN_STEP_RMS = 1, 2048, 512, 1e-3
+TRAIN_HALVINGS = 12
+CARD_BYTES = 80e9
+
+
+def train_batch(torch, cfg, gen):
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                           generator=gen, device="cuda")
+    return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+
+def loss_and_grads(torch, model, params, batch):
+    """The loss and the gradient of every parameter (a fresh tensor each)."""
+    names, leaves = zip(*params.named_parameters())
+    loss = model.loss(params, batch)
+    return loss.detach(), dict(zip(names, torch.autograd.grad(loss, leaves)))
+
+
+def grads_by_route(torch, cfg, batch):
+    """(K8-route gradients, plain-route gradients, K8 launches by route) of
+    ``cfg`` at 2 layers: the plain route swaps K8 for its plain version,
+    differentiated by autograd."""
+    import dataclasses
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    model = build_model(cfg2, device="cuda", loss_chunk=TRAIN_CHUNK)
+    params = model.init(SEED + 25)
+    params.requires_grad_(True)
+    ops.reset_launch_counts()
+    _, k8 = loss_and_grads(torch, model, params, batch)
+    routes = dict(fa.VARIANT_LAUNCHES)
+    kernel = ops.flash_attention
+    ops.flash_attention = lambda q, k, v, causal=True: fa.flash_attention_plain(
+        q, k, v, causal)
+    try:
+        _, plain = loss_and_grads(torch, model, params, batch)
+    finally:
+        ops.flash_attention = kernel
+    del params
+    return k8, plain, routes
+
+
+def attention_train_ms(torch, fn, reps=3):
+    """Device time (CUDA events) per call of ``fn`` after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_training_timing(torch):
+    """K8 in training at workload E's per-layer shape (bf16, causal): K8's
+    forward plus the plain backward (``FlashAttention``) beside autograd of
+    the plain version, scaled_dot_product_attention's forward and backward
+    (the library yardstick, timed here only) and the bound of the forward's
+    two and the backward's five products over the causal pairs; the
+    gradients against the plain version's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    shape = (E_BATCH, E_PROMPT, 28, 4, 128)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    q, k, v = (x.requires_grad_(True)
+               for x in flash_inputs(torch, shape, torch.bfloat16, gen))
+    dout = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    b, s_, h, _, hd = shape
+
+    def fwd_bwd(attn):
+        return lambda: torch.autograd.grad(attn(q, k, v), (q, k, v), dout)
+
+    k8 = fwd_bwd(lambda q, k, v: fa.FlashAttention.apply(q, k, v, True))
+    plain = fwd_bwd(lambda q, k, v: fa.flash_attention_plain(q, k, v, True))
+
+    def library():
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+        return torch.autograd.grad(o, (q, k, v), dout.transpose(1, 2))
+
+    err = max(float((a.float() - w.float()).abs().max())
+              for a, w in zip(k8(), plain()))
+    # Read q, k, v, out, dout; write out, dq, dk, dv: bf16 each.
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel()) + 2 * (3 * q.numel() + 2 * k.numel())
+    flops = 7 * b * h * s_ * (s_ + 1) * hd      # 7 products, causal pairs
+    bd, by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    out = dict(ms=attention_train_ms(torch, k8),
+               plain_ms=attention_train_ms(torch, plain),
+               bound_ms=bd, bound_by=by,
+               library_ms=attention_train_ms(torch, library))
+    log(f"timing flash_attention training {shape} bf16 causal (CUDA events, "
+        f"forward + backward): K8 forward + plain backward "
+        f"{out['ms'] * 1e3:.2f} us, plain (autograd) {out['plain_ms'] * 1e3:.2f} "
+        f"us, library (scaled_dot_product_attention forward + backward) "
+        f"{out['library_ms'] * 1e3:.2f} us, bound {out['bound_ms'] * 1e3:.2f} us "
+        f"({by}: {flops:.4g} FLOP at 989 TFLOP/s); gradients against the plain "
+        f"version's max|err| {err:.3g}")
+    del q, k, v, dout
+    torch.cuda.empty_cache()
+    return out, err
+
+
+def phase_training(torch, card):
+    """Phase 24: the training loss of qwen2-7b at full width (depth by the
+    reckoning below) on one sequence: one ``Model.loss`` forward and
+    backward with remat, then one SGD step, after which the loss on the
+    same batch must fall; K8's launches by route in the forward and in the
+    remat recompute; at 2 layers, the K8-route gradients against the
+    plain route's in bf16 (wgmma) and float32 (SIMT).  Returns the launch
+    counts of the counted forward and backward, the K8 training timing and
+    its gradient error."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    cfg = get_config(E_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 27)
+    batch = train_batch(torch, cfg, gen)
+    n_params = 7_615_616_512
+    # Parameters and gradients in bf16, the remat'd activations (each
+    # block's input kept, one block's recompute live), the float32 copy of
+    # the unembedding and its gradient, and one chunk's float32 logits.
+    act = (cfg.num_layers * TRAIN_BATCH * TRAIN_SEQ * cfg.d_model * 2
+           + 24 * TRAIN_BATCH * TRAIN_SEQ * max(cfg.d_ff, cfg.d_model) * 2)
+    reckon = (2 * 2 * n_params + act + 2 * 4 * cfg.vocab_size * cfg.d_model
+              + 3 * 4 * TRAIN_BATCH * TRAIN_CHUNK * cfg.vocab_size)
+    layers = cfg.num_layers if reckon < 0.8 * CARD_BYTES else 2
+    log(f"training {cfg.name}: reckoned {reckon / 1e9:.2f} GB for {cfg.num_layers} "
+        f"layers (bf16 parameters and gradients {4 * n_params / 1e9:.2f} GB, "
+        f"activations with remat {act / 1e9:.2f} GB, float32 unembedding and its "
+        f"gradient, logits of a {TRAIN_CHUNK}-token chunk) against 80% of "
+        f"{CARD_BYTES / 1e9:.0f} GB: {layers} layers"
+        + ("" if layers == cfg.num_layers else " (depth cut: does not fit)"))
+    cfg_l = dataclasses.replace(cfg, num_layers=layers)
+    model = build_model(cfg_l, device="cuda", remat=True, loss_chunk=TRAIN_CHUNK)
+    params = model.init(SEED)
+    params.requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    names, leaves = zip(*params.named_parameters())
+    ops.reset_launch_counts()
+    loss = model.loss(params, batch)
+    fwd_routes = dict(fa.VARIANT_LAUNCHES)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    routes = dict(fa.VARIANT_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    assert fwd_routes == {"wgmma": layers, "simt": 0}, fwd_routes
+    assert routes == {"wgmma": 2 * layers, "simt": 0}, routes
+    assert bool(torch.isfinite(loss)), f"training: loss {float(loss)}"
+    assert all(bool(torch.isfinite(g).all()) for g in grads), "training: a gradient is not finite"
+    times = []
+    for _ in range(3):
+        del grads
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads = torch.autograd.grad(model.loss(params, batch), leaves)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    loss = loss.detach()
+    sq = sum(float(torch.sum(g.float() ** 2)) for g in grads)
+    rms = math.sqrt(sq / sum(g.numel() for g in grads))
+    lr = TRAIN_STEP_RMS / rms
+    # The leaves the first try moves most (the zero-initialized biases
+    # among them).
+    moved = sorted(((lr * float(g.abs().max()), n) for n, g in zip(names, grads)),
+                   reverse=True)[:4]
+    log(f"training: rms(g) {rms:.4g}; largest lr x max|g| by leaf: "
+        + ", ".join(f"{n} {r:.3g}" for r, n in moved))
+    # One SGD step with backtracking: from lr, halved until the loss on the
+    # batch falls (at most TRAIN_HALVINGS times), each try from a copy of
+    # the parameters.
+    tries = []
+    with torch.no_grad():
+        start = [p.detach().clone() for p in leaves]
+        for _ in range(TRAIN_HALVINGS + 1):
+            for p, p0, g in zip(leaves, start, grads):
+                p.copy_(p0).add_(g, alpha=-lr)
+            after = float(model.loss(params, batch))
+            tries.append((lr, after))
+            if after < float(loss):
+                break
+            lr /= 2
+        del start
+    del grads
+    log(f"training: SGD step tries (lr, loss after): "
+        + ", ".join(f"({a:.4g}, {b:.6f})" for a, b in tries))
+    assert after < float(loss), \
+        f"training: the loss did not fall after one SGD step ({float(loss)} -> {after})"
+    ms = statistics.median(times) * 1e3
+    log(f"training {cfg_l.name} ({card}) {layers} layers, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens, remat, loss chunk {TRAIN_CHUNK}: forward + backward "
+        f"{ms:.3f} ms (median of {', '.join(f'{t * 1e3:.3f}' for t in times)}), "
+        f"peak memory {peak / 1e9:.2f} GB; K8 by route {fwd_routes} in the forward, "
+        f"{routes} with the remat recompute; loss {float(loss):.6f} -> "
+        f"{after:.6f} after one SGD step (lr {lr:.4g}, from {TRAIN_STEP_RMS} / "
+        f"rms(g) after {len(tries) - 1} halvings)")
+    del params, model, loss, leaves
+    torch.cuda.empty_cache()
+    for dtype, route, tol in (("bfloat16", "wgmma", 2e-2), ("float32", "simt", 1e-4)):
+        k8, plain, r = grads_by_route(
+            torch, dataclasses.replace(cfg, param_dtype=dtype), batch)
+        assert r[route] == 4 and sum(r.values()) == 4, r
+        worst = max(float((k8[n].float() - plain[n].float()).abs().max())
+                    / float(plain[n].float().abs().max()) for n in plain)
+        log(f"training gradients at 2 layers of full width, {dtype}: K8 route "
+            f"({route}, launches {r}) against the plain route, largest "
+            f"max|diff| / max|g| over the leaves {worst:.3g} (limit {tol})")
+        assert worst <= tol, f"training gradients {dtype}: {worst} > {tol}"
+        del k8, plain
+        torch.cuda.empty_cache()
+    timing, err = phase_training_timing(torch)
+    return counts, timing, err
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3441,6 +3845,7 @@ def main() -> int:
     phase_build()
     errs = phase_kernel_checks(torch)
     phase_distributed(torch, card)
+    phase_decentralized_ranks(torch, card)
     phase_resume(torch, card)
     phase_workload_a(torch)
     phase_workload_f(torch)
@@ -3501,6 +3906,9 @@ def main() -> int:
     counts["E serve"] = phase_workload_e(torch, card)
     phase_serving_checks(torch)
     timing["flash_attention"] = phase_timing_e(torch)
+    train_counts, timing["flash_attention train"], errs["flash_attention train"] = \
+        phase_training(torch, card)
+    counts["training"] = {"flash_attention train": train_counts["flash_attention"]}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[KERNEL_PATH[name]][name],
                     max_abs_err=errs[name], **timing[name])

@@ -95,12 +95,14 @@ def guard_mask(msgs: torch.Tensor, *, multiplier: float = 10.0,
 
 
 def pairwise_guard_mask(exchange, mask: torch.Tensor, *,
-                        multiplier: float = 10.0) -> torch.Tensor:
+                        multiplier: float = 10.0,
+                        axis_names=()) -> torch.Tensor:
     """(R, S) float32 mask for an (R, S, D) per-edge exchange (or a dict of
     (R, S, *shape) leaves) under the (R, S) neighbour mask: each receiver
     judges its own in-edges, with the median norm of its unmasked finite
-    senders."""
-    bad, sq = _row_stats(exchange, 2)
+    senders.  ``axis_names``: the mesh axes the coordinates are sharded
+    over (the edge statistics are summed over them)."""
+    bad, sq = _row_stats(exchange, 2, axis_names)
     finite_rs = bad == 0
     out = finite_rs
     if multiplier > 0:

@@ -26,6 +26,14 @@ themselves (nothing padded).  :func:`variant` states which:
 the same function in plain PyTorch (float32 scores, the same mask,
 softmax, GQA by grouping the query heads), which the CPU path runs and the
 card's checks compare against.
+
+Training: :class:`FlashAttention` is K8 as a ``torch.autograd.Function``.
+Its forward launches :func:`flash_attention_call`; its backward is
+:func:`flash_attention_backward_plain`, plain PyTorch that recomputes the
+float32 probabilities from q and k.  The reference has no backward kernel
+either -- its Pallas K8 has no ``custom_vjp``, and its training
+differentiates the jnp ``_flash`` -- so none is written here; a
+hand-written backward kernel is queued (ROADMAP.md Queue B, K8).
 """
 from __future__ import annotations
 
@@ -123,6 +131,72 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(sc, dim=-1)
     out = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
     return out.reshape(b, s, h, hd).to(out_dtype or q.dtype)
+
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, out: torch.Tensor,
+                                   dout: torch.Tensor, causal: bool
+                                   ) -> tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """The gradients (dq, dk, dv), in q's, k's and v's dtypes, of the
+    attention ``out = softmax(mask(q k^T c)) v`` (c = hd^-0.5, the mask
+    and the GQA grouping of :func:`flash_attention_plain`) given ``dout``.
+    The float32 probabilities P are recomputed; then dV = P^T dO, dS =
+    P o (dO V^T - rowsum(dO o O)), dQ = c dS K, dK = c dS^T Q, dK and dV
+    summed over the query heads of each key/value head.  One batch row
+    and one key/value head at a time, so at most (H / KV, S, S) float32
+    scores exist at once."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    rep = h // kv
+    scale = hd ** -0.5
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    masked = None
+    if causal:
+        pos = torch.arange(s, device=q.device)
+        masked = pos[None, :] > pos[:, None]
+    for bi in range(b):
+        for g in range(kv):
+            heads = slice(g * rep, (g + 1) * rep)
+            qg = q[bi, :, heads].float().transpose(0, 1)          # (rep, S, hd)
+            og = out[bi, :, heads].float().transpose(0, 1)
+            dog = dout[bi, :, heads].float().transpose(0, 1)
+            kg = k[bi, :, g].float()                               # (S, hd)
+            vg = v[bi, :, g].float()
+            sc = torch.matmul(qg, kg.T) * scale                    # (rep, S, S)
+            if masked is not None:
+                sc = sc.masked_fill(masked, NEG_INF)
+            p = torch.softmax(sc, dim=-1)
+            dv[bi, :, g] = torch.sum(torch.matmul(p.transpose(1, 2), dog), 0)
+            dp = torch.matmul(dog, vg.T)                           # (rep, S, S)
+            ds = p * (dp - torch.sum(dog * og, dim=-1, keepdim=True))
+            dq[bi, :, heads] = (torch.matmul(ds, kg) * scale).transpose(0, 1)
+            dk[bi, :, g] = torch.sum(torch.matmul(ds.transpose(1, 2), qg),
+                                     0) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """K8 for training: the forward launches the kernel
+    (:func:`flash_attention_call`, its route by :func:`variant`), the
+    backward runs :func:`flash_attention_backward_plain` on the saved q, k,
+    v and output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out = flash_attention_call(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward_plain(q, k, v, out, dout,
+                                                    ctx.causal)
+        return dq, dk, dv, None
 
 
 def flash_attention_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

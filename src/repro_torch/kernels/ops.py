@@ -122,10 +122,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """K8: q (B, S, H, hd), k and v (B, S, KV, hd) -> (B, S, H, hd) in q's
     dtype; GQA reads key/value head ``h // (H // KV)`` (no repeat).  The
     reference's ``q_block``/``kv_block`` set its Pallas tiling; the port's
-    tile is the kernel's own, so it takes neither."""
+    tile is the kernel's own, so it takes neither.  Differentiable: on the
+    card through :class:`~repro_torch.kernels.flash_attention.FlashAttention`
+    (K8 forward, plain backward), on the CPU by autograd of the plain
+    version."""
     fa.check_inputs(q, k, v)
     if _on_card(q):
-        return fa.flash_attention_call(q, k, v, causal)
+        return fa.FlashAttention.apply(q, k, v, causal)
     return fa.flash_attention_plain(q, k, v, causal)
 
 

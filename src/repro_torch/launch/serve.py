@@ -10,7 +10,7 @@ prompt tokens.  The cache is allocated once at prompt + decode capacity;
 the reference pads it to that capacity after prefill, with the same
 result.  ``--mesh`` (serving on a device mesh) raises: the mesh and its
 collectives are ported (:mod:`repro_torch.launch.mesh`), the parameter
-sharding and the sequence-sharded decode are not (ROADMAP.md Queue A 10b
+sharding and the sequence-sharded decode are not (ROADMAP.md Queue A 10b.2
 and 11.7).
 """
 from __future__ import annotations
@@ -78,7 +78,7 @@ def main(argv: Optional[list[str]] = None) -> dict:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--decode-tokens", type=int, default=16)
     ap.add_argument("--mesh", default="", help="e.g. 4x2 (data x model); "
-                    "not ported yet (ROADMAP.md Queue A 10b, 11.7)")
+                    "not ported yet (ROADMAP.md Queue A 10b.2, 11.7)")
     ap.add_argument("--device", default=DEFAULT_DEVICE)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -86,7 +86,7 @@ def main(argv: Optional[list[str]] = None) -> dict:
         raise NotImplementedError(
             "--mesh: serving on a device mesh needs the parameter sharding "
             "(launch/sharding.py) and the sequence-sharded decode, not "
-            "ported yet (ROADMAP.md Queue A 10b, 11.7)")
+            "ported yet (ROADMAP.md Queue A 10b.2, 11.7)")
     cfg: ModelConfig = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()

@@ -1,13 +1,13 @@
 """Model API: ``build_model(cfg)`` -> :class:`Model` (port of
 ``repro/models/api.py``).
 
-One object per architecture exposing ``init`` / ``prefill`` /
+One object per architecture exposing ``init`` / ``loss`` / ``prefill`` /
 ``decode_step`` / ``init_cache`` for the dense decoders.  The other
 families raise ``NotImplementedError`` naming the ROADMAP.md entry that
-ports them; the training ``loss`` and the reference's sharding and dry-run
-interpretations of the parameter tree (``param_specs``,
-``param_structs``, ``cache_specs``, ``cache_structs``) come with the
-training slice and the distributed runtime (Queue A 10b and 11).
+ports them; the reference's sharding and dry-run interpretations of the
+parameter tree (``param_specs``, ``param_structs``, ``cache_specs``,
+``cache_structs``) come with the training drivers and the analysis
+(Queue A 10b.2 and 11.8).
 """
 from __future__ import annotations
 
@@ -21,31 +21,36 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.common import init_maker
 
 _UNPORTED_FAMILIES = {
-    "moe": "MoE routing (qwen2-moe, mixtral; ROADMAP.md Queue A 11)",
-    "ssm": "Mamba2 (mamba2-130m; ROADMAP.md Queue A 11)",
-    "hybrid": "Mamba2 and MoE (jamba; ROADMAP.md Queue A 11)",
-    "audio": "the encoder-decoder (whisper; ROADMAP.md Queue A 11)",
-    "vlm": "the prefix-LM mask (paligemma; ROADMAP.md Queue A 11)",
+    "moe": "MoE routing (qwen2-moe, mixtral; ROADMAP.md Queue A 11.3)",
+    "ssm": "Mamba2 (mamba2-130m; ROADMAP.md Queue A 11.4)",
+    "hybrid": "Mamba2 and MoE (jamba; ROADMAP.md Queue A 11.3, 11.4)",
+    "audio": "the encoder-decoder (whisper; ROADMAP.md Queue A 11.6)",
+    "vlm": "the prefix-LM mask (paligemma; ROADMAP.md Queue A 11.5)",
 }
 
 
 class Model(NamedTuple):
     cfg: ModelConfig
     init: Callable[..., tfm.Decoder]
+    loss: Callable[[tfm.Decoder, dict], torch.Tensor]
     prefill: Callable[..., tuple]
     decode_step: Callable[..., tuple]
     init_cache: Callable[..., dict]
 
 
 def build_model(cfg: ModelConfig, *,
-                device: str | torch.device = DEFAULT_DEVICE) -> Model:
+                device: str | torch.device = DEFAULT_DEVICE,
+                remat: bool = True, loss_chunk: int = 512) -> Model:
     """The model of ``cfg`` on ``device`` (resolved when parameters or a
     cache are made: without a card, ``"cuda"`` raises there).
 
-    The reference's ``q_chunk``/``kv_chunk`` set its jnp attention tiling
-    and ``remat``/``loss_chunk`` its training memory; the port's attention
-    tile is kernel K8's own and training is not ported, so it takes none of
-    them."""
+    ``loss(params, batch)`` is :func:`repro_torch.models.transformer.make_loss`
+    with ``remat`` (recompute each block in the backward) and
+    ``loss_chunk`` (the cross-entropy's chunk); the parameters come from
+    ``init`` without gradients, so a trainer calls
+    ``params.requires_grad_()`` first.  The reference's
+    ``q_chunk``/``kv_chunk`` set its jnp attention tiling; the port's
+    attention tile is kernel K8's own, so it takes neither."""
     if cfg.family != "dense":
         reason = _UNPORTED_FAMILIES.get(cfg.family, f"family {cfg.family!r}")
         raise NotImplementedError(f"{cfg.name}: {reason} is not ported yet")
@@ -69,4 +74,5 @@ def build_model(cfg: ModelConfig, *,
         return tfm.init_decode_cache(cfg, batch, max_len, dtype,
                                      resolve_device(device))
 
-    return Model(cfg, init, prefill_fn, decode_fn, init_cache)
+    loss = tfm.make_loss(cfg, remat=remat, loss_chunk=loss_chunk)
+    return Model(cfg, init, loss, prefill_fn, decode_fn, init_cache)

@@ -12,9 +12,14 @@ cache in plain PyTorch, as the reference's ``_cache_attn`` does in jnp;
 the new token's key and value are written into the cache in place where
 the reference uses ``dynamic_update_slice``.
 
+Prefill attention is differentiable on both devices: on a CUDA tensor K8's
+forward with a plain backward
+(:class:`repro_torch.kernels.flash_attention.FlashAttention`), on the CPU
+autograd of the plain version.
+
 Still to port, and raising ``NotImplementedError``: the sliding window,
 the prefix-LM mask, cross-attention and the sequence-sharded decode
-(ROADMAP.md Queue A 11).
+(ROADMAP.md Queue A 11.2, 11.5, 11.6 and 11.7).
 """
 from __future__ import annotations
 
@@ -28,14 +33,15 @@ from repro_torch.models.common import apply_rope
 
 NEG_INF = -1e30
 
-_CROSS = "cross-attention (the encoder-decoder, whisper; ROADMAP.md Queue A 11)"
+_CROSS = ("cross-attention (the encoder-decoder, whisper; ROADMAP.md "
+          "Queue A 11.6)")
 _UNPORTED = {
-    "window": "the sliding window (mixtral; ROADMAP.md Queue A 11)",
-    "prefix_len": "the prefix-LM mask (paligemma; ROADMAP.md Queue A 11)",
+    "window": "the sliding window (mixtral; ROADMAP.md Queue A 11.2)",
+    "prefix_len": "the prefix-LM mask (paligemma; ROADMAP.md Queue A 11.5)",
     "cross_kv": _CROSS,
     "cross": _CROSS,
-    "seq_shard_axis": "the sequence-sharded decode (ROADMAP.md Queue A 11, "
-                      "with the distributed runtime of Queue A 10b)",
+    "seq_shard_axis": "the sequence-sharded decode (ROADMAP.md Queue A "
+                      "11.7, after the training drivers of Queue A 10b.2)",
 }
 
 

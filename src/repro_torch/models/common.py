@@ -6,18 +6,19 @@ for the one interpretation serving needs: :func:`init_maker` returns a
 maker that draws an initialized :class:`torch.nn.Parameter` with the
 reference's distributions from a :class:`torch.Generator`.  The
 reference's ``spec_maker``/``struct_maker`` (sharding and the dry-run)
-wait for the distributed runtime (ROADMAP.md Queue A 10b), and
-``chunked_xent`` for the training loss (Queue A 11).
+wait for the distributed runtime (ROADMAP.md Queue A 10b.2).
 
 Also here: RMSNorm/LayerNorm, RoPE and the activations, float32 inside and
-cast back to the input's dtype as in the reference.
+cast back to the input's dtype as in the reference, and
+:func:`chunked_xent`, the training loss's cross-entropy.
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Maker = Callable[..., torch.nn.Parameter]
 
@@ -114,3 +115,48 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy (never holds the (B, S, V) logits)
+# ---------------------------------------------------------------------------
+
+def _chunk_nll(h: torch.Tensor, emb32: torch.Tensor, labels: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """Sum over one chunk of the masked negative log-likelihoods, from its
+    float32 logits (B, c, V)."""
+    logits = h.float() @ emb32.T
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.sum((lse - tgt) * mask)
+
+
+def chunked_xent(h: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor, *,
+                 chunk: int = 512,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy of the hidden states ``h`` (B, S, D)
+    against ``labels`` (B, S) under the output embedding ``emb`` (V, D),
+    over the positions where ``mask`` (B, S; default all) is 1 -> 0-dim
+    float32.  As the reference's: the logits are float32 and made
+    ``chunk`` positions at a time (a ragged S is padded with mask 0), so
+    the (B, S, V) logits never exist at once; under autograd each chunk is
+    recomputed in the backward (``torch.utils.checkpoint``) rather than
+    kept."""
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    mask = (torch.ones((b, s), dtype=torch.float32, device=h.device)
+            if mask is None else mask.float())
+    pad = (-s) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    emb32 = emb.float()
+    keep = torch.is_grad_enabled() and (h.requires_grad or emb.requires_grad)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for a in range(0, s + pad, chunk):
+        args = (h[:, a:a + chunk], emb32, labels[:, a:a + chunk],
+                mask[:, a:a + chunk])
+        tot = tot + (checkpoint(_chunk_nll, *args, use_reentrant=False)
+                     if keep else _chunk_nll(*args))
+    return tot / torch.clamp(torch.sum(mask), min=1.0)

@@ -8,29 +8,30 @@ decode cache keeps the reference's layout: per pattern position, k and v
 stacked over the periods, (periods, B, S_cap, KV, hd); prefill and decode
 write into it in place.
 
-Entry points: :func:`forward_hidden`, :func:`prefill` (last-token logits
-in float32, and the cache) and :func:`decode_step` (one token, float32
-logits).  Attention blocks with a dense FFN are ported; MoE, Mamba and
-cross-attention blocks, the VLM prefix and the sliding window raise
-``NotImplementedError`` (ROADMAP.md Queue A 11), as does the training
-loss.
+Entry points: :func:`forward_hidden`, :func:`make_loss` (the training
+loss), :func:`prefill` (last-token logits in float32, and the cache) and
+:func:`decode_step` (one token, float32 logits).  Attention blocks with a
+dense FFN are ported; MoE, Mamba and cross-attention blocks, the VLM
+prefix and the sliding window raise ``NotImplementedError`` (ROADMAP.md
+Queue A 11.2-11.6).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
-from repro_torch.models.common import layernorm, rmsnorm
+from repro_torch.models.common import chunked_xent, layernorm, rmsnorm
 
 _UNPORTED_BLOCKS = {
-    "moe": "MoE blocks (qwen2-moe, mixtral; ROADMAP.md Queue A 11)",
-    "mamba": "Mamba2 blocks (mamba2, jamba; ROADMAP.md Queue A 11)",
-    "cross": "cross-attention blocks (whisper; ROADMAP.md Queue A 11)",
+    "moe": "MoE blocks (qwen2-moe, mixtral; ROADMAP.md Queue A 11.3)",
+    "mamba": "Mamba2 blocks (mamba2, jamba; ROADMAP.md Queue A 11.4)",
+    "cross": "cross-attention blocks (whisper; ROADMAP.md Queue A 11.6)",
 }
 
 
@@ -146,19 +147,28 @@ def _attn_kwargs(cfg: ModelConfig) -> dict:
                 head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta)
 
 
+def _block(cfg: ModelConfig, bp, x: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(cfg, bp["pre_norm"], x)
+    x = x + attn_lib.attention(bp["attn"], h, causal=True, **_attn_kwargs(cfg))
+    return _ffn(cfg, bp, x)
+
+
 def forward_hidden(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
                    prefix_emb: Optional[torch.Tensor] = None,
                    enc_out: Optional[torch.Tensor] = None,
-                   window: Optional[int] = None
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
+                   window: Optional[int] = None,
+                   remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Embed + blocks + final norm.  Returns (hidden (B, S, D), moe_aux),
-    the aux loss 0 (no MoE block is ported)."""
+    the aux loss 0 (no MoE block is ported).  ``remat``: under autograd,
+    keep only each block's input and recompute the block in the backward
+    (``torch.utils.checkpoint`` per block, where the reference wraps each
+    period in ``jax.checkpoint``)."""
     _check_forward(cfg, prefix_emb, enc_out, window)
     x = _embed(params, cfg, tokens)
+    remat = remat and torch.is_grad_enabled()
     for bp in params.blocks:
-        h = apply_norm(cfg, bp["pre_norm"], x)
-        x = x + attn_lib.attention(bp["attn"], h, causal=True, **_attn_kwargs(cfg))
-        x = _ffn(cfg, bp, x)
+        x = (checkpoint(_block, cfg, bp, x, use_reentrant=False) if remat
+             else _block(cfg, bp, x))
     x = apply_norm(cfg, params.final_norm, x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -168,6 +178,30 @@ def _unembed(params: Decoder, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return params.embed
     return params.unembed.T
+
+
+def make_loss(cfg: ModelConfig, *, remat: bool = True, loss_chunk: int = 512,
+              window: Optional[int] = None, moe_aux_weight: float = 0.01):
+    """``loss(params, batch)`` -> 0-dim float32 training loss: the mean
+    next-token cross-entropy of ``batch["labels"]`` (B, S) after
+    ``batch["tokens"]`` (B, S), over ``batch["loss_mask"]`` where given
+    (:func:`~repro_torch.models.common.chunked_xent`, ``loss_chunk``
+    positions at a time), plus ``moe_aux_weight`` x the MoE aux loss (0:
+    no MoE block is ported).  Differentiate it with ``torch.autograd``
+    after ``params.requires_grad_()``; ``remat`` recomputes each block in
+    the backward.  A ``prefix_emb`` or ``enc_out`` in the batch raises
+    ``NotImplementedError``, as the forward does."""
+
+    def loss(params: Decoder, batch: dict) -> torch.Tensor:
+        h, aux = forward_hidden(params, cfg, batch["tokens"],
+                                prefix_emb=batch.get("prefix_emb"),
+                                enc_out=batch.get("enc_out"), window=window,
+                                remat=remat)
+        nll = chunked_xent(h, _unembed(params, cfg), batch["labels"],
+                           chunk=loss_chunk, mask=batch.get("loss_mask"))
+        return nll + moe_aux_weight * aux
+
+    return loss
 
 
 def prefill(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,

@@ -86,15 +86,18 @@ def flat_diagnostics(buf: torch.Tensor, agg: torch.Tensor, *,
 
 
 def masked_diagnostics(exchange: torch.Tensor, out: torch.Tensor,
-                       mask: torch.Tensor, *, score=None, selected=None,
-                       clip_frac=None, residual=None, iters=None,
-                       converged=None) -> AggDiagnostics:
+                       mask: torch.Tensor, *, axis_names=(), score=None,
+                       selected=None, clip_frac=None, residual=None,
+                       iters=None, converged=None) -> AggDiagnostics:
     """:class:`AggDiagnostics` of a masked (R, S, D) exchange with
     per-receiver aggregates ``out`` (R, D) under the (possibly weighted)
     (R, S) ``mask``: dead edges (mask 0) get distance and weight exactly 0,
-    and their rows are not read."""
+    and their rows are not read.  ``axis_names``: the mesh axes the
+    coordinates are sharded over (the squared distances are summed over
+    them)."""
     m = mask.float().contiguous()
-    sq = ops.partial_sqdist(ops.messages(exchange), out.float().contiguous(), m)
+    sq = psum(ops.partial_sqdist(ops.messages(exchange),
+                                 out.float().contiguous(), m), axis_names)
     live = (m > 0).float()
     dist = torch.sqrt(sq) * live
     inv = m / torch.clamp(torch.sqrt(sq), min=_FLOOR)
@@ -107,28 +110,36 @@ def masked_diagnostics(exchange: torch.Tensor, out: torch.Tensor,
                    converged=converged))
 
 
-def reduce_masked_diagnostics(diag: AggDiagnostics,
-                              mask: torch.Tensor) -> AggDiagnostics:
+def reduce_masked_diagnostics(diag: AggDiagnostics, mask: torch.Tensor, *,
+                              axis_names=()) -> AggDiagnostics:
     """Fold (R, S) masked diagnostics into a per-sender (S,) summary:
     ``dist`` and ``score`` are means over the receivers that hear the
     sender, ``weight`` the total weight it received (renormalized),
-    ``selected`` the sender Krum picked most often (-1 if never)."""
+    ``selected`` the sender Krum picked most often (-1 if never).  The
+    receiver rows may lie on several ranks (one a rank on the
+    decentralized gather path): every sum over receivers is then summed
+    over ``axis_names`` as well, and every rank holds the same summary."""
     live = (mask > 0).float()
     num_receivers, num_senders = mask.shape
-    cnt = torch.clamp(torch.sum(live, dim=0), min=1.0)
-    dist = torch.sum(diag.dist * live, dim=0) / cnt
-    weight = _normalize(torch.sum(diag.weight * live, dim=0))
-    score = torch.sum(diag.score * live, dim=0) / cnt
+
+    def rsum(x):
+        return psum(torch.sum(x, dim=0), axis_names)
+
+    cnt = torch.clamp(rsum(live), min=1.0)
+    dist = rsum(diag.dist * live) / cnt
+    weight = _normalize(rsum(diag.weight * live))
+    score = rsum(diag.score * live) / cnt
     senders = torch.arange(num_senders, device=mask.device)
-    sel_counts = torch.sum((diag.selected.long()[:, None] == senders[None]
-                            ).float(), dim=0)
+    sel_counts = rsum((diag.selected.long()[:, None] == senders[None]).float())
     selected = torch.where(torch.sum(sel_counts) > 0,
                            torch.argmax(sel_counts).to(torch.int32),
                            torch.tensor(-1, dtype=torch.int32,
                                         device=mask.device))
+    nrec = rsum(torch.ones((num_receivers,), dtype=torch.float32,
+                           device=mask.device))
 
     def rmean(x):   # mean over receivers of a per-call scalar
-        return torch.sum(x.float().expand(num_receivers)) / num_receivers
+        return rsum(x.float().expand(num_receivers)) / nrec
 
     return AggDiagnostics(
         dist=dist, weight=weight, score=score, selected=selected,

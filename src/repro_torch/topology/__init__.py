@@ -23,6 +23,7 @@ from repro_torch.topology.masked import (
     masked_median,
     masked_trimmed_mean,
     masked_weiszfeld,
+    masked_weiszfeld_segments,
 )
 from repro_torch.topology.schedule import (
     SCHEDULE_NAMES,
@@ -38,5 +39,6 @@ from repro_torch.topology.schedule import static as static_schedule
 from repro_torch.topology.decentralized_step import (
     GOSSIP_MODES,
     build_exchange,
+    decentralized_aggregate,
     make_decentralized_step,
 )

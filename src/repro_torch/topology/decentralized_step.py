@@ -43,10 +43,18 @@ the per-edge exchange and the masked rule on dicts of per-leaf tensors
 each kernel once per leaf; one step body serves both layouts
 (:func:`repro_torch.core.robust_step.message_layout`).
 
-The ``torch.distributed`` form of the reference's
-``decentralized_aggregate`` (each rank one node, K7 on the sharded path) is
-ROADMAP.md Queue A item 10b; the master's is
-:func:`repro_torch.core.robust_step.distributed_aggregate`.
+:func:`decentralized_aggregate` is the same aggregation across ranks of
+a :class:`repro_torch.launch.mesh.Mesh` (the reference's, inside
+``shard_map``): one node per index of the worker axes, each rank returning
+its own node's aggregate.  ``comm="gather"`` all-gathers the worker axes
+and each rank aggregates its own node's neighbourhood (the distance
+partials summed over the model axes, the Weiszfeld loops kept in step over
+the worker axes); ``comm="sharded"`` re-shards the flat message by
+coordinate with an all_to_all, aggregates every receiver's neighbourhood
+on the rank's slice (the partials summed over worker and model axes) and
+routes each receiver its own row with a second all_to_all.  The master's
+counterparts are :func:`repro_torch.core.robust_step.distributed_aggregate`
+and :func:`~repro_torch.core.robust_step.sharded_aggregate`.
 """
 from __future__ import annotations
 
@@ -55,10 +63,13 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch import collectives as coll
 from repro_torch.core import attacks as attack_lib
 from repro_torch.core import guards as guards_lib
+from repro_torch.core import packing
 from repro_torch.core import participation as participation_lib
-from repro_torch.core.robust_step import (FederatedState, init_ef,
+from repro_torch.core.robust_step import (FederatedState, _flatten_concat,
+                                          _local_leaf_ids, init_ef,
                                           init_vr, message_layout,
                                           resolve_plan, restore_ef,
                                           round_slots, sample_rows,
@@ -67,7 +78,9 @@ from repro_torch.device import DEFAULT_DEVICE, generator_for, resolve_device
 from repro_torch.optim import optimizers as optim_lib
 from repro_torch.telemetry import diagnostics as diag_lib
 from repro_torch.telemetry import metrics as telemetry
-from repro_torch.topology.masked import masked_aggregate
+from repro_torch.topology.masked import (masked_aggregate,
+                                         masked_aggregate_flat,
+                                         masked_weiszfeld_segments)
 from repro_torch.topology.schedule import as_schedule, validate_schedule
 
 Params = dict[str, torch.Tensor]
@@ -199,6 +212,15 @@ def _edge_payloads(msgs: torch.Tensor, cfg: attack_lib.AttackConfig,
     return mean[:, None] + math.sqrt(cfg.gaussian_variance) * draws
 
 
+def _agg_opts(cfg, mixing: torch.Tensor, axis_names=(), sync_axes=()) -> dict:
+    """The masked rules' options of ``cfg`` with the round's ``mixing``
+    rows and the collective axes."""
+    return dict(max_iters=cfg.weiszfeld_iters, tol=cfg.weiszfeld_tol,
+                num_groups=cfg.num_groups, trim=cfg.trim,
+                num_byzantine=cfg.num_byzantine, clip_radius=cfg.clip_radius,
+                mixing=mixing, axis_names=axis_names, sync_axes=sync_axes)
+
+
 def make_decentralized_step(
     loss_fn: Callable[[Params, dict], torch.Tensor],
     worker_data: dict[str, Any],
@@ -249,9 +271,6 @@ def make_decentralized_step(
     per_node_grads = torch.func.vmap(grad_fn, in_dims=(0, 0))
     is_byz = torch.arange(n, device=dev) >= wh
     w_ids = torch.arange(wh, device=dev)
-    opts = dict(max_iters=cfg.weiszfeld_iters, tol=cfg.weiszfeld_tol,
-                num_groups=cfg.num_groups, trim=cfg.trim,
-                num_byzantine=cfg.num_byzantine, clip_radius=cfg.clip_radius)
 
     def init_fn(params: Params, seed: int | torch.Generator = 0
                 ) -> FederatedState:
@@ -340,8 +359,9 @@ def make_decentralized_step(
             # through the flat engine).
             out = masked_aggregate(cfg.aggregator, exchange, gm,
                                    perleaf=not cfg.packed, spec=spec,
-                                   mixing=mixing * gm, row_weights=sw,
-                                   diagnostics=cfg.diagnostics, **opts)
+                                   row_weights=sw,
+                                   diagnostics=cfg.diagnostics,
+                                   **_agg_opts(cfg, mixing * gm))
             out, diag = out if cfg.diagnostics else (out, None)
             return lay.unpack(out), diag
 
@@ -389,6 +409,185 @@ def make_decentralized_step(
         return new_state, metrics
 
     return init_fn, step_fn
+
+
+def decentralized_aggregate(grads, cfg, topology, *, mesh,
+                            comm: str = "gather",
+                            worker_axes=("data",), model_axes=("model",),
+                            num_workers: int,
+                            generator: Optional[torch.Generator] = None,
+                            noise: Optional[torch.Tensor] = None,
+                            round_index: Optional[int] = None,
+                            use_topology_kernel: Optional[bool] = None,
+                            row_weights: Optional[torch.Tensor] = None,
+                            diagnostics: Optional[bool] = None):
+    """This rank's node's robust neighbourhood aggregate across the ranks
+    of ``mesh`` (the reference's ``decentralized_aggregate``).
+
+    ``grads``: this node's message, a dict of its leaves' local model
+    shards (a gradient, or in params gossip the half-stepped model).
+    Nodes are the row-major indices over ``worker_axes``
+    (``num_workers`` of them); the first ``cfg.num_byzantine`` attack per
+    edge (:func:`build_exchange`).  ``topology``: a :class:`Topology` or a
+    :class:`GraphSchedule`, whose round ``round_index`` (needed by a
+    time-varying schedule) gives the mask and the mixing rows.  Returns
+    this node's aggregate in the shards' geometry (and, with
+    ``diagnostics``, default ``cfg.diagnostics``, the per-sender
+    :class:`~repro_torch.telemetry.diagnostics.AggDiagnostics` summary,
+    the same on every rank).
+
+    * ``comm="gather"``: the messages are all-gathered over the worker
+      axes -- packed into one buffer (``cfg.packed``; an int8 or sign1
+      wire gathers the codes and the whole-leaf scales, encoded over the
+      model axes, and decodes them before the exchange is built), or leaf
+      by leaf (``packed=False``: the per-leaf rules; a quantized wire
+      raises there, as in the reference).  The rank builds its own
+      receiver row of the exchange and runs the masked rule on it, the
+      distance partials summed over the model axes and every Weiszfeld
+      stop maxed over the worker axes, so all ranks run the same
+      iterations (and launch K2 and K3 as often).  The bf16 wire's buffer
+      is bf16.
+    * ``comm="sharded"``: the flat float32 message (on every wire but the
+      quantized ones, as in the reference) is re-sharded by coordinate
+      with an all_to_all over the worker axes (int8/sign1 codes, with the
+      scales all-gathered and the slice dequantized per coordinate), every
+      receiver's exchange is built on the slice and aggregated with the
+      partials summed over worker and model axes (``geomed_blockwise`` by
+      :func:`~repro_torch.topology.masked.masked_weiszfeld_segments`, with
+      a padding block), and a second all_to_all routes each receiver its
+      own row.  An unweighted ``trimmed_mean`` there runs K7 on the (S, S,
+      chunk) slab on a CUDA tensor (its plain version on the CPU);
+      ``use_topology_kernel``, the reference's switch between that kernel
+      and its jnp rule, has nothing to choose here: the route follows the
+      tensor's device, and the argument is ignored.
+
+    ``row_weights`` (S,) staleness weights scale the mask's sender columns
+    (weighted rules run in torch, as on one process).  ``cfg.guards``
+    quarantines edges by :func:`~repro_torch.core.guards.pairwise_guard_mask`
+    (edge statistics summed over the model axes, or over worker and model
+    axes when sharded).  ``gaussian`` draws its per-edge noise from
+    ``generator`` (one per rank), or takes standard-normal draws ``noise``
+    (N, N, P): entry [r, s] for the edge s -> r over this rank's P packed
+    local coordinates (only the Byzantine senders' entries are read), so
+    that both comm modes see the same draws."""
+    del use_topology_kernel
+    if comm not in ("gather", "sharded"):
+        raise ValueError(f"comm must be 'gather' or 'sharded', got {comm!r}")
+    diag_on = cfg.diagnostics if diagnostics is None else diagnostics
+    w = num_workers
+    sched = as_schedule(topology)
+    validate_schedule(cfg, sched, w)
+    if not sched.is_static and round_index is None:
+        raise ValueError(
+            f"schedule {sched.name!r} is time-varying (period "
+            f"{sched.period}); decentralized_aggregate needs round_index=")
+    cfg.check_wire()
+    dev = next(iter(grads.values())).device
+    stacks = sched.on(dev)
+    t = 0 if round_index is None else int(round_index)
+    mask_all, mixing_all = stacks.mask_at(t), stacks.mixing_at(t)
+    rw = None if row_weights is None else row_weights.float().to(dev)
+    # The staleness weights scale the senders' columns of the mask the
+    # attacks and the guards see; the rules take them as row_weights.
+    wmask_all = mask_all if rw is None else mask_all * rw[None, :]
+    is_byz = torch.arange(w, device=dev) < cfg.num_byzantine
+    attack_cfg = cfg.attack_config()
+    wa, ma = mesh.axes(*worker_axes), mesh.axes(*model_axes)
+    wid = coll.axis_index(wa)
+
+    if comm == "gather":
+        rows = slice(wid, wid + 1)
+        mask_row, wrow = mask_all[rows], wmask_all[rows]
+        if cfg.packed:
+            spec = cfg.message_spec(grads, batch_ndim=0)
+            buf = spec.pack(grads, batch_ndim=0)
+            if spec.quantized:
+                codes, scales = spec.encode(buf, axis_names=ma)
+                stacked = spec.decode(coll.all_gather(codes, wa),
+                                      coll.all_gather(scales, wa))
+            else:
+                stacked = coll.all_gather(buf, wa)               # (S, D)
+        else:
+            spec = packing.pack_spec(grads, batch_ndim=0)
+            stacked = {k: coll.all_gather(g, wa) for k, g in grads.items()}
+        exchange = build_exchange(
+            stacked, attack_cfg, wrow, is_byz, generator,
+            noise=None if noise is None else noise[rows], spec=spec)
+        gm = mask_row
+        if cfg.guards:
+            emask = guards_lib.pairwise_guard_mask(
+                exchange, wrow, multiplier=cfg.guard_multiplier,
+                axis_names=ma)
+            exchange = guards_lib.sanitize_rows(exchange, emask)
+            gm = mask_row * emask
+        out = masked_aggregate(
+            cfg.aggregator, exchange, gm, perleaf=not cfg.packed,
+            spec=spec, row_weights=rw, diagnostics=diag_on,
+            **_agg_opts(cfg, mixing_all[rows] * gm, axis_names=ma,
+                        sync_axes=wa))
+        agg, diag = out if diag_on else (out, None)
+        agg = (spec.unpack(agg[0], batch_ndim=0) if cfg.packed
+               else {k: v[0] for k, v in agg.items()})
+        if diag_on:
+            # One receiver row a rank: the folds sum over the worker axes.
+            return agg, diag_lib.reduce_masked_diagnostics(diag, wrow,
+                                                           axis_names=wa)
+        return agg
+
+    flat, unflatten, leaf_sizes = _flatten_concat(grads)
+    p = flat.shape[0]
+    pad = (-p) % w
+    seg = _local_leaf_ids(leaf_sizes, pad, w, wid, dev)
+    wire_fmt = packing.resolve_wire_format(cfg.message_dtype)
+    if wire_fmt.quantized:
+        wspec = packing.pack_spec(grads, batch_ndim=0, wire=wire_fmt)
+        codes, scales = wspec.encode(flat, axis_names=ma)
+        codes = torch.nn.functional.pad(codes, (0, pad)).reshape(w, -1)
+        z_local = packing.dequantize_slice(coll.all_to_all(codes, wa),
+                                           coll.all_gather(scales, wa), seg)
+    else:
+        z_local = coll.all_to_all(
+            torch.nn.functional.pad(flat, (0, pad)).reshape(w, -1), wa)
+    chunk = z_local.shape[1]
+    if noise is not None:
+        noise = torch.nn.functional.pad(noise.to(dev, torch.float32),
+                                        (0, pad))[..., wid * chunk:
+                                                  (wid + 1) * chunk]
+    comm_axes = mesh.axes(*worker_axes, *model_axes)
+    exchange = build_exchange(z_local, attack_cfg, wmask_all, is_byz,
+                              generator, noise=noise)         # (S, S, chunk)
+    gm = mask_all
+    if cfg.guards:
+        # Every receiver's edge mask at once, the same on every rank.
+        emask = guards_lib.pairwise_guard_mask(
+            exchange, wmask_all, multiplier=cfg.guard_multiplier,
+            axis_names=comm_axes)
+        exchange = guards_lib.sanitize_rows(exchange, emask)
+        gm = mask_all * emask
+    diag = None
+    if cfg.aggregator == "geomed_blockwise":
+        gmw = gm if rw is None else gm * rw[None, :]
+        agg = masked_weiszfeld_segments(
+            exchange, gmw, seg, len(leaf_sizes) + 1, axis_names=comm_axes,
+            max_iters=cfg.weiszfeld_iters, tol=cfg.weiszfeld_tol)
+        if diag_on:
+            diag = diag_lib.masked_diagnostics(exchange, agg, gmw,
+                                               axis_names=comm_axes)
+    else:
+        agg = masked_aggregate_flat(
+            cfg.aggregator, exchange, gm, row_weights=rw,
+            diagnostics=diag_on,
+            **_agg_opts(cfg, mixing_all * gm, axis_names=comm_axes))
+        if diag_on:
+            agg, diag = agg
+    # Row r (receiver r's aggregate on this slice) goes to rank r; row d
+    # of the result is this node's aggregate on rank d's slice.
+    mine = coll.all_to_all(agg.float().contiguous(), wa).reshape(-1)
+    if diag_on:
+        # Every rank holds all receivers' rows with full-vector geometry.
+        return unflatten(mine[:p]), diag_lib.reduce_masked_diagnostics(
+            diag, wmask_all)
+    return unflatten(mine[:p])
 
 
 def _zero_rows_to(x, n: int):

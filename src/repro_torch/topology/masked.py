@@ -48,6 +48,18 @@ leaves, Krum's over the leaves concatenated).
 ``diagnostics=True`` returns ``(out, AggDiagnostics)`` with (R, S)
 receiver-by-sender fields (:func:`repro_torch.telemetry.masked_diagnostics`;
 the distances by the masked, receiver-batched K2).
+
+Across ranks (:mod:`repro_torch.collectives`, the decentralized
+``decentralized_aggregate``) the rules take the reference's
+``axis_names``, the mesh axes the coordinates are sharded over: the
+Weiszfeld rules sum their (R, S) distance partials and their moves over
+them, Krum its (R, S, S) Gram partials (symmetrized after the sum), and
+centered clipping its residual norms; the coordinate-wise rules need no
+sum.  ``sync_axes`` are axes over which each Weiszfeld stop is maxed, so
+that ranks iterating different receivers stop together.  With no axes
+every rule runs the single-process program.
+:func:`masked_weiszfeld_segments` is the per-block masked Weiszfeld of a
+coordinate slice (the sharded ``geomed_blockwise``).
 """
 from __future__ import annotations
 
@@ -57,6 +69,7 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.collectives import pmax, psum
 from repro_torch.core import packing
 from repro_torch.core.geomed import WeiszfeldInfo, _f32_tol
 from repro_torch.kernels import ops
@@ -125,7 +138,8 @@ def masked_trimmed_mean(exchange: torch.Tensor, mask: torch.Tensor, *,
 
 def masked_weiszfeld(exchange: torch.Tensor, mask: torch.Tensor, *,
                      max_iters: int = 64, tol: float = 1e-6,
-                     weighted: bool = False, return_info: bool = False):
+                     weighted: bool = False, axis_names=(), sync_axes=(),
+                     return_info: bool = False):
     """Per-receiver geometric median of the masked neighbourhood, all
     receivers in lockstep: from the masked mean (K7, trim 0; the weighted
     mean by K3 when the mask is ``weighted``), each
@@ -136,16 +150,22 @@ def masked_weiszfeld(exchange: torch.Tensor, mask: torch.Tensor, *,
     or ``max_iters``).  Non-neighbours get weight 0, so the restriction is
     exact.  ``exchange`` may be a column slice of a wider buffer."""
     ys, info = _masked_weiszfeld_leaves([exchange], mask, max_iters=max_iters,
-                                        tol=tol, weighted=weighted)
+                                        tol=tol, weighted=weighted,
+                                        axis_names=axis_names,
+                                        sync_axes=sync_axes)
     return (ys[0], info) if return_info else ys[0]
 
 
 def _masked_weiszfeld_leaves(leaves, mask: torch.Tensor, *, max_iters: int,
-                             tol: float, weighted: bool):
+                             tol: float, weighted: bool, axis_names=(),
+                             sync_axes=()):
     """The masked Weiszfeld loop over the (R, S, d_l) blocks of one
     exchange: each block starts from its masked mean, each iteration adds
-    the blocks' masked K2 distances in block order and runs K3 on each
-    block.  -> ([(R, d_l) float32 iterates], WeiszfeldInfo)."""
+    the blocks' masked K2 distances in block order (then over
+    ``axis_names``) and runs K3 on each block; the stop reads
+    ``sqrt(max_r move_r)``, the moves summed over ``axis_names`` and the
+    result maxed over ``sync_axes`` (the reference's ``_global_delta``).
+    -> ([(R, d_l) float32 iterates], WeiszfeldInfo)."""
     zs = [ops.messages(z) for z in leaves]
     mask = mask.contiguous()
     ys = [_weighted_mean(z, mask) if weighted
@@ -157,25 +177,31 @@ def _masked_weiszfeld_leaves(leaves, mask: torch.Tensor, *, max_iters: int,
         for z, y in zip(zs, ys):
             part = ops.partial_sqdist(z, y, mask)               # (R, S)
             sq = part if sq is None else sq + part
+        sq = psum(sq, axis_names)
         inv = mask / torch.clamp(torch.sqrt(sq), min=_DIST_FLOOR)
         move = None
         for i, (z, y) in enumerate(zip(zs, ys)):
             ys[i] = _weighted_mean(z, inv)
             part = torch.sum((ys[i] - y) ** 2, dim=1)
             move = part if move is None else move + part
-        delta = float(torch.sqrt(torch.max(move)))
+        # Every rank reads the same stop: the loop's next collective waits
+        # for all of them.
+        delta = float(pmax(torch.sqrt(torch.max(psum(move, axis_names))),
+                           sync_axes))
         it += 1
     return ys, WeiszfeldInfo(residual=delta, iters=it, converged=delta <= tol)
 
 
 def masked_geomed_groups(exchange: torch.Tensor, mask: torch.Tensor, *,
                          num_groups: int, max_iters: int = 64,
-                         tol: float = 1e-6) -> torch.Tensor:
+                         tol: float = 1e-6, axis_names=(),
+                         sync_axes=()) -> torch.Tensor:
     """Geomed of masked group means: senders keep their global contiguous
     group ids ``(s * G) // S``, each receiver averages the members inside
     its neighbourhood, and groups with no member there drop out."""
     grouped, gmask = _masked_group_means(exchange, mask, num_groups)
-    return masked_weiszfeld(grouped, gmask, max_iters=max_iters, tol=tol)
+    return masked_weiszfeld(grouped, gmask, max_iters=max_iters, tol=tol,
+                            axis_names=axis_names, sync_axes=sync_axes)
 
 
 def _masked_group_means(exchange: torch.Tensor, mask: torch.Tensor,
@@ -196,6 +222,7 @@ def _masked_group_means(exchange: torch.Tensor, mask: torch.Tensor,
 def masked_geomed_blockwise(exchange: torch.Tensor, mask: torch.Tensor, *,
                             spec: packing.PackSpec, max_iters: int = 64,
                             tol: float = 1e-6, weighted: bool = False,
+                            axis_names=(), sync_axes=(),
                             return_info: bool = False):
     """Per-block masked geometric median: each leaf's coordinate slice of
     the packed buffer runs its own lockstep masked Weiszfeld (read in
@@ -204,6 +231,7 @@ def masked_geomed_blockwise(exchange: torch.Tensor, mask: torch.Tensor, *,
     z = ops.messages(exchange)
     solved = [masked_weiszfeld(z[:, :, a:b], mask, max_iters=max_iters,
                                tol=tol, weighted=weighted,
+                               axis_names=axis_names, sync_axes=sync_axes,
                                return_info=True)
               for a, b in spec.boundaries]
     out = packing.assemble([p for p, _ in solved], pad=spec.pad,
@@ -214,15 +242,22 @@ def masked_geomed_blockwise(exchange: torch.Tensor, mask: torch.Tensor, *,
 
 
 def masked_krum(exchange: torch.Tensor, mask: torch.Tensor, *,
-                num_byzantine: int, return_scores: bool = False):
+                num_byzantine: int, axis_names=(),
+                return_scores: bool = False):
     """Per-receiver Krum over the masked neighbourhood: a candidate's score
     sums its ``m_r - B - 2`` smallest distances to other neighbourhood
     members (clipped to >= 1; the guarantee is void below Krum's bound),
-    and the winning sender's message is selected.  ``return_scores``: also
-    the (R, S) scores (+inf off the mask) and the (R,) choices."""
+    and the winning sender's message is selected.  With ``axis_names`` the
+    (R, S, S) Gram partials are summed over them, so every rank selects
+    the same sender and keeps its own slice of it.  ``return_scores``:
+    also the (R, S) scores (+inf off the mask) and the (R,) choices."""
     z = exchange.float()
     sq = torch.sum(z ** 2, dim=-1)                              # (R, S)
     d2 = sq[:, :, None] + sq[:, None, :] - 2.0 * torch.bmm(z, z.transpose(1, 2))
+    if axis_names:
+        # Restore the exact symmetry the sum may lose, as flat_sq_dists.
+        d2 = psum(d2, axis_names)
+        d2 = 0.5 * (d2 + d2.transpose(1, 2))
     s_tot = mask.shape[1]
     pair = (mask[:, :, None] * mask[:, None, :]
             * (1.0 - torch.eye(s_tot, device=z.device))[None])
@@ -242,17 +277,21 @@ def masked_krum(exchange: torch.Tensor, mask: torch.Tensor, *,
 
 
 def masked_centered_clip(exchange: torch.Tensor, mask: torch.Tensor, *,
-                         radius: float = 1.0, iters: int = 3) -> torch.Tensor:
+                         radius: float = 1.0, iters: int = 3,
+                         axis_names=()) -> torch.Tensor:
     """Centered clipping per neighbourhood: iterate from the masked median,
-    each sender's influence clipped to ``radius`` by its residual norm."""
+    each sender's influence clipped to ``radius`` by its residual norm
+    (summed over ``axis_names``)."""
     return _masked_centered_clip_leaves([exchange], mask, radius=radius,
-                                        iters=iters)[0]
+                                        iters=iters, axis_names=axis_names)[0]
 
 
 def _masked_centered_clip_leaves(leaves, mask: torch.Tensor, *, radius: float,
-                                 iters: int) -> list[torch.Tensor]:
+                                 iters: int, axis_names=()
+                                 ) -> list[torch.Tensor]:
     """Centered clipping on the (R, S, d_l) blocks of one exchange, each
-    sender's residual norm taken over all blocks (added in block order)."""
+    sender's residual norm taken over all blocks (added in block order,
+    then over ``axis_names``)."""
     zs = [z.float() for z in leaves]
     vs = [masked_median(z, mask) for z in zs]
     denom = torch.clamp(torch.sum(mask, dim=1), min=_DIST_FLOOR)
@@ -262,12 +301,64 @@ def _masked_centered_clip_leaves(leaves, mask: torch.Tensor, *, radius: float,
         for dl in diffs:
             part = torch.sum(dl * dl, dim=-1)
             sq = part if sq is None else sq + part
+        sq = psum(sq, axis_names)
         scale = torch.clamp(radius / torch.clamp(torch.sqrt(sq), min=1e-12),
                             max=1.0)
         w = mask * scale
         vs = [v + torch.sum(w[:, :, None] * dl, dim=1) / denom[:, None]
               for v, dl in zip(vs, diffs)]
     return vs
+
+
+def masked_weiszfeld_segments(ex: torch.Tensor, mask: torch.Tensor,
+                              seg_ids: torch.Tensor, num_segments: int, *,
+                              axis_names=(), max_iters: int = 64,
+                              tol: float = 1e-6) -> torch.Tensor:
+    """Per-block masked Weiszfeld on a coordinate slice (the decentralized
+    ``comm="sharded"`` form of ``geomed_blockwise``): ``ex`` (R, S, c) is
+    every receiver's view of every sender's slice, ``seg_ids`` (c,) the
+    block of each coordinate (padding in the dummy block ``num_segments -
+    1``).  All blocks of all receivers run in lockstep from the masked
+    mean: one (R, S, num_segments) sum of per-block squared distances over
+    ``axis_names`` an iteration, each coordinate weighted by its block's
+    inverse distances, stopped when the largest (receiver, block) move
+    (summed over the axes) reaches ``tol`` -> (R, c) float32.  Segment
+    sums in plain torch (``index_add_``), as the reference's
+    ``segment_sum``."""
+    ex32 = ex.float()
+    r, s_tot, _ = ex32.shape
+    seg = seg_ids.to(device=ex32.device, dtype=torch.int64)
+
+    def seg_psum(part):
+        out = torch.zeros(part.shape[:-1] + (num_segments,),
+                          dtype=torch.float32, device=part.device)
+        return psum(out.index_add_(part.dim() - 1, seg, part), axis_names)
+
+    mask = mask.float()
+    denom0 = torch.clamp(torch.sum(mask, dim=1), min=_DIST_FLOOR)
+    y = torch.sum(mask[:, :, None] * ex32, dim=1) / denom0[:, None]
+    tol = _f32_tol(tol)
+    delta, it = math.inf, 0
+    while it < max_iters and delta > tol:
+        diff = ex32 - y[:, None]                                  # (R, S, c)
+        sq = seg_psum(diff * diff)                                # (R, S, L)
+        inv = mask[:, :, None] / torch.clamp(torch.sqrt(sq), min=_DIST_FLOOR)
+        w_coord = inv[:, :, seg]                                  # (R, S, c)
+        denom = torch.sum(inv, dim=1)[:, seg]                     # (R, c)
+        y_new = (torch.sum(w_coord * ex32, dim=1)
+                 / torch.clamp(denom, min=_DIST_FLOOR))
+        move = seg_psum((y_new - y) ** 2)                         # (R, L)
+        y = y_new
+        delta = float(torch.sqrt(torch.max(move)))
+        it += 1
+    return y
+
+
+def _iters(o: dict) -> dict:
+    """The Weiszfeld rules' loop options and axes out of ``opts``."""
+    return dict(max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6),
+                axis_names=o.get("axis_names", ()),
+                sync_axes=o.get("sync_axes", ()))
 
 
 # name -> masked rule (exchange, mask, spec, opts); the reference's names,
@@ -278,18 +369,17 @@ _MASKED: dict[str, Any] = {
     "trimmed_mean": lambda ex, m, spec, o: masked_trimmed_mean(
         ex, m, trim=o.get("trim", 1), weighted=o["weighted"]),
     "geomed": lambda ex, m, spec, o: masked_weiszfeld(
-        ex, m, max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6),
-        weighted=o["weighted"]),
+        ex, m, weighted=o["weighted"], **_iters(o)),
     "geomed_groups": lambda ex, m, spec, o: masked_geomed_groups(
-        ex, m, num_groups=o["num_groups"],
-        max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6)),
+        ex, m, num_groups=o["num_groups"], **_iters(o)),
     "geomed_blockwise": lambda ex, m, spec, o: masked_geomed_blockwise(
-        ex, m, spec=spec, max_iters=o.get("max_iters", 64),
-        tol=o.get("tol", 1e-6), weighted=o["weighted"]),
+        ex, m, spec=spec, weighted=o["weighted"], **_iters(o)),
     "krum": lambda ex, m, spec, o: masked_krum(
-        ex, m, num_byzantine=o.get("num_byzantine", 0)),
+        ex, m, num_byzantine=o.get("num_byzantine", 0),
+        axis_names=o.get("axis_names", ())),
     "centered_clip": lambda ex, m, spec, o: masked_centered_clip(
-        ex, m, radius=o.get("clip_radius", 1.0)),
+        ex, m, radius=o.get("clip_radius", 1.0),
+        axis_names=o.get("axis_names", ())),
 }
 
 MASKED_AGGREGATOR_NAMES = tuple(_MASKED)
@@ -324,6 +414,7 @@ def _sorted_rows3(exchange: dict) -> list[torch.Tensor]:
 def _krum_perleaf(ex, m, o):
     flat = torch.cat([z.float() for z in _sorted_rows3(ex)], dim=-1)
     _, _, best = masked_krum(flat, m, num_byzantine=o.get("num_byzantine", 0),
+                             axis_names=o.get("axis_names", ()),
                              return_scores=True)
     rows = torch.arange(m.shape[0], device=m.device)
     return {k: z[rows, best] for k, z in ex.items()}
@@ -332,8 +423,7 @@ def _krum_perleaf(ex, m, o):
 def _geomed_groups_perleaf(ex, m, o):
     parts = [_masked_group_means(z, m, o["num_groups"]) for z in _sorted_rows3(ex)]
     ys, _ = _masked_weiszfeld_leaves(
-        [g for g, _ in parts], parts[0][1], max_iters=o.get("max_iters", 64),
-        tol=o.get("tol", 1e-6), weighted=False)
+        [g for g, _ in parts], parts[0][1], weighted=False, **_iters(o))
     return _from_leaves(ex, ys)
 
 
@@ -347,17 +437,16 @@ _MASKED_PERLEAF: dict[str, Any] = {
         ex, lambda z: masked_trimmed_mean(z, m, trim=o.get("trim", 1),
                                           weighted=o["weighted"])),
     "geomed": lambda ex, m, o: _from_leaves(ex, _masked_weiszfeld_leaves(
-        _sorted_rows3(ex), m, max_iters=o.get("max_iters", 64),
-        tol=o.get("tol", 1e-6), weighted=o["weighted"])[0]),
+        _sorted_rows3(ex), m, weighted=o["weighted"], **_iters(o))[0]),
     "geomed_groups": _geomed_groups_perleaf,
     "geomed_blockwise": lambda ex, m, o: _per_leaf(ex, lambda z: masked_weiszfeld(
-        z, m, max_iters=o.get("max_iters", 64), tol=o.get("tol", 1e-6),
-        weighted=o["weighted"])),
+        z, m, weighted=o["weighted"], **_iters(o))),
     "krum": _krum_perleaf,
     "centered_clip": lambda ex, m, o: _from_leaves(
         ex, _masked_centered_clip_leaves(_sorted_rows3(ex), m,
                                          radius=o.get("clip_radius", 1.0),
-                                         iters=3)),
+                                         iters=3,
+                                         axis_names=o.get("axis_names", ()))),
 }
 
 assert set(_MASKED_PERLEAF) == set(_MASKED)
@@ -385,7 +474,10 @@ def masked_aggregate_flat(name: str, buf: torch.Tensor, mask: torch.Tensor,
     """Flat masked engine: packed (R, S, D) exchange -> (R, D) float32
     per-receiver aggregates.  ``spec`` is needed by ``geomed_blockwise``
     only (its leaf boundaries).  Options: ``mixing`` (mean), ``max_iters``,
-    ``tol``, ``num_groups``, ``trim``, ``num_byzantine``, ``clip_radius``.
+    ``tol``, ``num_groups``, ``trim``, ``num_byzantine``, ``clip_radius``,
+    and across ranks ``axis_names``/``sync_axes`` (the axes the
+    coordinates are sharded over, and the axes whose Weiszfeld loops stop
+    together; see the module docstring).
     ``row_weights`` (S,) are per-sender staleness weights: they scale the
     mask's (and ``mixing``'s) sender columns here, and the rules K7 runs by
     0/1 counts take their weighted forms.  ``diagnostics=True`` returns
@@ -405,10 +497,8 @@ def masked_aggregate_flat(name: str, buf: torch.Tensor, mask: torch.Tensor,
     if name in ("geomed", "geomed_blockwise"):
         fn = masked_weiszfeld if name == "geomed" else functools.partial(
             masked_geomed_blockwise, spec=spec)
-        out, info = fn(buf, mask, max_iters=opts.get("max_iters", 64),
-                       tol=opts.get("tol", 1e-6),
-                       weighted=opts["weighted"],
-                       return_info=True)
+        out, info = fn(buf, mask, weighted=opts["weighted"],
+                       return_info=True, **_iters(opts))
         infos = [info] if name == "geomed" else info
         extras = dict(residual=max(i.residual for i in infos),
                       iters=max(i.iters for i in infos),
@@ -416,13 +506,14 @@ def masked_aggregate_flat(name: str, buf: torch.Tensor, mask: torch.Tensor,
     elif name == "krum":
         out, scores, best = masked_krum(
             buf, mask, num_byzantine=opts.get("num_byzantine", 0),
-            return_scores=True)
+            axis_names=opts.get("axis_names", ()), return_scores=True)
         # Off-mask scores are +inf sentinels; zero them to keep the
         # struct finite.
         extras = dict(score=torch.where(mask > 0, scores, 0.0), selected=best)
     else:
         out = _MASKED[name](buf, mask, spec, opts)
-    diag = masked_diagnostics(buf, out, mask, **extras)
+    diag = masked_diagnostics(buf, out, mask,
+                              axis_names=opts.get("axis_names", ()), **extras)
     if name == "centered_clip":
         # A live sender whose residual to the final centre exceeds the
         # radius had its influence clipped this round.

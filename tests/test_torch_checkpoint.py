@@ -191,9 +191,9 @@ def test_each_package_restores_the_others_params_and_optimizer(tmp_path):
 STEPS = ("master", "ring")
 
 
-def _problem(topology: str, **cfg_kw):
+def _problem(topology: str, clients: int = 8, **cfg_kw):
     data = ijcnn1_like(0, n=600, device="cpu")
-    wd = partition({"a": data.x, "b": data.y}, 8, seed=1, device="cpu")
+    wd = partition({"a": data.x, "b": data.y}, clients, seed=1, device="cpu")
     cfg = RobustConfig(aggregator="geomed", vr="saga", attack="sign_flip",
                        num_byzantine=2, **cfg_kw,
                        **({} if topology == "master" else {"topology": topology}))
@@ -227,6 +227,28 @@ def _assert_same_state(a: FederatedState, b: FederatedState):
 def test_resume_is_bitwise_the_straight_run(tmp_path, topology):
     init, step_fn = _problem(topology)
     straight = _run(step_fn, init(), 5)
+    ckpt = CheckpointManager(str(tmp_path))
+    ckpt.save_train_state(3, _run(step_fn, init(), 3)._asdict())
+    step, restored = ckpt.restore_latest(init()._asdict())
+    assert step == 3
+    resumed = _run(step_fn, FederatedState(**restored), 2)
+    _assert_same_state(straight, resumed)
+
+
+@pytest.mark.parametrize("wire", ["bfloat16", "sign1"])
+def test_resume_on_a_wire_under_partial_participation(tmp_path, wire):
+    """12 clients, cohorts of 6, staleness weights: the resumed run holds
+    the bf16 SAGA table (bf16 wire) or sign1's float32 residuals, and the
+    clients' staleness counters, bitwise the straight run's."""
+    init, step_fn = _problem("master", clients=12, num_clients=12,
+                             cohort_size=6, staleness_decay=0.9,
+                             message_dtype=wire)
+    straight = _run(step_fn, init(), 5)
+    assert straight.staleness is not None and bool(straight.staleness.any())
+    if wire == "bfloat16":
+        assert straight.vr.table.dtype == torch.bfloat16
+    else:
+        assert straight.ef is not None and bool(straight.ef.any())
     ckpt = CheckpointManager(str(tmp_path))
     ckpt.save_train_state(3, _run(step_fn, init(), 3)._asdict())
     step, restored = ckpt.restore_latest(init()._asdict())

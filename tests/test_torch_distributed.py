@@ -1,6 +1,7 @@
-"""The master's aggregation across ranks (``distributed_aggregate``,
-``sharded_aggregate``, ``distributed_attack``) on local ``gloo`` worlds,
-against the JAX reference's single-process rules, on the CPU.
+"""The aggregation across ranks -- the master's (``distributed_aggregate``,
+``sharded_aggregate``, ``distributed_attack``) and the decentralized
+``decentralized_aggregate`` -- on local ``gloo`` worlds, against the JAX
+reference's single-process rules, on the CPU.
 
 Two worlds of 8 ranks, one process a rank, each started once by a
 module-scoped fixture with a time limit of its own
@@ -15,11 +16,24 @@ module-scoped fixture with a time limit of its own
   and padding (the reference's tests/test_distributed.py:399); every
   attack through ``distributed_attack`` against the port's
   ``apply_attack`` on the same rows (gaussian's noise handed in, bitflip
-  against the port's hash on the rank's local coordinates).
+  against the port's hash on the rank's local coordinates); messages the
+  sharded path pads (a (14,) and b (3, 2): 10 local coordinates over 4
+  workers) under six rules and int8.  Decentralized, 4 nodes with node 0
+  attacking every edge by sign_flip: the per-leaf gather
+  (``packed=False``) of every rule, row weights with a weight of 0 and
+  diagnostics (five rules each, ``C.DEC_WEIGHTED``,
+  ``C.DEC_DIAGNOSTICS``), guards under a NaN node, the int8, sign1 and
+  bfloat16 wires, sharded geomed_blockwise on the padded messages, a
+  time-varying schedule at ``round_index=1``, gaussian with its draws
+  handed in, and the sharded trimmed mean's route (K7's dispatcher once a
+  call whatever ``use_topology_kernel`` says, the weighted form without
+  it); the reference's tests/test_distributed.py:682 and :760.
 * mesh (2, 4, 1) ("pod", "data", "model"): W = 8 workers pod-major.  Every
   rule on both paths, and krum on handed-in messages returning bitwise
   the row that the reference's single-process krum selects (the twin of
-  tests/test_distributed.py:504 without a seed-pinned index).
+  tests/test_distributed.py:504 without a seed-pinned index); every
+  masked rule decentralized on 8 nodes, both comm modes, on ring, torus2d
+  (2 x 4) and erdos_renyi (the reference's :228).
 
 Each rank's output (its model shard) is held against the same shard of the
 reference's single-process rule on the same numpy stack at atol 1e-5
@@ -28,10 +42,15 @@ diagnostics' loop facts (residual, iterations, converged) are not
 compared: at tol 1e-9 a float32 iterate settles on a fixed point or on a
 cycle of two values depending on the order of its sums.  The
 sharded path sends float32 on the bf16 wire, as the reference's does, so
-its reference is the float32 rule.
+its reference is the float32 rule.  A decentralized rank's output is held
+against its node's row of the reference's dense masked rule
+(``repro.topology.build_exchange`` and ``masked_aggregate_flat`` for all
+receivers at once), krum bitwise, and its diagnostics' per-sender fold
+against ``reduce_masked_diagnostics`` of the dense diagnostics.
 """
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -42,12 +61,15 @@ from repro.core import guards as jguards
 from repro.core import packing as jpacking
 from repro.core.aggregators import geomed_blockwise_agg
 from repro.core.robust_step import RobustConfig as JConfig
+from repro import topology as jtopo
+from repro.telemetry import diagnostics as jdiag
 from repro_torch.core import attacks as attack_lib
 from repro_torch.core import packing
+from repro_torch.topology import build_exchange
 
 GRID_CASES = C.grid_cases()
 POD_CASES = C.pod_cases()
-WORLD_TIMEOUT = 120.0
+WORLD_TIMEOUT = 240.0
 
 
 @pytest.fixture(scope="module")
@@ -68,14 +90,15 @@ def _rank_shards(world, shape):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(num_workers: int, name: str, cfg_items: tuple, variant: str):
+def _reference(num_workers: int, name: str, cfg_items: tuple, variant: str,
+               msgs: str = "base"):
     """The reference's single-process result on :func:`C.messages`:
     (leaves, AggDiagnostics or None).  ``variant``: "plain", "weighted",
     "guards" (a clean round), "nan" and "nan-weighted" (guards with a NaN
     row, the latter on row weights), "roundtrip" (a quantized wire),
     "bf16" (the bf16 wire's buffer)."""
-    msgs = C.nan_rows(C.messages(num_workers)) \
-        if variant.startswith("nan") else C.messages(num_workers)
+    msgs = C.MESSAGES[msgs](num_workers)
+    msgs = C.nan_rows(msgs) if variant.startswith("nan") else msgs
     msgs = {k: jnp.asarray(v) for k, v in msgs.items()}
     cfg = JConfig(aggregator=name, **C.RULE_KW, **dict(cfg_items))
     if not cfg.packed:
@@ -123,13 +146,14 @@ def _case_reference(case, num_workers):
     else:
         variant = "plain"
     return _reference(num_workers, case["name"], tuple(sorted(cfg.items())),
-                      variant)
+                      variant, case.get("msgs", "base"))
 
 
 def _check_leaves(got: dict, want: dict, model: int, model_size: int,
-                  exact: bool, what: str):
+                  exact: bool, what: str, node=None):
     for k, v in want.items():
-        ref = C.shard(np.asarray(v, np.float32), model, model_size)
+        v = np.asarray(v, np.float32)
+        ref = C.shard(v if node is None else v[node], model, model_size)
         if exact:
             np.testing.assert_array_equal(got[k], ref, err_msg=f"{what} {k}")
         else:
@@ -156,7 +180,111 @@ def _check_rule(world, shape, cid, case):
         assert int(diag["selected"]) == int(want_diag.selected), cid
 
 
+@functools.lru_cache(maxsize=None)
+def _masked_rule(name: str, diagnostics: bool, spec, opts: tuple):
+    """The reference's ``masked_aggregate_flat`` for one rule, jitted once
+    and shared by every case of the same shapes (graphs and weights are
+    arguments)."""
+    return jax.jit(lambda ex, mask, mixing: jtopo.masked_aggregate_flat(
+        name, ex, mask, spec=spec, diagnostics=diagnostics, mixing=mixing,
+        **dict(opts)))
+
+
+@functools.lru_cache(maxsize=None)
+def _dec_reference(num_workers: int, key: tuple):
+    """The reference's dense masked rule for a decentralized case (given
+    as the sorted items of its dict): (leaves (N, ...), the per-sender
+    AggDiagnostics fold or None)."""
+    case = dict(key)
+    cfg = JConfig(aggregator=case["name"],
+                  **{**C.DEC_KW, **dict(case.get("cfg", ()))})
+    msgs = C.MESSAGES[case.get("msgs", "base")](num_workers)
+    msgs = C.nan_rows(msgs) if case.get("nan") else msgs
+    msgs = {k: jnp.asarray(v) for k, v in msgs.items()}
+    graph = (jtopo.cyclic_schedule([jtopo.ring(num_workers),
+                                    jtopo.torus2d(num_workers)])
+             if case["graph"] == "cyclic" else
+             jtopo.get_topology(case["graph"], num_workers, seed=1, p=0.7))
+    sched = jtopo.as_schedule(graph)
+    t = case.get("round_index") or 0
+    mask = jnp.asarray(sched.stacked_masks[t % sched.period])
+    mixing = jnp.asarray(sched.stacked_mixing[t % sched.period], jnp.float32)
+    if case.get("row_weights") is not None:
+        mask = mask * jnp.asarray(case["row_weights"], jnp.float32)[None, :]
+    spec = cfg.message_spec(msgs, batch_ndim=1)
+    buf = spec.pack(msgs)
+    if spec.quantized:
+        buf = spec.wire_roundtrip(buf)
+    is_byz = jnp.arange(num_workers) < cfg.num_byzantine
+    if case.get("noise"):
+        # gaussian with the draws handed in: the port's exchange (held
+        # against the reference's in tests/test_torch_topology.py).
+        ex = build_exchange(torch.from_numpy(np.array(buf)),
+                            cfg.attack_config(),
+                            torch.from_numpy(np.array(mask)),
+                            torch.from_numpy(np.array(is_byz)),
+                            noise=torch.from_numpy(C.dec_noise(num_workers)))
+        ex = jnp.asarray(ex.numpy())
+    else:
+        ex = jtopo.build_exchange(buf, cfg.attack_config(), mask, is_byz,
+                                  spec=spec)
+    gm = mask
+    if cfg.guards:
+        emask = jguards.pairwise_guard_mask(ex, mask,
+                                            multiplier=cfg.guard_multiplier)
+        ex = jguards.sanitize_rows(ex, emask)
+        gm = mask * emask
+    rule = _masked_rule(cfg.aggregator, cfg.diagnostics, spec, (
+        ("max_iters", cfg.weiszfeld_iters), ("tol", cfg.weiszfeld_tol),
+        ("num_groups", cfg.num_groups), ("trim", cfg.trim),
+        ("num_byzantine", cfg.num_byzantine),
+        ("clip_radius", cfg.clip_radius)))
+    out = rule(ex, gm, mixing * gm)
+    out, diag = out if cfg.diagnostics else (out, None)
+    if diag is not None:
+        diag = jdiag.reduce_masked_diagnostics(diag, mask)
+    return spec.unpack(out, batch_ndim=1), diag
+
+
+def _dec_reference_key(case: dict) -> tuple:
+    """What of a decentralized case decides its reference, as a hashable
+    key: not the comm mode, the layout (``packed``) or the channel
+    (``gossip``); the sharded path sends float32 on the bf16 wire, as the
+    reference's, so its reference is the float32 rule."""
+    cfg = {k: v for k, v in case.get("cfg", {}).items()
+           if k not in ("packed", "gossip")}
+    if cfg.get("message_dtype") == "bfloat16" and case["comm"] == "sharded":
+        del cfg["message_dtype"]
+    key = {k: v for k, v in case.items()
+           if k not in ("comm", "cfg", "count_k7", "kernel_flag")}
+    key["cfg"] = tuple(sorted(cfg.items()))
+    return tuple(sorted(key.items()))
+
+
+def _check_dec(world, shape, cid, case):
+    num_workers, model_size = int(np.prod(shape[:-1])), shape[-1]
+    want, want_diag = _dec_reference(num_workers, _dec_reference_key(case))
+    krum = case["name"] == "krum"
+    for res, node, model in _rank_shards(world, shape):
+        got = res[cid]
+        if case.get("count_k7"):
+            got = got["agg"]
+        if want_diag is None:
+            _check_leaves(got, want, model, model_size, krum, cid, node)
+            continue
+        _check_leaves(got["agg"], want, model, model_size, krum, cid, node)
+        diag = got["diag"]
+        for field in ("dist", "weight", "score", "clip_frac"):
+            np.testing.assert_allclose(diag[field],
+                                       np.asarray(getattr(want_diag, field)),
+                                       rtol=1e-5, atol=1e-5,
+                                       err_msg=f"{cid} {field}")
+        assert int(diag["selected"]) == int(want_diag.selected), cid
+
+
 RULE_IDS = [c for c, case in GRID_CASES.items() if case["kind"] == "rule"]
+DEC_GRID_IDS = [c for c, case in GRID_CASES.items() if case["kind"] == "dec"]
+DEC_POD_IDS = [c for c, case in POD_CASES.items() if case["kind"] == "dec"]
 
 
 @pytest.mark.parametrize("cid", RULE_IDS)
@@ -168,6 +296,29 @@ def test_grid_rule_matches_reference(grid_world, cid):
                                  if case["kind"] == "rule"])
 def test_pod_rule_matches_reference(pod_world, cid):
     _check_rule(pod_world, C.POD[0], cid, POD_CASES[cid])
+
+
+@pytest.mark.parametrize("cid", DEC_GRID_IDS)
+def test_grid_decentralized_matches_reference(grid_world, cid):
+    _check_dec(grid_world, C.GRID[0], cid, GRID_CASES[cid])
+
+
+@pytest.mark.parametrize("cid", DEC_POD_IDS)
+def test_pod_decentralized_matches_reference(pod_world, cid):
+    _check_dec(pod_world, C.POD[0], cid, POD_CASES[cid])
+
+
+def test_sharded_trimmed_mean_route_follows_the_device(grid_world):
+    """Every rank runs K7's dispatcher once (trim 1) on the sharded
+    unweighted trimmed mean, whatever ``use_topology_kernel`` says, with
+    the same bits either way; with row weights the weighted form runs in
+    torch instead."""
+    for res in grid_world:
+        on, off = res["dec-route-True"], res["dec-route-False"]
+        assert on["k7_trims"] == off["k7_trims"] == [1]
+        assert res["dec-route-weighted"]["k7_trims"] == []
+        for k in on["agg"]:
+            np.testing.assert_array_equal(on["agg"][k], off["agg"][k])
 
 
 @pytest.mark.parametrize("comm", C.COMMS)

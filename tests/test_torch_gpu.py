@@ -1698,3 +1698,33 @@ def test_bf16_trimmed_odd_offset_takes_one_column_a_thread():
     ops.reset_launch_counts()
     rs.trimmed_mean_call(torch.randn((129, 300), generator=g, device="cuda").bfloat16(), 3)
     assert rs.TRIMMED_LAYOUT_LAUNCHES == {"one": 1, "pairs": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+@pytest.mark.parametrize("dtype,hd,route", [(torch.float32, 64, "simt"),
+                                            (torch.bfloat16, 128, "wgmma")],
+                         ids=["f32-simt", "bf16-wgmma"])
+def test_flash_attention_function_gradients(dtype, hd, route, causal):
+    """K8 for training (``FlashAttention``: the kernel's forward, the plain
+    backward) against autograd of the plain version on the same inputs, at
+    a ragged S with GQA 2:1: the forward ran on ``route``, and every
+    gradient agrees within the route's forward tolerance scaled to the
+    gradient's largest entry."""
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = (x.requires_grad_(True)
+               for x in _flash_inputs(2, 300, 4, 2, hd, dtype, seed=hd))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    dout = torch.randn((2, 300, 4, hd), generator=g, device="cuda").to(dtype)
+    before = dict(fa.VARIANT_LAUNCHES)
+    got = torch.autograd.grad(fa.FlashAttention.apply(q, k, v, causal),
+                              (q, k, v), dout)
+    assert fa.VARIANT_LAUNCHES[route] == before[route] + 1
+    want = torch.autograd.grad(fa.flash_attention_plain(q, k, v, causal),
+                               (q, k, v), dout)
+    tol = FLASH_TOL[dtype]["rtol"]
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == dtype, name
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * float(b.float().abs().max()), (name, err)

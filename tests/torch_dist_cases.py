@@ -1,5 +1,7 @@
 """The cases of ``tests/test_torch_distributed.py``, computed on every rank
-of a local ``gloo`` world (:func:`repro_torch.launch.mesh.spawn_mesh`).
+of a local ``gloo`` world (:func:`repro_torch.launch.mesh.spawn_mesh`):
+the master's aggregation and attack, and the decentralized aggregation
+(``decentralized_aggregate``, one node a worker index).
 
 Each rank makes the same messages from a seed with numpy, takes its worker's
 message and its model shard of it, runs every case and returns its local
@@ -15,7 +17,10 @@ from repro_torch.core.aggregators import AGGREGATOR_NAMES
 from repro_torch.core.robust_step import (RobustConfig, distributed_aggregate,
                                           distributed_attack,
                                           sharded_aggregate)
+from repro_torch.kernels import ops
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.topology import (cyclic_schedule, decentralized_aggregate,
+                                  get_topology, ring, torus2d)
 
 AGGREGATORS = AGGREGATOR_NAMES
 ATTACKS = tuple(attack_lib.ATTACK_NAMES)
@@ -30,6 +35,22 @@ POD = ((2, 4, 1), ("pod", "data", "model"))
 # a worker's slice starts inside or misses, and padding.
 BLOCKWISE_EDGE = {"single_leaf": {"only": (10,)},
                   "three_leaves": {"a": (6,), "b": (3, 3), "c": (7,)}}
+# The decentralized cases' settings: node 0 attacks every edge by
+# sign_flip (the reference's tests/test_distributed.py:228).  Every path
+# stops its Weiszfeld loops together with the dense reference's (the
+# largest move over the receivers), so tol 1e-7 leaves the two within
+# about 1e-6 of each other.
+DEC_KW = dict(RULE_KW, attack="sign_flip", trim=1, weiszfeld_tol=1e-7)
+DEC_GRAPHS = ("ring", "torus2d", "erdos_renyi")
+# Weighted: K7's rule in torch, the Weiszfeld start by K3, Krum's live
+# count, the mixing mean, the segments' weights.  Diagnostics: the
+# Weiszfeld facts, Krum's scores, the clip fraction, the segments'.
+DEC_WEIGHTED = ("geomed", "trimmed_mean", "krum", "mean", "geomed_blockwise")
+DEC_DIAGNOSTICS = ("geomed", "trimmed_mean", "krum", "centered_clip",
+                   "geomed_blockwise")
+# Messages whose local shard (7 + 3 coordinates) the sharded paths pad to
+# a multiple of 4 workers, with slices that end inside a leaf.
+PADDED_SHAPES = {"a": (14,), "b": (3, 2)}
 
 
 def messages(num_workers: int, seed: int = 0) -> dict[str, np.ndarray]:
@@ -37,6 +58,39 @@ def messages(num_workers: int, seed: int = 0) -> dict[str, np.ndarray]:
     rng = np.random.default_rng(seed)
     return {"a": rng.standard_normal((num_workers, 16)).astype(np.float32),
             "b": rng.standard_normal((num_workers, 6, 4)).astype(np.float32)}
+
+
+def padded_messages(num_workers: int) -> dict[str, np.ndarray]:
+    rng = np.random.default_rng(3)
+    return {k: rng.standard_normal((num_workers,) + s).astype(np.float32)
+            for k, s in PADDED_SHAPES.items()}
+
+
+def params_messages(num_workers: int) -> dict[str, np.ndarray]:
+    """Half-stepped models: :func:`messages` moved by a small step."""
+    rng = np.random.default_rng(4)
+    return {k: (v - 0.05 * rng.standard_normal(v.shape)).astype(np.float32)
+            for k, v in messages(num_workers).items()}
+
+
+MESSAGES = {"base": messages, "padded": padded_messages,
+            "params": params_messages}
+
+
+def dec_graph(label: str, num_nodes: int):
+    """A decentralized case's graph: a topology by name, or "cyclic" (ring
+    then torus2d, the reference's time-varying case)."""
+    if label == "cyclic":
+        return cyclic_schedule([ring(num_nodes), torus2d(num_nodes)])
+    return get_topology(label, num_nodes, seed=1, p=0.7)
+
+
+def dec_noise(num_workers: int) -> np.ndarray:
+    """gaussian's per-edge standard-normal draws (N, N, 40) over the
+    packed coordinates of :func:`messages` (leaf a, then b)."""
+    rng = np.random.default_rng(11)
+    return rng.standard_normal((num_workers, num_workers, 40)
+                               ).astype(np.float32)
 
 
 def krum_messages() -> dict[str, np.ndarray]:
@@ -109,6 +163,60 @@ def grid_cases() -> dict[str, dict]:
     for attack in ATTACKS:
         cases[f"attack-{attack}"] = dict(kind="attack", attack=attack)
     cases["perleaf-refusals"] = dict(kind="refusals")
+    for comm in COMMS:
+        # The sharded path pads these messages (the master's rules).
+        for name in ("geomed", "trimmed_mean", "median", "krum",
+                     "centered_clip", "geomed_blockwise"):
+            cases[f"padded-{comm}-{name}"] = dict(
+                kind="rule", comm=comm, name=name, msgs="padded")
+        cases[f"padded-{comm}-int8-geomed"] = dict(
+            kind="rule", comm=comm, name="geomed", msgs="padded",
+            cfg=dict(message_dtype="int8"))
+    cases.update(dec_grid_cases())
+    return cases
+
+
+def dec_grid_cases() -> dict[str, dict]:
+    """The decentralized cases of the (4, 2) world: 4 nodes, each message
+    split over 2 model ranks."""
+    cases = {}
+
+    def dec(cid, comm, name, graph="ring", **kw):
+        cases[f"dec-{cid}"] = dict(kind="dec", comm=comm, name=name,
+                                   graph=graph, **kw)
+
+    for name in AGGREGATORS:
+        dec(f"perleaf-{name}", "gather", name, cfg=dict(packed=False))
+    for comm in COMMS:
+        # The rules whose weighted forms or diagnostics differ in kind.
+        for name in DEC_WEIGHTED:
+            dec(f"weighted-{comm}-{name}", comm, name, graph="complete",
+                row_weights=ROW_WEIGHTS)
+        for name in DEC_DIAGNOSTICS:
+            dec(f"diagnostics-{comm}-{name}", comm, name,
+                cfg=dict(diagnostics=True))
+    for comm in COMMS:
+        for name in ("geomed", "median", "krum"):
+            dec(f"guards-{comm}-{name}", comm, name, cfg=dict(guards=True),
+                nan=True)
+        for wire in ("int8", "sign1", "bfloat16"):
+            for name in ("geomed", "trimmed_mean"):
+                dec(f"wire-{comm}-{wire}-{name}", comm, name,
+                    cfg=dict(message_dtype=wire))
+        dec(f"padded-{comm}-geomed_blockwise", comm, "geomed_blockwise",
+            msgs="padded")
+        for name in ("geomed", "trimmed_mean", "krum", "mean"):
+            dec(f"schedule-{comm}-{name}", comm, name, graph="cyclic",
+                msgs="params", round_index=1, cfg=dict(gossip="params"))
+        dec(f"gaussian-{comm}", comm, "median", noise=True,
+            cfg=dict(attack="gaussian", gaussian_variance=9.0))
+    # The sharded trimmed mean's route: K7 (its plain version here) once a
+    # call, whatever the flag; the weighted form in torch.
+    for flag in (True, False):
+        dec(f"route-{flag}", "sharded", "trimmed_mean", graph="complete",
+            count_k7=True, kernel_flag=flag)
+    dec("route-weighted", "sharded", "trimmed_mean", graph="complete",
+        count_k7=True, row_weights=ROW_WEIGHTS)
     return cases
 
 
@@ -118,6 +226,11 @@ def pod_cases() -> dict[str, dict]:
              for name in AGGREGATORS for comm in COMMS}
     for comm in COMMS:
         cases[f"krum-{comm}"] = dict(kind="krum", comm=comm)
+    for graph in DEC_GRAPHS:
+        for name in AGGREGATORS:
+            for comm in COMMS:
+                cases[f"dec-{graph}-{comm}-{name}"] = dict(
+                    kind="dec", comm=comm, name=name, graph=graph)
     return cases
 
 
@@ -145,6 +258,50 @@ def _local(mesh, msgs: dict, model_size: int) -> dict:
             for k, v in msgs.items()}
 
 
+def local_noise(num_workers: int, model: int, model_size: int) -> torch.Tensor:
+    """:func:`dec_noise` on a model rank's packed local coordinates."""
+    full = dec_noise(num_workers)
+    n = num_workers
+    a = shard(full[..., :16], model, model_size)
+    b = shard(full[..., 16:].reshape(n, n, 6, 4), model, model_size)
+    return torch.from_numpy(np.concatenate([a, b.reshape(n, n, -1)], -1))
+
+
+def _decentralized(mesh, case: dict, model_size: int):
+    n = mesh_lib.num_workers(mesh)
+    msgs = MESSAGES[case.get("msgs", "base")](n)
+    if case.get("nan"):
+        msgs = nan_rows(msgs)
+    cfg = RobustConfig(aggregator=case["name"],
+                       **{**DEC_KW, **case.get("cfg", {})})
+    kw = dict(round_index=case.get("round_index"),
+              use_topology_kernel=case.get("kernel_flag"))
+    if case.get("row_weights") is not None:
+        kw["row_weights"] = torch.tensor(case["row_weights"])
+    if case.get("noise"):
+        kw["noise"] = local_noise(n, mesh.axes("model").index, model_size)
+
+    def run():
+        return decentralized_aggregate(
+            _local(mesh, msgs, model_size), cfg, dec_graph(case["graph"], n),
+            mesh=mesh, comm=case["comm"],
+            worker_axes=mesh_lib.worker_axes(mesh), num_workers=n, **kw)
+
+    if not case.get("count_k7"):
+        return _numpy(run())
+    trims, k7 = [], ops.masked_neighbor_reduce
+
+    def counted(*args, **kwargs):
+        trims.append(kwargs.get("trim"))
+        return k7(*args, **kwargs)
+
+    ops.masked_neighbor_reduce = counted
+    try:
+        return {"agg": _numpy(run()), "k7_trims": trims}
+    finally:
+        ops.masked_neighbor_reduce = k7
+
+
 def _refusals(mesh, local) -> list[str]:
     errors = []
     for kw, cfg in ((dict(row_weights=torch.ones(4)), {}),
@@ -165,8 +322,12 @@ def run_cases(mesh, cases: dict[str, dict]) -> dict:
     out = {}
     for cid, case in cases.items():
         kind = case["kind"]
-        if kind == "rule":
-            data = nan_rows(msgs) if case.get("nan") else msgs
+        if kind == "dec":
+            out[cid] = _decentralized(mesh, case, model_size)
+        elif kind == "rule":
+            data = MESSAGES[case.get("msgs", "base")](
+                mesh_lib.num_workers(mesh))
+            data = nan_rows(data) if case.get("nan") else data
             cfg = RobustConfig(aggregator=case["name"], **RULE_KW,
                                **case.get("cfg", {}))
             kw = {}
