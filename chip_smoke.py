@@ -228,6 +228,26 @@ Phases, in order; any failure exits non-zero:
    float32 (SIMT); K8's forward with the plain backward at workload E's
    per-layer shape beside autograd of the plain version and
    scaled_dot_product_attention's forward and backward (timed only).
+25. The training drivers (run right after phase 24): (c) ``vmap(grad)``
+   over 4 workers through K8 against a loop of per-worker ``grad`` s, bf16
+   (wgmma) within 2e-2 and float32 (SIMT) within 1e-5 of the largest
+   gradient, one launch on the folded batch; (a) the robust-LM twin
+   (``repro_torch.train_robust_lm``) at its 100m preset (12 layers, d_model
+   768, 32,000 vocab, float32, 8 workers of which 2 sign_flip, geomed, SAGA
+   J = 4, 2 x 128 tokens a worker), the example's 300 steps or as many as
+   fit LM_BUDGET_S (printed): K1, K2, K3 and K8 (SIMT, one launch a layer)
+   on every step, their launches per step printed, the loss falling
+   (the last 10 steps' mean below the first 10's), peak memory; (b)
+   ``launch/train.py``'s rank loop on 8 gloo ranks of the card at the
+   reference's test sizes (the reduced qwen2-7b, 2 x 32 tokens a worker):
+   the master step on (4, 2) with SAGA, geomed and one sign_flip worker by
+   gather and by sharded (10 steps each, their parameters within rtol
+   2e-3, atol 2e-4 of each other), the decentralized step on a ring of 8
+   nodes (mesh (8, 1)) with the trimmed mean in both gossip modes and both
+   comm paths (5 steps each: consensus_dist finite, K7 on every rank every
+   step), and the rollback run twice (RunHealth arms, equal resilience on
+   every rank); launch counts reset just before each run and read just
+   after, step times and peak memory a rank printed.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -3831,6 +3851,244 @@ def phase_training(torch, card):
     return counts, timing, err
 
 
+# ---- Phase 25: the training drivers -----------------------------------------------
+
+# (a) The robust-LM twin at its full 100m preset: the example's 300 steps,
+# stopped after LM_BUDGET_S seconds if it is slower (the steps that ran are
+# printed).  (b) launch/train.py's rank loop on 8 gloo ranks of the card at
+# the reference's test sizes (tests/test_distributed.py:600-612: the
+# reduced qwen2-7b, 2 sequences of 32 tokens a worker).  (c) torch.func
+# through K8.
+LM_STEPS, LM_BUDGET_S = 300, 40.0
+LM_KERNELS = ("saga_correct", "partial_sqdist", "weighted_sum")
+DRIVER_STEPS, DEC_DRIVER_STEPS, DRIVER_TIMEOUT = 10, 5, 600.0
+MASTER_FLAGS = dict(mesh="4x2", vr="saga", aggregator="geomed",
+                    attack="sign_flip", byzantine=1)
+# The decentralized runs: one node a rank on a ring of 8, trimmed_mean
+# (trim 1 on its 3-node neighbourhoods), node 0 sign_flip per edge.
+DEC_FLAGS = dict(mesh="8x1", topology="ring", aggregator="trimmed_mean",
+                 attack="sign_flip", byzantine=1, vr="saga")
+ROLLBACK_FLAGS = dict(mesh="4x2", aggregator="mean", guards=True,
+                      loss_blowup=0.5, rollback_patience=2, max_rollbacks=1,
+                      checkpoint_every=2)
+FUNC_CHECKS = (("bfloat16", "wgmma", 2e-2), ("float32", "simt", 1e-5))
+
+
+def driver_args(**flags) -> dict:
+    """launch/train.py's flags as its parser gives them, on the card."""
+    from repro_torch.launch import train as train_lib
+    argv = ["--arch", "qwen2-7b", "--reduced", "--device", "cuda", "--seq",
+            "32", "--per-worker-batch", "2"]
+    for k, v in flags.items():
+        argv += [f"--{k.replace('_', '-')}"] + ([] if v is True else [str(v)])
+    return vars(train_lib.parser().parse_args(argv))
+
+
+def driver_runs(tmp: str) -> list:
+    """(label, flags) of every phase 25 (b) run, in order."""
+    runs = [(f"master {comm}", dict(MASTER_FLAGS, comm=comm,
+                                    steps=DRIVER_STEPS))
+            for comm in ("gather", "sharded")]
+    runs += [(f"ring {gossip} {comm}", dict(DEC_FLAGS, gossip=gossip, comm=comm,
+                                            steps=DEC_DRIVER_STEPS))
+             for gossip in ("gradient", "params") for comm in ("gather", "sharded")]
+    runs += [(f"rollback {tag}", dict(
+        ROLLBACK_FLAGS, steps=6, checkpoint_dir=os.path.join(tmp, tag + "-ckpt"),
+        log_dir=os.path.join(tmp, tag + "-log"))) for tag in ("a", "b")]
+    return runs
+
+
+def driver_rank(mesh, runs):
+    """Phase 25 (b) on one rank: each run of launch/train.py's rank loop
+    (``train.run``) on its mesh ((4, 2), or (8, 1) for the ring), the
+    launch counts reset just before each and read just after."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as train_lib
+    meshes = {tuple(mesh.shape): mesh}
+    out = {}
+    for label, flags in runs:
+        shape, axes = train_lib.mesh_shape(flags["mesh"])
+        if shape not in meshes:
+            meshes[shape] = mesh_lib.make_host_mesh(shape, axes)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train_lib.run(meshes[shape], driver_args(**flags))
+        torch.cuda.synchronize()
+        out[label] = dict(res, seconds=time.perf_counter() - t0,
+                          launches=launch_counts(),
+                          routes=dict(fa.VARIANT_LAUNCHES),
+                          peak=torch.cuda.max_memory_allocated())
+    return out
+
+
+def phase_lm_twin(torch, card):
+    """Phase 25 (a): the robust-LM twin at 100m (8 workers, 2 sign_flip,
+    geomed, SAGA J = 4, 2 x 128 tokens a worker, float32: K8's SIMT route):
+    K1 once, K2 and K3 and K8 (one SIMT launch a layer: the vmap rule folds
+    the workers into the batch) on every step; the loss falls."""
+    from repro_torch import train_robust_lm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train_robust_lm.main(["--preset", "100m", "--steps", str(LM_STEPS),
+                                "--max-seconds", str(LM_BUDGET_S),
+                                "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps, losses, launches = len(out["losses"]), out["losses"], out["launches"]
+    layers = train_robust_lm.PRESETS["100m"].num_layers
+    for k in LM_KERNELS + ("flash_attention simt", "flash_attention wgmma"):
+        runs, last = [], None
+        for n in (step[k] for step in launches):
+            if runs and n == last:
+                runs[-1][1] += 1
+            else:
+                runs.append([n, 1])
+            last = n
+        log(f"  robust LM launches per step, {k}: "
+            + ", ".join(f"{n} x {c}" if c > 1 else str(n) for n, c in runs))
+    for i, step in enumerate(launches):
+        assert step["saga_correct"] == 1, (i, step)
+        assert step["partial_sqdist"] > 0 and step["weighted_sum"] > 0, (i, step)
+        assert step["flash_attention simt"] == layers, (i, step)
+        assert step["flash_attention wgmma"] == 0, (i, step)
+    head, tail = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    log(f"robust LM 100m ({card}): {out['params']:,} parameters, {steps} of "
+        f"{LM_STEPS} steps in {wall:.1f} s (budget {LM_BUDGET_S:g} s), step "
+        f"{statistics.median(out['step_s']) * 1e3:.3f} ms (median, host clock), "
+        f"peak memory {peak / 1e9:.2f} GB; mean loss of the first 10 steps "
+        f"{head:.6f}, of the last 10 {tail:.6f} (first {losses[0]:.6f}, last "
+        f"{losses[-1]:.6f}); K1, K2, K3 and K8 (SIMT, {layers} a step) on "
+        f"every step")
+    assert all(math.isfinite(x) for x in losses), "robust LM: a loss is not finite"
+    assert tail < head, f"robust LM: the loss did not fall ({head} -> {tail})"
+    torch.cuda.empty_cache()
+    return steps
+
+
+def phase_drivers(torch, card):
+    """Phase 25 (b): launch/train.py's rank loop on 8 gloo ranks of the card:
+    the master step with SAGA and geomed under sign_flip by gather and by
+    sharded (their parameters after 10 steps within rtol 2e-3, atol 2e-4),
+    the decentralized step on a ring of 8 with trimmed_mean (both gossip
+    modes, both comm paths; consensus_dist finite, K7 on every rank), the
+    rollback run twice (RunHealth armed, equal resilience)."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import mesh as mesh_lib
+    tmp = tempfile.mkdtemp(prefix="drivers_")
+    t0 = time.perf_counter()
+    try:
+        ranks = mesh_lib.spawn_mesh(driver_rank, (4, 2), ("data", "model"),
+                                    args=(driver_runs(tmp),),
+                                    timeout=DRIVER_TIMEOUT)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log(f"training drivers ({card}; gloo staging each collective through "
+        f"the host, 8 processes on one card): world {wall:.1f} s")
+    for label, _ in driver_runs(tmp):
+        res = [r[label] for r in ranks]
+        row = res[0]["row"]
+        counts = {k: [r["launches"].get(k, 0) for r in res]
+                  for k in ("saga_correct", "partial_sqdist", "weighted_sum",
+                            "masked_neighbor_reduce", "flash_attention")}
+        extra = (f" consensus_dist {row['consensus_dist']:.6g}"
+                 if "consensus_dist" in row else "")
+        log(f"  {label:<22} loss {row['loss']:.6f} agg_norm "
+            f"{row['agg_norm']:.6f}{extra}; {res[0]['seconds']:.2f} s "
+            f"(last step {row.get('time_step_s', float('nan')) * 1e3:.1f} ms), "
+            f"peak {max(r['peak'] for r in res) / 1e9:.3f} GB a rank; K8 by "
+            f"route {res[0]['routes']}; launches a rank {counts}")
+        assert all(math.isfinite(r["row"]["loss"]) for r in res), label
+        assert all(n > 0 for n in counts["flash_attention"]), \
+            f"{label}: K8 not launched on every rank"
+        if label.startswith("master"):
+            for k in ("saga_correct", "partial_sqdist", "weighted_sum"):
+                assert all(n > 0 for n in counts[k]), \
+                    f"{label}: {k} not launched on every rank"
+            assert res[0]["routes"]["simt"] == 2 * DRIVER_STEPS, res[0]["routes"]
+        if label.startswith("ring"):
+            assert math.isfinite(row["consensus_dist"]), label
+            assert all(n >= DEC_DRIVER_STEPS
+                       for n in counts["masked_neighbor_reduce"]), \
+                f"{label}: K7 not launched on every rank every step"
+    gather = ranks[0]["master gather"]["params"]
+    sharded = ranks[0]["master sharded"]["params"]
+    worst = max(float((abs(sharded[k] - v)
+                       / (2e-3 * abs(v) + 2e-4)).max()) for k, v in gather.items())
+    log(f"  master gather against sharded after {DRIVER_STEPS} steps: largest "
+        f"|diff| / (2e-3 |p| + 2e-4) {worst:.4f} (limit 1)")
+    assert worst <= 1.0, f"gather and sharded parameters differ: {worst}"
+    r_a, r_b = (ranks[0][f"rollback {t}"]["resilience"] for t in ("a", "b"))
+    log(f"  rollback: {r_a}; the second run's equal on every rank: "
+        f"{all(r['rollback a']['resilience'] == r['rollback b']['resilience'] == r_a for r in ranks)}")
+    assert r_a["rollbacks"] >= 1, r_a
+    assert all(r["rollback a"]["resilience"] == r["rollback b"]["resilience"]
+               == r_a for r in ranks)
+    return wall
+
+
+def phase_func_k8(torch, card):
+    """Phase 25 (c): ``vmap(grad)`` over 4 workers through K8 (the
+    dispatcher, so ``FlashAttention``) against a loop of per-worker
+    ``grad`` s, bf16 on the wgmma route and float32 on the SIMT route: one
+    launch on the folded batch against one a worker, the gradients within
+    the route's tolerance of their largest entry."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    w, b, s, h, kv, hd, d = 4, 2, 256, 8, 2, 64, 128
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    for name, route, tol in FUNC_CHECKS:
+        dtype = getattr(torch, name)
+        x = torch.randn((w, b, s, d), generator=gen, device="cuda").to(dtype)
+        params = {n: (torch.randn((d, m * hd), generator=gen, device="cuda")
+                      * d ** -0.5).to(dtype)
+                  for n, m in (("wq", h), ("wk", kv), ("wv", kv))}
+
+        def loss(p, xb):
+            q = (xb @ p["wq"]).reshape(b, s, h, hd)
+            k = (xb @ p["wk"]).reshape(b, s, kv, hd)
+            v = (xb @ p["wv"]).reshape(b, s, kv, hd)
+            return torch.sum(ops.flash_attention(q, k, v).float() ** 2)
+
+        ops.reset_launch_counts()
+        batched = torch.func.vmap(torch.func.grad(loss), in_dims=(None, 0))(
+            params, x)
+        torch.cuda.synchronize()
+        vmapped = dict(fa.VARIANT_LAUNCHES)
+        ops.reset_launch_counts()
+        loop = [torch.func.grad(loss)(params, x[i]) for i in range(w)]
+        torch.cuda.synchronize()
+        looped = dict(fa.VARIANT_LAUNCHES)
+        err = max(float((batched[n][i].float() - loop[i][n].float()).abs().max())
+                  / float(loop[i][n].float().abs().max())
+                  for i in range(w) for n in params)
+        log(f"torch.func through K8 ({card}), {name}: vmap(grad) over {w} "
+            f"workers launches {vmapped}, the per-worker loop {looped}; "
+            f"largest max|diff| / max|g| {err:.3g} (limit {tol})")
+        assert vmapped == {route: 1, ("simt" if route == "wgmma" else "wgmma"): 0}, vmapped
+        assert looped[route] == w, looped
+        assert err <= tol, f"vmap(grad) through K8, {name}: {err} > {tol}"
+
+
+def phase_train_drivers(torch, card):
+    """Phase 25: (c), (a), then (b); returns the seconds it took."""
+    t0 = time.perf_counter()
+    phase_func_k8(torch, card)
+    lm_steps = phase_lm_twin(torch, card)
+    world = phase_drivers(torch, card)
+    total = time.perf_counter() - t0
+    log(f"phase 25 ({card}): {total:.1f} s (robust LM {lm_steps} steps, "
+        f"driver world {world:.1f} s)")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3909,6 +4167,7 @@ def main() -> int:
     train_counts, timing["flash_attention train"], errs["flash_attention train"] = \
         phase_training(torch, card)
     counts["training"] = {"flash_attention train": train_counts["flash_attention"]}
+    phase_train_drivers(torch, card)
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[KERNEL_PATH[name]][name],
                     max_abs_err=errs[name], **timing[name])

@@ -705,7 +705,8 @@ def _local_leaf_ids(leaf_sizes, pad: int, num_workers: int, worker: int,
 def distributed_aggregate(grads: Params, cfg: RobustConfig, *, mesh,
                           worker_axes=("data",), model_axes=("model",),
                           row_weights: Optional[torch.Tensor] = None,
-                          diagnostics: Optional[bool] = None):
+                          diagnostics: Optional[bool] = None,
+                          return_guard_mask: bool = False):
     """The paper's ``gather`` master across ranks: every worker's message
     (its model shard) is all-gathered over the worker axes and every rank
     runs the rule on the (W, D_shard) stack, the rows' distance partials
@@ -717,8 +718,10 @@ def distributed_aggregate(grads: Params, cfg: RobustConfig, *, mesh,
     the model axes) and decodes them on the receiver; the bf16 wire's
     buffer is bf16 and the kernels read it as it is.  ``row_weights``: (W,)
     staleness weights, the same on every rank.  ``cfg.guards`` masks rows
-    (the mask is the same on every rank) and ``diagnostics`` (default
-    ``cfg.diagnostics``) returns ``(tree, AggDiagnostics)``.  The per-leaf
+    (the mask is the same on every rank; ``return_guard_mask`` returns
+    ``(result, mask)``, the (W,) mask for the quarantined-row count) and
+    ``diagnostics`` (default ``cfg.diagnostics``) returns ``(tree,
+    AggDiagnostics)``.  The per-leaf
     baseline (``packed=False``) gathers each leaf and runs the per-leaf
     rule; it refuses the options above, as the reference does."""
     wa, ma = mesh.axes(*worker_axes), mesh.axes(*model_axes)
@@ -734,6 +737,7 @@ def distributed_aggregate(grads: Params, cfg: RobustConfig, *, mesh,
             stacked = coll.all_gather(buf, wa)
         flat_fn = cfg.flat_aggregator_fn(spec, axis_names=ma, sync_axes=wa,
                                          diagnostics=diag_on)
+        gmask = None
         if cfg.guards:
             # After the gather the worker axes hold the same rows, so the
             # row statistics are summed over the model axes only.
@@ -748,8 +752,10 @@ def distributed_aggregate(grads: Params, cfg: RobustConfig, *, mesh,
             out = flat_fn(stacked, row_weights=row_weights)
         if diag_on:
             vec, diag = out
-            return spec.unpack(vec, batch_ndim=0), diag
-        return spec.unpack(out, batch_ndim=0)
+            result = spec.unpack(vec, batch_ndim=0), diag
+        else:
+            result = spec.unpack(out, batch_ndim=0)
+        return (result, gmask) if return_guard_mask else result
     for what, on in (("staleness row_weights", row_weights is not None),
                      ("fault-containment guards", cfg.guards),
                      ("aggregation diagnostics", diag_on)):
@@ -759,8 +765,9 @@ def distributed_aggregate(grads: Params, cfg: RobustConfig, *, mesh,
                              "no flat buffer")
     cfg.check_wire()
     stacked = {k: coll.all_gather(g, wa) for k, g in grads.items()}
-    return cfg.aggregator_fn(perleaf=True, axis_names=ma,
-                             sync_axes=wa)(stacked)
+    result = cfg.aggregator_fn(perleaf=True, axis_names=ma,
+                               sync_axes=wa)(stacked)
+    return (result, None) if return_guard_mask else result
 
 
 def sharded_aggregate(grads: Params, cfg: RobustConfig, *, mesh,

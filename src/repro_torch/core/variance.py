@@ -256,9 +256,13 @@ class PerLeafReducer:
                 return fresh[k].reshape(sel.shape[0], -1)
 
             def leaf_oracles(k):
+                # Without a full-gradient oracle (the launch path) the
+                # anchor refreshes from the batch gradient, as the flat
+                # reducer's does.
                 return dict(params=params[k].reshape(w, -1),
                             grads_at=lambda p: at_snap[k].reshape(w, -1),
-                            full_grads_at=lambda sel: full(k, sel))
+                            full_grads_at=(None if full_grads_at is None
+                                           else lambda sel: full(k, sel)))
         msgs, metrics = {}, {}
         for k, g in grads.items():
             m, state[k], metrics = self.flat.correct(

@@ -30,7 +30,9 @@ card's checks compare against.
 Training: :class:`FlashAttention` is K8 as a ``torch.autograd.Function``.
 Its forward launches :func:`flash_attention_call`; its backward is
 :func:`flash_attention_backward_plain`, plain PyTorch that recomputes the
-float32 probabilities from q and k.  The reference has no backward kernel
+float32 probabilities from q and k.  It runs under ``torch.func.grad`` and
+``torch.func.vmap`` too (a vmapped dimension folded into B), which is how
+the training drivers take per-worker gradients.  The reference has no backward kernel
 either -- its Pallas K8 has no ``custom_vjp``, and its training
 differentiates the jnp ``_flash`` -- so none is written here; a
 hand-written backward kernel is queued (ROADMAP.md Queue B, K8).
@@ -145,19 +147,20 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
     P o (dO V^T - rowsum(dO o O)), dQ = c dS K, dK = c dS^T Q, dK and dV
     summed over the query heads of each key/value head.  One batch row
     and one key/value head at a time, so at most (H / KV, S, S) float32
-    scores exist at once."""
+    scores exist at once; the pieces are stacked, never written into a
+    buffer, so the function also runs on ``torch.func.vmap``'s batched
+    tensors (the backward of :class:`FlashAttention` under ``vmap(grad)``)."""
     b, s, h, hd = q.shape
     kv = k.shape[2]
     rep = h // kv
     scale = hd ** -0.5
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
     masked = None
     if causal:
         pos = torch.arange(s, device=q.device)
         masked = pos[None, :] > pos[:, None]
+    dqs, dks, dvs = [], [], []
     for bi in range(b):
+        dq_b, dk_b, dv_b = [], [], []
         for g in range(kv):
             heads = slice(g * rep, (g + 1) * rep)
             qg = q[bi, :, heads].float().transpose(0, 1)          # (rep, S, hd)
@@ -169,12 +172,16 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
             if masked is not None:
                 sc = sc.masked_fill(masked, NEG_INF)
             p = torch.softmax(sc, dim=-1)
-            dv[bi, :, g] = torch.sum(torch.matmul(p.transpose(1, 2), dog), 0)
+            dv_b.append(torch.sum(torch.matmul(p.transpose(1, 2), dog), 0))
             dp = torch.matmul(dog, vg.T)                           # (rep, S, S)
             ds = p * (dp - torch.sum(dog * og, dim=-1, keepdim=True))
-            dq[bi, :, heads] = (torch.matmul(ds, kg) * scale).transpose(0, 1)
-            dk[bi, :, g] = torch.sum(torch.matmul(ds.transpose(1, 2), qg),
-                                     0) * scale
+            dq_b.append((torch.matmul(ds, kg) * scale).transpose(0, 1))
+            dk_b.append(torch.sum(torch.matmul(ds.transpose(1, 2), qg),
+                                  0) * scale)
+        dqs.append(torch.cat(dq_b, dim=1))                         # (S, H, hd)
+        dks.append(torch.stack(dk_b, dim=1))                       # (S, KV, hd)
+        dvs.append(torch.stack(dv_b, dim=1))
+    dq, dk, dv = torch.stack(dqs), torch.stack(dks), torch.stack(dvs)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -182,14 +189,26 @@ class FlashAttention(torch.autograd.Function):
     """K8 for training: the forward launches the kernel
     (:func:`flash_attention_call`, its route by :func:`variant`), the
     backward runs :func:`flash_attention_backward_plain` on the saved q, k,
-    v and output."""
+    v and output.
+
+    It runs under ``torch.func`` as under autograd: the context is set up
+    apart from the forward (``setup_context``), so ``torch.func.grad``
+    differentiates it, and :meth:`vmap` folds a vmapped dimension into B
+    (``(N, B, S, ...)`` -> ``(N * B, S, ...)``), launches the kernel once
+    on the folded batch and unfolds the output, so ``vmap(grad(loss))``
+    over N workers launches K8 once a layer, never its plain version.  The
+    backward is plain PyTorch and is batched by ``vmap`` like any other
+    code."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
-        out = flash_attention_call(q, k, v, causal)
-        ctx.save_for_backward(q, k, v, out)
+    def forward(q, k, v, causal: bool):
+        return flash_attention_call(q, k, v, causal)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal = inputs
+        ctx.save_for_backward(q, k, v, output)
         ctx.causal = causal
-        return out
 
     @staticmethod
     def backward(ctx, dout):
@@ -197,6 +216,19 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_backward_plain(q, k, v, out, dout,
                                                     ctx.causal)
         return dq, dk, dv, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal: bool):
+        n = info.batch_size
+
+        def fold(t, dim):
+            t = (t.unsqueeze(0).expand((n,) + tuple(t.shape)) if dim is None
+                 else t.movedim(dim, 0))
+            return t.reshape((n * t.shape[1],) + tuple(t.shape[2:]))
+
+        out = FlashAttention.apply(fold(q, in_dims[0]), fold(k, in_dims[1]),
+                                   fold(v, in_dims[2]), causal)
+        return out.reshape((n, -1) + tuple(out.shape[1:])), 0
 
 
 def flash_attention_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

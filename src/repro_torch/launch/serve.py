@@ -8,10 +8,10 @@ On the card (the default ``--device cuda``) the prefill's attention runs
 kernel K8.  Weights are random, drawn from ``--seed``, and so are the
 prompt tokens.  The cache is allocated once at prompt + decode capacity;
 the reference pads it to that capacity after prefill, with the same
-result.  ``--mesh`` (serving on a device mesh) raises: the mesh and its
-collectives are ported (:mod:`repro_torch.launch.mesh`), the parameter
-sharding and the sequence-sharded decode are not (ROADMAP.md Queue A 10b.2
-and 11.7).
+result.  ``--mesh`` (serving on a device mesh) raises: the mesh, its
+collectives and the parameter sharding are ported
+(:mod:`repro_torch.launch.mesh`, :mod:`repro_torch.launch.sharding`), the
+sequence-sharded decode is not (ROADMAP.md Queue A 11.7).
 """
 from __future__ import annotations
 
@@ -78,15 +78,14 @@ def main(argv: Optional[list[str]] = None) -> dict:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--decode-tokens", type=int, default=16)
     ap.add_argument("--mesh", default="", help="e.g. 4x2 (data x model); "
-                    "not ported yet (ROADMAP.md Queue A 10b.2, 11.7)")
+                    "not ported yet (ROADMAP.md Queue A 11.7)")
     ap.add_argument("--device", default=DEFAULT_DEVICE)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.mesh:
         raise NotImplementedError(
-            "--mesh: serving on a device mesh needs the parameter sharding "
-            "(launch/sharding.py) and the sequence-sharded decode, not "
-            "ported yet (ROADMAP.md Queue A 10b.2, 11.7)")
+            "--mesh: serving on a device mesh needs the sequence-sharded "
+            "decode, not ported yet (ROADMAP.md Queue A 11.7)")
     cfg: ModelConfig = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()

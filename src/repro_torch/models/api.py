@@ -1,13 +1,15 @@
 """Model API: ``build_model(cfg)`` -> :class:`Model` (port of
 ``repro/models/api.py``).
 
-One object per architecture exposing ``init`` / ``loss`` / ``prefill`` /
-``decode_step`` / ``init_cache`` for the dense decoders.  The other
-families raise ``NotImplementedError`` naming the ROADMAP.md entry that
-ports them; the reference's sharding and dry-run interpretations of the
-parameter tree (``param_specs``, ``param_structs``, ``cache_specs``,
-``cache_structs``) come with the training drivers and the analysis
-(Queue A 10b.2 and 11.8).
+One object per architecture exposing ``init`` / ``param_specs`` /
+``param_structs`` / ``loss`` / ``prefill`` / ``decode_step`` /
+``init_cache`` for the dense decoders.  The other families raise
+``NotImplementedError`` naming the ROADMAP.md entry that ports them.
+``param_specs(axis_sizes)`` and ``param_structs()`` are the reference's
+sharding and shape interpretations of the parameter tree, by
+``named_parameters`` name (:func:`repro_torch.models.transformer.param_specs`);
+the cache's (``cache_specs``, ``cache_structs``) come with the analysis
+(Queue A 11.8).
 """
 from __future__ import annotations
 
@@ -32,6 +34,8 @@ _UNPORTED_FAMILIES = {
 class Model(NamedTuple):
     cfg: ModelConfig
     init: Callable[..., tfm.Decoder]
+    param_specs: Callable[[dict], dict]
+    param_structs: Callable[[], dict]
     loss: Callable[[tfm.Decoder, dict], torch.Tensor]
     prefill: Callable[..., tuple]
     decode_step: Callable[..., tuple]
@@ -48,7 +52,9 @@ def build_model(cfg: ModelConfig, *,
     with ``remat`` (recompute each block in the backward) and
     ``loss_chunk`` (the cross-entropy's chunk); the parameters come from
     ``init`` without gradients, so a trainer calls
-    ``params.requires_grad_()`` first.  The reference's
+    ``params.requires_grad_()`` first, or differentiates the loss of the
+    flat dict :func:`~repro_torch.models.transformer.flat_params` with
+    ``torch.func``.  The reference's
     ``q_chunk``/``kv_chunk`` set its jnp attention tiling; the port's
     attention tile is kernel K8's own, so it takes neither."""
     if cfg.family != "dense":
@@ -74,5 +80,12 @@ def build_model(cfg: ModelConfig, *,
         return tfm.init_decode_cache(cfg, batch, max_len, dtype,
                                      resolve_device(device))
 
+    def param_specs(axis_sizes: dict[str, int]) -> dict[str, tuple]:
+        return tfm.param_specs(cfg, axis_sizes)
+
+    def param_structs() -> dict[str, torch.Tensor]:
+        return tfm.param_structs(cfg)
+
     loss = tfm.make_loss(cfg, remat=remat, loss_chunk=loss_chunk)
-    return Model(cfg, init, loss, prefill_fn, decode_fn, init_cache)
+    return Model(cfg, init, param_specs, param_structs, loss, prefill_fn,
+                 decode_fn, init_cache)

@@ -41,13 +41,20 @@ _UNPORTED = {
     "cross_kv": _CROSS,
     "cross": _CROSS,
     "seq_shard_axis": "the sequence-sharded decode (ROADMAP.md Queue A "
-                      "11.7, after the training drivers of Queue A 10b.2)",
+                      "11.7)",
 }
 
 
 def unported(feature: str) -> NotImplementedError:
     return NotImplementedError(f"{feature}: {_UNPORTED[feature]} is not "
                                "ported yet")
+
+
+# The reference's sharding of each leaf over the "model" axis (its heads'
+# dimension), as spec tuples (repro/models/attention.py:32-40).
+PARAM_SPECS = {"wq": (None, "model"), "wk": (None, "model"),
+               "wv": (None, "model"), "wo": ("model", None),
+               "bq": ("model",), "bk": ("model",), "bv": ("model",)}
 
 
 def attn_params(make, prefix: str, *, d_model: int, num_heads: int,

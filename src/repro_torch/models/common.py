@@ -6,7 +6,9 @@ for the one interpretation serving needs: :func:`init_maker` returns a
 maker that draws an initialized :class:`torch.nn.Parameter` with the
 reference's distributions from a :class:`torch.Generator`.  The
 reference's ``spec_maker``/``struct_maker`` (sharding and the dry-run)
-wait for the distributed runtime (ROADMAP.md Queue A 10b.2).
+come as :func:`fit_spec` (the sharding, used by
+:func:`repro_torch.models.transformer.param_specs`) and meta tensors
+(the structs, :func:`repro_torch.models.transformer.param_structs`).
 
 Also here: RMSNorm/LayerNorm, RoPE and the activations, float32 inside and
 cast back to the input's dtype as in the reference, and
@@ -59,6 +61,30 @@ def init_maker(generator: torch.Generator, dtype: torch.dtype,
         return torch.nn.Parameter(t, requires_grad=False)
 
     return make
+
+
+def fit_spec(shape: Sequence[int], spec: tuple,
+             axis_sizes: dict[str, int]) -> tuple:
+    """The reference's ``spec_maker`` on one leaf: ``spec`` (one entry a
+    dimension: None, an axis name or a tuple of them; missing entries
+    None) with every sharding whose axes' combined size does not divide its
+    dimension replaced by None."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    out = []
+    for dim, names in zip(shape, spec):
+        total = 1
+        for n in (() if names is None else
+                  names if isinstance(names, tuple) else (names,)):
+            total *= axis_sizes.get(n, 1)
+        out.append(names if names is not None and dim % total == 0 else None)
+    return tuple(out)
+
+
+def transforms_active() -> bool:
+    """Whether a ``torch.func`` transform (``grad``, ``vmap``) is running.
+    Saved-tensor hooks, which ``torch.utils.checkpoint`` recomputes
+    through, do not run under one."""
+    return torch._C._are_functorch_transforms_active()
 
 
 # ---------------------------------------------------------------------------
@@ -141,7 +167,9 @@ def chunked_xent(h: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor, *,
     ``chunk`` positions at a time (a ragged S is padded with mask 0), so
     the (B, S, V) logits never exist at once; under autograd each chunk is
     recomputed in the backward (``torch.utils.checkpoint``) rather than
-    kept."""
+    kept.  Under a ``torch.func`` transform, where that recompute cannot
+    run (:func:`transforms_active`), the chunks' logits are kept for the
+    backward."""
     b, s, _ = h.shape
     chunk = min(chunk, s)
     mask = (torch.ones((b, s), dtype=torch.float32, device=h.device)
@@ -152,7 +180,8 @@ def chunked_xent(h: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor, *,
         labels = F.pad(labels, (0, pad))
         mask = F.pad(mask, (0, pad))
     emb32 = emb.float()
-    keep = torch.is_grad_enabled() and (h.requires_grad or emb.requires_grad)
+    keep = (torch.is_grad_enabled() and (h.requires_grad or emb.requires_grad)
+            and not transforms_active())
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     for a in range(0, s + pad, chunk):
         args = (h[:, a:a + chunk], emb32, labels[:, a:a + chunk],

@@ -14,6 +14,12 @@ from repro_torch.models.common import ACTIVATIONS
 GATED = {"swiglu": "silu", "geglu": "gelu"}
 
 
+# The reference's sharding of each leaf over the "model" axis (the hidden
+# dimension), as spec tuples (repro/models/mlp.py:17-20).
+PARAM_SPECS = {"w_in": (None, "model"), "w_gate": (None, "model"),
+               "w_out": ("model", None)}
+
+
 def mlp_params(make, prefix: str, *, d_model: int, d_ff: int,
                activation: str) -> torch.nn.ParameterDict:
     p = {"w_in": make(f"{prefix}.w_in", (d_model, d_ff)),

@@ -10,13 +10,19 @@ write into it in place.
 
 Entry points: :func:`forward_hidden`, :func:`make_loss` (the training
 loss), :func:`prefill` (last-token logits in float32, and the cache) and
-:func:`decode_step` (one token, float32 logits).  Attention blocks with a
+:func:`decode_step` (one token, float32 logits).  The training drivers
+hold the parameters as a flat dict of tensors (:func:`flat_params`, the
+``named_parameters`` names) and the loss reads such a dict as the decoder
+(:func:`nest`), which is what ``torch.func.grad`` differentiates;
+:func:`param_specs` and :func:`param_structs` are the reference's sharding
+and shape interpretations of the same tree.  Attention blocks with a
 dense FFN are ported; MoE, Mamba and cross-attention blocks, the VLM
 prefix and the sliding window raise ``NotImplementedError`` (ROADMAP.md
 Queue A 11.2-11.6).
 """
 from __future__ import annotations
 
+import types
 from typing import Optional
 
 import torch
@@ -26,7 +32,8 @@ from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
-from repro_torch.models.common import chunked_xent, layernorm, rmsnorm
+from repro_torch.models.common import (chunked_xent, fit_spec, layernorm,
+                                       rmsnorm, transforms_active)
 
 _UNPORTED_BLOCKS = {
     "moe": "MoE blocks (qwen2-moe, mixtral; ROADMAP.md Queue A 11.3)",
@@ -113,6 +120,65 @@ def decoder_params(make, cfg: ModelConfig, *, prefix: str = "dec") -> Decoder:
     return Decoder(embed, blocks, final_norm, unembed)
 
 
+# The reference's sharding of the leaves outside attention and the FFN
+# (repro/models/transformer.py:41-105).
+PARAM_SPECS = {"embed": ("model", None), "unembed": (None, "model"),
+               "scale": (None,), "bias": (None,),
+               **attn_lib.PARAM_SPECS, **mlp_lib.PARAM_SPECS}
+
+
+def _meta_maker(dtype: torch.dtype):
+    def make(path, shape, init=None) -> torch.nn.Parameter:
+        del path, init
+        return torch.nn.Parameter(torch.empty(tuple(shape), dtype=dtype,
+                                              device="meta"),
+                                  requires_grad=False)
+    return make
+
+
+def param_structs(cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """Every parameter as a meta tensor of its shape and ``cfg.dtype``,
+    by its ``named_parameters`` name (the reference's ``struct_maker``)."""
+    model = decoder_params(_meta_maker(cfg.dtype), cfg)
+    return {name: p.data for name, p in model.named_parameters()}
+
+
+def param_specs(cfg: ModelConfig, axis_sizes: dict[str, int]
+                ) -> dict[str, tuple]:
+    """Every parameter's sharding as the reference's ``spec_maker`` gives
+    it for mesh axes of ``axis_sizes``: one entry a dimension (None or an
+    axis name), a sharding that does not divide its dimension replaced by
+    None.  The reference stacks a pattern position's layers and so has one
+    more leading None; the port's layers are leaves of their own."""
+    return {name: fit_spec(t.shape, PARAM_SPECS[name.rsplit(".", 1)[-1]],
+                           axis_sizes)
+            for name, t in param_structs(cfg).items()}
+
+
+def flat_params(params: Decoder) -> dict[str, torch.Tensor]:
+    """The decoder's parameters as a flat dict by ``named_parameters``
+    name, detached (the same storage)."""
+    return {name: p.detach() for name, p in params.named_parameters()}
+
+
+def nest(flat: dict[str, torch.Tensor], cfg: ModelConfig):
+    """A flat parameter dict (:func:`flat_params`' names) as the structure
+    the forward reads: ``embed``, ``blocks`` (a dict of dicts a layer),
+    ``final_norm``, ``unembed``.  The tensors are the dict's own, so a
+    ``torch.func`` transform of a function of ``flat`` sees through."""
+    blocks = [{} for _ in range(cfg.num_layers)]
+    top: dict = {"final_norm": {}, "unembed": None}
+    for name, t in flat.items():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            blocks[int(parts[1])].setdefault(parts[2], {})[parts[3]] = t
+        elif parts[0] == "final_norm":
+            top["final_norm"][parts[1]] = t
+        else:
+            top[name] = t
+    return types.SimpleNamespace(blocks=blocks, **top)
+
+
 # ---------------------------------------------------------------------------
 # Forward (prefill)
 # ---------------------------------------------------------------------------
@@ -162,10 +228,11 @@ def forward_hidden(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
     the aux loss 0 (no MoE block is ported).  ``remat``: under autograd,
     keep only each block's input and recompute the block in the backward
     (``torch.utils.checkpoint`` per block, where the reference wraps each
-    period in ``jax.checkpoint``)."""
+    period in ``jax.checkpoint``); under a ``torch.func`` transform, where
+    checkpointing cannot run, every block's activations are kept."""
     _check_forward(cfg, prefix_emb, enc_out, window)
     x = _embed(params, cfg, tokens)
-    remat = remat and torch.is_grad_enabled()
+    remat = remat and torch.is_grad_enabled() and not transforms_active()
     for bp in params.blocks:
         x = (checkpoint(_block, cfg, bp, x, use_reentrant=False) if remat
              else _block(cfg, bp, x))
@@ -187,12 +254,16 @@ def make_loss(cfg: ModelConfig, *, remat: bool = True, loss_chunk: int = 512,
     ``batch["tokens"]`` (B, S), over ``batch["loss_mask"]`` where given
     (:func:`~repro_torch.models.common.chunked_xent`, ``loss_chunk``
     positions at a time), plus ``moe_aux_weight`` x the MoE aux loss (0:
-    no MoE block is ported).  Differentiate it with ``torch.autograd``
-    after ``params.requires_grad_()``; ``remat`` recomputes each block in
-    the backward.  A ``prefix_emb`` or ``enc_out`` in the batch raises
+    no MoE block is ported).  ``params``: a :class:`Decoder`, or a flat
+    dict of its tensors (:func:`flat_params`; read through :func:`nest`).
+    Differentiate it with ``torch.autograd`` after
+    ``params.requires_grad_()``, or a dict with ``torch.func.grad``;
+    ``remat`` recomputes each block in the backward.  A ``prefix_emb`` or ``enc_out`` in the batch raises
     ``NotImplementedError``, as the forward does."""
 
-    def loss(params: Decoder, batch: dict) -> torch.Tensor:
+    def loss(params, batch: dict) -> torch.Tensor:
+        if isinstance(params, dict):
+            params = nest(params, cfg)
         h, aux = forward_hidden(params, cfg, batch["tokens"],
                                 prefix_emb=batch.get("prefix_emb"),
                                 enc_out=batch.get("enc_out"), window=window,

@@ -1728,3 +1728,41 @@ def test_flash_attention_function_gradients(dtype, hd, route, causal):
         assert a.dtype == dtype, name
         err = float((a.float() - b.float()).abs().max())
         assert err <= tol * float(b.float().abs().max()), (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,route", [(torch.float32, "simt"),
+                                         (torch.bfloat16, "wgmma")],
+                         ids=["f32-simt", "bf16-wgmma"])
+def test_flash_attention_vmap_grad_folds_workers(dtype, route):
+    """``torch.func.vmap(torch.func.grad(...))`` over 4 workers through
+    ``FlashAttention`` (hd 64, GQA 2:1, a ragged S): one launch of ``route``
+    on the folded (W * B, ...) batch, and every gradient within the route's
+    forward tolerance (scaled to its largest entry) of a loop of per-worker
+    ``grad`` s, which launch once a worker."""
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    w, b, s, h, kv, hd, d = 4, 2, 130, 4, 2, 64, 96
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((w, b, s, d), generator=g, device="cuda").to(dtype)
+    params = {n: (torch.randn((d, m * hd), generator=g, device="cuda")
+                  * d ** -0.5).to(dtype)
+              for n, m in (("wq", h), ("wk", kv), ("wv", kv))}
+
+    def loss(p, xb):
+        q = (xb @ p["wq"]).reshape(b, s, h, hd)
+        k = (xb @ p["wk"]).reshape(b, s, kv, hd)
+        v = (xb @ p["wv"]).reshape(b, s, kv, hd)
+        return torch.sum(fa.FlashAttention.apply(q, k, v, True).float() ** 2)
+
+    before = dict(fa.VARIANT_LAUNCHES)
+    batched = torch.func.vmap(torch.func.grad(loss), in_dims=(None, 0))(params, x)
+    assert fa.VARIANT_LAUNCHES[route] == before[route] + 1
+    assert sum(fa.VARIANT_LAUNCHES.values()) == sum(before.values()) + 1
+    tol = FLASH_TOL[dtype]["rtol"]
+    for i in range(w):
+        one = torch.func.grad(loss)(params, x[i])
+        for n, want in one.items():
+            err = float((batched[n][i].float() - want.float()).abs().max())
+            assert err <= tol * float(want.float().abs().max()), (i, n, err)
+    assert fa.VARIANT_LAUNCHES[route] == before[route] + 1 + w

@@ -362,8 +362,215 @@ def run_cases(mesh, cases: dict[str, dict]) -> dict:
     return out
 
 
-def run_world(shape, axes, cases, timeout: float = 120.0) -> list[dict]:
+def run_world(shape, axes, cases, timeout: float = 120.0,
+              fn=None) -> list[dict]:
     """Every case on every rank of a local world of ``shape`` -> each
-    rank's :func:`run_cases` result, in rank order."""
-    return mesh_lib.spawn_mesh(run_cases, shape, axes, args=(cases,),
+    rank's result of ``fn`` (default :func:`run_cases`), in rank order."""
+    return mesh_lib.spawn_mesh(fn or run_cases, shape, axes, args=(cases,),
                                timeout=timeout)
+
+
+# ---------------------------------------------------------------------------
+# The training drivers (tests/test_torch_steps.py): one step of
+# make_train_step / make_decentralized_train_step on a tiny dense decoder,
+# and the driver's rollback run, in one (4, 2) world.
+# ---------------------------------------------------------------------------
+
+# The reduced qwen2-7b cut to 2 layers of width 64 (GQA: 4 query heads on 2
+# KV heads of 16, qkv bias, an unembedding).
+STEP_SHAPES = dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+                   head_dim=16, d_ff=128, vocab_size=128)
+STEP_BATCH, STEP_SEQ, STEP_J, STEP_LR, STEP_CHUNK = 2, 8, 3, 0.5, 8
+STEP_CLIENTS = 8
+# Worker / node 0 attacks (sign_flip); the Weiszfeld loop runs to a tight
+# tol so that the ranks' sums in another order stop where one process does.
+STEP_KW = dict(attack="sign_flip", num_byzantine=1, weiszfeld_iters=100,
+               weiszfeld_tol=1e-9, trim=1)
+
+
+def step_config(cfgs):
+    """The tiny config in either package's configs module."""
+    import dataclasses
+    return dataclasses.replace(cfgs.get_config("qwen2-7b").reduced(),
+                               **STEP_SHAPES)
+
+
+def step_cases() -> dict[str, dict]:
+    """The step world's cases, by id: ``cfg`` the RobustConfig fields
+    beyond STEP_KW; ``node_params`` a distinct parameter vector a node;
+    ``table`` a SAGA table handed in (its rows drawn from the seed, so the
+    first step's correction is not the identity); ``staleness`` counters
+    handed in."""
+    cases = {}
+    for comm in COMMS:
+        cases[f"master-{comm}-sgd-geomed"] = dict(
+            kind="master", comm=comm, cfg=dict(vr="sgd", aggregator="geomed"))
+        cases[f"master-{comm}-saga-geomed"] = dict(
+            kind="master", comm=comm, table=True,
+            cfg=dict(vr="saga", aggregator="geomed"))
+        cases[f"master-{comm}-int8-geomed"] = dict(
+            kind="master", comm=comm,
+            cfg=dict(vr="sgd", aggregator="geomed", message_dtype="int8"))
+        for gossip in ("gradient", "params"):
+            cases[f"dec-{comm}-{gossip}-geomed"] = dict(
+                kind="dec", comm=comm, node_params=True,
+                cfg=dict(vr="sgd", aggregator="geomed", topology="ring",
+                         gossip=gossip))
+    cases["master-gather-perleaf-trimmed_mean"] = dict(
+        kind="master", comm="gather", table=True,
+        cfg=dict(vr="saga", aggregator="trimmed_mean", packed=False))
+    cases["master-gather-cohort-geomed"] = dict(
+        kind="master", comm="gather", table=True, staleness=True,
+        cfg=dict(vr="saga", aggregator="geomed", attack="straggler",
+                 num_clients=STEP_CLIENTS, staleness_decay=0.9))
+    cases["master-gather-guards-geomed"] = dict(
+        kind="master", comm="gather",
+        cfg=dict(vr="sgd", aggregator="geomed", attack="nan", guards=True))
+    return cases
+
+
+def step_params(structs: dict, num_nodes: int = 0) -> dict[str, np.ndarray]:
+    """Parameters by the port's names from the seed, norm scales near 1 and
+    every other leaf N(0, 0.1); with ``num_nodes`` a (N, ...) stack of the
+    same vector each moved by N(0, 0.01) noise."""
+    rng = np.random.default_rng(21)
+    out = {}
+    for name in sorted(structs):
+        shape = tuple(structs[name].shape)
+        base = 0.1 * rng.standard_normal(shape)
+        if name.endswith("scale"):
+            base = base + 1.0
+        if num_nodes:
+            base = base + 0.01 * rng.standard_normal((num_nodes,) + shape)
+        out[name] = base.astype(np.float32)
+    return out
+
+
+def step_batch(num_workers: int) -> dict[str, np.ndarray]:
+    rng = np.random.default_rng(22)
+    toks = rng.integers(0, STEP_SHAPES["vocab_size"],
+                        (num_workers, STEP_BATCH, STEP_SEQ + 1), dtype=np.int64)
+    return {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+
+
+def step_sample_idx(num_workers: int) -> np.ndarray:
+    return np.random.default_rng(23).integers(0, STEP_J, (num_workers,))
+
+
+def step_table(structs: dict, rows: int) -> tuple[dict, dict]:
+    """A SAGA state handed in, per leaf by the port's names: table (rows, J,
+    *shape) and mean (rows, *shape)."""
+    rng = np.random.default_rng(24)
+    table, avg = {}, {}
+    for name in sorted(structs):
+        shape = tuple(structs[name].shape)
+        table[name] = (0.05 * rng.standard_normal((rows, STEP_J) + shape)
+                       ).astype(np.float32)
+        avg[name] = (0.05 * rng.standard_normal((rows,) + shape)
+                     ).astype(np.float32)
+    return table, avg
+
+
+def step_staleness() -> np.ndarray:
+    return (np.arange(STEP_CLIENTS) % 5).astype(np.int32)
+
+
+def _shard_rows(arr: np.ndarray, lead: int, spec, axes) -> torch.Tensor:
+    """The model shard of every (lead-dims) row of a whole-leaf array."""
+    from repro_torch.launch.sharding import model_shard
+    flat = torch.from_numpy(arr).reshape((-1,) + arr.shape[lead:])
+    parts = [model_shard(x, spec, axes) for x in flat]
+    return torch.stack(parts).reshape(arr.shape[:lead] + parts[0].shape)
+
+
+def _hand_in_table(state, case, model, mesh, robust):
+    from repro_torch.core import packing
+    from repro_torch.core.saga import SagaState
+    from repro_torch.launch.steps import stack_layers
+    structs = model.param_structs()
+    specs = model.param_specs(mesh_lib.axis_sizes(mesh))
+    ma = mesh.axes("model")
+    wid = mesh.axes(*mesh_lib.worker_axes(mesh)).index
+    rows = STEP_CLIENTS if robust.num_clients else mesh_lib.num_workers(mesh)
+    table, avg = step_table(structs, rows)
+    sel = slice(None) if robust.num_clients else slice(wid, wid + 1)
+    # The rank's message layout: each leaf's model shard, the layers
+    # stacked as the reference's leaves.
+    tab = stack_layers({k: _shard_rows(v[sel], 2, specs[k], ma)
+                        for k, v in table.items()}, model.cfg, dim=2)
+    mean = stack_layers({k: _shard_rows(v[sel], 1, specs[k], ma)
+                         for k, v in avg.items()}, model.cfg, dim=1)
+    if robust.packed:
+        spec = packing.pack_spec({k: v[0, 0] for k, v in tab.items()},
+                                 batch_ndim=0)
+        state["vr"] = SagaState(spec.pack(tab, batch_ndim=2),
+                                spec.pack(mean, batch_ndim=1))
+    else:
+        state["vr"] = {k: SagaState(tab[k].reshape(tab[k].shape[:2] + (-1,)),
+                                    mean[k].reshape(mean[k].shape[0], -1))
+                       for k in tab}
+
+
+def _step_case(mesh, case: dict) -> dict:
+    from repro_torch import configs as tcfgs
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models.api import build_model
+    cfg = step_config(tcfgs)
+    model = build_model(cfg, device="cpu", remat=False, loss_chunk=STEP_CHUNK)
+    robust = RobustConfig(comm=case["comm"], **{**STEP_KW, **case["cfg"]})
+    train = TrainConfig(optimizer="sgd", lr=STEP_LR)
+    w = mesh_lib.num_workers(mesh)
+    wid = mesh.axes(*mesh_lib.worker_axes(mesh)).index
+    dec = case["kind"] == "dec"
+    build = (steps_lib.make_decentralized_train_step if dec
+             else steps_lib.make_train_step)
+    step = build(model, robust, train, mesh,
+                 saga_num_samples=STEP_J if case.get("table") else 0)
+    params = step_params(model.param_structs(), w if dec else 0)
+    params = {k: torch.from_numpy(v[wid] if dec else v).clone()
+              for k, v in params.items()}
+    state = step.init_state(params)
+    if case.get("table"):
+        _hand_in_table(state, case, model, mesh, robust)
+    if case.get("staleness"):
+        state["staleness"] = torch.from_numpy(step_staleness())
+    batch = {k: torch.from_numpy(v) for k, v in step_batch(w).items()}
+    new, metrics = step(state, batch, 7, sample_idx=step_sample_idx(w))
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "step": new["step"]}
+    if mesh.axes("model").index == 0:
+        out["params"] = {k: v.numpy() for k, v in new["params"].items()}
+    return out
+
+
+def _rollback_case(mesh, case: dict) -> dict:
+    """The driver's rollback run twice, each in a fresh directory."""
+    import os
+    from repro_torch.launch import train as train_lib
+    out = {}
+    for tag in ("a", "b"):
+        argv = ["--arch", "qwen2-7b", "--reduced", "--device", "cpu",
+                "--steps", "4", "--seq", "8", "--per-worker-batch", "1",
+                "--mesh", "4x2", "--aggregator", "mean", "--guards",
+                "--loss-blowup", "0.5", "--rollback-patience", "2",
+                "--max-rollbacks", "1",
+                "--checkpoint-dir", os.path.join(case["dir"], tag + "-ckpt"),
+                "--checkpoint-every", "2",
+                "--log-dir", os.path.join(case["dir"], tag + "-log")]
+        res = train_lib.run(mesh, vars(train_lib.parser().parse_args(argv)))
+        out[tag] = res["resilience"]
+    return out
+
+
+def _demo_case(mesh, case: dict) -> dict:
+    """The mesh demo's twin for a few steps of each comm path."""
+    from repro_torch import federated_mesh_demo
+    return federated_mesh_demo.run(mesh, "cpu", case["steps"])
+
+
+def run_step_cases(mesh, cases: dict[str, dict]) -> dict:
+    """Every step case on this rank -> {case id: its result}."""
+    run = {"rollback": _rollback_case, "demo": _demo_case}
+    return {cid: run.get(case["kind"], _step_case)(mesh, case)
+            for cid, case in cases.items()}
