@@ -115,7 +115,9 @@ def model_params_from_jax(tree: dict[str, Any], cfg: ModelConfig, *,
     ``embed``, ``blocks.pos{i}.<sublayer>.<leaf>`` stacked over the periods,
     ``final_norm``, ``unembed``) -> the port's :class:`Decoder` in
     ``cfg.dtype``.  Period ``p`` of pattern position ``i`` becomes layer
-    ``p * len(pattern) + i``.  Raises on a missing or extra leaf and on a
+    ``p * len(pattern) + i``; a MoE block's leaves (``moe.router``, the
+    stacked experts ``moe.w_in``/``w_gate``/``w_out`` (E, ...) and the
+    shared MLP ``moe.shared.*``) by the same rule.  Raises on a missing or extra leaf and on a
     shape that does not match."""
     dev = resolve_device(device)
     pat, periods = cfg.resolve_pattern()

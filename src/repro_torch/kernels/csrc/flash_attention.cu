@@ -2,8 +2,9 @@
 //   out[b, :, h] = softmax(mask(q[b, :, h] . k[b, :, g]^T * hd^-0.5)) . v[b, :, g]
 // with g = h / (H / KV) the key/value head of h's group (GQA and MQA read
 // the shared head in place; nothing is repeated).  The mask keeps key
-// position kpos < S, and in causal mode also kpos <= qpos; a masked score is
-// -1e30 (not -inf).  Every route runs the online softmax of the reference
+// position kpos < S, in causal mode also kpos <= qpos, and with a sliding
+// window w (causal only) also kpos > qpos - w; a masked score is -1e30 (not
+// -inf).  Every route runs the online softmax of the reference
 // (running max m, sum l and output o per query row; for each key tile
 // m' = max(m, rowmax s), p = exp(s - m'), l = l * exp(m - m') + rowsum p,
 // o = o * exp(m - m') + p . v) in float32 and ends with o / max(l, 1e-30).
@@ -15,7 +16,19 @@
 // Hopper's blocks run in parallel, so on both routes one block owns a tile
 // of query rows of one (b, h) (grid: query tiles x H x B, the longest causal
 // rows first) and loops over the key tiles itself; in causal mode the key
-// tiles past the block's last row are skipped.
+// tiles past the block's last row are skipped, and with a window the tiles
+// wholly below the band of the block's first row (keys <= q0 - w) too: the
+// loop starts at tile max(0, q0 - w + 1) / tile.  A tile that crosses the
+// band's lower edge takes the elementwise mask.  Rows of a block whose band
+// starts later see some leading tiles fully masked: their running max stays
+// -1e30 there, and the first tile with a kept key rescales what those tiles
+// summed by exp(-1e30 - m) = 0, so they leave no trace (every row keeps at
+// least its own key).
+//
+// The window replaces the reference's _sliding (repro/models/attention.py),
+// a jnp function that slices a (window + q_chunk)-key span per query chunk;
+// its Pallas K8 takes no window.  Windowed work is sum_q min(q + 1, w)
+// pairs at 4 hd FLOP each.
 //
 // Bound on the H100: operations.  Causal attention at the served shape
 // (B, S, H, KV, hd) = (4, 2048, 28, 4, 128) needs 2 * B * H * S * (S + 1) *
@@ -146,7 +159,7 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       int H, int KV, int hd, int64_t qsb, int64_t qss,
                       int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
                       int64_t vsb, int64_t vss, int64_t vsh, int causal,
-                      float scale) {
+                      int window, float scale) {
   using L = Tile<HD, RT, BK>;
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;
@@ -184,8 +197,9 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_last = min(q0 + L::BQ, S) - 1;
   int nk = (S + BK - 1) / BK;
   if (causal) nk = min(nk, q_last / BK + 1);
+  const int kt0 = window > 0 ? max(0, q0 - window + 1) / BK : 0;
 
-  for (int kt = 0; kt < nk; ++kt) {
+  for (int kt = kt0; kt < nk; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();   // the previous tile's ks, vs and pt are no longer read
     for (int i = t; i < BK * HD; i += kThreads) {
@@ -226,7 +240,8 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < L::CS; ++j) {
         const int key = k0 + tx + 16 * j;
-        const bool keep = key < S && (!causal || key <= row);
+        const bool keep = key < S && (!causal || key <= row) &&
+                          (window <= 0 || key > row - window);
         s[i][j] = keep ? s[i][j] * scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -288,6 +303,7 @@ struct Args {
   int B, S, H, KV, hd;
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
   int causal;
+  int window;   // 0: none; else >= 1, with causal
   float scale;
   cudaStream_t stream;
 };
@@ -308,7 +324,7 @@ int launch(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<TO*>(a.out), a.S, a.H, a.KV,
       a.hd, a.qsb, a.qss, a.qsh, a.ksb, a.kss, a.ksh, a.vsb, a.vss, a.vsh,
-      a.causal, a.scale);
+      a.causal, a.window, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -328,7 +344,8 @@ int launch_types(const Args& a, int in_type, int out_type) {
 
 // q: (B, S, H, hd), k and v: (B, S, KV, hd) at the given element strides
 // (the last dimension contiguous), H a multiple of KV; out: (B, S, H, hd)
-// contiguous.  1 <= hd <= 256; B, H <= 65,535.  scale = hd^-0.5.
+// contiguous.  1 <= hd <= 256; B, H <= 65,535.  window: 0 for none, else
+// >= 1 and causal set.  scale = hd^-0.5.
 REPRO_EXPORT int flash_attention_fwd(const void* q, const void* k,
                                      const void* v, void* out, int in_type,
                                      int out_type, int B, int S, int H, int KV,
@@ -336,13 +353,14 @@ REPRO_EXPORT int flash_attention_fwd(const void* q, const void* k,
                                      long long qsh, long long ksb,
                                      long long kss, long long ksh,
                                      long long vsb, long long vss,
-                                     long long vsh, int causal, float scale,
-                                     void* stream) {
+                                     long long vsh, int causal, int window,
+                                     float scale, void* stream) {
   if (B == 0 || S == 0 || H == 0) return static_cast<int>(cudaGetLastError());
-  if (KV <= 0 || H % KV != 0 || hd <= 0)
+  if (KV <= 0 || H % KV != 0 || hd <= 0 || window < 0 || (window > 0 && !causal))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, out, B, S, H, KV, hd, qsb, qss, qsh, ksb, kss, ksh,
-               vsb, vss, vsh, causal, scale, static_cast<cudaStream_t>(stream)};
+               vsb, vss, vsh, causal, window, scale,
+               static_cast<cudaStream_t>(stream)};
   if (hd <= 16) return launch_types<16, 8, 32>(a, in_type, out_type);
   if (hd <= 32) return launch_types<32, 8, 32>(a, in_type, out_type);
   if (hd <= 64) return launch_types<64, 8, 32>(a, in_type, out_type);
@@ -555,13 +573,18 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
 // scores of keys 16kk .. 16kk + 15 become p . v's A operand with no shuffle:
 // {pair(d[8kk], d[8kk + 1]), pair(d[8kk + 2], d[8kk + 3]), pair(d[8kk + 4],
 // d[8kk + 5]), pair(d[8kk + 6], d[8kk + 7])}.
-template <int HD, typename TO>
+//
+// kWindowed: the launch has a window (> 0).  A compile-time flag, so the
+// kernel without one is the causal/bidirectional kernel it was before the
+// window came (a runtime test cost it 21 % at the served qwen2-7b's
+// per-layer shape on an H100, at the same 168 registers).
+template <int HD, bool kWindowed, typename TO>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_attn_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
                             __grid_constant__ const CUtensorMap kmap,
                             __grid_constant__ const CUtensorMap vmap,
                             TO* __restrict__ out, int S, int H, int KV,
-                            int causal, float scale_log2) {
+                            int causal, int window, float scale_log2) {
   using L = WgSmem<HD>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -576,6 +599,11 @@ flash_attn_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
   const int q_last = min(q0 + kRows, S) - 1;
   int nk = (S + kKeys - 1) / kKeys;
   if (causal) nk = min(nk, q_last / kKeys + 1);
+  // With a window the loop starts at the first tile the block's band
+  // reaches; stages and barrier parities count iterations (it = kt - kt0),
+  // so the ring runs as from tile 0.
+  const int kt0 = kWindowed ? max(0, q0 - window + 1) / kKeys : 0;
+  const int n_it = nk - kt0;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -595,9 +623,10 @@ flash_attn_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
       mbar_expect_tx(qbar, L::kTile);
       for (int c = 0; c < L::kBlocks; ++c)
         tma_load(base + L::kQ + c * L::kBlockBytes, &qmap, qbar, 64 * c, h, q0, b);
-      for (int kt = 0; kt < nk; ++kt) {
-        const int st = kt % kStages;
-        if (kt >= kStages) mbar_wait(empty0 + 8 * st, (kt / kStages - 1) & 1);
+      for (int it = 0; it < n_it; ++it) {
+        const int kt = kt0 + it;
+        const int st = it % kStages;
+        if (it >= kStages) mbar_wait(empty0 + 8 * st, (it / kStages - 1) & 1);
         const uint32_t full = full0 + 8 * st;
         mbar_expect_tx(full, 2 * L::kTile);
         for (int c = 0; c < L::kBlocks; ++c) {
@@ -625,10 +654,10 @@ flash_attn_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
   const uint32_t qa = base + L::kQ + wg * 64 * 128;
   mbar_wait(qbar, 0);
 
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt % kStages;
-    const int k0 = kt * kKeys;
-    mbar_wait(full0 + 8 * st, (kt / kStages) & 1);
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kStages;
+    const int k0 = (kt0 + it) * kKeys;
+    mbar_wait(full0 + 8 * st, (it / kStages) & 1);
     const uint32_t kb = base + L::kK + st * L::kTile;
     const uint32_t vb = base + L::kV + st * L::kTile;
 
@@ -645,9 +674,11 @@ flash_attn_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
     wgmma_wait_all();
     fence_regs(s);
 
-    // Scale into log2 units and mask where the tile reaches past S or, in
-    // causal mode, past this warpgroup's first row.
-    const bool edge = k0 + kKeys > S || (causal && k0 + kKeys - 1 > q0 + 64 * wg);
+    // Scale into log2 units and mask where the tile reaches past S, in
+    // causal mode past this warpgroup's first row, or with a window below
+    // the band of its last row (key <= row - window).
+    const bool edge = k0 + kKeys > S || (causal && k0 + kKeys - 1 > q0 + 64 * wg) ||
+                      (kWindowed && k0 <= q0 + 64 * wg + 63 - window);
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
 #pragma unroll
@@ -656,7 +687,9 @@ flash_attn_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
         if (edge) {
           const int key = k0 + 8 * j + col + (e & 1);
           const int row = row0 + 8 * (e >> 1);
-          if (key >= S || (causal && key > row)) x = kNegInf;
+          if (key >= S || (causal && key > row) ||
+              (kWindowed && key <= row - window))
+            x = kNegInf;
         }
         s[4 * j + e] = x;
       }
@@ -774,24 +807,30 @@ bool encode_map(CUtensorMap* map, const void* ptr, int hd, int heads, int S,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD, typename TO>
-int launch_wgmma(const Args& a) {
+template <int HD, bool kWindowed, typename TO>
+int launch_wgmma_kernel(const Args& a) {
   alignas(64) CUtensorMap qm, km, vm;
   if (!encode_map(&qm, a.q, HD, a.H, a.S, a.B, a.qsh, a.qss, a.qsb) ||
       !encode_map(&km, a.k, HD, a.KV, a.S, a.B, a.ksh, a.kss, a.ksb) ||
       !encode_map(&vm, a.v, HD, a.KV, a.S, a.B, a.vsh, a.vss, a.vsb))
     return static_cast<int>(cudaErrorInvalidValue);
   using L = WgSmem<HD>;
-  auto kernel = flash_attn_fwd_wgmma_kernel<HD, TO>;
+  auto kernel = flash_attn_fwd_wgmma_kernel<HD, kWindowed, TO>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(static_cast<unsigned>((a.S + kRows - 1) / kRows),
                   static_cast<unsigned>(a.H), static_cast<unsigned>(a.B));
   kernel<<<grid, kWgThreads, L::kAlloc, a.stream>>>(
-      qm, km, vm, static_cast<TO*>(a.out), a.S, a.H, a.KV, a.causal,
+      qm, km, vm, static_cast<TO*>(a.out), a.S, a.H, a.KV, a.causal, a.window,
       a.scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD, typename TO>
+int launch_wgmma(const Args& a) {
+  return a.window > 0 ? launch_wgmma_kernel<HD, true, TO>(a)
+                      : launch_wgmma_kernel<HD, false, TO>(a);
 }
 
 }  // namespace
@@ -806,13 +845,15 @@ REPRO_EXPORT int flash_attention_fwd_wgmma(
     const void* q, const void* k, const void* v, void* out, int in_type,
     int out_type, int B, int S, int H, int KV, int hd, long long qsb,
     long long qss, long long qsh, long long ksb, long long kss, long long ksh,
-    long long vsb, long long vss, long long vsh, int causal, float scale,
-    void* stream) {
+    long long vsb, long long vss, long long vsh, int causal, int window,
+    float scale, void* stream) {
   if (B == 0 || S == 0 || H == 0) return static_cast<int>(cudaGetLastError());
-  if (in_type != 1 || KV <= 0 || H % KV != 0)
+  if (in_type != 1 || KV <= 0 || H % KV != 0 || window < 0 ||
+      (window > 0 && !causal))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, out, B, S, H, KV, hd, qsb, qss, qsh, ksb, kss, ksh,
-               vsb, vss, vsh, causal, scale, static_cast<cudaStream_t>(stream)};
+               vsb, vss, vsh, causal, window, scale,
+               static_cast<cudaStream_t>(stream)};
   if (hd == 64 && out_type == 1) return launch_wgmma<64, __nv_bfloat16>(a);
   if (hd == 64 && out_type == 0) return launch_wgmma<64, float>(a);
   if (hd == 128 && out_type == 1) return launch_wgmma<128, __nv_bfloat16>(a);

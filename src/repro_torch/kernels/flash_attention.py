@@ -4,15 +4,18 @@
 in the model's layout, float32 or bfloat16, with H a multiple of KV, and
 returns (B, S, H, hd): per query head h, ``softmax(mask(q k^T hd^-0.5)) v``
 over the key/value head ``h // (H // KV)``.  Scores, softmax and sums are
-float32; a masked score is -1e30 and the mask keeps keys ``kpos < S`` and,
-in causal mode, ``kpos <= qpos``; the output is divided by
-``max(l, 1e-30)``.  It is written in q's dtype, or in float32 where the
+float32; a masked score is -1e30 and the mask keeps keys ``kpos < S``,
+in causal mode ``kpos <= qpos`` and, with a sliding ``window`` (causal
+only; the reference's ``_sliding``), ``kpos > qpos - window``; the output
+is divided by ``max(l, 1e-30)``.  It is written in q's dtype, or in float32 where the
 caller asks.
 
 It launches one of two CUDA kernels of ``csrc/flash_attention.cu``, both of
 which read the grouped key/value heads in place (no repeated copy, unlike
 the reference's ``ops.flash_attention``) and mask the ragged sequence edge
-themselves (nothing padded).  :func:`variant` states which:
+themselves (nothing padded); with a window both skip the key tiles wholly
+below the band, as they skip those above the diagonal.  :func:`variant`
+states which:
 
 * ``"wgmma"`` -- bfloat16 inputs with hd 64 or 128 whose base and strides
   TMA can read (:func:`tma_aligned`): tensor cores, with p rounded to
@@ -22,7 +25,8 @@ themselves (nothing padded).  :func:`variant` states which:
   views): float32 arithmetic on the CUDA cores.
 
 :data:`VARIANT_LAUNCHES` counts the launches of each; their sum is
-``_build.LAUNCHES["flash_attention"]``.  :func:`flash_attention_plain` is
+``_build.LAUNCHES["flash_attention"]``.  :data:`WINDOW_LAUNCHES` counts
+those of them that took a window.  :func:`flash_attention_plain` is
 the same function in plain PyTorch (float32 scores, the same mask,
 softmax, GQA by grouping the query heads), which the CPU path runs and the
 card's checks compare against.
@@ -56,12 +60,14 @@ _ENTRY = {"wgmma": "flash_attention_fwd_wgmma", "simt": "flash_attention_fwd"}
 
 _SIGNATURES = {
     name: [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9
-    + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     for name in _ENTRY.values()
 }
 
-# Launches per route (reset with the others by ops.reset_launch_counts).
+# Launches per route, and of each route with a sliding window (reset with
+# the others by ops.reset_launch_counts).
 VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)
+WINDOW_LAUNCHES = dict.fromkeys(VARIANTS, 0)
 
 
 def variant(dtype: torch.dtype, hd: int, aligned: bool) -> str:
@@ -96,6 +102,26 @@ def _map_strides(t: torch.Tensor) -> list[int]:
     return out
 
 
+def check_window(window: int | None, causal: bool) -> None:
+    """A window is None, or an int >= 1 with ``causal`` (the reference
+    slides its window over causal self-attention only)."""
+    if window is None:
+        return
+    if isinstance(window, bool) or not isinstance(window, int) or window < 1:
+        raise ValueError(f"flash_attention: window {window!r} is neither None "
+                         "nor an int >= 1")
+    if not causal:
+        raise ValueError("flash_attention: a window needs causal=True")
+
+
+def window_pairs(s: int, window: int | None) -> int:
+    """The (query, key) pairs one (b, h) of causal attention attends:
+    S (S + 1) / 2, or sum_q min(q + 1, window) with a window."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """q (B, S, H, hd), k and v (B, S, KV, hd), H a multiple of KV,
     1 <= hd <= 256, one dtype (float32 or bfloat16) and one device.  Raises
@@ -120,16 +146,28 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention: inputs lie on different devices")
 
 
+def _mask(s: int, causal: bool, window: int | None,
+          device: torch.device) -> torch.Tensor | None:
+    """(S, S) True where the key (column) is masked for the query (row)."""
+    if not causal:
+        return None
+    pos = torch.arange(s, device=device)
+    masked = pos[None, :] > pos[:, None]
+    if window is not None:
+        masked = masked | (pos[None, :] <= pos[:, None] - window)
+    return masked
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool, out_dtype: torch.dtype | None = None
-                          ) -> torch.Tensor:
+                          causal: bool, out_dtype: torch.dtype | None = None,
+                          window: int | None = None) -> torch.Tensor:
     b, s, h, hd = q.shape
     kv = k.shape[2]
     qg = q.float().reshape(b, s, kv, h // kv, hd)
     sc = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * (hd ** -0.5)
-    if causal:
-        pos = torch.arange(s, device=q.device)
-        sc = sc.masked_fill(pos[None, :] > pos[:, None], NEG_INF)
+    masked = _mask(s, causal, window, q.device)
+    if masked is not None:
+        sc = sc.masked_fill(masked, NEG_INF)
     p = torch.softmax(sc, dim=-1)
     out = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
     return out.reshape(b, s, h, hd).to(out_dtype or q.dtype)
@@ -137,12 +175,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor, out: torch.Tensor,
-                                   dout: torch.Tensor, causal: bool
+                                   dout: torch.Tensor, causal: bool,
+                                   window: int | None = None
                                    ) -> tuple[torch.Tensor, torch.Tensor,
                                               torch.Tensor]:
     """The gradients (dq, dk, dv), in q's, k's and v's dtypes, of the
     attention ``out = softmax(mask(q k^T c)) v`` (c = hd^-0.5, the mask
-    and the GQA grouping of :func:`flash_attention_plain`) given ``dout``.
+    and the GQA grouping of :func:`flash_attention_plain`, ``window``
+    included) given ``dout``.
     The float32 probabilities P are recomputed; then dV = P^T dO, dS =
     P o (dO V^T - rowsum(dO o O)), dQ = c dS K, dK = c dS^T Q, dK and dV
     summed over the query heads of each key/value head.  One batch row
@@ -154,10 +194,7 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
     kv = k.shape[2]
     rep = h // kv
     scale = hd ** -0.5
-    masked = None
-    if causal:
-        pos = torch.arange(s, device=q.device)
-        masked = pos[None, :] > pos[:, None]
+    masked = _mask(s, causal, window, q.device)
     dqs, dks, dvs = [], [], []
     for bi in range(b):
         dq_b, dk_b, dv_b = [], [], []
@@ -198,27 +235,27 @@ class FlashAttention(torch.autograd.Function):
     on the folded batch and unfolds the output, so ``vmap(grad(loss))``
     over N workers launches K8 once a layer, never its plain version.  The
     backward is plain PyTorch and is batched by ``vmap`` like any other
-    code."""
+    code.  ``window`` (None or an int >= 1, causal only) passes through
+    all three unchanged."""
 
     @staticmethod
-    def forward(q, k, v, causal: bool):
-        return flash_attention_call(q, k, v, causal)
+    def forward(q, k, v, causal: bool, window: int | None):
+        return flash_attention_call(q, k, v, causal, window=window)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, causal = inputs
+        q, k, v, ctx.causal, ctx.window = inputs
         ctx.save_for_backward(q, k, v, output)
-        ctx.causal = causal
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward_plain(q, k, v, out, dout,
-                                                    ctx.causal)
-        return dq, dk, dv, None
+                                                    ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, causal: bool):
+    def vmap(info, in_dims, q, k, v, causal: bool, window: int | None):
         n = info.batch_size
 
         def fold(t, dim):
@@ -227,19 +264,22 @@ class FlashAttention(torch.autograd.Function):
             return t.reshape((n * t.shape[1],) + tuple(t.shape[2:]))
 
         out = FlashAttention.apply(fold(q, in_dims[0]), fold(k, in_dims[1]),
-                                   fold(v, in_dims[2]), causal)
+                                   fold(v, in_dims[2]), causal, window)
         return out.reshape((n, -1) + tuple(out.shape[1:])), 0
 
 
 def flash_attention_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool, out_dtype: torch.dtype | None = None,
-                         *, route: str | None = None) -> torch.Tensor:
+                         *, route: str | None = None,
+                         window: int | None = None) -> torch.Tensor:
     """(B, S, H, hd) attention on the card; ``out_dtype`` is q's dtype
     (default) or float32.  Each of q, k, v may have any strides over
     (B, S, heads) with a contiguous last dimension.  ``route`` None takes
     :func:`variant`'s kernel; "simt" takes the SIMT kernel whatever the
-    inputs (to time it against the wgmma kernel)."""
+    inputs (to time it against the wgmma kernel).  ``window``: None, or
+    the sliding window (>= 1, causal only) both kernels apply."""
     check_inputs(q, k, v)
+    check_window(window, causal)
     if route not in (None, "simt"):
         raise ValueError(f"flash_attention: route {route!r} is neither None nor 'simt'")
     if q.device.type != "cuda":
@@ -267,8 +307,11 @@ def flash_attention_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
             _TYPE_CODES[q.dtype], _TYPE_CODES[out_dtype], b, s, h, k.shape[2],
             hd, *strides[0], *strides[1], *strides[2], int(causal),
-            ctypes.c_float(hd ** -0.5), ctypes.c_void_p(_build.stream_of(q)))
+            int(window or 0), ctypes.c_float(hd ** -0.5),
+            ctypes.c_void_p(_build.stream_of(q)))
     _build.check(lib, rc, f"flash_attention ({chosen})")
     _build.LAUNCHES["flash_attention"] += 1
     VARIANT_LAUNCHES[chosen] += 1
+    if window is not None:
+        WINDOW_LAUNCHES[chosen] += 1
     return out

@@ -118,18 +118,21 @@ def masked_neighbor_reduce(exchange: torch.Tensor, mask: torch.Tensor, *,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, window: int | None = None
+                    ) -> torch.Tensor:
     """K8: q (B, S, H, hd), k and v (B, S, KV, hd) -> (B, S, H, hd) in q's
     dtype; GQA reads key/value head ``h // (H // KV)`` (no repeat).  The
     reference's ``q_block``/``kv_block`` set its Pallas tiling; the port's
     tile is the kernel's own, so it takes neither.  Differentiable: on the
     card through :class:`~repro_torch.kernels.flash_attention.FlashAttention`
     (K8 forward, plain backward), on the CPU by autograd of the plain
-    version."""
+    version.  ``window``: None, or a sliding window >= 1 (causal only):
+    keys ``qpos - window < kpos <= qpos``, the reference's ``_sliding``."""
     fa.check_inputs(q, k, v)
+    fa.check_window(window, causal)
     if _on_card(q):
-        return fa.FlashAttention.apply(q, k, v, causal)
-    return fa.flash_attention_plain(q, k, v, causal)
+        return fa.FlashAttention.apply(q, k, v, causal, window)
+    return fa.flash_attention_plain(q, k, v, causal, window=window)
 
 
 def launch_counts() -> dict[str, int]:
@@ -151,12 +154,12 @@ def reset_launch_counts() -> None:
     (``robust_stats.MEDIAN_LAYOUT_LAUNCHES`` and
     ``robust_stats.TRIMMED_LAYOUT_LAUNCHES``), K7
     (``topology.ROUTE_LAUNCHES`` and ``topology.SELECT_LAYOUT_LAUNCHES``) and
-    K8 (``flash_attention.VARIANT_LAUNCHES``)."""
+    K8 (``flash_attention.VARIANT_LAUNCHES`` and ``WINDOW_LAUNCHES``)."""
     for counts in (_build.LAUNCHES, sc.ROUTE_LAUNCHES, wz.SQDIST_ROUTE_LAUNCHES,
                    wz.SQDIST_LAYOUT_LAUNCHES, rs.MEDIAN_LAYOUT_LAUNCHES,
                    rs.TRIMMED_LAYOUT_LAUNCHES,
                    tp.ROUTE_LAUNCHES, tp.SELECT_LAYOUT_LAUNCHES,
-                   fa.VARIANT_LAUNCHES):
+                   fa.VARIANT_LAUNCHES, fa.WINDOW_LAUNCHES):
         for name in counts:
             counts[name] = 0
     _build.BF16_LAUNCHES.clear()

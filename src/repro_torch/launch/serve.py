@@ -4,8 +4,9 @@ step by step with the KV cache, greedy (port of ``repro/launch/serve.py``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
         --reduced --device cpu --prompt-len 32 --decode-tokens 16 --batch 2
 
-On the card (the default ``--device cuda``) the prefill's attention runs
-kernel K8.  Weights are random, drawn from ``--seed``, and so are the
+The dense decoders and the MoE ones (``--arch qwen2-moe-a2.7b`` or
+``mixtral-8x22b``, the latter with its sliding window) run.  On the card
+(the default ``--device cuda``) the prefill's attention runs kernel K8.  Weights are random, drawn from ``--seed``, and so are the
 prompt tokens.  The cache is allocated once at prompt + decode capacity;
 the reference pads it to that capacity after prefill, with the same
 result.  ``--mesh`` (serving on a device mesh) raises: the mesh, its

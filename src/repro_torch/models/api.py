@@ -3,7 +3,8 @@
 
 One object per architecture exposing ``init`` / ``param_specs`` /
 ``param_structs`` / ``loss`` / ``prefill`` / ``decode_step`` /
-``init_cache`` for the dense decoders.  The other families raise
+``init_cache`` for the dense and MoE decoders (qwen2-moe, mixtral with its
+sliding window).  The other families raise
 ``NotImplementedError`` naming the ROADMAP.md entry that ports them.
 ``param_specs(axis_sizes)`` and ``param_structs()`` are the reference's
 sharding and shape interpretations of the parameter tree, by
@@ -22,10 +23,10 @@ from repro_torch.device import DEFAULT_DEVICE, generator_for, resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import init_maker
 
+_PORTED_FAMILIES = ("dense", "moe")
 _UNPORTED_FAMILIES = {
-    "moe": "MoE routing (qwen2-moe, mixtral; ROADMAP.md Queue A 11.3)",
     "ssm": "Mamba2 (mamba2-130m; ROADMAP.md Queue A 11.4)",
-    "hybrid": "Mamba2 and MoE (jamba; ROADMAP.md Queue A 11.3, 11.4)",
+    "hybrid": "Mamba2 (jamba; ROADMAP.md Queue A 11.4)",
     "audio": "the encoder-decoder (whisper; ROADMAP.md Queue A 11.6)",
     "vlm": "the prefix-LM mask (paligemma; ROADMAP.md Queue A 11.5)",
 }
@@ -57,7 +58,7 @@ def build_model(cfg: ModelConfig, *,
     ``torch.func``.  The reference's
     ``q_chunk``/``kv_chunk`` set its jnp attention tiling; the port's
     attention tile is kernel K8's own, so it takes neither."""
-    if cfg.family != "dense":
+    if cfg.family not in _PORTED_FAMILIES:
         reason = _UNPORTED_FAMILIES.get(cfg.family, f"family {cfg.family!r}")
         raise NotImplementedError(f"{cfg.name}: {reason} is not ported yet")
 

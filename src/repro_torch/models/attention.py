@@ -4,22 +4,26 @@
 Prefill attention runs kernel K8 (:func:`repro_torch.kernels.ops.flash_attention`)
 on a CUDA tensor and its plain PyTorch version on a CPU tensor.  The
 reference's own ``_flash`` is a jnp online softmax that computes the same
-function for causal or bidirectional self-attention without a prefix or a
-window (scores in float32 from ``q k^T hd^-0.5``, masked to -1e30, output
+function for causal or bidirectional self-attention without a prefix
+(scores in float32 from ``q k^T hd^-0.5``, masked to -1e30, output
 divided by ``max(l, 1e-30)``); the reference's Pallas kernel K8 was
-written for exactly that function.  One-token decode attends over the
-cache in plain PyTorch, as the reference's ``_cache_attn`` does in jnp;
-the new token's key and value are written into the cache in place where
-the reference uses ``dynamic_update_slice``.
+written for exactly that function.  A sliding window on causal
+self-attention (the reference's ``_sliding``: keys ``qpos - window <
+kpos <= qpos``) runs through K8 too, which takes the window and skips the
+key tiles below the band.  One-token decode attends over the cache in
+plain PyTorch, as the reference's ``_cache_attn`` does in jnp, the window
+a mask over the full-length cache; the new token's key and value are
+written into the cache in place where the reference uses
+``dynamic_update_slice``.
 
 Prefill attention is differentiable on both devices: on a CUDA tensor K8's
 forward with a plain backward
 (:class:`repro_torch.kernels.flash_attention.FlashAttention`), on the CPU
 autograd of the plain version.
 
-Still to port, and raising ``NotImplementedError``: the sliding window,
-the prefix-LM mask, cross-attention and the sequence-sharded decode
-(ROADMAP.md Queue A 11.2, 11.5, 11.6 and 11.7).
+Still to port, and raising ``NotImplementedError``: the prefix-LM mask,
+cross-attention and the sequence-sharded decode (ROADMAP.md Queue A 11.5,
+11.6 and 11.7).
 """
 from __future__ import annotations
 
@@ -36,7 +40,6 @@ NEG_INF = -1e30
 _CROSS = ("cross-attention (the encoder-decoder, whisper; ROADMAP.md "
           "Queue A 11.6)")
 _UNPORTED = {
-    "window": "the sliding window (mixtral; ROADMAP.md Queue A 11.2)",
     "prefix_len": "the prefix-LM mask (paligemma; ROADMAP.md Queue A 11.5)",
     "cross_kv": _CROSS,
     "cross": _CROSS,
@@ -103,9 +106,9 @@ def attention(params, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
     prefill can populate the decode cache.  The reference's
     ``q_chunk``/``kv_chunk`` set its jnp tiling; the port's tile is K8's
     own, so it takes neither.  Positions are 0 .. S-1 (the reference's
-    ``positions`` override has no caller)."""
-    if window is not None:
-        raise unported("window")
+    ``positions`` override has no caller).  ``window`` slides over causal
+    attention only, as the reference's; bidirectional attention ignores
+    it."""
     if prefix_len:
         raise unported("prefix_len")
     if cross_kv is not None:
@@ -116,7 +119,8 @@ def attention(params, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
         pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
         q = apply_rope(q, pos, rope_theta)
         k = apply_rope(k, pos, rope_theta)
-    out = ops.flash_attention(q, k, v, causal=causal)
+    out = ops.flash_attention(q, k, v, causal=causal,
+                              window=window if causal else None)
     out = out.reshape(b, s, num_heads * head_dim) @ params["wo"]
     if return_kv:
         return out, (k, v)
@@ -148,9 +152,7 @@ def decode_attention(params, x: torch.Tensor, cache: dict, pos: int, *,
     """One-token decode.  x: (B, 1, D); cache k/v: (B, S_cap, KV, hd);
     ``pos``: the number of tokens already cached.  The new token's key and
     value are written into ``cache`` at ``pos`` in place; returns (out,
-    cache)."""
-    if window is not None:
-        raise unported("window")
+    cache).  ``window``: attend the keys ``pos - window < kpos <= pos``."""
     if seq_shard_axis is not None:
         raise unported("seq_shard_axis")
     if cross:
@@ -164,20 +166,24 @@ def decode_attention(params, x: torch.Tensor, cache: dict, pos: int, *,
         k_new = apply_rope(k_new, posv, rope_theta)
     cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
-    out = _cache_attn(q, cache["k"], cache["v"], pos)
+    out = _cache_attn(q, cache["k"], cache["v"], pos, window)
     out = out.reshape(b, 1, num_heads * head_dim) @ params["wo"]
     return out, cache
 
 
 def _cache_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                pos: int) -> torch.Tensor:
+                pos: int, window: Optional[int] = None) -> torch.Tensor:
     """q (B, 1, H, hd) against the whole cache k/v (B, S_cap, KV, hd),
-    positions ``<= pos`` only; float32 scores and softmax."""
+    positions ``<= pos`` (and ``> pos - window``) only; float32 scores and
+    softmax."""
     b, _, h, hd = q.shape
     kv = k.shape[2]
     qg = q.float().reshape(b, 1, kv, h // kv, hd)
     s_ = torch.einsum("bqgrd,bkgd->bqgrk", qg, k.float()) * (hd ** -0.5)
-    valid = torch.arange(k.shape[1], device=k.device) <= pos
+    kpos = torch.arange(k.shape[1], device=k.device)
+    valid = kpos <= pos
+    if window is not None:
+        valid &= kpos > pos - window
     s_ = torch.where(valid, s_, NEG_INF)
     p = torch.softmax(s_, dim=-1)
     out = torch.einsum("bqgrk,bkgd->bqgrd", p, v.float())

@@ -16,9 +16,10 @@ hold the parameters as a flat dict of tensors (:func:`flat_params`, the
 (:func:`nest`), which is what ``torch.func.grad`` differentiates;
 :func:`param_specs` and :func:`param_structs` are the reference's sharding
 and shape interpretations of the same tree.  Attention blocks with a
-dense FFN are ported; MoE, Mamba and cross-attention blocks, the VLM
-prefix and the sliding window raise ``NotImplementedError`` (ROADMAP.md
-Queue A 11.2-11.6).
+dense or MoE FFN (:mod:`repro_torch.models.moe`) are ported, with the
+sliding window (``window``, or ``cfg.sliding_window``); Mamba and
+cross-attention blocks and the VLM prefix raise ``NotImplementedError``
+(ROADMAP.md Queue A 11.4-11.6).
 """
 from __future__ import annotations
 
@@ -32,11 +33,11 @@ from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (chunked_xent, fit_spec, layernorm,
                                        rmsnorm, transforms_active)
 
 _UNPORTED_BLOCKS = {
-    "moe": "MoE blocks (qwen2-moe, mixtral; ROADMAP.md Queue A 11.3)",
     "mamba": "Mamba2 blocks (mamba2, jamba; ROADMAP.md Queue A 11.4)",
     "cross": "cross-attention blocks (whisper; ROADMAP.md Queue A 11.6)",
 }
@@ -44,8 +45,8 @@ _UNPORTED_BLOCKS = {
 
 class Decoder(torch.nn.Module):
     """The decoder's parameters: ``embed`` (V, D), ``blocks`` (one
-    ``ModuleDict`` per layer: ``pre_norm``, ``attn``, ``mlp_norm``,
-    ``mlp``), ``final_norm`` and, unless the embeddings are tied,
+    ``ModuleDict`` per layer: ``pre_norm``, ``attn``, ``mlp_norm``, and
+    ``mlp`` or ``moe``), ``final_norm`` and, unless the embeddings are tied,
     ``unembed`` (D, V)."""
 
     def __init__(self, embed, blocks, final_norm, unembed=None):
@@ -80,8 +81,6 @@ def check_block(spec: BlockSpec) -> None:
     """Raise for a block kind the port does not run yet."""
     if spec.kind != "attn":
         raise NotImplementedError(f"{_UNPORTED_BLOCKS['mamba']} are not ported yet")
-    if spec.moe:
-        raise NotImplementedError(f"{_UNPORTED_BLOCKS['moe']} are not ported yet")
     if spec.cross:
         raise NotImplementedError(f"{_UNPORTED_BLOCKS['cross']} are not ported yet")
 
@@ -95,7 +94,13 @@ def _block_params(make, path: str, cfg: ModelConfig,
              num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
              qkv_bias=cfg.qkv_bias),
          "mlp_norm": _norm_params(make, f"{path}.mlp_norm", cfg)}
-    if cfg.d_ff:
+    if spec.moe:
+        p["moe"] = moe_lib.moe_params(
+            make, f"{path}.moe", d_model=cfg.d_model, moe_d_ff=cfg.moe_d_ff,
+            num_experts=cfg.num_experts,
+            num_shared_experts=cfg.num_shared_experts,
+            activation=cfg.activation)
+    elif cfg.d_ff:
         p["mlp"] = mlp_lib.mlp_params(
             make, f"{path}.mlp", d_model=cfg.d_model, d_ff=cfg.d_ff,
             activation=cfg.activation)
@@ -121,10 +126,17 @@ def decoder_params(make, cfg: ModelConfig, *, prefix: str = "dec") -> Decoder:
 
 
 # The reference's sharding of the leaves outside attention and the FFN
-# (repro/models/transformer.py:41-105).
+# (repro/models/transformer.py:41-105); a routed MoE leaf is looked up by
+# "moe.<leaf>", every other leaf by its own name.
 PARAM_SPECS = {"embed": ("model", None), "unembed": (None, "model"),
                "scale": (None,), "bias": (None,),
-               **attn_lib.PARAM_SPECS, **mlp_lib.PARAM_SPECS}
+               **attn_lib.PARAM_SPECS, **mlp_lib.PARAM_SPECS,
+               **moe_lib.PARAM_SPECS}
+
+
+def _spec_key(name: str) -> str:
+    last2 = ".".join(name.rsplit(".", 2)[-2:])
+    return last2 if last2 in PARAM_SPECS else name.rsplit(".", 1)[-1]
 
 
 def _meta_maker(dtype: torch.dtype):
@@ -150,8 +162,7 @@ def param_specs(cfg: ModelConfig, axis_sizes: dict[str, int]
     axis name), a sharding that does not divide its dimension replaced by
     None.  The reference stacks a pattern position's layers and so has one
     more leading None; the port's layers are leaves of their own."""
-    return {name: fit_spec(t.shape, PARAM_SPECS[name.rsplit(".", 1)[-1]],
-                           axis_sizes)
+    return {name: fit_spec(t.shape, PARAM_SPECS[_spec_key(name)], axis_sizes)
             for name, t in param_structs(cfg).items()}
 
 
@@ -163,15 +174,19 @@ def flat_params(params: Decoder) -> dict[str, torch.Tensor]:
 
 def nest(flat: dict[str, torch.Tensor], cfg: ModelConfig):
     """A flat parameter dict (:func:`flat_params`' names) as the structure
-    the forward reads: ``embed``, ``blocks`` (a dict of dicts a layer),
-    ``final_norm``, ``unembed``.  The tensors are the dict's own, so a
+    the forward reads: ``embed``, ``blocks`` (nested dicts a layer:
+    ``attn``, ``moe`` and its ``shared``, ...), ``final_norm``,
+    ``unembed``.  The tensors are the dict's own, so a
     ``torch.func`` transform of a function of ``flat`` sees through."""
     blocks = [{} for _ in range(cfg.num_layers)]
     top: dict = {"final_norm": {}, "unembed": None}
     for name, t in flat.items():
         parts = name.split(".")
         if parts[0] == "blocks":
-            blocks[int(parts[1])].setdefault(parts[2], {})[parts[3]] = t
+            node = blocks[int(parts[1])]
+            for part in parts[2:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = t
         elif parts[0] == "final_norm":
             top["final_norm"][parts[1]] = t
         else:
@@ -190,22 +205,32 @@ def _embed(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Ten
     return x
 
 
-def _check_forward(cfg: ModelConfig, prefix_emb, enc_out, window) -> None:
+def _check_forward(prefix_emb, enc_out) -> None:
     if prefix_emb is not None:
         raise attn_lib.unported("prefix_len")
     if enc_out is not None:
         raise attn_lib.unported("cross_kv")
-    if window is not None or cfg.sliding_window is not None:
-        raise attn_lib.unported("window")
 
 
-def _ffn(cfg: ModelConfig, bp, x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, bp, x: torch.Tensor, *, decode: bool = False
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x + the block's FFN (dense, MoE or none) -> (x, MoE aux loss).  At
+    decode MoE takes the reference's no-drop settings (capacity factor E,
+    groups of max(B, 8) tokens)."""
     h = apply_norm(cfg, bp["mlp_norm"], x)
-    if cfg.d_ff:
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "moe" in bp:
+        kw = (dict(capacity_factor=float(cfg.num_experts),
+                   group_size=max(x.shape[0], 8)) if decode
+              else dict(capacity_factor=cfg.capacity_factor))
+        h, aux = moe_lib.moe(bp["moe"], h, num_experts=cfg.num_experts,
+                             top_k=cfg.top_k, activation=cfg.activation,
+                             num_shared_experts=cfg.num_shared_experts, **kw)
+    elif cfg.d_ff:
         h = mlp_lib.mlp(bp["mlp"], h, activation=cfg.activation)
     else:
         h = torch.zeros_like(x)
-    return x + h
+    return x + h, aux
 
 
 def _attn_kwargs(cfg: ModelConfig) -> dict:
@@ -213,9 +238,11 @@ def _attn_kwargs(cfg: ModelConfig) -> dict:
                 head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta)
 
 
-def _block(cfg: ModelConfig, bp, x: torch.Tensor) -> torch.Tensor:
+def _block(cfg: ModelConfig, bp, x: torch.Tensor, window: Optional[int]
+           ) -> tuple[torch.Tensor, torch.Tensor]:
     h = apply_norm(cfg, bp["pre_norm"], x)
-    x = x + attn_lib.attention(bp["attn"], h, causal=True, **_attn_kwargs(cfg))
+    x = x + attn_lib.attention(bp["attn"], h, causal=True, window=window,
+                               **_attn_kwargs(cfg))
     return _ffn(cfg, bp, x)
 
 
@@ -225,19 +252,24 @@ def forward_hidden(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
                    window: Optional[int] = None,
                    remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Embed + blocks + final norm.  Returns (hidden (B, S, D), moe_aux),
-    the aux loss 0 (no MoE block is ported).  ``remat``: under autograd,
+    the MoE blocks' aux losses summed over the layers (0 without MoE).
+    ``window``: the sliding window, ``cfg.sliding_window`` by default.
+    ``remat``: under autograd,
     keep only each block's input and recompute the block in the backward
     (``torch.utils.checkpoint`` per block, where the reference wraps each
     period in ``jax.checkpoint``); under a ``torch.func`` transform, where
     checkpointing cannot run, every block's activations are kept."""
-    _check_forward(cfg, prefix_emb, enc_out, window)
+    _check_forward(prefix_emb, enc_out)
+    window = window if window is not None else cfg.sliding_window
     x = _embed(params, cfg, tokens)
     remat = remat and torch.is_grad_enabled() and not transforms_active()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bp in params.blocks:
-        x = (checkpoint(_block, cfg, bp, x, use_reentrant=False) if remat
-             else _block(cfg, bp, x))
+        x, a = (checkpoint(_block, cfg, bp, x, window, use_reentrant=False)
+                if remat else _block(cfg, bp, x, window))
+        aux = aux + a
     x = apply_norm(cfg, params.final_norm, x)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def _unembed(params: Decoder, cfg: ModelConfig) -> torch.Tensor:
@@ -253,8 +285,9 @@ def make_loss(cfg: ModelConfig, *, remat: bool = True, loss_chunk: int = 512,
     next-token cross-entropy of ``batch["labels"]`` (B, S) after
     ``batch["tokens"]`` (B, S), over ``batch["loss_mask"]`` where given
     (:func:`~repro_torch.models.common.chunked_xent`, ``loss_chunk``
-    positions at a time), plus ``moe_aux_weight`` x the MoE aux loss (0:
-    no MoE block is ported).  ``params``: a :class:`Decoder`, or a flat
+    positions at a time), plus ``moe_aux_weight`` x the MoE aux loss
+    summed over the layers; ``window`` the sliding window
+    (``cfg.sliding_window`` by default).  ``params``: a :class:`Decoder`, or a flat
     dict of its tensors (:func:`flat_params`; read through :func:`nest`).
     Differentiate it with ``torch.autograd`` after
     ``params.requires_grad_()``, or a dict with ``torch.func.grad``;
@@ -285,8 +318,11 @@ def prefill(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
     made by :func:`init_decode_cache` with capacity >= S, written in place
     (serving allocates it once at prompt + decode capacity); by default one
     of capacity S in the parameters' dtype, as the reference returns.
-    Returns (last-token logits (B, V) float32, cache)."""
-    _check_forward(cfg, prefix_emb, enc_out, window)
+    Returns (last-token logits (B, V) float32, cache).  ``window``: the
+    sliding window, ``cfg.sliding_window`` by default; the cache stays full
+    length (the reference's layout), the window a mask at decode."""
+    _check_forward(prefix_emb, enc_out)
+    window = window if window is not None else cfg.sliding_window
     pat, _ = cfg.resolve_pattern()
     b, s = tokens.shape
     x = _embed(params, cfg, tokens)
@@ -300,10 +336,11 @@ def prefill(params: Decoder, cfg: ModelConfig, tokens: torch.Tensor, *,
         c = cache[f"pos{i}"]
         h = apply_norm(cfg, bp["pre_norm"], x)
         h, (k, v) = attn_lib.attention(bp["attn"], h, causal=True,
-                                       return_kv=True, **_attn_kwargs(cfg))
+                                       window=window, return_kv=True,
+                                       **_attn_kwargs(cfg))
         c["k"][period, :, :s] = k
         c["v"][period, :, :s] = v
-        x = _ffn(cfg, bp, x + h)
+        x, _ = _ffn(cfg, bp, x + h)
     x = apply_norm(cfg, params.final_norm, x)
     logits = x[:, -1].float() @ _unembed(params, cfg).float().T
     return logits, cache
@@ -336,8 +373,9 @@ def decode_step(params: Decoder, cfg: ModelConfig, cache: dict,
                 ) -> tuple[torch.Tensor, dict]:
     """One-token serve step.  tokens: (B, 1); pos: tokens already in the
     cache.  Writes each layer's k and v at ``pos`` in place.  Returns
-    (logits (B, V) float32, cache)."""
-    _check_forward(cfg, None, None, window)
+    (logits (B, V) float32, cache).  ``window``: the sliding window,
+    ``cfg.sliding_window`` by default (a mask over the full-length cache)."""
+    window = window if window is not None else cfg.sliding_window
     pat, _ = cfg.resolve_pattern()
     x = _embed(params, cfg, tokens)
     for layer, bp in enumerate(params.blocks):
@@ -346,8 +384,8 @@ def decode_step(params: Decoder, cfg: ModelConfig, cache: dict,
         h = apply_norm(cfg, bp["pre_norm"], x)
         h, _ = attn_lib.decode_attention(
             bp["attn"], h, {"k": c["k"][period], "v": c["v"][period]}, pos,
-            seq_shard_axis=seq_shard_axis, **_attn_kwargs(cfg))
-        x = _ffn(cfg, bp, x + h)
+            window=window, seq_shard_axis=seq_shard_axis, **_attn_kwargs(cfg))
+        x, _ = _ffn(cfg, bp, x + h, decode=True)
     x = apply_norm(cfg, params.final_norm, x)
     logits = x[:, 0].float() @ _unembed(params, cfg).float().T
     return logits, cache

@@ -1718,7 +1718,7 @@ def test_flash_attention_function_gradients(dtype, hd, route, causal):
     g = torch.Generator(device="cuda").manual_seed(1)
     dout = torch.randn((2, 300, 4, hd), generator=g, device="cuda").to(dtype)
     before = dict(fa.VARIANT_LAUNCHES)
-    got = torch.autograd.grad(fa.FlashAttention.apply(q, k, v, causal),
+    got = torch.autograd.grad(fa.FlashAttention.apply(q, k, v, causal, None),
                               (q, k, v), dout)
     assert fa.VARIANT_LAUNCHES[route] == before[route] + 1
     want = torch.autograd.grad(fa.flash_attention_plain(q, k, v, causal),
@@ -1753,7 +1753,7 @@ def test_flash_attention_vmap_grad_folds_workers(dtype, route):
         q = (xb @ p["wq"]).reshape(b, s, h, hd)
         k = (xb @ p["wk"]).reshape(b, s, kv, hd)
         v = (xb @ p["wv"]).reshape(b, s, kv, hd)
-        return torch.sum(fa.FlashAttention.apply(q, k, v, True).float() ** 2)
+        return torch.sum(fa.FlashAttention.apply(q, k, v, True, None).float() ** 2)
 
     before = dict(fa.VARIANT_LAUNCHES)
     batched = torch.func.vmap(torch.func.grad(loss), in_dims=(None, 0))(params, x)
@@ -1766,3 +1766,113 @@ def test_flash_attention_vmap_grad_folds_workers(dtype, route):
             err = float((batched[n][i].float() - want.float()).abs().max())
             assert err <= tol * float(want.float().abs().max()), (i, n, err)
     assert fa.VARIANT_LAUNCHES[route] == before[route] + 1 + w
+
+
+# -- the sliding window through K8 (mixtral) -----------------------------------
+
+# (route, dtype): the two kernels a window runs through.
+WINDOW_ROUTES = [("wgmma", torch.bfloat16), ("simt", torch.bfloat16),
+                 ("simt", torch.float32)]
+WINDOW_SIZES = [1, 63, 128, 300]          # 300 >= every S below
+WINDOW_SEQ = [65, 129, 300]
+
+
+def _windowed(fa, q, k, v, window, route):
+    before = dict(fa.VARIANT_LAUNCHES)
+    out = fa.flash_attention_call(q, k, v, True, window=window,
+                                  route="simt" if route == "simt" else None)
+    torch.cuda.synchronize()
+    ran = [r for r in fa.VARIANTS if fa.VARIANT_LAUNCHES[r] > before[r]]
+    assert ran == [route], ran
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", WINDOW_SEQ)
+@pytest.mark.parametrize("window", WINDOW_SIZES)
+@pytest.mark.parametrize("route,dtype", WINDOW_ROUTES,
+                         ids=["wgmma-bf16", "simt-bf16", "simt-f32"])
+def test_flash_attention_window_vs_plain(route, dtype, window, s):
+    """Windows of 1 key, below one tile, one tile and past S at ragged S
+    (hd 128, GQA 2:1) on both kernels against the plain version's band
+    mask; a window >= S gives causal attention's bits."""
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _flash_inputs(2, s, 4, 2, 128, dtype, seed=window + s)
+    got = _windowed(fa, q, k, v, window, route)
+    want = fa.flash_attention_plain(q, k, v, True, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+    if window >= s:
+        causal = fa.flash_attention_call(q, k, v, True,
+                                         route="simt" if route == "simt" else None)
+        assert torch.equal(got, causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [1, 63, 200])
+def test_flash_attention_window_wgmma_head_dim_64(window):
+    """The wgmma route at hd 64 with a window, a ragged S of 257."""
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _flash_inputs(1, 257, 4, 1, 64, torch.bfloat16, seed=window)
+    got = _windowed(fa, q, k, v, window, "wgmma")
+    torch.testing.assert_close(
+        got.float(), fa.flash_attention_plain(q, k, v, True, window=window).float(),
+        **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,route", [(torch.float32, "simt"),
+                                         (torch.bfloat16, "wgmma")],
+                         ids=["f32-simt", "bf16-wgmma"])
+def test_flash_attention_window_gradients_and_vmap(dtype, route):
+    """``FlashAttention`` with a window: autograd (K8 forward, the plain
+    backward) against autograd of the plain version, and ``vmap(grad)``
+    over 3 workers with one launch on the folded batch against a loop of
+    per-worker gradients; each gradient within the route's forward
+    tolerance of its largest entry."""
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    window, s = 37, 150
+    q, k, v = (x.requires_grad_(True)
+               for x in _flash_inputs(2, s, 4, 2, 64, dtype, seed=5))
+    g = torch.Generator(device="cuda").manual_seed(2)
+    dout = torch.randn((2, s, 4, 64), generator=g, device="cuda").to(dtype)
+    before = dict(fa.VARIANT_LAUNCHES)
+    got = torch.autograd.grad(fa.FlashAttention.apply(q, k, v, True, window),
+                              (q, k, v), dout)
+    assert fa.VARIANT_LAUNCHES[route] == before[route] + 1
+    want = torch.autograd.grad(fa.flash_attention_plain(q, k, v, True, window=window),
+                               (q, k, v), dout)
+    tol = FLASH_TOL[dtype]["rtol"]
+    for name, a, b in zip("qkv", got, want):
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * float(b.float().abs().max()), (name, err)
+
+    w, d = 3, 96
+    x = torch.randn((w, 2, s, d), generator=g, device="cuda").to(dtype)
+    params = {n: (torch.randn((d, m * 64), generator=g, device="cuda")
+                  * d ** -0.5).to(dtype) for n, m in (("wq", 4), ("wk", 2), ("wv", 2))}
+
+    def loss(p, xb):
+        qq = (xb @ p["wq"]).reshape(2, s, 4, 64)
+        kk = (xb @ p["wk"]).reshape(2, s, 2, 64)
+        vv = (xb @ p["wv"]).reshape(2, s, 2, 64)
+        return torch.sum(fa.FlashAttention.apply(qq, kk, vv, True, window).float() ** 2)
+
+    before = dict(fa.VARIANT_LAUNCHES)
+    batched = torch.func.vmap(torch.func.grad(loss), in_dims=(None, 0))(params, x)
+    assert sum(fa.VARIANT_LAUNCHES.values()) == sum(before.values()) + 1
+    for i in range(w):
+        for n, one in torch.func.grad(loss)(params, x[i]).items():
+            err = float((batched[n][i].float() - one.float()).abs().max())
+            assert err <= tol * float(one.float().abs().max()), (i, n, err)
+
+
+@pytest.mark.gpu
+def test_flash_attention_window_refuses_bidirectional():
+    _need_card()
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _flash_inputs(1, 8, 2, 1, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="causal"):
+        fa.flash_attention_call(q, k, v, False, window=4)

@@ -537,9 +537,9 @@ def test_flash_attention_vmap_rule_folds_workers_into_the_batch(monkeypatch):
     call on (B, ...)), bitwise."""
     calls = []
 
-    def plain(q, k, v, causal, out_dtype=None, *, route=None):
+    def plain(q, k, v, causal, out_dtype=None, *, route=None, window=None):
         calls.append(tuple(q.shape))
-        return fa.flash_attention_plain(q, k, v, causal, out_dtype)
+        return fa.flash_attention_plain(q, k, v, causal, out_dtype, window)
 
     monkeypatch.setattr(fa, "flash_attention_call", plain)
     w, b, s, h, kv, hd = 3, 2, 9, 4, 2, 8
@@ -553,7 +553,7 @@ def test_flash_attention_vmap_rule_folds_workers_into_the_batch(monkeypatch):
         q = (xb @ p["wq"]).reshape(b, s, h, hd)
         k = (xb @ p["wk"]).reshape(b, s, kv, hd)
         v = (xb @ p["wv"]).reshape(b, s, kv, hd)
-        return torch.sum(fa.FlashAttention.apply(q, k, v, True) ** 2)
+        return torch.sum(fa.FlashAttention.apply(q, k, v, True, None) ** 2)
 
     batched = torch.func.vmap(torch.func.grad(loss), in_dims=(None, 0))(params, x)
     assert calls == [(w * b, s, h, hd)]
